@@ -32,6 +32,33 @@ result line):
    torch.profiler; the host time of one plane call on each plane; wall
    time of each serve, in turns.
 
+6. the attention kernels (flash attention, flash decode, int8-KV flash
+   decode) against their plain versions at llama3.2-3b's full-width heads
+   (Hq 24, Hkv 8, D 128): S in {1, 17, 128, 512, 2048}, B in {1, 8}, ragged
+   per-row lengths, (B, S, H, D) inputs read through strides, f32 and bf16.
+   Tolerances of ``tests/test_kernels.py``: 2e-3 in f32 and 5e-2 in bf16
+   (flash attention and flash decode; the int8 decode with a bf16 query
+   too), 2e-5 for the int8 decode against dequantize-then-plain in f32;
+7. the LM serve path: llama3.2-3b at full width (28 layers, bf16, seeded
+   random weights on the card) through ``ServeEngine.generate`` (B = 8,
+   prompts of 512, 32 new tokens) and ``ContinuousBatcher`` (8 slots,
+   max_len 2048, 16 requests of 16-1000 prompt tokens, 32 new each), with
+   ``kv_dtype`` "compute" and "int8": the launch counts are layers x
+   prefills (flash attention) and layers x decode steps (the decode kernel
+   of the cache's type; the other one 0).  Then the kernel path against
+   ``use_kernel=False`` on the card: depth cut to 4 layers in f32, prefill
+   and decode logits within 2e-3 x max(1, max|logit|) and, with the float
+   cache, greedy tokens equal (with the int8 cache the share of equal
+   tokens is printed: a rounding difference can flip an int8 code);
+   full depth in bf16, logits within ``BF16_LOGIT_BOUND`` x
+   max(1, max|logit|) (measured on the card, PERF.md);
+8. times: prefill ms and decode tok/s from ``throughput_probe`` (kernel,
+   plain, plain, kernel); each attention kernel at the shape its path
+   launched most often (CUDA events, device time under torch.profiler),
+   its plain version and ``F.scaled_dot_product_attention`` (the library
+   yardstick, never called by the port) beside its bound; the device's idle
+   share over one profiled ``generate``.
+
 Prints the card's name and power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -39,6 +66,7 @@ line, then ``{"ok": true, "device": {...}}`` as the last line.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -55,17 +83,43 @@ from repro_torch.core import (NumpyPlane, TorchPlane,  # noqa: E402
                               build_lenet_like, build_resnet_block_chain,
                               compile_model, dequantize_int8, make_chip,
                               make_descriptor)
-from repro_torch.kernels import _build, mxv  # noqa: E402
+from repro_torch.configs.base import get_arch  # noqa: E402
+from repro_torch.kernels import (_build, decode_attn,  # noqa: E402
+                                 decode_attn_int8, flash_attn, mxv)
+from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels.ref import quantize_crossbar, quantize_vec  # noqa: E402
+from repro_torch.models import build_model, lm  # noqa: E402
+from repro_torch.models.layers import kv_quantize  # noqa: E402
 from repro_torch.runtime import CmServer, poisson_arrivals  # noqa: E402
+from repro_torch.serve import ContinuousBatcher, Request, ServeEngine  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth, f32
 # outside the tensor cores, int8 tensor cores.  Rates assume the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
+PEAK_OPS = {"f32": 67e12, "int8": 1979e12, "bf16": 989e12}
 SOURCE = "src/repro_torch/kernels/csrc/mxv.cu"
 REPLACES = {"crossbar_mxv": "src/repro/kernels/mxv.py:72",
-            "crossbar_mxv_int8": "src/repro/kernels/mxv.py:98"}
+            "crossbar_mxv_int8": "src/repro/kernels/mxv.py:98",
+            "flash_attention": "src/repro/kernels/flash_attn.py:75",
+            "flash_decode": "src/repro/kernels/decode_attn.py:67",
+            "flash_decode_int8": "src/repro/kernels/decode_attn_int8.py:77"}
+ATTN_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attn.cu",
+                "flash_decode": "src/repro_torch/kernels/csrc/decode_attn.cu",
+                "flash_decode_int8":
+                    "src/repro_torch/kernels/csrc/decode_attn.cu"}
+ATTN_MODS = {"flash_attention": flash_attn, "flash_decode": decode_attn,
+             "flash_decode_int8": decode_attn_int8}
+# the device-side name each kernel's launches carry under torch.profiler
+ATTN_KERNEL_NAMES = {"flash_attention": "flash_attention_kernel",
+                     "flash_decode": "decode_kernel",
+                     "flash_decode_int8": "decode_kernel"}
+LM_ARCH = "llama3.2-3b"
+BATCH, PROMPT, NEW, MAX_LEN = 8, 512, 32, 2048
+N_REQUESTS, SLOTS = 16, 8
+# bf16 logits of the kernel path against the plain path at full depth, as a
+# share of max(1, max|logit|): 0.0189 measured on an H100 (PERF.md), held
+# with room for other cards' cuBLAS choices
+BF16_LOGIT_BOUND = 0.05
 STAT_FIELDS = ("cycles", "messages", "bytes_sent")
 DICT_FIELDS = ("busy", "sram_high_water")
 
@@ -135,30 +189,34 @@ def _events_ms(fn, reps=50, trials=7, warmup=10):
     return statistics.median(out)
 
 
-def _device_us(fn, name, reps=50):
+def _device_us(fn, name, reps=50, tries=2):
     """Mean device time of the kernel whose name contains ``name`` under
-    torch.profiler (CUPTI); None where the profiler shows no device time."""
+    torch.profiler (CUPTI); None where the profiler shows no device time
+    in ``tries`` profiles (a profile now and then records no kernel)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-    except RuntimeError as e:
-        print(f"[5] torch.profiler gave no trace: {e}")
-        return None
-    times = []
-    for e in events:
-        total = getattr(e, "device_time_total", None)
-        if total is None:
-            total = getattr(e, "cuda_time_total", 0)
-        if name in e.key and e.count and total > 0:
-            times.append(total / e.count)
-    return times[0] if times else None
+    for _ in range(tries):
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+        except RuntimeError as e:
+            print(f"[5] torch.profiler gave no trace: {e}")
+            return None
+        times = []
+        for e in events:
+            total = getattr(e, "device_time_total", None)
+            if total is None:
+                total = getattr(e, "cuda_time_total", 0)
+            if name in e.key and e.count and total > 0:
+                times.append(total / e.count)
+        if times:
+            return times[0]
+    return None
 
 
 def _plane_call_us(plane, desc, V, reps=200):
@@ -459,6 +517,467 @@ def phase_times(dev, paths, errs):
     return out
 
 
+# --------------------------------------------------------- attention phases
+def _all_counts():
+    out = dict(mxv.LAUNCHES)
+    for mod in ATTN_MODS.values():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def _set_counts(counts):
+    for d in [mxv.LAUNCHES] + [m.LAUNCHES for m in ATTN_MODS.values()]:
+        for k in d:
+            d[k] = counts[k]
+
+
+def _zero_counts():
+    _set_counts({k: 0 for k in _all_counts()})
+
+
+def _attn_err(got, want, tol, what):
+    g, w = got.float(), want.float()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    err = (g - w).abs().max().item() if g.numel() else 0.0
+    if not torch.isfinite(g).all() or not torch.allclose(g, w, rtol=tol,
+                                                         atol=tol):
+        raise AssertionError(f"{what}: max err {err} over tolerance {tol}")
+    return err
+
+
+def phase_attention_kernels(dev):
+    """Kernels 4-6 against their plain versions at full-width heads."""
+    cfg = get_arch(LM_ARCH)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(6)
+    f32, bf16 = torch.float32, torch.bfloat16
+    err = {n: {f32: 0.0, bf16: 0.0} for n in ATTN_MODS}
+    before = _all_counts()
+    n_cases = 0
+
+    def bshd(b, s, h, dt):
+        return torch.randn(b, s, h, d, generator=gen, device=dev).to(dt)
+
+    def note(name, dt, got, want, tol, what):
+        err[name][dt] = max(err[name][dt], _attn_err(got, want, tol, what))
+
+    for b in (1, 8):
+        for s in (1, 17, 128, 512, 2048):
+            lengths = torch.randint(1, s + 1, (b,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+            lengths[0] = s
+            for dt in (f32, bf16):
+                tol = 2e-3 if dt == f32 else 5e-2
+                what = f"B={b} S={s} {dt}"
+                q, k, v = bshd(b, s, hq, dt), bshd(b, s, hkv, dt), \
+                    bshd(b, s, hkv, dt)
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                note("flash_attention", dt,
+                     flash_attn.flash_attention(qt, kt, vt, causal=True),
+                     flash_attn.flash_attention_plain(qt, kt, vt, True),
+                     tol, f"flash_attention {what}")
+                qd = q[:, -1]
+                note("flash_decode", dt,
+                     decode_attn.flash_decode(qd, kt, vt, lengths),
+                     decode_attn.flash_decode_plain(qd, kt, vt, lengths),
+                     tol, f"flash_decode {what}")
+                (k8, ks), (v8, vs) = kv_quantize(k), kv_quantize(v)
+                args = (qd, k8.transpose(1, 2), ks.transpose(1, 2),
+                        v8.transpose(1, 2), vs.transpose(1, 2), lengths)
+                note("flash_decode_int8", dt,
+                     decode_attn_int8.flash_decode_int8(*args),
+                     decode_attn_int8.flash_decode_int8_plain(*args),
+                     2e-5 if dt == f32 else 5e-2,
+                     f"flash_decode_int8 {what}")
+                n_cases += 3
+    # non-causal, and the last 33 of 100 positions as queries
+    for causal, sq, sk in ((False, 100, 100), (True, 33, 100)):
+        q = bshd(2, sq, hq, f32).transpose(1, 2)
+        k, v = (bshd(2, sk, hkv, f32).transpose(1, 2) for _ in range(2))
+        note("flash_attention", f32,
+             flash_attn.flash_attention(q, k, v, causal=causal),
+             flash_attn.flash_attention_plain(q, k, v, causal), 2e-3,
+             f"flash_attention causal={causal} Sq={sq} Sk={sk}")
+        n_cases += 1
+    torch.cuda.synchronize()
+    _set_counts(before)                # checking launches do not count
+    print(f"[6] {n_cases} attention kernel-vs-plain cases agree: max abs err "
+          + "; ".join(f"{n} {e[f32]:.3g} (f32), {e[bf16]:.3g} (bf16)"
+                      for n, e in err.items()))
+    return {n: {"f32": e[f32], "bf16": e[bf16]} for n, e in err.items()}
+
+
+class _ShapeLog:
+    """While entered, records the shape of every attention op the model
+    calls (through ``kernels.ops``), to time each kernel at the shape its
+    path launches most often."""
+
+    def __init__(self):
+        self.calls = collections.defaultdict(list)
+        self._orig = {}
+
+    def __enter__(self):
+        for name in ATTN_MODS:
+            fn = getattr(kernel_ops, name)
+            self._orig[name] = fn
+
+            def logged(*args, _fn=fn, _name=name, **kw):
+                self.calls[_name].append(
+                    (tuple(tuple(a.shape) + (str(a.dtype),) for a in args
+                           if isinstance(a, torch.Tensor)), args[-1]))
+                return _fn(*args, **kw)
+            setattr(kernel_ops, name, logged)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(kernel_ops, name, fn)
+
+    def most_frequent(self, name):
+        """(shapes, one length argument) of the most frequent call shape."""
+        calls = self.calls[name]
+        if not calls:
+            return None
+        common = collections.Counter(c[0] for c in calls).most_common(1)[0][0]
+        same = [c for c in calls if c[0] == common]
+        return common, same[len(same) // 2][1]
+
+
+def _lm_cfg(kv, **over):
+    return dataclasses.replace(get_arch(LM_ARCH), kv_dtype=kv, **over)
+
+
+def _lm_workload(vocab):
+    rng = np.random.default_rng(7)
+    prompts = rng.integers(0, vocab, (BATCH, PROMPT)).astype(np.int32)
+    lens = rng.integers(16, 1001, N_REQUESTS)
+    reqs = [rng.integers(0, vocab, (int(n),)).astype(np.int32) for n in lens]
+    return prompts, reqs
+
+
+def _expect(counts, want, what):
+    for k, n in want.items():
+        if counts[k] != n:
+            raise AssertionError(f"{what}: {k} launched {counts[k]} times, "
+                                 f"expected {n} (all counts {counts})")
+
+
+def phase_lm_serve(model, shapes):
+    """The main path: generate and continuous batching at full width, with
+    a float and an int8 KV cache; launch counts read around each run, and
+    the attention ops' shapes logged during ``generate``."""
+    n_layers = model.cfg.n_layers
+    prompts, req_prompts = _lm_workload(model.cfg.vocab_size)
+    out = {}
+    for kv in ("compute", "int8"):
+        cfg = _lm_cfg(kv)
+        dec, other = (("flash_decode", "flash_decode_int8") if kv == "compute"
+                      else ("flash_decode_int8", "flash_decode"))
+        eng = ServeEngine(cfg, max_len=MAX_LEN, params=model)
+        _zero_counts()
+        t0 = time.perf_counter()
+        with shapes:
+            toks = eng.generate(prompts, NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gen_counts = _all_counts()
+        if toks.shape != (BATCH, NEW) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"generate ({kv}): bad tokens {toks}")
+        _expect(gen_counts, {"flash_attention": n_layers,
+                             dec: n_layers * NEW, other: 0,
+                             "crossbar_mxv": 0, "crossbar_mxv_int8": 0},
+                f"generate ({kv})")
+        cb = ContinuousBatcher(cfg, n_slots=SLOTS, max_len=MAX_LEN,
+                               params=model)
+        reqs = [Request(rid=i, prompt=p, max_new=NEW)
+                for i, p in enumerate(req_prompts)]
+        for r in reqs:
+            cb.submit(r)
+        _zero_counts()
+        t0 = time.perf_counter()
+        cb.run_until_drained()
+        torch.cuda.synchronize()
+        cb_s = time.perf_counter() - t0
+        cb_counts = _all_counts()
+        if not all(r.done and len(r.out) == NEW for r in reqs):
+            raise AssertionError(f"batcher ({kv}): requests unfinished")
+        _expect(cb_counts, {"flash_attention": n_layers * N_REQUESTS,
+                            dec: n_layers * cb.stats["steps"], other: 0},
+                f"batcher ({kv})")
+        print(f"[7] {LM_ARCH} kv={kv}: generate B={BATCH} x {PROMPT} + {NEW} "
+              f"in {gen_s:.2f} s, launches {gen_counts}; batcher "
+              f"{N_REQUESTS} requests in {cb_s:.2f} s, {cb.stats['steps']} "
+              f"steps, utilization {cb.utilization:.3f}, launches "
+              f"{cb_counts}")
+        out[kv] = {"generate": gen_counts, "batcher": cb_counts}
+    return out
+
+
+def _logit_steps(cfg, model, prompts, steps, use_kernel, feed=None):
+    """Prefill logits, then ``steps`` decode steps' logits, each step fed
+    the argmax of the last logits (greedy) or, given ``feed`` (B, steps),
+    those tokens: so both paths can run on the same inputs."""
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=model.device)
+    with torch.no_grad():
+        logits, cache = lm.prefill(cfg, model, tokens, MAX_LEN, use_kernel)
+        out, fed = [logits], []
+        for j in range(steps):
+            tok = torch.argmax(logits, -1) if feed is None else feed[:, j]
+            fed.append(tok)
+            logits, cache = lm.decode_step(cfg, model, cache, tok,
+                                           use_kernel)
+            out.append(logits)
+    return out, torch.stack(fed, 1)
+
+
+def _compare_paths(cfg, model, prompts, steps, tol, what):
+    """Kernel path against the plain path on the same inputs; returns the
+    worst |logit difference| / max(1, max|logit|) over the prefill and
+    every decode step."""
+    before = _all_counts()
+    got, fed = _logit_steps(cfg, model, prompts, steps, True)
+    want, _ = _logit_steps(cfg, model, prompts, steps, False, feed=fed)
+    _set_counts(before)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: non-finite logits at step {i}")
+        rel = ((g - w).abs().max() / max(1.0, w.abs().max().item())).item()
+        worst = max(worst, rel)
+    if worst > tol:
+        raise AssertionError(f"{what}: logits differ by {worst:.3g} of "
+                             f"max(1, max|logit|), over {tol}")
+    return worst
+
+
+def phase_lm_paths(dev, model):
+    """The kernel path against ``use_kernel=False`` on the card."""
+    prompts, _ = _lm_workload(model.cfg.vocab_size)
+    res = {}
+    small = build_model(_lm_cfg("compute", n_layers=4,
+                                param_dtype="float32",
+                                compute_dtype="float32"), dev, seed=1)
+    for kv in ("compute", "int8"):
+        cfg4 = dataclasses.replace(small.cfg, kv_dtype=kv)
+        res[f"f32_4layer_{kv}"] = _compare_paths(
+            cfg4, small, prompts, 4, 2e-3, f"f32 4-layer kv={kv}")
+        before = _all_counts()
+        toks = [ServeEngine(cfg4, max_len=MAX_LEN, params=small,
+                            use_kernel=use).generate(prompts, NEW)
+                for use in (True, False)]
+        _set_counts(before)
+        res[f"f32_4layer_{kv}_tokens_equal"] = float(
+            np.mean(toks[0] == toks[1]))
+        # with an int8 cache, f32 rounding differences flip an int8 code
+        # now and then, and a flipped code moves the logits by more than
+        # rounding: there the share of equal tokens is reported, not held
+        if kv == "compute" and not np.array_equal(toks[0], toks[1]):
+            raise AssertionError(f"f32 4-layer kv={kv}: greedy tokens differ "
+                                 f"between the kernel and plain paths")
+        res[f"bf16_{kv}"] = _compare_paths(
+            _lm_cfg(kv), model, prompts, 4, BF16_LOGIT_BOUND,
+            f"bf16 {model.cfg.n_layers}-layer kv={kv}")
+    del small
+    torch.cuda.empty_cache()
+    print("[7] kernel path vs plain path, worst |logit diff| / max(1, "
+          "max|logit|): " + ", ".join(f"{k} {v:.3g}" for k, v in res.items())
+          + f" (f32 bound 2e-3, bf16 bound {BF16_LOGIT_BOUND}; a "
+          f"'tokens_equal' entry is the share of equal greedy tokens, held "
+          f"to 1 for the float cache)")
+    return res
+
+
+def _device_busy(run):
+    """Run ``run()`` under torch.profiler; (wall ms, device-busy ms, device
+    events, the host ops with the most self CPU time): busy is the union
+    of the intervals of every device event (kernels, copies), None where
+    the profiler shows none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    host = sorted(((e.key, e.count, e.self_cpu_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda r: -r[2])[:8]
+    if not spans:
+        return wall * 1e3, None, 0, host
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return wall * 1e3, busy / 1e3, len(spans), host
+
+
+def _attn_bound(b, hq, hkv, sq, sk, d, elem):
+    """Causal flash attention: every input read once, the output written
+    once; 4 d operations per unmasked (query, key) pair and head."""
+    off = sk - sq
+    pairs = sum(min(sk, i + 1 + off) for i in range(sq))
+    nbytes = elem * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
+    ops = 4 * d * pairs * b * hq
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["bf16"] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _decode_bound(b, hq, hkv, s, d, lengths, q_elem, kv_elem, scaled):
+    """Decode over the positions ``< length`` of each row: those K/V rows
+    (and scales) read once, q read and the output written once."""
+    n = int(torch.clamp(lengths.to(torch.int64), 0, s).sum().item())
+    nbytes = (2 * n * hkv * d * kv_elem + (2 * n * hkv * 4 if scaled else 0)
+              + 2 * b * hq * d * q_elem)
+    ops = 4 * d * hq * n
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["bf16"] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _time_attention(name, shapes, dev):
+    """ms, device µs, plain ms, library ms and bound of ``name`` at the
+    shape its path launched most often."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(8)
+    (shp, length) = shapes.most_frequent(name)
+    mod = ATTN_MODS[name]
+    if name == "flash_attention":
+        (b, hq, sq, d, dts), (_, hkv, sk, _, _) = shp[0], shp[1]
+        dt = getattr(torch, dts.split(".")[-1])
+        q = torch.randn(b, sq, hq, d, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(b, sk, hkv, d, generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        args = tuple(x.transpose(1, 2) for x in (q, k, v))
+        kern = lambda: mod.flash_attention(*args, causal=True)
+        plain = lambda: mod.flash_attention_plain(*args, True)
+        lib = lambda: F.scaled_dot_product_attention(
+            *args, is_causal=True, enable_gqa=True)
+        bound, by = _attn_bound(b, hq, hkv, sq, sk, d, q.element_size())
+        desc = (b, hq, hkv, sq, sk, d, dts)
+    else:
+        (b, hq, d, dts), (_, hkv, s, _, kvs) = shp[0], shp[1]
+        dt = getattr(torch, dts.split(".")[-1])
+        lengths = torch.as_tensor(length, device=dev).to(torch.int32).clone()
+        q = torch.randn(b, hq, d, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(b, s, hkv, d, generator=gen, device=dev)
+                for _ in range(2))
+        mask = (torch.arange(s, device=dev)[None] < lengths[:, None].long()
+                )[:, None, None, :]
+        kt, vt = k.to(dt).transpose(1, 2), v.to(dt).transpose(1, 2)
+        lib = lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
+        if name == "flash_decode":
+            args = (q, kt, vt, lengths)
+            kern = lambda: mod.flash_decode(*args)
+            plain = lambda: mod.flash_decode_plain(*args)
+            elem, scaled = kt.element_size(), False
+        else:
+            (k8, ks), (v8, vs) = kv_quantize(k), kv_quantize(v)
+            args = (q, k8.transpose(1, 2), ks.transpose(1, 2),
+                    v8.transpose(1, 2), vs.transpose(1, 2), lengths)
+            kern = lambda: mod.flash_decode_int8(*args)
+            plain = lambda: mod.flash_decode_int8_plain(*args)
+            lib, elem, scaled = None, 1, True   # no library int8-KV call
+        bound, by = _decode_bound(b, hq, hkv, s, d, lengths,
+                                  q.element_size(), elem, scaled)
+        desc = (b, hq, hkv, s, d, dts, "lengths",
+                [int(x) for x in lengths.tolist()])
+    before = _all_counts()
+    ms = _events_ms(kern, reps=20, trials=5, warmup=3)
+    dev_us = _device_us(kern, ATTN_KERNEL_NAMES[name], reps=20)
+    _set_counts(before)
+    plain_ms = _events_ms(plain, reps=5, trials=3, warmup=1)
+    lib_ms = None if lib is None else _events_ms(lib, reps=20, trials=5,
+                                                 warmup=3)
+    return dict(shape=desc, ms=ms, dev_us=dev_us, plain_ms=plain_ms,
+                lib_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def phase_lm_times(dev, model, serve, shapes):
+    prompts, _ = _lm_workload(model.cfg.vocab_size)
+    cfg = _lm_cfg("compute")
+    before = _all_counts()
+    probes = []
+    for use in (True, False, False, True):
+        eng = ServeEngine(cfg, max_len=PROMPT + NEW + 1, params=model,
+                          use_kernel=use)
+        probes.append((use, eng.throughput_probe(BATCH, PROMPT, NEW)))
+    int8_probe = ServeEngine(_lm_cfg("int8"), max_len=PROMPT + NEW + 1,
+                             params=model).throughput_probe(BATCH, PROMPT,
+                                                            NEW)
+    eng = ServeEngine(cfg, max_len=MAX_LEN, params=model)
+    wall_ms, busy_ms, n_dev, host = _device_busy(
+        lambda: eng.generate(prompts, NEW))
+    _set_counts(before)
+    print("[8] throughput_probe(B=8, prompt=512, 32 tokens) in turns: " +
+          "; ".join(f"{'kernel' if u else 'plain'}: prefill "
+                    f"{p['prefill_s'] * 1e3:.1f} ms, decode "
+                    f"{p['decode_tok_per_s']:.1f} tok/s" for u, p in probes)
+          + f"; int8 KV, kernel: prefill {int8_probe['prefill_s'] * 1e3:.1f}"
+          f" ms, decode {int8_probe['decode_tok_per_s']:.1f} tok/s")
+    busy = "device busy not measured" if busy_ms is None else (
+        f"device busy {busy_ms:.1f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.4f}")
+    print(f"[8] profiled generate (B=8, 512 + 32, kernel path): wall "
+          f"{wall_ms:.1f} ms, {busy}, {n_dev} device events; host ops by "
+          f"self CPU ms: " + ", ".join(f"{k} x{n} {ms:.1f}"
+                                       for k, n, ms in host))
+    times = {}
+    for name in ATTN_MODS:
+        t = _time_attention(name, shapes, dev)
+        times[name] = t
+        kv = "int8" if name == "flash_decode_int8" else "compute"
+        per_gen = serve[kv]["generate"][name]
+        dev_s = "not measured" if t["dev_us"] is None else \
+            f"{t['dev_us']:.2f} us"
+        lib_s = "n/a" if t["lib_ms"] is None else \
+            f"{t['lib_ms'] * 1e3:.2f} us"
+        print(f"[8] {name} at {t['shape']}: {t['ms'] * 1e3:.2f} us per "
+              f"launch (events), device {dev_s}; plain "
+              f"{t['plain_ms'] * 1e3:.2f} us; library {lib_s}; bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); {per_gen} "
+              f"launches per generate")
+    return dict(probes=probes, int8_probe=int8_probe, wall_ms=wall_ms,
+                busy_ms=busy_ms, device_events=n_dev, times=times)
+
+
+def attention_kernel_rows(errs, serve, times, lm_paths):
+    rows = []
+    for name in ATTN_MODS:
+        t = times["times"][name]
+        kv = "int8" if name == "flash_decode_int8" else "compute"
+        rows.append({
+            "name": name, "route": "cuda", "source": ATTN_SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": serve[kv]["generate"][name],
+            "max_abs_err": errs[name]["f32"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["lib_ms"],
+            "max_abs_err_bf16": errs[name]["bf16"], "shape": t["shape"],
+            "device_ms": None if t["dev_us"] is None else t["dev_us"] / 1e3,
+            "launches_batcher": serve[kv]["batcher"][name],
+        })
+    rows[0]["lm"] = {
+        "arch": LM_ARCH,
+        "probes": [{"kernel": u, **p} for u, p in times["probes"]],
+        "int8_probe": times["int8_probe"],
+        "generate_wall_ms_profiled": times["wall_ms"],
+        "generate_device_busy_ms": times["busy_ms"],
+        "generate_device_events": times["device_events"],
+        "logit_diff_kernel_vs_plain": lm_paths}
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and "
@@ -489,6 +1008,18 @@ def main() -> int:
         raise AssertionError(f"DAC path: {dac_l['crossbar_mxv_int8']} int8 "
                              f"launches for {paths['dac']['calls']} calls")
     kernels = phase_times(dev, paths, errs)
+    attn_errs = phase_attention_kernels(dev)
+    t0 = time.perf_counter()
+    model = build_model(get_arch(LM_ARCH), dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"[7] {LM_ARCH}: {sum(p.numel() for p in model.parameters())} "
+          f"parameters initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    shapes = _ShapeLog()
+    serve = phase_lm_serve(model, shapes)
+    lm_paths = phase_lm_paths(dev, model)
+    times = phase_lm_times(dev, model, serve, shapes)
+    kernels += attention_kernel_rows(attn_errs, serve, times, lm_paths)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)

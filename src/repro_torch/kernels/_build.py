@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+``nvcc`` compiles every ``csrc/*.cu`` (one process per source, all started
+together) and links the objects into one shared library with a plain C
 interface, which :func:`load` opens with ``ctypes``.  The library is built at
 first use, from this package's sources only, into
 ``<repo>/build/repro_torch_kernels/<hash>/``, where ``<hash>`` covers the
-sources and the compiler flags: an edited kernel gets a new directory and a
-stale library is never loaded.  Nothing is built or imported from CUDA when
-this module is imported.
+sources, the headers (``csrc/*.cuh``) and the compiler flags: an edited
+kernel gets a new directory and a stale library is never loaded.  Nothing is
+built or imported from CUDA when this module is imported.
 """
 
 from __future__ import annotations
@@ -24,15 +25,26 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_S = ctypes.POINTER(ctypes.c_longlong)      # an array of element strides
+_ATTN = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _S, _P)
+_DECODE = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _S, _P)
+_DECODE_INT8 = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _S, _P)
 # name -> argtypes; every entry returns the launch's cudaError_t as an int
 SIGNATURES = {
     "crossbar_mxv_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "crossbar_mxv_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
     "crossbar_mxv_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "flash_attention_f32": _ATTN,
+    "flash_attention_bf16": _ATTN,
+    "flash_decode_f32": _DECODE,
+    "flash_decode_bf16": _DECODE,
+    "flash_decode_int8_f32": _DECODE_INT8,
+    "flash_decode_int8_bf16": _DECODE_INT8,
 }
 
 
@@ -42,7 +54,7 @@ def _sources():
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -72,20 +84,33 @@ def build() -> pathlib.Path:
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name, then rename: a concurrent or interrupted
+    nvcc = _nvcc()
+    # compile to temporary names, then rename: a concurrent or interrupted
     # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}): "
                                f"{' '.join(cmd)}\n{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, out)
     return out
 
 

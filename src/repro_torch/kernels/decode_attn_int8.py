@@ -1,0 +1,84 @@
+"""Flash decode over an int8 KV cache, on Hopper.
+
+``flash_decode_int8`` launches the hand-written CUDA kernel of
+``csrc/decode_attn.cu`` (port of the Pallas kernel
+``repro.kernels.decode_attn_int8.flash_decode_int8``) on CUDA tensors, and
+runs its plain PyTorch version (:func:`flash_decode_int8_plain`, the oracle
+``ref.decode_int8_ref``: dequantize, then exact decode attention) on CPU
+tensors.  A CUDA tensor never falls back to the plain version.
+
+k8/v8 are int8 (B, Hkv, S, D) and their scales f32 (B, Hkv, S, 1), one per
+(position, head): the layout of ``models.layers.kv_quantize`` seen through
+``transpose(1, 2)`` views of the model's (B, S, Hkv, ·) cache, read through
+strides without a copy.  The kernel dequantizes each element after the load
+and accumulates in f32, so the cache's bytes are half a bf16 cache's.
+``length`` is a scalar or a (B,) integer tensor, as for
+``decode_attn.flash_decode``.
+
+``LAUNCHES`` counts kernel launches; :func:`reset_launches` zeroes it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build, _tensors
+from .decode_attn import check_decode
+from .ref import decode_int8_ref
+
+LAUNCHES = {"flash_decode_int8": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def flash_decode_int8_plain(q: torch.Tensor, k8: torch.Tensor,
+                            k_scale: torch.Tensor, v8: torch.Tensor,
+                            v_scale: torch.Tensor, length) -> torch.Tensor:
+    """The plain version of :func:`flash_decode_int8`."""
+    return decode_int8_ref(q, k8, k_scale, v8, v_scale, length)
+
+
+def flash_decode_int8(q: torch.Tensor, k8: torch.Tensor,
+                      k_scale: torch.Tensor, v8: torch.Tensor,
+                      v_scale: torch.Tensor, length) -> torch.Tensor:
+    """q (B, Hq, D) f32/bf16; k8/v8 (B, Hkv, S, D) int8; k_scale/v_scale
+    (B, Hkv, S, 1) f32; length a scalar or (B,) -> (B, Hq, D) in q's
+    dtype."""
+    name = "flash_decode_int8"
+    b, hq, hkv, s, d = check_decode(name, q, k8, v8, (torch.int8,))
+    for label, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if sc.dtype != torch.float32 or tuple(sc.shape) != (b, hkv, s, 1):
+            raise ValueError(f"{name}: {label} must be float32 of shape "
+                             f"{(b, hkv, s, 1)}, got {sc.dtype} "
+                             f"{tuple(sc.shape)}")
+        if sc.device != q.device:
+            raise ValueError(f"{name}: {label} is on {sc.device}, q on "
+                             f"{q.device}")
+    lengths = _tensors.row_lengths(name, length, b, q.device)
+    if q.device.type == "cpu":
+        return flash_decode_int8_plain(q, k8, k_scale, v8, v_scale, lengths)
+    _tensors.check_cuda_head_dim(name, d)
+    q = _tensors.aligned4(q.contiguous())
+    k8, v8 = _tensors.aligned4(k8), _tensors.aligned4(v8)
+    if k_scale.stride() != v_scale.stride():
+        # the kernel reads both scales through one set of strides
+        k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    if b == 0 or hq == 0:
+        return out
+    lib = _build.load()
+    fn = lib.flash_decode_int8_f32 if q.dtype == torch.float32 \
+        else lib.flash_decode_int8_bf16
+    st = _tensors.strides((q, (0, 1)), (k8, (0, 1, 2)), (v8, (0, 1, 2)),
+                          (out, (0, 1)), (k_scale, (0, 1, 2)))
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(),
+                 v8.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
+                 lengths.data_ptr(), b, hq, hkv, s, d, 1.0 / (d ** 0.5), st,
+                 _tensors.stream(q.device))
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
+    return out

@@ -1,0 +1,96 @@
+"""Flash attention (prefill): causal GQA online-softmax attention on Hopper.
+
+``flash_attention`` launches the hand-written CUDA kernel of
+``csrc/flash_attn.cu`` (port of the Pallas kernel
+``repro.kernels.flash_attn.flash_attention``) on CUDA tensors, and runs its
+plain PyTorch version (:func:`flash_attention_plain`, the oracle
+``ref.attention_ref``) on CPU tensors.  A CUDA tensor never falls back to
+the plain version: the kernel launches or the wrapper raises.
+
+The signature is the reference's, q (B, Hq, Sq, D) and k/v (B, Hkv, Sk, D),
+but any strides with a contiguous last dimension are read as they are: the
+model passes its (B, S, H, D) projections as ``transpose(1, 2)`` views, and
+the output has q's layout (so ``out.transpose(1, 2)`` is contiguous for
+such a q).  Unlike the Pallas wrapper there are no block-size arguments and
+no divisibility rule: the kernel masks its ragged edges.
+
+``LAUNCHES`` counts kernel launches (plain-version calls are not counted);
+:func:`reset_launches` zeroes it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build, _tensors
+from .ref import attention_ref
+
+LAUNCHES = {"flash_attention": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True) -> torch.Tensor:
+    """The plain version of :func:`flash_attention`."""
+    return attention_ref(q, k, v, causal=causal)
+
+
+def _check(q, k, v, causal):
+    name = "flash_attention"
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{name}: q, k, v must be 4-D, got {tuple(q.shape)},"
+                         f" {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in _tensors.FLOAT_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k, v must share one of "
+                        f"{_tensors.FLOAT_DTYPES}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    b, hq, sq, d = q.shape
+    bk, hkv, sk, dk = k.shape
+    if (bk, dk) != (b, d) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)}/{tuple(v.shape)} disagree")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"{name}: Hq={hq} is not a multiple of Hkv={hkv}")
+    if sk == 0:
+        raise ValueError(f"{name}: no keys (Sk == 0)")
+    if causal and sq > sk:
+        raise ValueError(f"{name}: causal attention needs Sq <= Sk (query i "
+                         f"sits at position i + Sk - Sq), got Sq={sq}, "
+                         f"Sk={sk}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{name}: q, k, v must be on one device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return b, hq, hkv, sq, sk, d
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B, Hq, Sq, D); k/v (B, Hkv, Sk, D), f32 or bf16 -> (B, Hq, Sq, D)
+    in q's dtype.  Query head h reads KV head ``h // (Hq // Hkv)``; with
+    ``causal`` query i sees keys at positions ``<= i + Sk - Sq``."""
+    b, hq, hkv, sq, sk, d = _check(q, k, v, causal)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal)
+    _tensors.check_cuda_head_dim("flash_attention", d)
+    q, k, v = (_tensors.aligned4(t) for t in (q, k, v))
+    out = torch.empty_like(q)        # q's layout; its last stride is 1
+    if b == 0 or hq == 0 or sq == 0:
+        return out
+    lib = _build.load()
+    fn = lib.flash_attention_f32 if q.dtype == torch.float32 \
+        else lib.flash_attention_bf16
+    st = _tensors.strides((q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
+                          (out, (0, 1, 2)))
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, hq, hkv, sq, sk, d, int(causal), 1.0 / (d ** 0.5), st,
+                 _tensors.stream(q.device))
+    _build.check(lib, "flash_attention", err)
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,9 +1,12 @@
-"""Plain PyTorch oracles for the crossbar kernels.
+"""Plain PyTorch oracles for the port's kernels.
 
-Port of the crossbar part of ``repro.kernels.ref``: the same functions, with
-torch tensors on any device.  The quantizers give int8 codes and f32 scales
-identical to the JAX oracles and to the numpy twins in
-``core.compute_plane`` (same f32 division, round-half-to-even, clip).
+Port of ``repro.kernels.ref`` (crossbar and attention parts): the same
+functions, with torch tensors on any device.  The quantizers give int8 codes
+and f32 scales identical to the JAX oracles and to the numpy twins in
+``core.compute_plane`` (same f32 division, round-half-to-even, clip).  The
+attention oracles take the reference's layouts, (B, H, S, D), and compute in
+f32 with a full softmax; on CUDA tensors the caller keeps
+``torch.backends.cuda.matmul.allow_tf32`` False, or the products run in TF32.
 """
 
 from __future__ import annotations
@@ -46,3 +49,68 @@ def crossbar_mxv_int8_ref(xq: torch.Tensor, xs: torch.Tensor,
     tensors too."""
     acc = xq.to(torch.float64) @ wq.to(torch.float64).T
     return acc.to(torch.float32) * xs[:, None] * ws[None, :]
+
+
+# ----------------------------------------------------------------- attention
+NEG_INF = -1e30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """q (B,Hq,Sq,D); k/v (B,Hkv,Sk,D) — full-softmax GQA oracle.  Query i
+    sits at absolute position ``i + Sk - Sq``; output in q's dtype."""
+    d = q.shape[-1]
+    sq, sk = q.shape[2], k.shape[2]
+    g = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(g, dim=1)
+    v = v.repeat_interleave(g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) / (d ** 0.5)
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(diagonal=sk - sq)
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.to(torch.float32)).to(q.dtype)
+
+
+def _row_lengths(length, device) -> torch.Tensor:
+    """A scalar or (B,) length as an int64 column, (1, 1) or (B, 1)."""
+    return torch.as_tensor(length, device=device).to(torch.int64).reshape(
+        -1, 1)
+
+
+def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               length) -> torch.Tensor:
+    """q (B,Hq,D); k/v (B,Hkv,S,D) — decode oracle with cache-length mask.
+
+    ``length`` is a scalar (every row, as in the reference) or a (B,)
+    vector (one per row); positions ``>= length`` are masked.  A row with
+    ``length == 0`` has every position masked, and the softmax then
+    averages V over all S positions."""
+    d = q.shape[-1]
+    s = k.shape[2]
+    g = q.shape[1] // k.shape[1]
+    kr = k.repeat_interleave(g, dim=1)
+    vr = v.repeat_interleave(g, dim=1)
+    sc = torch.einsum("bhd,bhkd->bhk", q.to(torch.float32),
+                      kr.to(torch.float32)) / (d ** 0.5)
+    mask = torch.arange(s, device=q.device)[None, :] < _row_lengths(
+        length, q.device)                                   # (B|1, S)
+    sc = torch.where(mask[:, None, :], sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", p,
+                        vr.to(torch.float32)).to(q.dtype)
+
+
+def decode_int8_ref(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
+                    v8: torch.Tensor, v_scale: torch.Tensor,
+                    length) -> torch.Tensor:
+    """Oracle for flash_decode_int8: dequantize then exact decode attention.
+
+    q (B, Hq, D); k8/v8 (B, Hkv, S, D) int8; scales (B, Hkv, S, 1) f32.
+    """
+    k = k8.to(torch.float32) * k_scale
+    v = v8.to(torch.float32) * v_scale
+    return decode_ref(q, k, v, length)

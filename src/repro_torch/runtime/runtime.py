@@ -12,8 +12,9 @@ contention while per-tenant outputs stay bitwise equal to each tenant
 simulated alone (weight-stationary residency: nothing but timing is
 shared).
 
-The request type extends :class:`Request`, the ``rid``/``done``
-bookkeeping that the reference shares with its LM batcher's request type.
+The request type extends :class:`Request`, the reference's
+``serve.Request``: one vocabulary whether the backend is the LM's
+decode-slot batcher (``repro_torch.serve``) or the CM pipeline.
 
 Everything is deterministic: same seed + same config => identical
 per-request latencies, across both simulator engines and repeated runs
@@ -44,11 +45,18 @@ from .workload import rate_sweep
 
 @dataclasses.dataclass
 class Request:
-    """Identity and completion of one serving request (the ``rid``/``done``
-    part of the reference's ``serve.scheduler.Request``, without the LM
-    batcher's ``prompt``/``max_new``/``out``)."""
+    """One serving request: the reference's ``serve.scheduler.Request``.
+
+    The LM batcher (``repro_torch.serve.ContinuousBatcher``) drives its
+    decode loop with ``prompt``/``max_new``/``out``; ``CmRequest`` adds the
+    image payload and arrival/latency bookkeeping.  ``prompt``/``max_new``
+    default to empty so non-token workloads can construct it directly.
+    """
 
     rid: int
+    prompt: Optional[np.ndarray] = None   # (S_p,) int32
+    max_new: int = 0
+    out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
 
 

@@ -1,0 +1,208 @@
+"""The port's attention kernels' plain versions against the JAX package's
+Pallas kernels (interpret mode, CPU), on the cases of ``tests/test_kernels.py``.
+
+On CPU tensors ``repro_torch.kernels.{flash_attn,decode_attn,
+decode_attn_int8}`` run their plain PyTorch versions; these tests hold them,
+through the wrappers and through ``kernels.ops``, to the Pallas kernels at
+the tolerances ``tests/test_kernels.py`` states for those kernels against
+their oracle: 2e-3 in f32 and 5e-2 in bf16 (flash attention, flash decode),
+2e-5 (int8 decode against dequantize-then-decode) and 0.05 (int8 decode
+against the unquantized decode).  The port's own extensions, the model's
+(B, S, H, D) layout read through strides and one length per row, are held
+row by row against the reference's ``decode_ref``.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attn import flash_decode as pallas_decode
+from repro.kernels.decode_attn_int8 import flash_decode_int8 as pallas_int8
+from repro.kernels.flash_attn import flash_attention as pallas_flash
+from repro_torch.kernels import (decode_attn, decode_attn_int8, flash_attn,
+                                 ops)
+
+RNG = np.random.default_rng(0)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _quant(x):
+    am = np.abs(x).max(axis=-1, keepdims=True)
+    sc = np.where(am > 0, am / 127.0, 1.0).astype(np.float32)
+    return np.clip(np.round(x / sc), -127, 127).astype(np.int8), sc
+
+
+# -------------------------------------------------------------- flash attn
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,bq,bk", [
+    (1, 4, 4, 128, 128, 64, 64, 64),      # MHA
+    (2, 8, 2, 256, 256, 32, 128, 128),    # GQA 4:1
+    (1, 4, 1, 128, 128, 64, 64, 32),      # MQA
+    (2, 4, 2, 64, 256, 32, 64, 64),       # cross/kv-longer (decode-chunk)
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_matches_pallas(b, hq, hkv, sq, sk, d, bq, bk,
+                                              causal):
+    q = RNG.normal(size=(b, hq, sq, d)).astype(np.float32)
+    k = RNG.normal(size=(b, hkv, sk, d)).astype(np.float32)
+    v = RNG.normal(size=(b, hkv, sk, d)).astype(np.float32)
+    want = pallas_flash(q, k, v, causal=causal, bq=bq, bk=bk)
+    before = dict(flash_attn.LAUNCHES)
+    got = flash_attn.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    assert flash_attn.LAUNCHES == before       # CPU tensors: no launch
+    _close(got, want, 2e-3)
+    _close(ops.attention(_t(q), _t(k), _t(v), causal=causal,
+                         use_kernel=False), want, 2e-3)
+
+
+def test_flash_attention_plain_bf16_matches_pallas():
+    q = RNG.normal(size=(1, 4, 128, 64))
+    k = RNG.normal(size=(1, 2, 128, 64))
+    v = RNG.normal(size=(1, 2, 128, 64))
+    want = pallas_flash(jnp.asarray(q, jnp.bfloat16),
+                        jnp.asarray(k, jnp.bfloat16),
+                        jnp.asarray(v, jnp.bfloat16), causal=True,
+                        bq=64, bk=64)
+    got = flash_attn.flash_attention(
+        *(_t(x.astype(np.float32)).to(torch.bfloat16) for x in (q, k, v)),
+        causal=True)
+    assert got.dtype == torch.bfloat16
+    _close(got.float().numpy(), want, 5e-2)
+
+
+def test_flash_attention_reads_the_models_layout():
+    """(B, S, H, D) tensors passed as transposed views give the result of
+    the contiguous (B, H, S, D) call; the output keeps q's layout."""
+    b, s, hq, hkv, d = 2, 40, 6, 2, 16
+    q = RNG.normal(size=(b, s, hq, d)).astype(np.float32)
+    k = RNG.normal(size=(b, s, hkv, d)).astype(np.float32)
+    v = RNG.normal(size=(b, s, hkv, d)).astype(np.float32)
+    got = ops.attention(_t(q).transpose(1, 2), _t(k).transpose(1, 2),
+                        _t(v).transpose(1, 2), causal=True)
+    want = jref.attention_ref(*(np.swapaxes(x, 1, 2) for x in (q, k, v)),
+                              causal=True)
+    _close(got, want, 2e-3)
+
+
+def test_flash_attention_refuses_bad_operands():
+    q = torch.zeros(1, 4, 8, 16)
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        flash_attn.flash_attention(q, q[:, :2, :4], q[:, :2, :4])
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attn.flash_attention(q, q[:, :3], q[:, :3])
+    with pytest.raises(TypeError):
+        flash_attn.flash_attention(q, q.double(), q)
+
+
+# ------------------------------------------------------------- decode attn
+@pytest.mark.parametrize("b,hq,hkv,s,d,bk,length", [
+    (1, 8, 2, 256, 64, 128, 200),
+    (4, 4, 4, 512, 32, 128, 512),
+    (2, 16, 2, 256, 64, 64, 17),
+])
+def test_flash_decode_plain_matches_pallas(b, hq, hkv, s, d, bk, length):
+    q = RNG.normal(size=(b, hq, d)).astype(np.float32)
+    k = RNG.normal(size=(b, hkv, s, d)).astype(np.float32)
+    v = RNG.normal(size=(b, hkv, s, d)).astype(np.float32)
+    want = pallas_decode(q, k, v, length, bk=bk)
+    before = dict(decode_attn.LAUNCHES)
+    got = decode_attn.flash_decode(_t(q), _t(k), _t(v), length)
+    assert decode_attn.LAUNCHES == before
+    _close(got, want, 2e-3)
+    _close(ops.decode_attention(_t(q), _t(k), _t(v), length,
+                                use_kernel=False), want, 2e-3)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,lengths", [
+    (3, 8, 2, 64, 16, [1, 40, 64]),
+    (4, 6, 2, 96, 32, [96, 5, 17, 50]),
+    (2, 4, 4, 32, 8, [32, 100]),          # a length past the cache: all S
+])
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_decode_per_row_length_in_model_layout(b, hq, hkv, s, d,
+                                                     lengths, quant):
+    """The cache in the model's (B, S, Hkv, D) layout, seen through
+    transposed views, with one length per row: row i equals the reference's
+    ``decode_ref`` on row i alone with its scalar length."""
+    q = RNG.normal(size=(b, hq, d)).astype(np.float32)
+    k = RNG.normal(size=(b, s, hkv, d)).astype(np.float32) * 2
+    v = RNG.normal(size=(b, s, hkv, d)).astype(np.float32)
+    length = torch.tensor(lengths, dtype=torch.int32)
+    if quant:
+        (k8, ks), (v8, vs) = _quant(k), _quant(v)
+        tv = [_t(x).transpose(1, 2) for x in (k8, ks, v8, vs)]
+        got = ops.decode_attention_int8(_t(q), *tv, length)
+        rows = [jref.decode_int8_ref(
+            q[i:i + 1], *(np.swapaxes(x[i:i + 1], 1, 2)
+                          for x in (k8, ks, v8, vs)), lengths[i])
+            for i in range(b)]
+        tol = 2e-5
+    else:
+        got = ops.decode_attention(_t(q), _t(k).transpose(1, 2),
+                                   _t(v).transpose(1, 2), length)
+        rows = [jref.decode_ref(q[i:i + 1], np.swapaxes(k[i:i + 1], 1, 2),
+                                np.swapaxes(v[i:i + 1], 1, 2), lengths[i])
+                for i in range(b)]
+        tol = 2e-3
+    _close(got, np.concatenate([np.asarray(r) for r in rows]), tol)
+
+
+def test_flash_decode_refuses_bad_lengths():
+    q = torch.zeros(2, 4, 8)
+    k = torch.zeros(2, 2, 16, 8)
+    with pytest.raises(ValueError, match="length"):
+        decode_attn.flash_decode(q, k, k, torch.tensor([1, 2, 3]))
+    with pytest.raises(TypeError, match="integer"):
+        decode_attn.flash_decode(q, k, k, torch.tensor([1.0, 2.0]))
+
+
+# ----------------------------------------------------- int8 flash decode
+@pytest.mark.parametrize("b,hq,hkv,s,d,bk,length", [
+    (2, 8, 2, 256, 64, 128, 200),
+    (1, 4, 4, 128, 128, 64, 128),
+    (3, 6, 2, 512, 32, 128, 1),
+])
+def test_flash_decode_int8_plain_matches_pallas(b, hq, hkv, s, d, bk,
+                                                length):
+    q = RNG.normal(size=(b, hq, d)).astype(np.float32)
+    k8, ks = _quant(RNG.normal(size=(b, hkv, s, d)).astype(np.float32) * 2)
+    v8, vs = _quant(RNG.normal(size=(b, hkv, s, d)).astype(np.float32))
+    want = pallas_int8(jnp.asarray(q), jnp.asarray(k8), jnp.asarray(ks),
+                       jnp.asarray(v8), jnp.asarray(vs), length, bk=bk)
+    before = dict(decode_attn_int8.LAUNCHES)
+    got = decode_attn_int8.flash_decode_int8(_t(q), _t(k8), _t(ks), _t(v8),
+                                             _t(vs), length)
+    assert decode_attn_int8.LAUNCHES == before
+    _close(got, want, 2e-5)
+
+
+def test_flash_decode_int8_tracks_the_float_decode():
+    """Within quantization noise of the unquantized decode (0.05, the
+    reference's bound for its Pallas kernel)."""
+    b, hq, hkv, s, d = 2, 8, 2, 256, 64
+    q = RNG.normal(size=(b, hq, d)).astype(np.float32)
+    k = RNG.normal(size=(b, hkv, s, d)).astype(np.float32)
+    v = RNG.normal(size=(b, hkv, s, d)).astype(np.float32)
+    (k8, ks), (v8, vs) = _quant(k), _quant(v)
+    got = decode_attn_int8.flash_decode_int8(_t(q), _t(k8), _t(ks), _t(v8),
+                                             _t(vs), 256)
+    _close(got, jref.decode_ref(q, k, v, 256), 0.05)
+
+
+def test_unported_kernels_name_their_roadmap_item():
+    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+        ops.conv2d(None, None, None)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
+        ops.mamba_scan(None, None, None, None, None, None)

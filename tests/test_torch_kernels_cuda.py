@@ -4,10 +4,14 @@ Imports neither ``jax`` nor ``repro``, so it runs on the GPU machine:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Elsewhere every test skips.  Float kernel: rtol 1e-5 and atol 1e-5 x
-max(1, max|output|): it sums in ascending k and cuBLAS in its own order, so
-the rounding error scales with the terms, not the result.  Int8 kernel:
-bit-equal (exact integer sums, then the same two f32 multiplies).
+Elsewhere every test skips.  Crossbar float kernel: rtol 1e-5 and atol
+1e-5 x max(1, max|output|): it sums in ascending k and cuBLAS in its own
+order, so the rounding error scales with the terms, not the result.  Int8
+crossbar kernel: bit-equal (exact integer sums, then the same two f32
+multiplies).  Attention kernels: the tolerances of ``tests/test_kernels.py``
+for their Pallas twins, 2e-3 in f32 and 5e-2 in bf16 (flash attention and
+flash decode; the output rounds once to bf16), 2e-5 for the int8 decode
+against dequantize-then-plain in f32.
 """
 
 from __future__ import annotations
@@ -106,3 +110,122 @@ def test_main_path_on_torch_plane(cuda_device):
     for a, b in zip(o_np, o_t):
         for v in a:
             np.testing.assert_allclose(b[v], a[v], rtol=1e-5, atol=2e-5)
+
+
+# ------------------------------------------------------------ attention
+def _attn_close(got, want, dtype):
+    tol = 2e-3 if dtype == torch.float32 else 5e-2
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _randn(rng, shape, dev, dtype=torch.float32, scale=1.0):
+    return (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            * scale).to(dev, dtype)
+
+
+def _bshd(rng, b, s, h, d, dev, dtype):
+    """A (B, H, S, D) view of a contiguous (B, S, H, D) tensor: the model's
+    layout as the kernels read it."""
+    return _randn(rng, (b, s, h, d), dev, dtype).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [
+    (1, 4, 4, 128, 128, 64), (2, 8, 2, 256, 256, 32), (1, 4, 1, 128, 128, 64),
+    (2, 4, 2, 64, 256, 32),                       # the test_kernels.py cases
+    (1, 24, 8, 1, 1, 128), (2, 24, 8, 17, 17, 128), (1, 24, 8, 130, 130, 128),
+    (2, 24, 8, 33, 100, 128), (1, 8, 1, 70, 70, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_plain(cuda_device, b, hq, hkv, sq, sk, d,
+                                       dtype, causal):
+    from repro_torch.kernels import flash_attn
+    rng = np.random.default_rng(sq * 1000 + sk)
+    q = _bshd(rng, b, sq, hq, d, cuda_device, dtype)
+    k = _bshd(rng, b, sk, hkv, d, cuda_device, dtype)
+    v = _bshd(rng, b, sk, hkv, d, cuda_device, dtype)
+    before = flash_attn.LAUNCHES["flash_attention"]
+    got = flash_attn.flash_attention(q, k, v, causal=causal)
+    assert flash_attn.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    # the output keeps q's (B, S, H, D) memory layout
+    assert got.transpose(1, 2).is_contiguous()
+    _attn_close(got, want, dtype)
+
+
+def _cache(rng, b, s, hkv, d, dev, dtype, quant):
+    k = _randn(rng, (b, s, hkv, d), dev, scale=2.0)
+    v = _randn(rng, (b, s, hkv, d), dev)
+    if not quant:
+        return k.to(dtype).transpose(1, 2), v.to(dtype).transpose(1, 2)
+
+    def q8(x):
+        am = x.abs().amax(-1, keepdim=True)
+        sc = torch.where(am > 0, am / 127.0, torch.ones_like(am))
+        return (torch.clamp(torch.round(x / sc), -127, 127).to(torch.int8)
+                .transpose(1, 2), sc.transpose(1, 2))
+    return q8(k) + q8(v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d,lengths", [
+    (1, 8, 2, 256, 64, [200]), (4, 4, 4, 512, 32, [512, 1, 300, 77]),
+    (2, 16, 2, 256, 64, [17, 256]),
+    (8, 24, 8, 2048, 128, [1, 17, 128, 512, 2048, 2047, 600, 33]),
+    (2, 28, 4, 300, 128, [300, 299]),              # G = 7
+    (1, 8, 1, 64, 256, [64]),                      # gemma's MQA, D = 256
+    (3, 32, 2, 100, 64, [5, 100, 1000])])          # G = 16, length > S
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_matches_plain(cuda_device, b, hq, hkv, s, d, lengths,
+                                    quant, dtype):
+    from repro_torch.kernels import decode_attn, decode_attn_int8
+    rng = np.random.default_rng(s + b)
+    q = _randn(rng, (b, hq, d), cuda_device, dtype)
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    if quant:
+        k8, ks, v8, vs = _cache(rng, b, s, hkv, d, cuda_device, dtype, True)
+        mod, name = decode_attn_int8, "flash_decode_int8"
+        args = (q, k8, ks, v8, vs, length)
+        got = decode_attn_int8.flash_decode_int8(*args)
+        want = decode_attn_int8.flash_decode_int8_plain(*args)
+    else:
+        k, v = _cache(rng, b, s, hkv, d, cuda_device, dtype, False)
+        mod, name = decode_attn, "flash_decode"
+        got = decode_attn.flash_decode(q, k, v, length)
+        want = decode_attn.flash_decode_plain(q, k, v, length)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES[name] > 0
+    if quant and dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        _attn_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_decode_scalar_and_zero_length(cuda_device):
+    from repro_torch.kernels import decode_attn
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (3, 8, 64), cuda_device)
+    k, v = _cache(rng, 3, 96, 2, 64, cuda_device, torch.float32, False)
+    _attn_close(decode_attn.flash_decode(q, k, v, 50),
+                decode_attn.flash_decode_plain(q, k, v, 50), torch.float32)
+    # length 0 masks every position: the kernel gives zeros
+    zero = decode_attn.flash_decode(q, k, v, torch.tensor(
+        [0, 7, 0], dtype=torch.int32, device=cuda_device))
+    assert torch.equal(zero[0], torch.zeros_like(zero[0]))
+    assert torch.equal(zero[2], torch.zeros_like(zero[2]))
+    _attn_close(zero[1:2], decode_attn.flash_decode_plain(
+        q[1:2], k[1:2], v[1:2], 7), torch.float32)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_unbuilt_head_dims(cuda_device):
+    from repro_torch.kernels import decode_attn, flash_attn
+    q = torch.zeros((1, 2, 4, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attn.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dims"):
+        decode_attn.flash_decode(q[:, :, 0], q, q, 1)

@@ -148,6 +148,19 @@ images = [rng.normal(size=(1, 12, 12)).astype(np.float32) for _ in range(4)]
 rep = CmServer(prog, chip, compute_plane=TorchPlane("cpu")).serve_images(
     images, poisson_arrivals(4, rate=0.02, seed=1))
 assert len(rep.successes()) == 4
+from repro_torch.configs.base import smoke_config
+from repro_torch.models import convert
+from repro_torch.serve import ContinuousBatcher, Request, ServeEngine
+import repro_torch.launch.serve
+import repro_torch.kernels.ops
+cfg = smoke_config("llama3.2-3b")
+eng = ServeEngine(cfg, max_len=16, device="cpu")
+assert eng.generate(np.zeros((2, 4), np.int32), 3).shape == (2, 3)
+cb = ContinuousBatcher(cfg, n_slots=2, max_len=32, params=eng.params,
+                       device="cpu")
+cb.submit(Request(rid=0, prompt=np.arange(5, dtype=np.int32), max_new=2))
+cb.run_until_drained()
+convert.params_to_reference(eng.params)
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("served", rep.stats.cycles)
