@@ -59,6 +59,41 @@ result line):
    yardstick, never called by the port) beside its bound; the device's idle
    share over one profiled ``generate``.
 
+9. the selective-scan kernel against its plain version: falcon-mamba-7b's
+   prefill shape (B, L, Din, N) = (8, 512, 8192, 16) in bf16, B = 1 at
+   L in {16, 1000}, L = 1, N in {4, 16}, B/C as strided column slices of one
+   projection (the model's layout), f32 inputs; y and the final state
+   within 2e-3 x max(1, max|output|) (``tests/test_kernels.py``'s 2e-3 for
+   the Pallas twin, scaled by the output's magnitude: the kernel fuses
+   multiply-adds and its ``expf`` rounds otherwise than PyTorch's ``exp``);
+10. falcon-mamba-7b at full width and depth (64 Mamba layers, d 4096,
+   bf16, seeded random weights on the card) through ``ServeEngine.generate``
+   (B = 8, prompts of 512, 32 new tokens) and ``ContinuousBatcher`` (8
+   slots, 16 requests of 16-1000 prompt tokens, 32 new each): the scan
+   launches exactly 64 x prefills and never in decode, the attention
+   kernels 0 times.  Kernel path against ``use_kernel=False`` (the plain
+   chunked scan): depth cut to 4 in f32, logits within 2e-3 x max(1,
+   max|logit|) and greedy tokens equal; full depth in bf16, logits within
+   ``MAMBA_BF16_LOGIT_BOUND``;
+11. qwen2-moe-a2.7b at full width and depth (24 layers, 60 routed experts
+   top-4 and 4 shared, bf16): ``generate`` at B = 8, prompts of 512, 8 new
+   tokens; flash attention launches exactly 24 x prefills and flash decode
+   24 x decode steps; kernel path against plain path at depth 4 in f32, as
+   in 10 (at full depth in bf16 the difference is printed, not held: a
+   rounding difference can route a token to another expert);
+12. jamba-1.5-large-398b at its reduced smoke width, with head_dim 32 for
+   the smoke config's 16 (the smallest head dim the flash kernels are built
+   for); 398 B parameters do not fit one card, and this is a correctness
+   check, not a size: kernel path
+   against plain path in f32 with both cache types; the scan launches 7 x
+   prefills, flash attention 1 x prefills, the decode kernel of the cache's
+   type 1 x decode steps;
+13. times: falcon-mamba prefill ms and decode tok/s from ``throughput_probe``
+   (kernel, plain, plain, kernel); the scan kernel at the prefill shape
+   (CUDA events, device time under torch.profiler), its plain version and
+   its bound; the device's idle share over one profiled falcon-mamba
+   ``generate``.
+
 Prints the card's name and power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -85,7 +120,8 @@ from repro_torch.core import (NumpyPlane, TorchPlane,  # noqa: E402
                               make_descriptor)
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.kernels import (_build, decode_attn,  # noqa: E402
-                                 decode_attn_int8, flash_attn, mxv)
+                                 decode_attn_int8, flash_attn, mamba_scan,
+                                 mxv)
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels.ref import quantize_crossbar, quantize_vec  # noqa: E402
 from repro_torch.models import build_model, lm  # noqa: E402
@@ -102,7 +138,9 @@ REPLACES = {"crossbar_mxv": "src/repro/kernels/mxv.py:72",
             "crossbar_mxv_int8": "src/repro/kernels/mxv.py:98",
             "flash_attention": "src/repro/kernels/flash_attn.py:75",
             "flash_decode": "src/repro/kernels/decode_attn.py:67",
-            "flash_decode_int8": "src/repro/kernels/decode_attn_int8.py:77"}
+            "flash_decode_int8": "src/repro/kernels/decode_attn_int8.py:77",
+            "selective_scan": "src/repro/kernels/mamba_scan.py:59"}
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan.cu"
 ATTN_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attn.cu",
                 "flash_decode": "src/repro_torch/kernels/csrc/decode_attn.cu",
                 "flash_decode_int8":
@@ -120,6 +158,16 @@ N_REQUESTS, SLOTS = 16, 8
 # share of max(1, max|logit|): 0.0189 measured on an H100 (PERF.md), held
 # with room for other cards' cuBLAS choices
 BF16_LOGIT_BOUND = 0.05
+MAMBA_ARCH, MOE_ARCH, HYBRID_ARCH = ("falcon-mamba-7b", "qwen2-moe-a2.7b",
+                                     "jamba-1.5-large-398b")
+MOE_NEW = 8
+# bf16 logits of falcon-mamba-7b's kernel path against its plain path at
+# full depth, as a share of max(1, max|logit|): 0.0592 measured on an H100
+# (PERF.md), held with room for other cards' cuBLAS choices
+MAMBA_BF16_LOGIT_BOUND = 0.1
+# the special-function units: 16 exponentials per clock per SM (H100 SXM,
+# 132 SMs, 1,980 MHz boost clock), for the scan's estimate beside its bound
+EXP_PER_S = 16 * 132 * 1.98e9
 STAT_FIELDS = ("cycles", "messages", "bytes_sent")
 DICT_FIELDS = ("busy", "sram_high_water")
 
@@ -518,17 +566,20 @@ def phase_times(dev, paths, errs):
 
 
 # --------------------------------------------------------- attention phases
+COUNTED = (mxv, flash_attn, decode_attn, decode_attn_int8, mamba_scan)
+
+
 def _all_counts():
-    out = dict(mxv.LAUNCHES)
-    for mod in ATTN_MODS.values():
+    out = {}
+    for mod in COUNTED:
         out.update(mod.LAUNCHES)
     return out
 
 
 def _set_counts(counts):
-    for d in [mxv.LAUNCHES] + [m.LAUNCHES for m in ATTN_MODS.values()]:
-        for k in d:
-            d[k] = counts[k]
+    for mod in COUNTED:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = counts[k]
 
 
 def _zero_counts():
@@ -688,7 +739,8 @@ def phase_lm_serve(model, shapes):
             raise AssertionError(f"generate ({kv}): bad tokens {toks}")
         _expect(gen_counts, {"flash_attention": n_layers,
                              dec: n_layers * NEW, other: 0,
-                             "crossbar_mxv": 0, "crossbar_mxv_int8": 0},
+                             "crossbar_mxv": 0, "crossbar_mxv_int8": 0,
+                             "selective_scan": 0},
                 f"generate ({kv})")
         cb = ContinuousBatcher(cfg, n_slots=SLOTS, max_len=MAX_LEN,
                                params=model)
@@ -978,6 +1030,323 @@ def attention_kernel_rows(errs, serve, times, lm_paths):
     return rows
 
 
+# ------------------------------------------------ Mamba, MoE, hybrid phases
+def _scan_inputs(gen, b, l, d, n, dev, dtype, strided=False):
+    """Scan operands at falcon-mamba's scales: dt as softplus gives it
+    (small, positive), A = -exp(A_log) = -(1..N) as ``init_mamba`` makes
+    it, B/C O(1); with ``strided`` B and C are column slices of one
+    (B, L, dtr + 2N) projection, the model's layout."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    u = rnd(b, l, d).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(b, l, d) - 4.0).to(dtype)
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(d, 1)
+    if strided:
+        proj = rnd(b, l, 256 + 2 * n).to(dtype)
+        bm, cm = proj[..., 256:256 + n], proj[..., 256 + n:]
+    else:
+        bm, cm = rnd(b, l, n).to(dtype), rnd(b, l, n).to(dtype)
+    return u, dt, a, bm, cm, torch.ones(d, device=dev)
+
+
+def _rel_err(got, want, what):
+    """max|got - want| and that over max(1, max|want|), held to 2e-3."""
+    if got.dtype != want.dtype or got.shape != want.shape \
+            or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}, or "
+                             f"non-finite")
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    rel = err / max(1.0, want.abs().max().item()) if got.numel() else 0.0
+    if rel > 2e-3:
+        raise AssertionError(f"{what}: max err {err} is {rel:.3g} of "
+                             f"max(1, max|y|), over 2e-3")
+    return err, rel
+
+
+def phase_scan_kernel(dev):
+    """Kernel 7 against its plain version (y and the final state)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(8, 512, 8192, 16, bf16, True),       # falcon-mamba prefill
+             (1, 16, 8192, 16, bf16, True), (1, 1000, 8192, 16, bf16, True),
+             (8, 1, 8192, 16, bf16, True), (2, 300, 1024, 4, bf16, False),
+             (2, 77, 8192, 16, f32, False), (1, 1000, 8192, 16, f32, True),
+             (3, 64, 200, 4, f32, True)]
+    before = _all_counts()
+    err = {f32: (0.0, 0.0), bf16: (0.0, 0.0)}
+    for b, l, d, n, dt, strided in cases:
+        args = _scan_inputs(gen, b, l, d, n, dev, dt, strided)
+        y, h = mamba_scan.selective_scan(*args, return_state=True)
+        wy, wh = mamba_scan.selective_scan_plain(*args, return_state=True)
+        torch.cuda.synchronize()
+        what = f"selective_scan (B, L, D, N) = {(b, l, d, n)} {dt}"
+        for e in (_rel_err(y, wy, what + " y"), _rel_err(h, wh, what + " hT")):
+            err[dt] = (max(err[dt][0], e[0]), max(err[dt][1], e[1]))
+    _set_counts(before)
+    print(f"[9] {len(cases)} selective_scan kernel-vs-plain cases agree (y "
+          f"and hT): max abs err {err[f32][0]:.3g} (f32), {err[bf16][0]:.3g} "
+          f"(bf16 inputs); largest share of max(1, max|output|) "
+          f"{max(err[f32][1], err[bf16][1]):.3g} (bound 2e-3)")
+    return {"f32": err[f32][0], "bf16": err[bf16][0],
+            "rel": max(err[f32][1], err[bf16][1])}
+
+
+def _free():
+    """Return the memory of the models the caller has just deleted."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _build_full(arch, dev):
+    t0 = time.perf_counter()
+    model = build_model(get_arch(arch), dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"[{arch}] {sum(p.numel() for p in model.parameters())} parameters "
+          f"initialised on the card in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    return model
+
+
+def _generate_counted(cfg, model, prompts, new, max_len=MAX_LEN):
+    """Greedy tokens of one kernel-path ``generate`` and the launch counts
+    of exactly that run."""
+    eng = ServeEngine(cfg, max_len=max_len, params=model)
+    _zero_counts()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, new)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _all_counts()
+    if toks.shape != (len(prompts), new) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name} generate: bad tokens {toks}")
+    return toks, counts, secs
+
+
+def phase_mamba_serve(model):
+    """falcon-mamba-7b's main path: generate and continuous batching at full
+    width; the scan launches once per layer and prefill, never in decode."""
+    cfg = model.cfg
+    n_layers = cfg.n_layers
+    prompts, req_prompts = _lm_workload(cfg.vocab_size)
+    _, gen_counts, gen_s = _generate_counted(cfg, model, prompts, NEW)
+    none = {"flash_attention": 0, "flash_decode": 0, "flash_decode_int8": 0,
+            "crossbar_mxv": 0, "crossbar_mxv_int8": 0}
+    _expect(gen_counts, {"selective_scan": n_layers, **none},
+            f"{MAMBA_ARCH} generate")
+    cb = ContinuousBatcher(cfg, n_slots=SLOTS, max_len=MAX_LEN, params=model)
+    reqs = [Request(rid=i, prompt=p, max_new=NEW)
+            for i, p in enumerate(req_prompts)]
+    for r in reqs:
+        cb.submit(r)
+    _zero_counts()
+    t0 = time.perf_counter()
+    cb.run_until_drained()
+    torch.cuda.synchronize()
+    cb_s = time.perf_counter() - t0
+    cb_counts = _all_counts()
+    if not all(r.done and len(r.out) == NEW for r in reqs):
+        raise AssertionError(f"{MAMBA_ARCH} batcher: requests unfinished")
+    _expect(cb_counts, {"selective_scan": n_layers * cb.stats["prefills"],
+                        **none}, f"{MAMBA_ARCH} batcher")
+    if cb.stats["prefills"] != N_REQUESTS:
+        raise AssertionError(f"{MAMBA_ARCH} batcher: {cb.stats}")
+    print(f"[10] {MAMBA_ARCH}: generate B={BATCH} x {PROMPT} + {NEW} in "
+          f"{gen_s:.2f} s, launches {gen_counts}; batcher {N_REQUESTS} "
+          f"requests in {cb_s:.2f} s, {cb.stats['steps']} steps, utilization "
+          f"{cb.utilization:.3f}, launches {cb_counts}")
+    return {"generate": gen_counts, "batcher": cb_counts,
+            "batcher_stats": dict(cb.stats)}
+
+
+def phase_paths(dev, arch, model, new, bf16_bound, tag):
+    """Kernel path against plain path on the card: depth cut to 4 in f32
+    (logits and greedy tokens), and ``model`` at full depth in bf16, held
+    to ``bf16_bound`` or, where it is None, measured only."""
+    prompts, _ = _lm_workload(model.cfg.vocab_size)
+    small = build_model(dataclasses.replace(
+        get_arch(arch), n_layers=4, param_dtype="float32",
+        compute_dtype="float32"), dev, seed=1)
+    res = {"f32_4layer": _compare_paths(small.cfg, small, prompts, 4, 2e-3,
+                                        f"{arch} f32 4-layer")}
+    before = _all_counts()
+    toks = [ServeEngine(small.cfg, max_len=MAX_LEN, params=small,
+                        use_kernel=use).generate(prompts, new)
+            for use in (True, False)]
+    _set_counts(before)
+    if not np.array_equal(toks[0], toks[1]):
+        raise AssertionError(f"{arch} f32 4-layer: greedy tokens differ "
+                             f"between the kernel and plain paths")
+    del small
+    _free()
+    res[f"bf16_{model.cfg.n_layers}layer"] = _compare_paths(
+        model.cfg, model, prompts, 4,
+        float("inf") if bf16_bound is None else bf16_bound,
+        f"{arch} bf16 {model.cfg.n_layers}-layer")
+    print(f"[{tag}] {arch} kernel path vs plain path, worst |logit diff| / "
+          f"max(1, max|logit|): " + ", ".join(f"{k} {v:.3g}"
+                                              for k, v in res.items())
+          + f" (bounds 2e-3 and "
+          f"{'none: measured only' if bf16_bound is None else bf16_bound});"
+          f" f32 4-layer greedy tokens equal over {toks[0].size}")
+    return res
+
+
+def phase_moe(dev, model):
+    """qwen2-moe-a2.7b at full width: generate with exact flash launch
+    counts, then kernel path against plain path."""
+    cfg = model.cfg
+    prompts, _ = _lm_workload(cfg.vocab_size)
+    _, counts, secs = _generate_counted(cfg, model, prompts, MOE_NEW)
+    _expect(counts, {"flash_attention": cfg.n_layers,
+                     "flash_decode": cfg.n_layers * MOE_NEW,
+                     "flash_decode_int8": 0, "selective_scan": 0},
+            f"{MOE_ARCH} generate")
+    print(f"[11] {MOE_ARCH}: generate B={BATCH} x {PROMPT} + {MOE_NEW} in "
+          f"{secs:.2f} s, launches {counts}")
+    # bf16 at full depth is measured, not held: a rounding difference in a
+    # router's input can move a token to another expert, and at decode's
+    # capacity of 1 token per expert that moves its neighbours too
+    paths = phase_paths(dev, MOE_ARCH, model, MOE_NEW, None, 11)
+    return {"generate": counts, "generate_s": secs, "paths": paths}
+
+
+def phase_hybrid(dev):
+    """jamba's smoke config (reduced width, f32) on the card: launch counts
+    of each kernel, and the kernel path against the plain path."""
+    from repro_torch.configs.base import smoke_config
+    out = {}
+    rng = np.random.default_rng(11)
+    for kv in ("compute", "int8"):
+        # head_dim 32: the flash kernels are built for 32, 64, 128 and 256,
+        # and the smoke config's is 16
+        cfg = dataclasses.replace(smoke_config(HYBRID_ARCH), kv_dtype=kv,
+                                  head_dim=32)
+        model = build_model(cfg, dev, seed=2)
+        prompts = rng.integers(0, cfg.vocab_size, (BATCH, 100)).astype(
+            np.int32)
+        toks, counts, _ = _generate_counted(cfg, model, prompts, NEW)
+        n_attn = cfg.n_layers // len(cfg.layer_period)   # one per period
+        n_mamba = cfg.n_layers - n_attn
+        dec, other = (("flash_decode", "flash_decode_int8") if kv == "compute"
+                      else ("flash_decode_int8", "flash_decode"))
+        _expect(counts, {"selective_scan": n_mamba, "flash_attention":
+                         n_attn, dec: n_attn * NEW, other: 0},
+                f"{HYBRID_ARCH} (reduced) kv={kv} generate")
+        worst = _compare_paths(cfg, model, prompts, 4, 2e-3,
+                               f"{HYBRID_ARCH} (reduced) kv={kv}")
+        before = _all_counts()
+        plain = ServeEngine(cfg, max_len=MAX_LEN, params=model,
+                            use_kernel=False).generate(prompts, NEW)
+        _set_counts(before)
+        same = float(np.mean(plain == toks))
+        # the int8 cache may flip a code at a rounding boundary (PR 12):
+        # tokens held equal with the float cache only
+        if kv == "compute" and same != 1.0:
+            raise AssertionError(f"{HYBRID_ARCH} (reduced): greedy tokens "
+                                 f"differ between the kernel and plain paths")
+        out[kv] = {"launches": counts, "logit_diff": worst,
+                   "tokens_equal": same}
+        del model
+        _free()
+    print(f"[12] {HYBRID_ARCH} at its reduced smoke width (d 64, head_dim "
+          f"32, 8 layers MMMMAMMM, 4 experts; 398 B parameters do not fit "
+          f"one card), f32: "
+          + "; ".join(f"kv={kv}: launches {r['launches']}, worst |logit "
+                      f"diff| / max(1, max|logit|) {r['logit_diff']:.3g}, "
+                      f"greedy tokens equal {r['tokens_equal']:.3f}"
+                      for kv, r in out.items()))
+    return out
+
+
+def _scan_bound(b, l, d, n, elem):
+    """Every input read once, y and hT written once; 6 operations per
+    (b, t, d, n) (dt a, the state's FMA, dt u B, the output's FMA) and 3
+    per (b, t, d); the exponentials' time on the special-function units as
+    an estimate beside it."""
+    nbytes = (2 * b * l * d * elem + 2 * b * l * n * elem + d * n * 4 + d * 4
+              + b * l * d * 4 + b * d * n * 4)
+    ops = 6 * b * l * d * n + 3 * b * l * d
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["f32"] * 1e3
+    exp_ms = b * l * d * n / EXP_PER_S * 1e3
+    return ((t_b, "bytes") if t_b >= t_o else (t_o, "operations")), exp_ms
+
+
+def phase_mamba_times(dev, model):
+    cfg = model.cfg
+    prompts, _ = _lm_workload(cfg.vocab_size)
+    before = _all_counts()
+    probes = []
+    for use in (True, False, False, True):
+        eng = ServeEngine(cfg, max_len=PROMPT + NEW + 1, params=model,
+                          use_kernel=use)
+        probes.append((use, eng.throughput_probe(BATCH, PROMPT, NEW)))
+    eng = ServeEngine(cfg, max_len=MAX_LEN, params=model)
+    wall_ms, busy_ms, n_dev, host = _device_busy(
+        lambda: eng.generate(prompts, NEW))
+    din, n = 2 * cfg.d_model, cfg.ssm.state
+    gen = torch.Generator(device=dev).manual_seed(10)
+    args = _scan_inputs(gen, BATCH, PROMPT, din, n, dev, torch.bfloat16, True)
+    kern = lambda: mamba_scan.selective_scan(*args, return_state=True)
+    ms = _events_ms(kern, reps=20, trials=5, warmup=3)
+    dev_us = _device_us(kern, "scan_kernel", reps=20)
+    plain_ms = _events_ms(
+        lambda: mamba_scan.selective_scan_plain(*args, return_state=True),
+        reps=2, trials=3, warmup=1)
+    _set_counts(before)
+    (bound, by), exp_ms = _scan_bound(BATCH, PROMPT, din, n, 2)
+    print(f"[13] {MAMBA_ARCH} throughput_probe(B=8, prompt=512, 32 tokens) in "
+          f"turns: " + "; ".join(
+              f"{'kernel' if u else 'plain'}: prefill "
+              f"{p['prefill_s'] * 1e3:.1f} ms, decode "
+              f"{p['decode_tok_per_s']:.1f} tok/s" for u, p in probes))
+    busy = "device busy not measured" if busy_ms is None else (
+        f"device busy {busy_ms:.1f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.4f}")
+    print(f"[13] profiled {MAMBA_ARCH} generate (B=8, 512 + 32, kernel path): "
+          f"wall {wall_ms:.1f} ms, {busy}, {n_dev} device events; host ops "
+          f"by self CPU ms: " + ", ".join(f"{k} x{c} {t:.1f}"
+                                          for k, c, t in host))
+    print(f"[13] selective_scan at (B, L, Din, N) = {(BATCH, PROMPT, din, n)} "
+          f"bf16, strided B/C: {ms * 1e3:.2f} us per launch (events), device "
+          f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'}; plain "
+          f"{plain_ms * 1e3:.1f} us; bound {bound * 1e3:.2f} us ({by}); "
+          f"exponentials at 16 per clock per SM: an estimated "
+          f"{exp_ms * 1e3:.1f} us")
+    return dict(probes=probes, wall_ms=wall_ms, busy_ms=busy_ms,
+                device_events=n_dev, ms=ms, dev_us=dev_us, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, exp_ms=exp_ms,
+                shape=[BATCH, PROMPT, din, n, "bfloat16"])
+
+
+def scan_kernel_row(errs, serve, paths, times, moe, hybrid):
+    return {
+        "name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": REPLACES["selective_scan"],
+        "launches": serve["generate"]["selective_scan"],
+        "max_abs_err": errs["f32"], "ms": times["ms"],
+        "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
+        "bound_by": times["bound_by"], "library_ms": None,
+        "max_abs_err_bf16": errs["bf16"], "max_rel_err": errs["rel"],
+        "shape": times["shape"],
+        "device_ms": None if times["dev_us"] is None
+        else times["dev_us"] / 1e3,
+        "exp_estimate_ms": times["exp_ms"],
+        "launches_batcher": serve["batcher"]["selective_scan"],
+        "mamba": {
+            "arch": MAMBA_ARCH,
+            "probes": [{"kernel": u, **p} for u, p in times["probes"]],
+            "generate_wall_ms_profiled": times["wall_ms"],
+            "generate_device_busy_ms": times["busy_ms"],
+            "generate_device_events": times["device_events"],
+            "batcher_stats": serve["batcher_stats"],
+            "logit_diff_kernel_vs_plain": paths},
+        "moe": {"arch": MOE_ARCH, **moe},
+        "hybrid_reduced": {"arch": HYBRID_ARCH, **hybrid},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and "
@@ -1020,6 +1389,23 @@ def main() -> int:
     lm_paths = phase_lm_paths(dev, model)
     times = phase_lm_times(dev, model, serve, shapes)
     kernels += attention_kernel_rows(attn_errs, serve, times, lm_paths)
+    del model, shapes
+    _free()
+    scan_errs = phase_scan_kernel(dev)
+    fm = _build_full(MAMBA_ARCH, dev)
+    fm_serve = phase_mamba_serve(fm)
+    fm_paths = phase_paths(dev, MAMBA_ARCH, fm, NEW, MAMBA_BF16_LOGIT_BOUND,
+                           10)
+    fm_times = phase_mamba_times(dev, fm)
+    del fm
+    _free()
+    qm = _build_full(MOE_ARCH, dev)
+    moe = phase_moe(dev, qm)
+    del qm
+    _free()
+    hybrid = phase_hybrid(dev)
+    kernels.append(scan_kernel_row(scan_errs, fm_serve, fm_paths, fm_times,
+                                   moe, hybrid))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)

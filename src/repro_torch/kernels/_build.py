@@ -34,6 +34,7 @@ _S = ctypes.POINTER(ctypes.c_longlong)      # an array of element strides
 _ATTN = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _S, _P)
 _DECODE = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _S, _P)
 _DECODE_INT8 = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _S, _P)
+_SCAN = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _S, _P)
 # name -> argtypes; every entry returns the launch's cudaError_t as an int
 SIGNATURES = {
     "crossbar_mxv_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -45,6 +46,8 @@ SIGNATURES = {
     "flash_decode_bf16": _DECODE,
     "flash_decode_int8_f32": _DECODE_INT8,
     "flash_decode_int8_bf16": _DECODE_INT8,
+    "selective_scan_f32": _SCAN,
+    "selective_scan_bf16": _SCAN,
 }
 
 

@@ -1,9 +1,9 @@
-"""Operand checks shared by the attention kernels' wrappers.
+"""Operand checks shared by the kernels' wrappers.
 
 The attention kernels read their operands through element strides with a
 contiguous last dimension, four elements at a time; these helpers give them
 such views (copying only what does not qualify), the launch stream and the
-per-row lengths.
+per-row lengths.  The scan kernel takes its strides and stream from here too.
 """
 
 from __future__ import annotations

@@ -1,12 +1,13 @@
 """Plain PyTorch oracles for the port's kernels.
 
-Port of ``repro.kernels.ref`` (crossbar and attention parts): the same
-functions, with torch tensors on any device.  The quantizers give int8 codes
-and f32 scales identical to the JAX oracles and to the numpy twins in
-``core.compute_plane`` (same f32 division, round-half-to-even, clip).  The
-attention oracles take the reference's layouts, (B, H, S, D), and compute in
-f32 with a full softmax; on CUDA tensors the caller keeps
-``torch.backends.cuda.matmul.allow_tf32`` False, or the products run in TF32.
+Port of ``repro.kernels.ref`` (crossbar, attention and selective-scan
+parts): the same functions, with torch tensors on any device.  The
+quantizers give int8 codes and f32 scales identical to the JAX oracles and
+to the numpy twins in ``core.compute_plane`` (same f32 division,
+round-half-to-even, clip).  The attention oracles take the reference's
+layouts, (B, H, S, D), and compute in f32 with a full softmax; on CUDA
+tensors the caller keeps ``torch.backends.cuda.matmul.allow_tf32`` False, or
+the products run in TF32.
 """
 
 from __future__ import annotations
@@ -114,3 +115,33 @@ def decode_int8_ref(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
     k = k8.to(torch.float32) * k_scale
     v = v8.to(torch.float32) * v_scale
     return decode_ref(q, k, v, length)
+
+
+# -------------------------------------------------------------- mamba-1 scan
+def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor):
+    """The selective scan's recurrence, one time step after another in f32:
+    ``h_t = exp(dt_t a) h_{t-1} + (dt_t u_t) B_t`` and ``y_t = sum_N h_t C_t``.
+
+    u/dt (B, L, D); a (D, N); b/c (B, L, N) -> (y (B, L, D) f32 without the
+    skip term, final state hT (B, D, N) f32)."""
+    bsz, l, d = u.shape
+    n = a.shape[1]
+    a = a.to(torch.float32)
+    u32, dt32 = u.to(torch.float32), dt.to(torch.float32)
+    b32, c32 = b.to(torch.float32), c.to(torch.float32)
+    h = torch.zeros((bsz, d, n), dtype=torch.float32, device=u.device)
+    y = torch.empty((bsz, l, d), dtype=torch.float32, device=u.device)
+    for t in range(l):
+        da = torch.exp(dt32[:, t, :, None] * a[None])           # (B, D, N)
+        h = h * da + (dt32[:, t] * u32[:, t])[:, :, None] * b32[:, t, None, :]
+        y[:, t] = torch.sum(h * c32[:, t, None, :], dim=2)
+    return y, h
+
+
+def selective_scan_ref(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor,
+                       d_skip: torch.Tensor) -> torch.Tensor:
+    """Oracle for the selective scan: ``y + d_skip * u`` in u's dtype."""
+    y, _ = ssm_scan_ref(u, dt, a, b, c)
+    return (y + d_skip[None, None, :] * u.to(torch.float32)).to(u.dtype)

@@ -1,11 +1,13 @@
-"""Language models of the port: the dense decoder family.
+"""Language models of the port: the dense, MoE, Mamba (SSM) and hybrid
+decoder families.
 
-Port of ``repro.models`` for dense decoders.  ``build_model(cfg, device=...)``
-returns an :class:`lm.LM`, an ``nn.Module`` holding the parameters, with
-``init_cache(batch, max_len)``, ``prefill(tokens, max_len)`` and
-``decode_step(cache, tokens)`` (the reference's ``Model`` takes the params as
-an argument instead).  Entry points run on ``"cuda"`` unless given
-``device="cpu"``.  The families whose layers are not ported yet raise
+Port of ``repro.models`` for decoder-only models.  ``build_model(cfg,
+device=...)`` returns an :class:`lm.LM`, an ``nn.Module`` holding the
+parameters, with ``init_cache(batch, max_len)``, ``prefill(tokens,
+max_len)`` and ``decode_step(cache, tokens)`` (the reference's ``Model``
+takes the params as an argument instead).  Entry points run on ``"cuda"``
+unless given ``device="cpu"``.  Enc-dec models, embedding inputs and M-RoPE
+(qwen2-vl, seamless-m4t) are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -23,19 +25,14 @@ _UNPORTED = (
                      "ported yet (ROADMAP Queue 1 item 8)"),
     ("mrope_sections", "M-RoPE (qwen2-vl) is not ported yet (ROADMAP Queue 1 "
                        "item 8)"),
-    ("moe", "MoE layers are not ported yet (ROADMAP Queue 1 item 2)"),
-    ("ssm", "Mamba layers are not ported yet (ROADMAP Queue 1 item 1, with "
-            "the selective scan, Queue 2 item 7)"),
 )
 
 
 def build_model(cfg: ArchConfig, device="cuda", seed: int = 0) -> LM:
-    """The dense LM of ``cfg`` on ``device``, initialised from ``seed``."""
+    """The LM of ``cfg`` on ``device``, initialised from ``seed``."""
     for attr, why in _UNPORTED:
         if getattr(cfg, attr):
             raise NotImplementedError(f"{cfg.name}: {why}")
-    if cfg.layer_period is not None and "M" in cfg.layer_period:
-        raise NotImplementedError(f"{cfg.name}: {_UNPORTED[-1][1]}")
     if cfg.scores_dtype != "float32":
         raise NotImplementedError(
             f"{cfg.name}: scores_dtype={cfg.scores_dtype!r} (a knob of the "

@@ -4,9 +4,11 @@
 nested dicts and lists of numpy arrays (``jax.tree.map(np.asarray, params)``
 on the caller's side; nothing here imports JAX): ``"embed"``,
 ``"positions"`` (per period position, leaves stacked over periods as
-(P, ...)), ``"final_norm"`` and, for untied embeddings, ``"lm_head"``.  It
-returns the port's :class:`models.lm.LM` with every leaf copied exactly
-(bf16 leaves through their bits).  ``params_to_reference`` is its inverse.
+(P, ...)), ``"final_norm"`` and, for untied embeddings, ``"lm_head"``.  A
+position holds ``norm1``, ``norm2``, ``attn`` or ``mamba``, and ``mlp`` or
+``moe`` (whose ``shared`` MLP is a nested group).  It returns the port's
+:class:`models.lm.LM` with every leaf copied exactly (bf16 leaves through
+their bits).  ``params_to_reference`` is its inverse.
 """
 
 from __future__ import annotations
@@ -19,9 +21,6 @@ import torch
 from ..configs.base import ArchConfig
 from . import build_model
 from .lm import LM, n_periods, period_structure
-
-_GROUPS = ("norm1", "norm2", "attn", "mlp")
-
 
 def _to_torch(arr) -> torch.Tensor:
     arr = np.array(arr)           # a writable copy: JAX's are read-only
@@ -74,16 +73,33 @@ def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
         raise ValueError(f"{len(tree['positions'])} period positions, the "
                          f"config has {len(struct)}")
     for pos_i, stacked in enumerate(tree["positions"]):
-        _same_keys(stacked, _GROUPS, f"positions[{pos_i}]")
+        groups = model.layers[pos_i].groups()
+        _same_keys(stacked, groups, f"positions[{pos_i}]")
         for per in range(n_periods(cfg)):
             block = model.layers[per * len(struct) + pos_i]
-            for group in _GROUPS:
-                dst = getattr(block, group)
-                _same_keys(stacked[group], dst, f"positions[{pos_i}].{group}")
-                for name, leaf in stacked[group].items():
-                    _copy(dst[name], np.asarray(leaf)[per],
-                          f"positions[{pos_i}].{group}.{name}[{per}]")
+            for group in groups:
+                _copy_group(getattr(block, group), stacked[group], per,
+                            f"positions[{pos_i}].{group}")
     return model
+
+
+def _copy_group(dst, src: Dict[str, Any], per: int, what: str) -> None:
+    """Period ``per`` of the stacked leaves ``src`` into ``dst``, a
+    (possibly nested) ``ParameterDict``."""
+    _same_keys(src, dst, what)
+    for name, leaf in src.items():
+        if isinstance(leaf, dict):
+            _copy_group(dst[name], leaf, per, f"{what}.{name}")
+        else:
+            _copy(dst[name], np.asarray(leaf)[per], f"{what}.{name}[{per}]")
+
+
+def _stack_group(groups) -> Dict[str, Any]:
+    """One group of every period's block, stacked over periods as numpy."""
+    return {name: _stack_group([g[name] for g in groups])
+            if isinstance(groups[0][name], torch.nn.ParameterDict)
+            else np.stack([_to_numpy(g[name]) for g in groups])
+            for name in groups[0]}
 
 
 def params_to_reference(model: LM) -> Dict[str, Any]:
@@ -95,10 +111,8 @@ def params_to_reference(model: LM) -> Dict[str, Any]:
         blocks = [model.layers[per * len(struct) + pos_i]
                   for per in range(n_periods(cfg))]
         positions.append({
-            group: {name: np.stack([_to_numpy(getattr(b, group)[name])
-                                    for b in blocks])
-                    for name in getattr(blocks[0], group)}
-            for group in _GROUPS})
+            group: _stack_group([getattr(b, group) for b in blocks])
+            for group in blocks[0].groups()})
     tree = {"embed": _to_numpy(model.embed), "positions": positions,
             "final_norm": {k: _to_numpy(v)
                            for k, v in model.final_norm.items()}}

@@ -1,8 +1,9 @@
-"""Model building blocks for dense decoders, in PyTorch: norms, RoPE, GQA
+"""Model building blocks for decoders, in PyTorch: norms, RoPE, GQA
 attention through the port's flash kernels, cached decode over a float or
-int8 KV cache, and SwiGLU/GeGLU MLPs.
+int8 KV cache, SwiGLU/GeGLU MLPs, capacity-based top-k MoE, and the Mamba-1
+block with its selective scan through the port's scan kernel.
 
-Port of the dense part of ``repro.models.layers``.  Functions keep the
+Port of ``repro.models.layers`` for decoder-only models.  Functions keep the
 reference's names and ``(cfg, p, x, ...) -> y`` form, with ``p`` a mapping
 of tensors (an ``nn.ParameterDict`` of :class:`models.lm.LM`).  They round
 to the compute dtype where the reference does: norms and RoPE compute in f32
@@ -12,9 +13,10 @@ its output to the input's dtype.
 Not ported, because on one card the reference's model-axis size is 1 and
 they never act: the sharding constraints (``_constrain``, ``_rope_hd_pin``,
 ``_attn_constraints``, ``constrain_residual``) and
-``_seq_parallel_attention``; ``_chunked_attention`` only bounds memory, and
-the kernel computes the whole causal attention in one call.  M-RoPE,
-cross-attention, MoE and Mamba wait for their slices (ROADMAP).
+``_seq_parallel_attention``, ``_constrain_moe_groups`` (it pins the MoE
+dispatch groups' sharding only); ``_chunked_attention`` only bounds memory,
+and the kernel computes the whole causal attention in one call.  M-RoPE and
+cross-attention wait for their slice (ROADMAP Queue 1 item 8).
 
 **The decode cache is updated in place.**  ``attention_decode`` writes the
 new K/V (or int8 codes and scales) at position ``length`` of the cache
@@ -31,7 +33,7 @@ from typing import Mapping, Optional
 import torch
 import torch.nn.functional as F
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, SSMSpec
 from ..kernels import ops
 
 Params = Mapping[str, torch.Tensor]
@@ -256,3 +258,242 @@ def mlp(cfg: ArchConfig, p: Params, x):
     """SwiGLU (silu) or GeGLU (gelu) gated MLP."""
     a = _act(cfg.mlp_act)
     return (a(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+
+
+# ----------------------------------------------------------------------- MoE
+def init_moe(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    m = cfg.moe
+    d, dt = cfg.d_model, _dtype(cfg.param_dtype)
+    p = {
+        "router": dense_init(gen, (d, m.n_experts), 0, torch.float32),
+        "w_gate": dense_init(gen, (m.n_experts, d, m.d_ff), 1, dt),
+        "w_up": dense_init(gen, (m.n_experts, d, m.d_ff), 1, dt),
+        "w_down": dense_init(gen, (m.n_experts, m.d_ff, d), 1, dt),
+    }
+    if m.n_shared:
+        p["shared"] = init_mlp(cfg, gen, m.shared_d_ff)
+        p["shared_gate"] = dense_init(gen, (d, 1), 0, torch.float32)
+    return p
+
+
+def moe_capacity(cfg: ArchConfig, t: int) -> int:
+    """Tokens each expert takes per dispatch group of ``t`` tokens."""
+    m = cfg.moe
+    k = m.top_k
+    return max(1, min(t * k, int(math.ceil(t * k / m.n_experts
+                                           * m.capacity_factor))))
+
+
+def moe(cfg: ArchConfig, p: Params, x, *, capacity: Optional[int] = None):
+    """Capacity-based top-k MoE with scatter dispatch / gather combine.
+
+    ``x`` is (G, T, d): G dispatch groups (capacity is budgeted per group),
+    T tokens per group.  Returns (y (G, T, d), the load-balancing aux loss).
+    Each (token, k) slot keeps its place in its expert's queue up to the
+    capacity; the rest go to a sentinel row and add nothing.  The dispatch
+    scatter (``index_add_``) adds one non-zero row to each buffer row it
+    fills, so its result does not depend on the order of the adds.  Ties
+    among the router's probabilities may be broken otherwise than by
+    ``jax.lax.top_k``; with float logits they do not occur.
+    """
+    m = cfg.moe
+    g_, t, d = x.shape
+    e, k = m.n_experts, m.top_k
+    c = moe_capacity(cfg, t) if capacity is None else capacity
+
+    logits = x.to(torch.float32) @ p["router"]          # (G, T, E)
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, k, dim=-1)               # (G, T, K)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+
+    # position of each (token, k) slot within its expert queue, per group
+    onehot = F.one_hot(idx, e)                          # (G, T, K, E) int64
+    oh_flat = onehot.reshape(g_, t * k, e)
+    pos = torch.cumsum(oh_flat, dim=1) - oh_flat        # (G, T*K, E)
+    pos_tk = torch.sum(pos * oh_flat, dim=-1)           # (G, T*K)
+    e_tk = idx.reshape(g_, t * k)
+    keep = pos_tk < c
+    slot = torch.where(keep, e_tk * c + pos_tk,
+                       torch.full_like(e_tk, e * c))    # sentinel row
+
+    x_rep = torch.repeat_interleave(x, k, dim=1)        # (G, T*K, d)
+    rows = e * c + 1
+    base = torch.arange(g_, device=x.device)[:, None] * rows
+    buf = torch.zeros((g_ * rows, d), dtype=x.dtype, device=x.device)
+    buf.index_add_(0, (slot + base).reshape(-1),
+                   (x_rep * keep[..., None].to(x.dtype)).reshape(-1, d))
+    xe = buf.reshape(g_, rows, d)[:, :e * c].reshape(g_, e, c, d)
+
+    a = _act(cfg.mlp_act)
+    h = a(torch.einsum("gecd,edf->gecf", xe, p["w_gate"])) * \
+        torch.einsum("gecd,edf->gecf", xe, p["w_up"])
+    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])  # (G, E, C, d)
+
+    flat = torch.cat([ye.reshape(g_, e * c, d),
+                      torch.zeros((g_, 1, d), dtype=ye.dtype,
+                                  device=ye.device)], dim=1)
+    y_tk = flat[torch.arange(g_, device=x.device)[:, None], slot]
+    y_tk = y_tk * (w.reshape(g_, t * k, 1) * keep[..., None]).to(y_tk.dtype)
+    y = y_tk.reshape(g_, t, k, d).sum(dim=2)
+
+    if m.n_shared:
+        gate = torch.sigmoid(x.to(torch.float32) @ p["shared_gate"])
+        y = y + (mlp(cfg, p["shared"], x) * gate.to(x.dtype))
+
+    # load-balancing auxiliary loss (Switch-style)
+    me = probs.mean(dim=(0, 1))                         # (E,)
+    ce = onehot.to(torch.float32).mean(dim=(0, 1, 2)) * e
+    aux = torch.sum(me * ce)
+    return y, aux
+
+
+# ------------------------------------------------------------------- Mamba-1
+def _ssm(cfg: ArchConfig) -> SSMSpec:
+    return cfg.ssm or SSMSpec()
+
+
+def init_mamba(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    s = _ssm(cfg)
+    d = cfg.d_model
+    din = s.expand * d
+    dtr = s.dt_rank or -(-d // 16)
+    dt = _dtype(cfg.param_dtype)
+    dev = gen.device
+    a = torch.arange(1, s.state + 1, dtype=torch.float32,
+                     device=dev).repeat(din, 1)
+    dt_b = torch.log(torch.expm1(torch.full((din,), 0.01,
+                                            dtype=torch.float32,
+                                            device=dev)))
+    return {
+        "in_proj": dense_init(gen, (d, 2 * din), 0, dt),
+        "conv_w": (torch.randn((din, s.conv), generator=gen, device=dev)
+                   / math.sqrt(s.conv)).to(dt),
+        "conv_b": torch.zeros((din,), dtype=dt, device=dev),
+        "x_proj": dense_init(gen, (din, dtr + 2 * s.state), 0, dt),
+        "dt_w": dense_init(gen, (dtr, din), 0, dt),
+        "dt_b": dt_b,
+        "A_log": torch.log(a),
+        "D": torch.ones((din,), dtype=torch.float32, device=dev),
+        "out_proj": dense_init(gen, (din, d), 0, dt),
+    }
+
+
+def _ssm_scan_chunked(u, dt, a, bm, cm, chunk: int):
+    """h_t = exp(dt_t A) h_{t-1} + (dt_t u_t) B_t ;  y_t = (h_t C_t).sum(N).
+
+    The plain scan of the model (``use_kernel=False``): within chunks of
+    ``chunk`` steps an inclusive scan of the reference's ``combine`` in
+    log2(chunk) doubling steps, chunks one after another, so the
+    (B, chunk, D, N) intermediates stay bounded.  As in the reference, an L
+    that ``chunk`` does not divide is one chunk.  Returns (y (B, L, D) f32,
+    hT (B, D, N) f32).
+    """
+    b, l, d = u.shape
+    n = a.shape[1]
+    chunk = min(chunk, l)
+    if l % chunk:
+        chunk = l
+    a = a.to(torch.float32)
+    h = torch.zeros((b, d, n), dtype=torch.float32, device=u.device)
+    ys = []
+    for i in range(0, l, chunk):
+        u_, dt_, b_, c_ = (t[:, i:i + chunk].to(torch.float32)
+                           for t in (u, dt, bm, cm))
+        acum = torch.exp(dt_[..., None] * a[None, None])      # (B, C, D, N)
+        bcum = (dt_ * u_)[..., None] * b_[:, :, None, :]      # (B, C, D, N)
+        off = 1
+        while off < acum.shape[1]:
+            # combine((a1, b1), (a2, b2)) = (a1 a2, b1 a2 + b2), earlier first
+            a1, b1 = acum[:, :-off], bcum[:, :-off]
+            a2, b2 = acum[:, off:], bcum[:, off:]
+            acum = torch.cat([acum[:, :off], a1 * a2], dim=1)
+            bcum = torch.cat([bcum[:, :off], b1 * a2 + b2], dim=1)
+            del a1, b1, a2, b2
+            off *= 2
+        hs = acum * h[:, None] + bcum                       # (B, C, D, N)
+        del acum, bcum
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, c_))
+        h = hs[:, -1].clone()
+        del hs
+    return torch.cat(ys, dim=1), h
+
+
+def _causal_conv1d(x, w, b):
+    """Depthwise causal conv: x (B, L, D), w (D, K) -> (B, L, D), the
+    reference's sum of K shifted products (no cuDNN, which would run f32 in
+    TF32)."""
+    k = w.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    y = xp[:, 0:x.shape[1], :] * w[:, 0][None, None, :]
+    for i in range(1, k):
+        y = y + xp[:, i:i + x.shape[1], :] * w[:, i][None, None, :]
+    return y + b[None, None, :]
+
+
+def _mamba_proj(cfg: ArchConfig, p: Params, xa, dtype):
+    """xa -> (dt, B, C, A) as the reference derives them."""
+    s = _ssm(cfg)
+    dtr = p["dt_w"].shape[0]
+    proj = xa @ p["x_proj"]                             # (..., dtr + 2N)
+    dt_raw = proj[..., :dtr]
+    bm = proj[..., dtr:dtr + s.state]
+    cm = proj[..., dtr + s.state:]
+    dt = F.softplus(dt_raw @ p["dt_w"] + p["dt_b"].to(dtype))
+    a = -torch.exp(p["A_log"])                          # (Din, N)
+    return dt, bm, cm, a
+
+
+def mamba(cfg: ArchConfig, p: Params, x, return_state: bool = False,
+          use_kernel: bool = True):
+    """Mamba-1 block.  x (B, S, d) -> (B, S, d).
+
+    ``use_kernel`` runs the scan through ``ops.mamba_scan`` (the scan kernel
+    on the card), else through the plain chunked scan.  With
+    ``return_state`` also returns (conv_state (B, K-1, Din), ssm_state
+    (B, Din, N) f32) for decode handoff.  The conv state is the last K-1
+    inputs of the conv, zeros before the first token (where the reference
+    slices fewer than K-1 rows for a prompt shorter than K-1, which its
+    decode cannot take).
+    """
+    s = _ssm(cfg)
+    xz = x @ p["in_proj"]
+    xin, z = torch.chunk(xz, 2, dim=-1)                 # (B, S, Din)
+    xc = _causal_conv1d(xin, p["conv_w"], p["conv_b"])
+    xa = F.silu(xc)
+    dt, bm, cm, a = _mamba_proj(cfg, p, xa, x.dtype)
+    if use_kernel:
+        y, hT = ops.mamba_scan(xa, dt, a, bm, cm, p["D"], return_state=True)
+    else:
+        y, hT = _ssm_scan_chunked(xa, dt, a, bm, cm, cfg.ssm_chunk)
+        y = y + p["D"][None, None] * xa.to(torch.float32)
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ p["out_proj"]
+    if return_state:
+        k1 = s.conv - 1
+        conv_state = F.pad(xin, (0, 0, k1, 0))[:, xin.shape[1]:]
+        return out, (conv_state, hT)
+    return out
+
+
+def mamba_decode(cfg: ArchConfig, p: Params, x, conv_state, ssm_state):
+    """One-token decode.  x (B, 1, d); conv_state (B, K-1, Din);
+    ssm_state (B, Din, N) f32.  Returns (y (B, 1, d), new conv state, new
+    ssm state), as the reference; plain torch (no kernel here, as in the
+    reference)."""
+    s = _ssm(cfg)
+    xz = x[:, 0] @ p["in_proj"]
+    xin, z = torch.chunk(xz, 2, dim=-1)                 # (B, Din)
+    window = torch.cat([conv_state, xin[:, None]], dim=1)   # (B, K, Din)
+    xc = torch.einsum("bkd,dk->bd", window, p["conv_w"]) + p["conv_b"]
+    xa = F.silu(xc)
+    dt, bm, cm, a = _mamba_proj(cfg, p, xa, x.dtype)
+    da = torch.exp(dt[..., None].to(torch.float32) * a[None])  # (B, Din, N)
+    db = (dt * xa)[..., None].to(torch.float32) * \
+        bm[:, None, :].to(torch.float32)
+    h = ssm_state * da + db
+    y = torch.sum(h * cm[:, None, :].to(torch.float32), dim=-1)
+    y = y + p["D"][None] * xa.to(torch.float32)
+    y = y.to(x.dtype) * F.silu(z)
+    out = (y @ p["out_proj"])[:, None]
+    new_conv = window[:, 1:] if s.conv > 1 else conv_state
+    return out, new_conv, h

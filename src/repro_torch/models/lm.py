@@ -1,30 +1,38 @@
-"""Dense decoder-only language model: parameters, prefill and cached decode.
+"""Decoder-only and hybrid language models: parameters, prefill and cached
+decode.
 
-Port of the dense serving part of ``repro.models.lm``.  The reference keeps
-parameters as a pytree with each period position's leaves stacked over
-periods and runs ``lax.scan`` over them; here they live in :class:`LM`, an
-``nn.Module`` with one :class:`Block` per layer on an explicit device and
-dtype, and the scan is a Python loop over layers.  Layer ``i`` is period
-``i // len(period)``, position ``i % len(period)``.
+Port of the serving part of ``repro.models.lm``.  An architecture is a
+repeating *period* of layer kinds (jamba's ``MMMMAMMM`` with MoE on odd
+positions; ``A`` for the dense and MoE families, ``M`` for falcon-mamba).
+The reference keeps parameters as a pytree with each period position's
+leaves stacked over periods and runs ``lax.scan`` over them; here they live
+in :class:`LM`, an ``nn.Module`` with one :class:`Block` per layer on an
+explicit device and dtype, and the scan is a Python loop over layers.
+Layer ``i`` is period ``i // len(period)``, position ``i % len(period)``.
+Each block holds ``norm1``, ``norm2``, its mixer (``attn`` or ``mamba``)
+and its FFN (``mlp`` or ``moe``).
 
 The decode cache keeps the reference's structure, ``{"layers": [per period
-position: {"k", "v"[, "k_scale", "v_scale"]} with leaves (P, B, S, Hkv, ·)],
-"length": (B,) int32}``, and :func:`decode_step` updates it **in place**
-(``models.layers.attention_decode``) before returning it with
-``length + 1``.
+position: {"k", "v"[, "k_scale", "v_scale"]} with leaves (P, B, S, Hkv, ·)
+for attention, {"conv" (P, B, K-1, Din), "ssm" (P, B, Din, N) f32} for
+Mamba], "length": (B,) int32}``, and :func:`decode_step` updates it **in
+place** (``models.layers.attention_decode`` and the Mamba states) before
+returning it with ``length + 1``.
 
 The logits are ``h.f32 @ W.f32^T``, as in the reference.  For a bf16
 unembedding ``W`` (the tied embedding of llama3.2-3b: 128,256 x 3,072) the
 model keeps one f32 copy (1.58 GB there) instead of converting it at every
 step; :meth:`LM.unembed_f32` rebuilds it when ``W`` changes.
 
-Training (``lm_loss``, ``chunked_ce_loss``) waits for its slice; MoE, Mamba
-and the other families are refused by :func:`models.build_model`.
+Not ported: training (``lm_loss``, ``chunked_ce_loss``, ROADMAP Queue 1
+item 9) and the sequence-parallel MoE branch of ``_position_block``, which
+needs a model axis above 1 (Queue 1 item 10); enc-dec, embedding inputs and
+M-RoPE are refused by :func:`models.build_model`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -45,8 +53,11 @@ def resolve_device(device) -> torch.device:
 
 
 def _frozen(params: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
-                             for k, t in params.items()})
+    """Tensors as frozen parameters; a nested dict (MoE's ``shared`` MLP)
+    becomes a nested ``ParameterDict``."""
+    return nn.ParameterDict({
+        k: _frozen(t) if isinstance(t, dict) else
+        nn.Parameter(t, requires_grad=False) for k, t in params.items()})
 
 
 # ------------------------------------------------------------------ structure
@@ -72,18 +83,34 @@ def n_periods(cfg: ArchConfig) -> int:
 
 # ----------------------------------------------------------------- parameters
 class Block(nn.Module):
-    """One dense layer: pre-norm attention + pre-norm MLP."""
+    """One layer of the position ``spec``: pre-norm mixer (``attn`` or
+    ``mamba``) + pre-norm FFN (``mlp`` or ``moe``), as the reference's
+    ``init_position``."""
 
-    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator,
+                 spec: Dict[str, str]):
         super().__init__()
+        self.spec = dict(spec)
         self.norm1 = _frozen(L.init_norm(cfg, cfg.d_model, gen.device))
         self.norm2 = _frozen(L.init_norm(cfg, cfg.d_model, gen.device))
-        self.attn = _frozen(L.init_attention(cfg, gen))
-        self.mlp = _frozen(L.init_mlp(cfg, gen))
+        if spec["mixer"] == "attn":
+            self.attn = _frozen(L.init_attention(cfg, gen))
+        else:
+            self.mamba = _frozen(L.init_mamba(cfg, gen))
+        if spec["ffn"] == "moe":
+            self.moe = _frozen(L.init_moe(cfg, gen))
+        else:
+            self.mlp = _frozen(L.init_mlp(cfg, gen))
+
+    def groups(self) -> Tuple[str, ...]:
+        """The parameter groups, in the reference's names."""
+        return ("norm1", "norm2",
+                "attn" if self.spec["mixer"] == "attn" else "mamba",
+                "moe" if self.spec["ffn"] == "moe" else "mlp")
 
 
 class LM(nn.Module):
-    """A dense LM's parameters on one device, initialised from ``seed`` by a
+    """An LM's parameters on one device, initialised from ``seed`` by a
     ``torch.Generator`` on that device.  The same seed gives other numbers
     than the reference's ``jax.random`` init: carry the reference's weights
     across with ``models.convert.params_from_reference``."""
@@ -94,8 +121,10 @@ class LM(nn.Module):
         self.cfg = cfg
         gen = torch.Generator(device=dev).manual_seed(seed)
         dt = L._dtype(cfg.param_dtype)
-        self.layers = nn.ModuleList(Block(cfg, gen)
-                                    for _ in range(cfg.n_layers))
+        struct = period_structure(cfg)
+        n_periods(cfg)                   # whole periods, or raise
+        self.layers = nn.ModuleList(Block(cfg, gen, struct[i % len(struct)])
+                                    for i in range(cfg.n_layers))
         shape = (cfg.vocab_size, cfg.d_model)
         self.embed = nn.Parameter(
             (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dt),
@@ -145,37 +174,64 @@ def _layer(model: LM, per: int, pos_i: int, plen: int) -> Block:
 
 
 # -------------------------------------------------------------------- forward
+def _ffn(cfg: ArchConfig, p: Block, h):
+    """The position's FFN on h (B, S, d); MoE dispatches each row's S tokens
+    as one group.  Returns (y, aux loss or None for a dense MLP)."""
+    if p.spec["ffn"] == "moe":
+        return L.moe(cfg, p.moe, h)
+    return L.mlp(cfg, p.mlp, h), None
+
+
 def _position_block(cfg: ArchConfig, p: Block, x, pos, kv_out: bool = False,
                     use_kernel: bool = True):
-    """One layer: pre-norm attention + pre-norm MLP.  Returns (x, extras)."""
+    """One layer: pre-norm mixer + pre-norm FFN.  Returns (x, aux, extras):
+    aux is the MoE aux loss (None for a dense MLP); extras are the layer's
+    (k, v) for attention or (conv_state, ssm_state) for Mamba when
+    ``kv_out``, else None.
+
+    The reference's sequence-parallel MoE branch needs a model axis above 1;
+    on one card it takes this plain branch."""
     extras = None
     h = L.apply_norm(cfg, p.norm1, x)
-    if kv_out:
-        y, extras = L.attention(cfg, p.attn, h, pos, kv_out=True,
-                                use_kernel=use_kernel)
+    if p.spec["mixer"] == "attn":
+        if kv_out:
+            y, extras = L.attention(cfg, p.attn, h, pos, kv_out=True,
+                                    use_kernel=use_kernel)
+        else:
+            y = L.attention(cfg, p.attn, h, pos, use_kernel=use_kernel)
     else:
-        y = L.attention(cfg, p.attn, h, pos, use_kernel=use_kernel)
+        if kv_out:
+            y, extras = L.mamba(cfg, p.mamba, h, return_state=True,
+                                use_kernel=use_kernel)
+        else:
+            y = L.mamba(cfg, p.mamba, h, use_kernel=use_kernel)
     x = x + y
     h = L.apply_norm(cfg, p.norm2, x)
-    return x + L.mlp(cfg, p.mlp, h), extras
+    y, aux = _ffn(cfg, p, h)
+    return x + y, aux, extras
 
 
 def backbone(cfg: ArchConfig, model: LM, x, pos, collect_cache: bool = False,
              use_kernel: bool = True):
-    """x (B, S, d) -> (h (B, S, d), caches | None).
+    """x (B, S, d) -> (h (B, S, d), aux loss, caches | None).
 
     ``collect_cache``: also return, per period position, the list over
-    periods of the layer's (k, v), each (B, S, Hkv, hd), for prefill."""
+    periods of the layer's (k, v), each (B, S, Hkv, hd), or (conv_state,
+    ssm_state), for prefill."""
     struct = period_structure(cfg)
     caches: List[List] = [[] for _ in struct]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for per in range(n_periods(cfg)):
         for pos_i in range(len(struct)):
             p = _layer(model, per, pos_i, len(struct))
-            x, extra = _position_block(cfg, p, x, pos, kv_out=collect_cache,
-                                       use_kernel=use_kernel)
+            x, a, extra = _position_block(cfg, p, x, pos,
+                                          kv_out=collect_cache,
+                                          use_kernel=use_kernel)
+            if a is not None:
+                aux = aux + a
             caches[pos_i].append(extra)
     h = L.apply_norm(cfg, model.final_norm, x)
-    return h, (caches if collect_cache else None)
+    return h, aux, (caches if collect_cache else None)
 
 
 def embed_tokens(cfg: ArchConfig, model: LM, tokens):
@@ -198,10 +254,21 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> Dict:
     struct = period_structure(cfg)
     np_ = n_periods(cfg)
     cdt = L._dtype(cfg.compute_dtype)
-    shape = (np_, batch, max_len, cfg.n_kv_heads, cfg.hd)
     entries = []
-    for _ in struct:
-        if cfg.kv_dtype == "int8":
+    for spec in struct:
+        # an attention-free model (falcon-mamba-7b) has no heads: only an
+        # attention position has a KV shape
+        shape = (np_, batch, max_len, cfg.n_kv_heads, cfg.hd) \
+            if spec["mixer"] == "attn" else None
+        if spec["mixer"] == "mamba":
+            s = L._ssm(cfg)
+            din = s.expand * cfg.d_model
+            entries.append({
+                "conv": torch.zeros((np_, batch, s.conv - 1, din), dtype=cdt,
+                                    device=device),
+                "ssm": torch.zeros((np_, batch, din, s.state),
+                                   dtype=torch.float32, device=device)})
+        elif cfg.kv_dtype == "int8":
             sshape = shape[:-1] + (1,)
             entries.append({
                 "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -226,18 +293,25 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Dict, tokens,
     Updates ``cache`` in place and returns (logits (B, V) f32, cache) with
     ``cache["length"]`` advanced by one.  Every row's length must stay
     below the cache's ``max_len`` for its token to be kept (the reference
-    drops it too)."""
+    drops it too).  A MoE layer routes the B tokens as one dispatch group,
+    as the reference does, so its capacity couples the rows."""
     struct = period_structure(cfg)
     length = cache["length"]
     x = model.embed[tokens][:, None]                    # (B, 1, d)
     quant = cfg.kv_dtype == "int8"
     # positions outer, periods inner: the reference's loop order
-    for pos_i in range(len(struct)):
+    for pos_i, spec in enumerate(struct):
         c = cache["layers"][pos_i]
         for per in range(n_periods(cfg)):
             p = _layer(model, per, pos_i, len(struct))
             h = L.apply_norm(cfg, p.norm1, x)
-            if quant:
+            if spec["mixer"] == "mamba":
+                y, nconv, nssm = L.mamba_decode(cfg, p.mamba, h,
+                                                c["conv"][per],
+                                                c["ssm"][per])
+                c["conv"][per] = nconv
+                c["ssm"][per] = nssm
+            elif quant:
                 y = L.attention_decode(cfg, p.attn, h, c["k"][per],
                                        c["v"][per], length,
                                        c["k_scale"][per], c["v_scale"][per],
@@ -248,7 +322,11 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Dict, tokens,
                                        use_kernel=use_kernel)
             x = x + y
             h = L.apply_norm(cfg, p.norm2, x)
-            x = x + L.mlp(cfg, p.mlp, h)
+            if spec["ffn"] == "moe":
+                y2, _ = L.moe(cfg, p.moe, h.transpose(0, 1))  # (1, B, d)
+                x = x + y2.transpose(0, 1)
+            else:
+                x = x + L.mlp(cfg, p.mlp, h)
     h = L.apply_norm(cfg, model.final_norm, x)[:, 0]      # (B, d)
     cache["length"] = length + 1
     return _logits(model, h), cache
@@ -265,20 +343,23 @@ def prefill(cfg: ArchConfig, model: LM, tokens, max_len: int,
     dev = model.device
     pos = torch.arange(s, device=dev)[None].expand(b, s)
     x = embed_tokens(cfg, model, tokens)
-    h, extras = backbone(cfg, model, x, pos, collect_cache=True,
-                         use_kernel=use_kernel)
+    h, _, extras = backbone(cfg, model, x, pos, collect_cache=True,
+                            use_kernel=use_kernel)
     cache = init_cache(cfg, b, max_len, dev)
     for pos_i, c in enumerate(cache["layers"]):
-        for per, (k, v) in enumerate(extras[pos_i]):
-            if cfg.kv_dtype == "int8":
-                k8, ks = L.kv_quantize(k)
-                v8, vs = L.kv_quantize(v)
+        for per, ex in enumerate(extras[pos_i]):
+            if "conv" in c:
+                c["conv"][per] = ex[0]
+                c["ssm"][per] = ex[1]
+            elif cfg.kv_dtype == "int8":
+                k8, ks = L.kv_quantize(ex[0])
+                v8, vs = L.kv_quantize(ex[1])
                 c["k"][per, :, :s] = k8
                 c["v"][per, :, :s] = v8
                 c["k_scale"][per, :, :s] = ks
                 c["v_scale"][per, :, :s] = vs
             else:
-                c["k"][per, :, :s] = k
-                c["v"][per, :, :s] = v
+                c["k"][per, :, :s] = ex[0]
+                c["v"][per, :, :s] = ex[1]
     cache["length"].fill_(s)
     return _logits(model, h[:, -1]), cache

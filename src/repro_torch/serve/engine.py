@@ -1,11 +1,12 @@
 """Batched serving engine: prefill + decode loop over a fixed batch.
 
 Port of ``repro.serve.engine``: configure once (parameters resident on the
-card), then stream requests through — prefill fills the KV caches,
-``decode_step`` advances every sequence one token per call, greedy.  The
-reference jit-compiles both steps; here they run eagerly, their attention
-through the port's flash kernels (``use_kernel=False`` selects the plain
-PyTorch versions instead, for comparison).
+card), then stream requests through — prefill fills the KV caches (and the Mamba
+states), ``decode_step`` advances every sequence one token per call,
+greedy.  The reference jit-compiles both steps; here they run eagerly,
+their attention and selective scan through the port's kernels
+(``use_kernel=False`` selects the plain PyTorch versions instead, for
+comparison).
 """
 
 from __future__ import annotations

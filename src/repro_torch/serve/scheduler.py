@@ -5,9 +5,10 @@ sequences free their slot for the next queued request.
 
   * one single-sequence prefill per request, over the prompt padded to its
     length *bucket* (the reference's buckets, so shapes and results match
-    it), writes the request's KV state into its slot of the live cache; the
-    padding's K/V stay in the cache, masked, and the slot's length is the
-    true prompt length;
+    it), writes the request's KV/SSM state into its slot of the live cache;
+    the padding's K/V stay in the cache, masked, and the slot's length is
+    the true prompt length.  A Mamba layer's conv and SSM states are taken
+    after the padding, as in the reference (no mask reaches them);
   * one batched ``decode_step`` advances every slot;
   * per-slot lengths come from the cache's ``length`` vector.
 
@@ -15,8 +16,11 @@ As in the reference, decode is seeded with the prompt's last token, so that
 token is processed twice (in prefill and at position ``len(prompt)``); this
 is kept, since changing it changes every token.
 
-Determinism invariant (tested): a request's output is identical whether it
-ran alone or was co-scheduled with arbitrary other traffic.
+Determinism invariant (tested for the dense and Mamba models): a request's
+output is identical whether it ran alone or was co-scheduled with arbitrary
+other traffic.  It cannot hold for MoE models, in the reference either:
+decode routes every slot's token as one group, and the experts' capacity
+couples the rows.
 """
 
 from __future__ import annotations

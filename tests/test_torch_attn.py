@@ -204,5 +204,3 @@ def test_flash_decode_int8_tracks_the_float_decode():
 def test_unported_kernels_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
         ops.conv2d(None, None, None)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-        ops.mamba_scan(None, None, None, None, None, None)

@@ -11,7 +11,11 @@ crossbar kernel: bit-equal (exact integer sums, then the same two f32
 multiplies).  Attention kernels: the tolerances of ``tests/test_kernels.py``
 for their Pallas twins, 2e-3 in f32 and 5e-2 in bf16 (flash attention and
 flash decode; the output rounds once to bf16), 2e-5 for the int8 decode
-against dequantize-then-plain in f32.
+against dequantize-then-plain in f32.  Selective scan: y and the final
+state within 2e-3 x max(1, max|output|), the tolerance of
+``tests/test_kernels.py`` for its Pallas twin scaled by the output's
+magnitude (both sum the same f32 terms in one order, but the kernel fuses
+multiply-adds and its ``expf`` rounds otherwise than PyTorch's ``exp``).
 """
 
 from __future__ import annotations
@@ -229,3 +233,52 @@ def test_attention_kernels_refuse_unbuilt_head_dims(cuda_device):
         flash_attn.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="head dims"):
         decode_attn.flash_decode(q[:, :, 0], q, q, 1)
+
+
+# ---------------------------------------------------------- selective scan
+def _scan_args(rng, b, l, d, n, dev, dtype, strided=False):
+    u = _randn(rng, (b, l, d), dev, dtype, 0.5)
+    dt = (_randn(rng, (b, l, d), dev).abs() * 0.1).to(dtype)
+    a = -_randn(rng, (d, n), dev).abs()
+    if strided:          # B and C as column slices of one projection
+        proj = _randn(rng, (b, l, 7 + 2 * n), dev, dtype)
+        bm, cm = proj[..., 7:7 + n], proj[..., 7 + n:]
+    else:
+        bm, cm = _randn(rng, (b, l, n), dev, dtype), \
+            _randn(rng, (b, l, n), dev, dtype)
+    return u, dt, a, bm, cm, _randn(rng, (d,), dev)
+
+
+def _scan_close(got, want):
+    tol = 2e-3 * max(1.0, want.abs().max().item())
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d,n,strided", [
+    (1, 64, 32, 8, False), (2, 128, 64, 16, False), (1, 256, 16, 4, False),
+    (1, 1, 100, 16, False), (1, 1000, 8192, 16, True), (3, 33, 130, 5, True),
+    (8, 512, 1024, 16, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_matches_plain(cuda_device, b, l, d, n, strided,
+                                      dtype):
+    from repro_torch.kernels import mamba_scan
+    rng = np.random.default_rng(l + d)
+    args = _scan_args(rng, b, l, d, n, cuda_device, dtype, strided)
+    before = mamba_scan.LAUNCHES["selective_scan"]
+    y, h = mamba_scan.selective_scan(*args, return_state=True)
+    assert mamba_scan.LAUNCHES["selective_scan"] == before + 1
+    wy, wh = mamba_scan.selective_scan_plain(*args, return_state=True)
+    torch.cuda.synchronize()
+    _scan_close(y, wy)
+    _scan_close(h, wh)
+
+
+@pytest.mark.cuda
+def test_selective_scan_refuses_large_states(cuda_device):
+    from repro_torch.kernels import mamba_scan
+    args = _scan_args(np.random.default_rng(0), 1, 4, 8, 17, cuda_device,
+                      torch.float32)
+    with pytest.raises(ValueError, match="state"):
+        mamba_scan.selective_scan(*args)

@@ -40,7 +40,9 @@ CASES = [("llama3.2-3b", "compute"), ("gemma-2b", "compute"),
          ("llama3.2-3b", "int8")]
 UNPORTED = [a for a in jarchs.ALL
             if a not in {"llama3.2-3b", "gemma-2b", "qwen2-7b",
-                         "phi3-medium-14b"}]
+                         "phi3-medium-14b", "falcon-mamba-7b",
+                         "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b",
+                         "jamba-1.5-large-398b"}]
 _CACHE = {}
 
 

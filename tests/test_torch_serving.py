@@ -161,6 +161,15 @@ cb = ContinuousBatcher(cfg, n_slots=2, max_len=32, params=eng.params,
 cb.submit(Request(rid=0, prompt=np.arange(5, dtype=np.int32), max_new=2))
 cb.run_until_drained()
 convert.params_to_reference(eng.params)
+for name in ("falcon-mamba-7b", "jamba-1.5-large-398b"):
+    cfg = smoke_config(name)
+    eng = ServeEngine(cfg, max_len=32, device="cpu")
+    assert eng.generate(np.zeros((2, 5), np.int32), 3).shape == (2, 3)
+    cb = ContinuousBatcher(cfg, n_slots=2, max_len=32, params=eng.params,
+                           device="cpu")
+    cb.submit(Request(rid=0, prompt=np.arange(5, dtype=np.int32), max_new=2))
+    cb.run_until_drained()
+    convert.params_to_reference(eng.params)
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("served", rep.stats.cycles)
