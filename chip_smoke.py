@@ -62,7 +62,8 @@ result line):
 9. the selective-scan kernel against its plain version: falcon-mamba-7b's
    prefill shape (B, L, Din, N) = (8, 512, 8192, 16) in bf16, B = 1 at
    L in {16, 1000}, L = 1, N in {4, 16}, B/C as strided column slices of one
-   projection (the model's layout), f32 inputs; y and the final state
+   projection (the model's layout), f32 inputs, A and d_skip drawn for
+   each channel; y and the final state
    within 2e-3 x max(1, max|output|) (``tests/test_kernels.py``'s 2e-3 for
    the Pallas twin, scaled by the output's magnitude: the kernel fuses
    multiply-adds and its ``expf`` rounds otherwise than PyTorch's ``exp``);
@@ -123,7 +124,8 @@ from repro_torch.kernels import (_build, decode_attn,  # noqa: E402
                                  decode_attn_int8, flash_attn, mamba_scan,
                                  mxv)
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
-from repro_torch.kernels.ref import quantize_crossbar, quantize_vec  # noqa: E402
+from repro_torch.kernels.ref import (quantize_crossbar, quantize_vec,  # noqa: E402
+                                     selective_scan_ref)
 from repro_torch.models import build_model, lm  # noqa: E402
 from repro_torch.models.layers import kv_quantize  # noqa: E402
 from repro_torch.runtime import CmServer, poisson_arrivals  # noqa: E402
@@ -162,9 +164,11 @@ MAMBA_ARCH, MOE_ARCH, HYBRID_ARCH = ("falcon-mamba-7b", "qwen2-moe-a2.7b",
                                      "jamba-1.5-large-398b")
 MOE_NEW = 8
 # bf16 logits of falcon-mamba-7b's kernel path against its plain path at
-# full depth, as a share of max(1, max|logit|): 0.0592 measured on an H100
-# (PERF.md), held with room for other cards' cuBLAS choices
-MAMBA_BF16_LOGIT_BOUND = 0.1
+# full depth, as a share of max(1, max|logit|): 0.0592 on an H100 80GB HBM3
+# at 700 W, the same in every run (seeded weights, deterministic kernels;
+# PERF.md).  The bound, 1.25 times that, catches a failure; the f32 4-layer
+# comparison at 2e-3 is the one that holds the kernel path's precision.
+MAMBA_BF16_LOGIT_BOUND = 0.075
 # the special-function units: 16 exponentials per clock per SM (H100 SXM,
 # 132 SMs, 1,980 MHz boost clock), for the scan's estimate beside its bound
 EXP_PER_S = 16 * 132 * 1.98e9
@@ -1033,20 +1037,22 @@ def attention_kernel_rows(errs, serve, times, lm_paths):
 # ------------------------------------------------ Mamba, MoE, hybrid phases
 def _scan_inputs(gen, b, l, d, n, dev, dtype, strided=False):
     """Scan operands at falcon-mamba's scales: dt as softplus gives it
-    (small, positive), A = -exp(A_log) = -(1..N) as ``init_mamba`` makes
-    it, B/C O(1); with ``strided`` B and C are column slices of one
-    (B, L, dtr + 2N) projection, the model's layout."""
+    (small, positive), B/C O(1); A = -exp(A_log) and d_skip drawn for each
+    channel, so that a kernel reading another channel's A or D disagrees
+    (``init_mamba`` makes them the same in every channel); with ``strided``
+    B and C are column slices of one (B, L, dtr + 2N) projection, the
+    model's layout."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev)
     u = rnd(b, l, d).to(dtype)
     dt = torch.nn.functional.softplus(rnd(b, l, d) - 4.0).to(dtype)
-    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(d, 1)
+    a = -torch.exp(rnd(d, n))
     if strided:
         proj = rnd(b, l, 256 + 2 * n).to(dtype)
         bm, cm = proj[..., 256:256 + n], proj[..., 256 + n:]
     else:
         bm, cm = rnd(b, l, n).to(dtype), rnd(b, l, n).to(dtype)
-    return u, dt, a, bm, cm, torch.ones(d, device=dev)
+    return u, dt, a, bm, cm, rnd(d)
 
 
 def _rel_err(got, want, what):
@@ -1078,7 +1084,7 @@ def phase_scan_kernel(dev):
     for b, l, d, n, dt, strided in cases:
         args = _scan_inputs(gen, b, l, d, n, dev, dt, strided)
         y, h = mamba_scan.selective_scan(*args, return_state=True)
-        wy, wh = mamba_scan.selective_scan_plain(*args, return_state=True)
+        wy, wh = selective_scan_ref(*args, return_state=True)
         torch.cuda.synchronize()
         what = f"selective_scan (B, L, D, N) = {(b, l, d, n)} {dt}"
         for e in (_rel_err(y, wy, what + " y"), _rel_err(h, wh, what + " hT")):
@@ -1292,7 +1298,7 @@ def phase_mamba_times(dev, model):
     ms = _events_ms(kern, reps=20, trials=5, warmup=3)
     dev_us = _device_us(kern, "scan_kernel", reps=20)
     plain_ms = _events_ms(
-        lambda: mamba_scan.selective_scan_plain(*args, return_state=True),
+        lambda: selective_scan_ref(*args, return_state=True),
         reps=2, trials=3, warmup=1)
     _set_counts(before)
     (bound, by), exp_ms = _scan_bound(BATCH, PROMPT, din, n, 2)
@@ -1332,7 +1338,6 @@ def scan_kernel_row(errs, serve, paths, times, moe, hybrid):
         "shape": times["shape"],
         "device_ms": None if times["dev_us"] is None
         else times["dev_us"] / 1e3,
-        "exp_estimate_ms": times["exp_ms"],
         "launches_batcher": serve["batcher"]["selective_scan"],
         "mamba": {
             "arch": MAMBA_ARCH,

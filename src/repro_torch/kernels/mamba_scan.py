@@ -3,8 +3,8 @@
 ``selective_scan`` launches the hand-written CUDA kernel of
 ``csrc/mamba_scan.cu`` (port of the Pallas kernel
 ``repro.kernels.mamba_scan.selective_scan``) on CUDA tensors, and runs its
-plain PyTorch version (:func:`selective_scan_plain`, the sequential oracle
-``ref.ssm_scan_ref``) on CPU tensors.  A CUDA tensor never falls back to the
+plain PyTorch version (the sequential oracle ``ref.selective_scan_ref``) on
+CPU tensors.  A CUDA tensor never falls back to the
 plain version: the kernel launches or the wrapper raises.
 
 The signature is the reference's: u/dt (B, L, D), a (D, N), b/c (B, L, N),
@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, _tensors
-from .ref import ssm_scan_ref
+from .ref import selective_scan_ref
 
 LAUNCHES = {"selective_scan": 0}
 MAX_STATE = 16          # the kernel keeps N <= 16 state values in registers
@@ -36,15 +36,6 @@ MAX_STATE = 16          # the kernel keeps N <= 16 state values in registers
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def selective_scan_plain(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                         b: torch.Tensor, c: torch.Tensor,
-                         d_skip: torch.Tensor, return_state: bool = False):
-    """The plain version of :func:`selective_scan`."""
-    y, h = ssm_scan_ref(u, dt, a, b, c)
-    y = y + d_skip.to(torch.float32)[None, None, :] * u.to(torch.float32)
-    return (y, h) if return_state else y
 
 
 def _check(u, dt, a, b, c, d_skip):
@@ -83,7 +74,7 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """y (B, L, D) f32 [, hT (B, D, N) f32]; see the module docstring."""
     bsz, l, d, n = _check(u, dt, a, b, c, d_skip)
     if u.device.type == "cpu":
-        return selective_scan_plain(u, dt, a, b, c, d_skip, return_state)
+        return selective_scan_ref(u, dt, a, b, c, d_skip, return_state)
     if not 1 <= n <= MAX_STATE:
         raise ValueError(f"selective_scan: the CUDA kernel takes a state of "
                          f"1 to {MAX_STATE}, got N={n}")

@@ -5,10 +5,9 @@ the reference defaults the attention ops to its oracle) calls the kernel's
 wrapper, which launches the CUDA kernel on CUDA tensors and runs the plain
 PyTorch version on CPU tensors; ``use_kernel=False`` calls the plain version
 (the oracle of :mod:`.ref`) on any device.  That is an explicit choice of
-the caller, never a fallback.  ``mamba_scan``'s plain version is the
-kernel's own (:func:`.mamba_scan.selective_scan_plain`): it returns what the
-kernel returns, the f32 output and, on request, the final state, where the
-oracle ``ref.selective_scan_ref`` casts to u's dtype.
+the caller, never a fallback.  ``mamba_scan`` returns what the model needs,
+the f32 output and the final state, where the reference's returns the
+output alone.
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ from . import ref
 from .decode_attn import flash_decode
 from .decode_attn_int8 import flash_decode_int8
 from .flash_attn import flash_attention
-from .mamba_scan import selective_scan, selective_scan_plain
+from .mamba_scan import selective_scan
 from .mxv import crossbar_mxv, crossbar_mxv_int8
 
 quantize_crossbar = ref.quantize_crossbar
@@ -53,12 +52,11 @@ def decode_attention(q, k, v, length, use_kernel: bool = True):
     return ref.decode_ref(q, k, v, length)
 
 
-def mamba_scan(u, dt, a, b, c, d_skip, use_kernel: bool = True,
-               return_state: bool = False):
-    """y (B, L, D) f32 (scan + ``d_skip * u``) [, hT (B, D, N) f32]."""
+def mamba_scan(u, dt, a, b, c, d_skip, use_kernel: bool = True):
+    """y (B, L, D) f32 (scan + ``d_skip * u``), hT (B, D, N) f32."""
     if use_kernel:
-        return selective_scan(u, dt, a, b, c, d_skip, return_state)
-    return selective_scan_plain(u, dt, a, b, c, d_skip, return_state)
+        return selective_scan(u, dt, a, b, c, d_skip, return_state=True)
+    return ref.selective_scan_ref(u, dt, a, b, c, d_skip, return_state=True)
 
 
 def decode_attention_int8(q, k8, k_scale, v8, v_scale, length,

@@ -118,13 +118,17 @@ def decode_int8_ref(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
 
 
 # -------------------------------------------------------------- mamba-1 scan
-def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                 b: torch.Tensor, c: torch.Tensor):
-    """The selective scan's recurrence, one time step after another in f32:
-    ``h_t = exp(dt_t a) h_{t-1} + (dt_t u_t) B_t`` and ``y_t = sum_N h_t C_t``.
+def selective_scan_ref(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+                       return_state: bool = False):
+    """Oracle for the selective scan, one time step after another in f32:
+    ``h_t = exp(dt_t a) h_{t-1} + (dt_t u_t) B_t`` and
+    ``y_t = sum_N h_t C_t + d_skip u_t``.
 
-    u/dt (B, L, D); a (D, N); b/c (B, L, N) -> (y (B, L, D) f32 without the
-    skip term, final state hT (B, D, N) f32)."""
+    u/dt (B, L, D); a (D, N); b/c (B, L, N); d_skip (D,) -> y (B, L, D) f32
+    [, final state hT (B, D, N) f32].  It returns what the kernel returns:
+    the reference's oracle casts y to u's dtype, which its callers here do
+    themselves where they need it."""
     bsz, l, d = u.shape
     n = a.shape[1]
     a = a.to(torch.float32)
@@ -136,12 +140,5 @@ def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         da = torch.exp(dt32[:, t, :, None] * a[None])           # (B, D, N)
         h = h * da + (dt32[:, t] * u32[:, t])[:, :, None] * b32[:, t, None, :]
         y[:, t] = torch.sum(h * c32[:, t, None, :], dim=2)
-    return y, h
-
-
-def selective_scan_ref(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                       b: torch.Tensor, c: torch.Tensor,
-                       d_skip: torch.Tensor) -> torch.Tensor:
-    """Oracle for the selective scan: ``y + d_skip * u`` in u's dtype."""
-    y, _ = ssm_scan_ref(u, dt, a, b, c)
-    return (y + d_skip[None, None, :] * u.to(torch.float32)).to(u.dtype)
+    y = y + d_skip.to(torch.float32)[None, None, :] * u32
+    return (y, h) if return_state else y

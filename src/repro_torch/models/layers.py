@@ -462,7 +462,7 @@ def mamba(cfg: ArchConfig, p: Params, x, return_state: bool = False,
     xa = F.silu(xc)
     dt, bm, cm, a = _mamba_proj(cfg, p, xa, x.dtype)
     if use_kernel:
-        y, hT = ops.mamba_scan(xa, dt, a, bm, cm, p["D"], return_state=True)
+        y, hT = ops.mamba_scan(xa, dt, a, bm, cm, p["D"])
     else:
         y, hT = _ssm_scan_chunked(xa, dt, a, bm, cm, cfg.ssm_chunk)
         y = y + p["D"][None, None] * xa.to(torch.float32)

@@ -269,7 +269,7 @@ def test_selective_scan_matches_plain(cuda_device, b, l, d, n, strided,
     before = mamba_scan.LAUNCHES["selective_scan"]
     y, h = mamba_scan.selective_scan(*args, return_state=True)
     assert mamba_scan.LAUNCHES["selective_scan"] == before + 1
-    wy, wh = mamba_scan.selective_scan_plain(*args, return_state=True)
+    wy, wh = ref.selective_scan_ref(*args, return_state=True)
     torch.cuda.synchronize()
     _scan_close(y, wy)
     _scan_close(h, wh)

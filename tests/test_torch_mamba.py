@@ -1,7 +1,7 @@
 """The port's selective scan and Mamba layers against the JAX package's.
 
 On CPU tensors ``repro_torch.kernels.mamba_scan.selective_scan`` runs its
-plain PyTorch version; it and the oracle ``ref.selective_scan_ref`` are held
+plain PyTorch version, the oracle ``ref.selective_scan_ref``; both are held
 to the Pallas ``selective_scan`` (interpret mode) on the cases of
 ``tests/test_kernels.py`` at its 2e-3, and the final state to the model's
 ``_ssm_scan_chunked`` at 1e-5 (both sum the same f32 products; the state is
@@ -70,7 +70,7 @@ def test_scan_plain_and_wrapper_match_pallas(b, l, d, n, bd, bl, us, ds):
     np.testing.assert_allclose(tref.selective_scan_ref(*map(_t, args)).numpy(),
                                want, rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(
-        ops.mamba_scan(*map(_t, args), use_kernel=False).numpy(), want,
+        ops.mamba_scan(*map(_t, args), use_kernel=False)[0].numpy(), want,
         rtol=2e-3, atol=2e-3)
 
 
@@ -84,8 +84,7 @@ def test_scan_state_matches_chunked_scan(b, l, d, n, chunk):
     jy, jh = JL._ssm_scan_chunked(jnp.asarray(u), jnp.asarray(dt),
                                   jnp.asarray(a), jnp.asarray(bb),
                                   jnp.asarray(cc), chunk)
-    y, h = ops.mamba_scan(*map(_t, (u, dt, a, bb, cc, dsk)),
-                          return_state=True)
+    y, h = ops.mamba_scan(*map(_t, (u, dt, a, bb, cc, dsk)))
     np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy) + dsk * u,
@@ -107,7 +106,7 @@ def test_scan_reads_strided_b_and_c():
     bs, cs = tp[..., 5:9], tp[..., 9:]
     assert not bs.is_contiguous()
     got = mamba_scan.selective_scan(_t(u), _t(dt), _t(a), bs, cs, _t(dsk))
-    want = mamba_scan.selective_scan_plain(*map(_t, (u, dt, a, bb, cc, dsk)))
+    want = tref.selective_scan_ref(*map(_t, (u, dt, a, bb, cc, dsk)))
     assert torch.equal(got, want)
 
 
