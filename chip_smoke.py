@@ -29,7 +29,8 @@ result line):
    version and a library call at the shape its path launched most often,
    beside the least time the card could take (bytes / 3.35 TB/s or
    operations / peak, whichever is larger); the kernel's device time under
-   torch.profiler; the host time of one plane call on each plane; wall
+   torch.profiler, and the library call's (all its kernels summed); the
+   host time of one plane call on each plane; wall
    time of each serve, in turns.
 
 6. the attention kernels (flash attention, flash decode, int8-KV flash
@@ -95,6 +96,40 @@ result line):
    its bound; the device's idle share over one profiled falcon-mamba
    ``generate``.
 
+14. the Listing-1 conv kernel against its plain version at the CM zoo's
+   conv shapes (the main path's (28, 16, 16) with 28 filters, lenet-28's
+   two, fig2's, the tiny transformer's 1x1 on (d_model, T, 1)), the four
+   cases of ``tests/test_kernels.py`` and a full 256-wide crossbar (C =
+   256, 1x1, 32x32), each with int8 and f32 wq, and strided x: rtol 1e-4
+   and atol 1e-4 x max(1, max|y|) (``tests/test_kernels.py``'s 1e-4,
+   scaled by the output's magnitude as for the crossbar kernel); at the
+   main path's shape also against ``conv2d_mxv`` (Listing 1 per pixel, in
+   numpy) on the same crossbar;
+15. the quickstart (``repro_torch.launch.quickstart``) at the CM main
+   path's width (c = 28, 16 x 16): compile, simulate, the reference
+   executor, and every conv through ``ops.conv2d`` on the card; the conv
+   kernel launches once per conv of the graph (4);
+16. fault-tolerant CM serve: fig2 on ``make_chip(8, "all_to_all")`` under
+   ``sample_schedule(8, 400, core_fault_rate=0.5, seed=11)`` with a
+   deadline of 400 cycles and ``RetryPolicy(max_retries=3,
+   backoff_cycles=32)`` (``benchmarks/bench_faults.py``), int8-exact
+   weights, on the default plane (``TorchPlane`` on the card) against
+   ``NumpyPlane``: serve reports (goodput, retries, remap events,
+   reprogram cycles, completion and fail cycles) exactly equal, outputs
+   within ``_float_tol``; then ``FaultyPlane(stuck_fraction=0.01,
+   drift_sigma=0.02)`` over ``TorchPlane`` against the same over a numpy
+   plane on the same int8 conductances (a drifted crossbar is not
+   int8-exact, so plain ``NumpyPlane`` computes with other weights than
+   ``TorchPlane``); one crossbar launch per plane call;
+17. ``compile_model(analyze=True)`` on the CM main path and on lenet-28:
+   no error diagnostic; a corrupted frontier table is caught as
+   ``frontier-unsound``;
+18. times: the conv kernel at the main path's shape (CUDA events, device
+   time under torch.profiler), its plain version and ``F.conv2d`` (cuDNN,
+   f32 without TF32, on the dequantized weight; timed only) beside its
+   bound; phase 16's serve in turns (torch, numpy, numpy, torch);
+   ``verify_program`` on the main path.
+
 Prints the card's name and power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -102,7 +137,9 @@ line, then ``{"ok": true, "device": {...}}`` as the last line.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import io
 import json
 import pathlib
 import statistics
@@ -115,17 +152,23 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
+from repro_torch.analysis import verify_program  # noqa: E402
 from repro_torch.core import (NumpyPlane, TorchPlane,  # noqa: E402
-                              build_lenet_like, build_resnet_block_chain,
-                              compile_model, dequantize_int8, make_chip,
-                              make_descriptor)
+                              build_fig2_graph, build_lenet_like,
+                              build_resnet_block_chain, compile_model,
+                              dequantize_int8, make_chip, make_descriptor,
+                              place_tenants)
+from repro_torch.core.graph import conv2d_mxv  # noqa: E402
+from repro_torch.faults import (FaultyPlane, RetryPolicy,  # noqa: E402
+                                sample_schedule)
 from repro_torch.configs.base import get_arch  # noqa: E402
-from repro_torch.kernels import (_build, decode_attn,  # noqa: E402
-                                 decode_attn_int8, flash_attn, mamba_scan,
-                                 mxv)
+from repro_torch.kernels import (_build, conv2d,  # noqa: E402
+                                 decode_attn, decode_attn_int8, flash_attn,
+                                 mamba_scan, mxv)
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels.ref import (quantize_crossbar, quantize_vec,  # noqa: E402
                                      selective_scan_ref)
+from repro_torch.launch import quickstart  # noqa: E402
 from repro_torch.models import build_model, lm  # noqa: E402
 from repro_torch.models.layers import kv_quantize  # noqa: E402
 from repro_torch.runtime import CmServer, poisson_arrivals  # noqa: E402
@@ -141,7 +184,9 @@ REPLACES = {"crossbar_mxv": "src/repro/kernels/mxv.py:72",
             "flash_attention": "src/repro/kernels/flash_attn.py:75",
             "flash_decode": "src/repro/kernels/decode_attn.py:67",
             "flash_decode_int8": "src/repro/kernels/decode_attn_int8.py:77",
-            "selective_scan": "src/repro/kernels/mamba_scan.py:59"}
+            "selective_scan": "src/repro/kernels/mamba_scan.py:59",
+            "crossbar_conv2d": "src/repro/kernels/conv2d.py:55"}
+CONV_SOURCE = "src/repro_torch/kernels/csrc/conv2d.cu"
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan.cu"
 ATTN_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attn.cu",
                 "flash_decode": "src/repro_torch/kernels/csrc/decode_attn.cu",
@@ -269,6 +314,17 @@ def _device_us(fn, name, reps=50, tries=2):
         if times:
             return times[0]
     return None
+
+
+def _device_total_us(fn, reps=50):
+    """Device time of one call of ``fn`` under torch.profiler: every kernel
+    and copy it launches, summed, over ``reps`` calls (for a library call,
+    whose kernels' names are the library's); None where the profiler shows
+    no device time."""
+    fn()
+    torch.cuda.synchronize()
+    _, busy_ms = _device_busy_share(lambda: [fn() for _ in range(reps)])
+    return None if busy_ms is None else busy_ms * 1e3 / reps
 
 
 def _plane_call_us(plane, desc, V, reps=200):
@@ -523,6 +579,7 @@ def phase_times(dev, paths, errs):
         mxv.LAUNCHES.update(before)      # timing launches do not count
         plain_ms = _events_ms(plain)
         lib_ms = _events_ms(lib) if lib_ok else None
+        lib_dev_us = _device_total_us(lib) if lib_ok else None
         bound_ms, bound_by = _bound(kind, b, n, m)
         launches = path["launches"][name]
         desc = make_descriptor(np.random.default_rng(2).normal(size=(m, n)),
@@ -538,6 +595,8 @@ def phase_times(dev, paths, errs):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "shape_bnm": [b, n, m],
             "device_ms": None if dev_us is None else dev_us / 1e3,
+            "library_device_ms": None if lib_dev_us is None
+            else lib_dev_us / 1e3,
             "serve_wall_ms": path["torch_ms"],
             "serve_wall_ms_numpy_plane": path["numpy_ms"],
             "plane_call_us": call_us, "numpy_plane_call_us": numpy_call_us,
@@ -549,7 +608,9 @@ def phase_times(dev, paths, errs):
               f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'}; "
               f"plain {plain_ms * 1e3:.2f} us; library "
               f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'} "
-              f"({why}); bound {bound_ms * 1e3:.4f} us ({bound_by}); "
+              f"({why}; device "
+              f"{'not measured' if lib_dev_us is None else f'{lib_dev_us:.2f} us'}"
+              f"); bound {bound_ms * 1e3:.4f} us ({bound_by}); "
               f"{launches} launches per serve; one TorchPlane call "
               f"(upload, launch, download) {call_us:.1f} us, one NumpyPlane "
               f"call {numpy_call_us:.1f} us")
@@ -570,7 +631,8 @@ def phase_times(dev, paths, errs):
 
 
 # --------------------------------------------------------- attention phases
-COUNTED = (mxv, flash_attn, decode_attn, decode_attn_int8, mamba_scan)
+COUNTED = (mxv, flash_attn, decode_attn, decode_attn_int8, mamba_scan,
+           conv2d)
 
 
 def _all_counts():
@@ -1352,6 +1414,339 @@ def scan_kernel_row(errs, serve, paths, times, moe, hybrid):
     }
 
 
+# ------------------------------------- Listing-1 conv, faults and verifier
+# (C, H, W, FL, FH, FW, stride, pad)
+CM_CONV = (28, 16, 16, 28, 3, 3, 1, 1)              # the CM main path's
+CONV_SHAPES = [CM_CONV,
+               (1, 28, 28, 4, 3, 3, 1, 0), (4, 13, 13, 8, 3, 3, 1, 0),  # lenet
+               (4, 8, 8, 4, 3, 3, 1, 1),                                # fig2
+               (8, 4, 1, 16, 1, 1, 1, 0),                # tiny transformer
+               (3, 8, 8, 8, 3, 3, 1, 1), (4, 12, 12, 16, 3, 3, 2, 0),
+               (1, 6, 6, 4, 1, 1, 1, 0), (2, 9, 7, 8, 3, 3, 1, 2),
+               (256, 32, 32, 256, 1, 1, 1, 0)]          # a full crossbar
+FAULT_RATE, FAULT_HORIZON, FAULT_DEADLINE = 0.5, 400, 400
+FAULT_RETRY = RetryPolicy(max_retries=3, backoff_cycles=32)
+
+
+def _conv_inputs(shape, wdtype, gen, dev):
+    c, h, w, fl, fh, fw, _, _ = shape
+    wf = torch.randn(fl, c * fh * fw, generator=gen)
+    if wdtype == "int8":
+        wq, sc = quantize_crossbar(wf)
+    else:
+        wq, sc = wf, torch.rand(fl, generator=gen) + 0.5
+    x = torch.randn(c, h, w, generator=gen)
+    return x.to(dev), wq.to(dev), sc.to(dev)
+
+
+def _conv_check(x, wq, sc, shape):
+    *_, fh, fw, stride, pad = shape
+    got = conv2d.crossbar_conv2d(x, wq, sc, stride=stride, pad=pad, fh=fh,
+                                 fw=fw)
+    want = conv2d.crossbar_conv2d_plain(x, wq, sc, stride, pad, fh, fw)
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32 or got.shape != want.shape:
+        raise AssertionError(f"crossbar_conv2d at {shape}: {got.dtype} "
+                             f"{tuple(got.shape)} vs {tuple(want.shape)}")
+    atol = 1e-4 * max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or not torch.allclose(
+            got, want, rtol=1e-4, atol=atol):
+        raise AssertionError(f"crossbar_conv2d disagrees at {shape} "
+                             f"{wq.dtype}: max err {err}")
+    return got, err
+
+
+def phase_conv_kernel(dev):
+    gen = torch.Generator().manual_seed(14)
+    errs = {"int8": 0.0, "f32": 0.0}
+    n = 0
+    for shape in CONV_SHAPES:
+        for wdtype in ("int8", "f32"):
+            x, wq, sc = _conv_inputs(shape, wdtype, gen, dev)
+            errs[wdtype] = max(errs[wdtype], _conv_check(x, wq, sc, shape)[1])
+            n += 1
+    # strided x (a transposed view), made contiguous by the wrapper
+    x, wq, sc = _conv_inputs(CM_CONV, "int8", gen, dev)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+    if xt.is_contiguous():
+        raise AssertionError("the strided conv case is contiguous")
+    got, err = _conv_check(xt, wq, sc, CM_CONV)
+    errs["int8"] = max(errs["int8"], err)
+    # Listing 1 per pixel, in numpy, on the same int8 crossbar and scales
+    c, fl, fh, fw = CM_CONV[0], *CM_CONV[3:6]
+    scn = sc.cpu().numpy()
+    flt = wq.cpu().numpy().astype(np.float32).reshape(fl, c, fh, fw)
+    want = conv2d_mxv(x.cpu().numpy(), flt, None, CM_CONV[6], CM_CONV[7],
+                      lambda m, v: (m @ v) * scn)
+    y = got.cpu().numpy()
+    listing1_err = float(np.abs(y - want).max())
+    np.testing.assert_allclose(
+        y, want, rtol=1e-4, atol=1e-4 * max(1.0, float(np.abs(want).max())),
+        err_msg="crossbar_conv2d against Listing 1 per pixel")
+    print(f"[14] {n + 1} conv kernel-vs-plain cases agree: max abs err "
+          f"{errs['int8']:.3g} (int8 wq), {errs['f32']:.3g} (f32 wq); "
+          f"against Listing 1 per pixel at {CM_CONV}: {listing1_err:.3g}")
+    return dict(max_abs_err=max(errs.values()), errs=errs,
+                listing1_err=listing1_err)
+
+
+def phase_quickstart():
+    """The conv kernel's path: the quickstart at the CM main path's width,
+    with its launch counts."""
+    log = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        out = quickstart.main(["--device", "cuda"], c=28, img=16)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _all_counts()
+    # its generated LCU table is one line of ~100 KB: cut every line short
+    for line in log.getvalue().splitlines():
+        print(f"[15]   {line[:150]}")
+    _expect(counts, {**{k: 0 for k in counts},
+                     "crossbar_conv2d": out["n_convs"]}, "[15] quickstart")
+    if out["n_convs"] != 4:
+        raise AssertionError(f"quickstart graph has {out['n_convs']} convs")
+    print(f"[15] quickstart at c=28, 16x16 in {secs:.2f} s: pipelined "
+          f"{out['pipelined_cycles']} cycles, sequential "
+          f"{out['sequential_cycles']}; launches {counts}")
+    return dict(launches=counts["crossbar_conv2d"], wall_s=secs, **out)
+
+
+class _CodesPlane(NumpyPlane):
+    """The numpy plane on the descriptor's int8 conductances: the values
+    ``TorchPlane`` computes with."""
+
+    def mxv_batch(self, desc, V):
+        return np.einsum("bn,mn->bm", V,
+                         desc.wq.astype(np.float32) * desc.wscale[:, None])
+
+    def mxv_one(self, desc, v):
+        return self.mxv_batch(desc, v[None])[0]
+
+
+def _fault_serve(plane):
+    """fig2 under core death, as benchmarks/bench_faults.py serves it, with
+    int8-exact weights (so the float planes agree to rounding); ``plane``
+    None is the default plane."""
+    chip = make_chip(8, "all_to_all")
+    pl = place_tenants([build_fig2_graph()], chip, quantizer=dequantize_int8)
+    faults = sample_schedule(8, FAULT_HORIZON, core_fault_rate=FAULT_RATE,
+                             seed=11)
+    server = CmServer(pl, chip, faults=faults, deadline=FAULT_DEADLINE,
+                      retry=FAULT_RETRY, quantizer=dequantize_int8,
+                      **({} if plane is None else {"compute_plane": plane}))
+    rng = np.random.default_rng(0)
+    images = [rng.normal(size=(4, 8, 8)).astype(np.float32)
+              for _ in range(6)]
+    t0 = time.perf_counter()
+    rep = server.serve_images(images, arrivals=[i * 40 for i in range(6)])
+    torch.cuda.synchronize()
+    return rep, time.perf_counter() - t0, server
+
+
+class _CountTorchPlane:
+    """Count ``TorchPlane.mxv_batch`` calls of every instance (the server
+    builds a new default plane when a remap rebuilds its simulator)."""
+
+    def __init__(self):
+        self.calls = 0
+        self.devices = set()
+
+    def __enter__(self):
+        self._inner = inner = TorchPlane.mxv_batch
+
+        def counted(plane, desc, V):
+            self.calls += 1
+            self.devices.add(str(plane.device))
+            return inner(plane, desc, V)
+        TorchPlane.mxv_batch = counted
+        return self
+
+    def __exit__(self, *exc):
+        TorchPlane.mxv_batch = self._inner
+
+
+def _same_serve(ref, rep, what):
+    if rep.to_json() != ref.to_json():
+        raise AssertionError(f"{what}: serve reports differ")
+    worst = 0.0
+    for a, b in zip(ref.requests, rep.requests):
+        if a.succeeded != b.succeeded:
+            raise AssertionError(f"{what}: request {a.rid} verdicts differ")
+        for v in (a.output or {}):
+            if b.output[v].shape != a.output[v].shape or \
+                    not np.isfinite(b.output[v]).all():
+                raise AssertionError(f"{what}: bad output {v}")
+            worst = max(worst, _float_tol(a.output[v], b.output[v], v))
+    return worst
+
+
+def phase_fault_serve(dev):
+    ref, numpy_s, _ = _fault_serve(NumpyPlane())
+    _zero_counts()
+    with _CountTorchPlane() as cnt:
+        rep, torch_s, server = _fault_serve(None)
+    launches = _all_counts()
+    if not (isinstance(server.sim.plane, TorchPlane)
+            and cnt.devices == {str(dev)}):
+        raise AssertionError(f"fault serve ran on {server.sim.plane!r}, "
+                             f"{cnt.devices}, not the card")
+    if not 0 < launches["crossbar_mxv"] == cnt.calls:
+        raise AssertionError(f"fault serve: {launches['crossbar_mxv']} "
+                             f"launches for {cnt.calls} plane calls")
+    ok_remaps = [e for e in rep.remap_events if e["ok"]]
+    if not ok_remaps or rep.n_retries == 0 or rep.goodput < 1.0:
+        raise AssertionError(f"fault serve did not recover: remaps "
+                             f"{rep.remap_events}, retries {rep.n_retries}, "
+                             f"goodput {rep.goodput}")
+    worst = _same_serve(ref, rep, "[16] fault serve")
+    kw = dict(stuck_fraction=0.01, drift_sigma=0.02)
+    fref, _, _ = _fault_serve(FaultyPlane(inner=_CodesPlane(), **kw))
+    _zero_counts()
+    with _CountTorchPlane() as fcnt:
+        frep, _, _ = _fault_serve(FaultyPlane(inner=TorchPlane(dev), **kw))
+    flaunches = _all_counts()
+    if not 0 < flaunches["crossbar_mxv"] == fcnt.calls:
+        raise AssertionError(f"faulty-plane serve: "
+                             f"{flaunches['crossbar_mxv']} launches for "
+                             f"{fcnt.calls} plane calls")
+    fworst = _same_serve(fref, frep, "[16] FaultyPlane serve")
+    nref, _, _ = _fault_serve(FaultyPlane(inner=NumpyPlane(), **kw))
+    quant = max((float(np.abs(a.output[v] - b.output[v]).max())
+                 for a, b in zip(nref.requests, frep.requests)
+                 for v in (a.output or {})), default=0.0)
+    # wall time in turns, after the checked runs (numpy, torch); timing
+    # runs, so their launches do not count
+    before = _all_counts()
+    turns = []
+    for name in ("torch", "numpy", "numpy", "torch"):
+        turns.append((name, _fault_serve(
+            NumpyPlane() if name == "numpy" else None)[1]))
+    _set_counts(before)
+    print(f"[16] fault serve (fig2, core_fault_rate {FAULT_RATE}): goodput "
+          f"{rep.goodput}, {rep.n_retries} retries, remap events "
+          f"{rep.remap_events}, reprogram cycles {rep.reprogram_cycles}, "
+          f"makespan {rep.makespan}; reports equal to NumpyPlane's; worst "
+          f"output err {worst:.3g}; {cnt.calls} plane calls = crossbar_mxv "
+          f"launches")
+    print(f"[16] FaultyPlane over TorchPlane: reports equal, worst output "
+          f"err {fworst:.3g} against the int8-conductance numpy plane "
+          f"({fcnt.calls} launches); {quant:.3g} against plain NumpyPlane "
+          f"(the drifted crossbar's int8 quantization)")
+    print(f"[16] fault serve wall ms: checked runs numpy {numpy_s * 1e3:.1f}, "
+          f"torch {torch_s * 1e3:.1f}; in turns " + ", ".join(
+              f"{n} {t * 1e3:.1f}" for n, t in turns))
+    return dict(goodput=rep.goodput, n_retries=rep.n_retries,
+                remap_events=rep.remap_events,
+                reprogram_cycles=rep.reprogram_cycles, makespan=rep.makespan,
+                plane_calls=cnt.calls, launches=launches["crossbar_mxv"],
+                worst_err=worst, faulty_worst_err=fworst,
+                faulty_vs_numpy_inner_err=quant,
+                wall_ms_turns=[[n, t * 1e3] for n, t in turns])
+
+
+def phase_analyze():
+    out = {}
+    for name, graph in (("main", build_resnet_block_chain(2, c=28, img=16)),
+                        ("lenet28", build_lenet_like(img=28))):
+        chip = make_chip(8, "banded")
+        t0 = time.perf_counter()
+        prog = compile_model(graph, chip, quantizer=dequantize_int8,
+                             analyze=True)
+        compile_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep = verify_program(prog, chip)
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        if rep.errors() or rep.metrics["deps_checked"] == 0:
+            raise AssertionError(f"[17] {name}: {rep.summary()}")
+        out[name] = dict(compile_s=compile_s, verify_ms=verify_ms,
+                         warnings=len(rep.warnings()),
+                         deps_checked=rep.metrics["deps_checked"])
+        print(f"[17] {name}: compile_model(analyze=True) {compile_s:.2f} s, "
+              f"verify_program {verify_ms:.1f} ms: {rep.summary()}, "
+              f"{rep.metrics['deps_checked']} deps checked")
+    # saturate one frontier table's ranks (a copy: tables are shared)
+    for cfg in prog.cores.values():
+        dep = next((d for lc in cfg.lcu.values() for d in lc.deps
+                    if d.table is not None and not d.table.never_constrains),
+                   None)
+        if dep is not None:
+            break
+    rank = dep.table.rank.copy()
+    rank[rank >= 0] = dep.table.d_lexmax_rank
+    dep.table = dataclasses.replace(dep.table, rank=rank)
+    bad = verify_program(prog, chip)
+    if bad.ok or "frontier-unsound" not in bad.checks():
+        raise AssertionError(f"[17] corrupted table not caught: "
+                             f"{bad.summary()} {bad.checks()}")
+    print(f"[17] a saturated frontier table on lenet-28 is caught: "
+          f"{bad.checks()}")
+    return out
+
+
+def _conv_bound(c, h, w, fl, fh, fw, stride, pad, welem):
+    """Each input read once, y written once; 2 operations per term and one
+    multiply per output for the scale."""
+    oh = (h + 2 * pad - fh) // stride + 1
+    ow = (w + 2 * pad - fw) // stride + 1
+    k = c * fh * fw
+    nbytes = c * h * w * 4 + fl * k * welem + fl * 4 + fl * oh * ow * 4
+    ops = 2 * fl * oh * ow * k + fl * oh * ow
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["f32"] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def phase_conv_times(dev):
+    gen = torch.Generator().manual_seed(18)
+    c, h, w, fl, fh, fw, stride, pad = CM_CONV
+    x, wq, sc = _conv_inputs(CM_CONV, "int8", gen, dev)
+    w4 = (wq.float() * sc[:, None]).reshape(fl, c, fh, fw)
+    kern = lambda: conv2d.crossbar_conv2d(x, wq, sc, stride=stride, pad=pad,
+                                          fh=fh, fw=fw)
+    before = _all_counts()
+    ms = _events_ms(kern)
+    dev_us = _device_us(kern, "crossbar_conv2d_kernel")
+    _set_counts(before)
+    plain_ms = _events_ms(lambda: conv2d.crossbar_conv2d_plain(
+        x, wq, sc, stride, pad, fh, fw))
+    lib = lambda: torch.nn.functional.conv2d(x[None], w4, stride=stride,
+                                             padding=pad)
+    lib_ms = _events_ms(lib)
+    lib_dev_us = _device_total_us(lib)
+    bound_ms, bound_by = _conv_bound(*CM_CONV, 1)
+    print(f"[18] crossbar_conv2d at {CM_CONV} int8: {ms * 1e3:.2f} us per "
+          f"launch (events, back to back), device "
+          f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'}; "
+          f"plain {plain_ms * 1e3:.2f} us; F.conv2d (cuDNN, f32) "
+          f"{lib_ms * 1e3:.2f} us, device "
+          f"{'not measured' if lib_dev_us is None else f'{lib_dev_us:.2f} us'}"
+          f"; bound {bound_ms * 1e3:.4f} us ({bound_by})")
+    return dict(ms=ms, dev_us=dev_us, plain_ms=plain_ms, lib_ms=lib_ms,
+                lib_dev_us=lib_dev_us, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def conv_kernel_row(errs, qs, times, faults, analyze):
+    return {
+        "name": "crossbar_conv2d", "route": "cuda", "source": CONV_SOURCE,
+        "replaces": REPLACES["crossbar_conv2d"], "launches": qs["launches"],
+        "max_abs_err": errs["max_abs_err"], "ms": times["ms"],
+        "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
+        "bound_by": times["bound_by"], "library_ms": times["lib_ms"],
+        "shape": list(CM_CONV) + ["int8"],
+        "device_ms": None if times["dev_us"] is None
+        else times["dev_us"] / 1e3,
+        "library_device_ms": None if times["lib_dev_us"] is None
+        else times["lib_dev_us"] / 1e3,
+        "max_abs_err_listing1": errs["listing1_err"],
+        "quickstart": {k: qs[k] for k in ("n_convs", "pipelined_cycles",
+                                          "sequential_cycles", "wall_s")},
+        "fault_serve": faults, "analyze": analyze,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and "
@@ -1411,6 +1806,13 @@ def main() -> int:
     hybrid = phase_hybrid(dev)
     kernels.append(scan_kernel_row(scan_errs, fm_serve, fm_paths, fm_times,
                                    moe, hybrid))
+    conv_errs = phase_conv_kernel(dev)
+    qs = phase_quickstart()
+    faults = phase_fault_serve(dev)
+    analyze = phase_analyze()
+    conv_times = phase_conv_times(dev)
+    kernels.append(conv_kernel_row(conv_errs, qs, conv_times, faults,
+                                   analyze))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)

@@ -3,7 +3,7 @@
 One :class:`AnalysisDiagnostic` per violated (or suspicious) property of a
 lowered program, named by check so tests and callers can assert on the
 class of problem rather than parse messages.  :class:`AnalysisReport`
-bundles everything one ``verify_program`` run (not ported yet) found,
+bundles everything one :func:`repro_torch.analysis.verify_program` run found,
 plus the static metrics (SRAM bounds, link loads) the passes computed on
 the way.
 

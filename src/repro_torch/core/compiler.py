@@ -10,9 +10,9 @@ configurations the paper describes ("these configurations, bundled together
 and serialized, initialize the accelerator").
 
 Port of ``repro.core.compiler``: the same code, with every import inside
-``repro_torch``; ``tests/test_torch_*.py`` hold the two equal.  The static
-verifier (``analyze=True``) and the autotuner (``tune=``) are not ported yet,
-and asking for either raises ``NotImplementedError``.
+``repro_torch``; ``tests/test_torch_*.py`` hold the two equal.  The
+autotuner (``tune=``) is not ported yet, and asking for it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ from .partition import (PartitionError, partition_chips, partition_graph,
                         plan_replication, replicate_partitions)
 # only the leaf module: ..analysis.diagnostics imports nothing from the
 # package, so this link cannot cycle no matter which package is imported
-# first; the structural checks (which need the rest of repro_torch.core) are
-# pulled in lazily by validate_program
+# first; the verifier itself (which needs the rest of repro_torch.core) is
+# pulled in lazily by validate_program / compile_model
 from ..analysis.diagnostics import AnalysisError
 
 
@@ -49,7 +49,8 @@ class CompileValidationError(AnalysisError):
 
     Since the static-verifier refactor this is a thin subclass of
     :class:`repro_torch.analysis.AnalysisError`; the checks themselves live in
-    :mod:`repro_torch.analysis.structural`.
+    :mod:`repro_torch.analysis.structural` and run as part of
+    :func:`repro_torch.analysis.verify_program`.
     """
 
 
@@ -63,9 +64,11 @@ def validate_program(prog: AcceleratorProgram,
 
     Backward-compat wrapper over
     :func:`repro_torch.analysis.structural_diagnostics`: same checks, same order,
-    same messages — first error raises.
+    same messages — first error raises.  For the full static verifier
+    (dependences / progress / resources too) use
+    :func:`repro_torch.analysis.verify_program`.
     """
-    from ..analysis.structural import structural_diagnostics
+    from ..analysis import structural_diagnostics
     diags = structural_diagnostics(prog, chip)
     for d in diags:
         if d.severity == "error":
@@ -90,9 +93,10 @@ def compile_model(graph: Graph, chip: ChipSpec, quantizer=None,
 
     ``validate=True`` runs :func:`validate_program` on the result — the
     post-mapping invariant checker that fails fast, by name, instead of
-    deep inside a simulation.  ``analyze=True`` (the full static verifier
-    of ``repro.analysis.verify_program``) is not ported yet and raises
-    ``NotImplementedError``.
+    deep inside a simulation.  ``analyze=True`` runs the full static
+    verifier (:func:`repro_torch.analysis.verify_program`: dependency
+    soundness, deadlock freedom, resource bounds) and raises
+    :class:`CompileValidationError` on any error diagnostic.
 
     ``replicate`` turns on bottleneck-stage replication:
     ``"auto"`` runs :func:`partition.plan_replication` against the target's
@@ -108,13 +112,7 @@ def compile_model(graph: Graph, chip: ChipSpec, quantizer=None,
     if tune is not None:
         raise NotImplementedError(
             "compile_model(tune=...): the autotuner (repro.tune) is not "
-            "ported yet; see ROADMAP.md, Queue 1, 'tune/ and the rest of "
-            "analysis/'")
-    if analyze:
-        raise NotImplementedError(
-            "compile_model(analyze=True): the static verifier "
-            "(repro.analysis.verify_program) is not ported yet; see "
-            "ROADMAP.md, Queue 1, 'tune/ and the rest of analysis/'")
+            "ported yet; see ROADMAP.md, Queue 1, item 6 ('tune/')")
     if mesh is None and chips > 1:
         mesh = make_mesh(chips, chip=chip)
     if chip_cuts is not None and mesh is None:
@@ -138,8 +136,12 @@ def compile_model(graph: Graph, chip: ChipSpec, quantizer=None,
         chip_assign = partition_chips(pg, mesh, cuts=chip_cuts)
         mapping = map_partitions_mesh(pg, mesh, chip_assign)
         prog = lower(pg, mapping, quantizer=quantizer, mesh=mesh)
-    if validate:
+    if validate and not analyze:
         validate_program(prog, chip)
+    if analyze:
+        from ..analysis import verify_program
+        report = verify_program(prog, chip)
+        report.raise_if_errors(CompileValidationError)
     return prog
 
 

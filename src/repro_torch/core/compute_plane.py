@@ -268,7 +268,7 @@ class NoisyPlane(ComputePlane):
     call sequence => bit-identical outputs (tested in ``test_faults.py``);
     because the draw happens *per call*, the two simulator engines (which
     batch calls differently) are NOT expected to match each other under
-    noise — use ``FaultyPlane`` (``repro.faults``, not ported yet) for engine-invariant
+    noise — use :class:`repro_torch.faults.FaultyPlane` for engine-invariant
     (programming-time) perturbations.
 
     ``sigma=0`` skips the multiply entirely and is bit-identical to the

@@ -35,11 +35,14 @@ _ATTN = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _S, _P)
 _DECODE = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _S, _P)
 _DECODE_INT8 = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _S, _P)
 _SCAN = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _S, _P)
+_CONV = (_P, _P, _P, _P) + (_I,) * 10 + (_P,)
 # name -> argtypes; every entry returns the launch's cudaError_t as an int
 SIGNATURES = {
     "crossbar_mxv_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "crossbar_mxv_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
     "crossbar_mxv_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "crossbar_conv2d_i8": _CONV,
+    "crossbar_conv2d_f32": _CONV,
     "flash_attention_f32": _ATTN,
     "flash_attention_bf16": _ATTN,
     "flash_decode_f32": _DECODE,

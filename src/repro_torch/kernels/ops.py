@@ -13,6 +13,7 @@ output alone.
 from __future__ import annotations
 
 from . import ref
+from .conv2d import crossbar_conv2d
 from .decode_attn import flash_decode
 from .decode_attn_int8 import flash_decode_int8
 from .flash_attn import flash_attention
@@ -35,9 +36,12 @@ def mxv_int8(xq, xs, wq, ws, use_kernel: bool = True):
     return ref.crossbar_mxv_int8_ref(xq, xs, wq, ws)
 
 
-def conv2d(*args, **kwargs):
-    raise NotImplementedError(
-        "crossbar_conv2d is not ported yet (ROADMAP Queue 2 item 3)")
+def conv2d(x, wq, scale, stride=1, pad=0, fh=3, fw=3,
+           use_kernel: bool = True):
+    if use_kernel:
+        return crossbar_conv2d(x, wq, scale, stride=stride, pad=pad, fh=fh,
+                               fw=fw)
+    return ref.crossbar_conv2d_ref(x, wq, scale, stride, pad, fh, fw)
 
 
 def attention(q, k, v, causal: bool = True, use_kernel: bool = True):

@@ -1,7 +1,7 @@
 """Plain PyTorch oracles for the port's kernels.
 
-Port of ``repro.kernels.ref`` (crossbar, attention and selective-scan
-parts): the same functions, with torch tensors on any device.  The
+Port of ``repro.kernels.ref``: the same functions, with torch tensors on
+any device.  The
 quantizers give int8 codes and f32 scales identical to the JAX oracles and
 to the numpy twins in ``core.compute_plane`` (same f32 division,
 round-half-to-even, clip).  The attention oracles take the reference's
@@ -13,6 +13,7 @@ the products run in TF32.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def quantize_crossbar(w: torch.Tensor, bits: int = 8):
@@ -50,6 +51,24 @@ def crossbar_mxv_int8_ref(xq: torch.Tensor, xs: torch.Tensor,
     tensors too."""
     acc = xq.to(torch.float64) @ wq.to(torch.float64).T
     return acc.to(torch.float32) * xs[:, None] * ws[None, :]
+
+
+def crossbar_conv2d_ref(x: torch.Tensor, wq: torch.Tensor,
+                        scale: torch.Tensor, stride: int = 1, pad: int = 0,
+                        fh: int = 3, fw: int = 3) -> torch.Tensor:
+    """Paper Listing 1 in torch: conv as per-pixel MxV.  x (C, H, W); wq
+    (FL, C*FH*FW) int8 or f32, k over (c, fh, fw); scale (FL,) -> (FL, OH,
+    OW) f32, zero padding.  The crossbar is dequantized first and the
+    im2col patches (OH*OW, K) multiply its transpose; on a CUDA tensor the
+    caller keeps ``torch.backends.cuda.matmul.allow_tf32`` False."""
+    _, h, w = x.shape
+    fl = wq.shape[0]
+    oh = (h + 2 * pad - fh) // stride + 1
+    ow = (w + 2 * pad - fw) // stride + 1
+    m = wq.to(torch.float32) * scale[:, None]
+    pat = F.unfold(x.to(torch.float32)[None], (fh, fw), padding=pad,
+                   stride=stride)[0]                       # (K, OH*OW)
+    return (pat.T @ m.T).T.reshape(fl, oh, ow)
 
 
 # ----------------------------------------------------------------- attention

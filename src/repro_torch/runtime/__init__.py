@@ -20,5 +20,5 @@ __all__ = [
     "ClosedLoopClients", "poisson_arrivals", "rate_sweep",
     "uniform_arrivals",
 ]
-# fault injection + recovery (repro.faults) are not ported yet:
-# CmServer(faults=...) raises NotImplementedError.
+# fault injection + recovery live in repro_torch.faults (FaultSchedule,
+# RetryPolicy, remap_program); CmServer takes them via faults=/retry=.

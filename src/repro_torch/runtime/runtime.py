@@ -22,10 +22,7 @@ per-request latencies, across both simulator engines and repeated runs
 
 Port of ``repro.runtime.runtime``: the same code, with every import inside
 ``repro_torch``; ``tests/test_torch_*.py`` hold the two equal (byte-equal
-``ServeReport.to_json()``).  Fault injection and remap recovery
-(``CmServer(faults=...)``) wait for the port of ``repro.faults`` and raise
-``NotImplementedError``; deadlines and retries without faults work as in
-the reference.
+``ServeReport.to_json()``), fault injection and remap recovery included.
 """
 
 from __future__ import annotations
@@ -36,7 +33,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..core.compiler import TenantPlacement
+from ..core.hwspec import ChipMesh
 from ..core.lowering import AcceleratorProgram
+from ..core.mapping import MappingError
+from ..core.partition import PartitionError
 from ..core.simulator import LinkStats, SimStats, Simulator
 from ..obs import MetricsRegistry
 
@@ -311,8 +311,7 @@ class CmServer:
     reorders the whole pipeline, not just injection.
 
     ``compute_plane="auto"`` is :class:`~repro_torch.core.TorchPlane` on the
-    CUDA card; ``faults=`` raises ``NotImplementedError`` until the fault
-    layer is ported.
+    CUDA card.
     """
 
     def __init__(self, placement, chip=None, *,
@@ -325,16 +324,21 @@ class CmServer:
                  max_cycles: int = 5_000_000,
                  faults=None,
                  deadline: Optional[int] = None,
-                 retry=None):
-        if faults is not None:
-            raise NotImplementedError(
-                "CmServer(faults=...): fault injection and remap recovery "
-                "(repro.faults) are not ported yet; see ROADMAP.md, Queue 1, "
-                "'faults/'")
+                 retry=None,
+                 reprogram_cost_cycles: int = 32,
+                 quantizer=None):
         if policy not in ("fifo", "priority"):
             raise ValueError(f"unknown admission policy {policy!r}")
         if deadline is not None and deadline <= 0:
             raise ValueError(f"deadline must be > 0 cycles, got {deadline}")
+        if reprogram_cost_cycles < 0:
+            raise ValueError(f"reprogram_cost_cycles must be >= 0, got "
+                             f"{reprogram_cost_cycles}")
+        if faults is not None and deadline is None:
+            raise ValueError(
+                "fault injection needs a deadline: a dead core stalls its "
+                "tenant's stream forever, and the deadline is the failure "
+                "detector (pass deadline=<cycles after arrival>)")
         if isinstance(placement, TenantPlacement):
             self.placement: Optional[TenantPlacement] = placement
             programs: List[AcceleratorProgram] = placement.programs
@@ -351,13 +355,17 @@ class CmServer:
                     raise ValueError("chip= required when no mesh is "
                                      "compiled into the program(s)")
                 chip = meshes[0]
+        # own copy: fault recovery swaps in remapped tenant programs
         self.programs = list(programs)
         self.policy = policy
         self.max_inflight = max_inflight
         self.schedule = schedule
         self.max_cycles = max_cycles
+        self.faults = faults
         self.deadline = deadline
         self.retry = retry
+        self.reprogram_cost_cycles = reprogram_cost_cycles
+        self.quantizer = quantizer
         self.chip = chip
         self._engine = engine
         self._compute_plane = compute_plane
@@ -369,13 +377,15 @@ class CmServer:
         self.metrics = MetricsRegistry()   # replaced per serve (pull-style)
 
     def _build_sim(self) -> Simulator:
-        """Build the joint simulator from the tenant programs."""
+        """(Re)build the joint simulator from the current tenant programs —
+        called again after a fault-recovery remap swaps one out."""
         progs = self.programs
         return Simulator(progs if len(progs) > 1 else progs[0],
                          self.chip, engine=self._engine,
                          compute_plane=self._compute_plane,
                          check_raw=self._check_raw,
-                         strict_float_order=self._strict_float_order)
+                         strict_float_order=self._strict_float_order,
+                         faults=self.faults)
 
     @property
     def n_tenants(self) -> int:
@@ -410,18 +420,19 @@ class CmServer:
     def serve(self, requests: Sequence[CmRequest], *,
               stalls: bool = False, trace=None) -> ServeReport:
         """Cycle-accurate serving of ``requests`` (re-runnable; the server
-        holds no cross-run simulator state).
+        holds no cross-run simulator state beyond remapped programs).
 
-        Without deadlines this is one joint simulator run.  With deadlines
-        it becomes an epoch loop: requests still incomplete at their
-        deadline are *failed at that cycle* (the detection point), and
-        failed requests are re-admitted under the ``RetryPolicy`` backoff
-        (``retry.max_retries``, ``retry.backoff(attempt)``) on the same
-        absolute cycle timeline, from the cycle after detection.  Each retry
-        epoch simulates only the retried requests — already-completed
-        requests keep their timings from the epoch that completed them.
-        (The reference also remaps around dead cores here; that waits for
-        the fault layer.)
+        Without faults this is one joint simulator run, exactly as before.
+        With faults + deadlines it becomes an epoch loop: requests still
+        incomplete at their deadline are *failed at that cycle* (the
+        detection point — a dead core stalls its stream, it is never
+        simulated forever), dead cores known by the latest detection are
+        remapped away (``repro_torch.faults.remap_program``, paying
+        ``reprogram_cost_cycles`` per reprogrammed crossbar), and failed
+        requests are re-admitted under the ``RetryPolicy`` backoff on the
+        same absolute cycle timeline.  Each retry epoch simulates only the
+        retried requests — already-completed requests keep their timings
+        from the epoch that completed them.
 
         Observability (both default-off and zero-cost when off):
         ``stalls=True`` threads stall attribution through the simulator;
@@ -429,9 +440,9 @@ class CmServer:
         single-epoch runs (retry epochs re-run the clock, so per-epoch
         breakdowns do not merge).  ``trace=TraceRecorder()`` records the
         whole serve — core/GCU/link activity labelled by *request id*
-        (coherent across retry epochs) and request lifecycle spans
-        (``queued`` / ``service`` / ``retry-wait``).  Every serve also
-        attaches a fresh
+        (coherent across retry epochs), request lifecycle spans
+        (``queued`` / ``service`` / ``retry-wait``), and fault/remap
+        instants.  Every serve also attaches a fresh
         :class:`~repro_torch.obs.MetricsRegistry` to ``report.metrics``.
         """
         if not requests:
@@ -453,6 +464,8 @@ class CmServer:
         active = ordered
         merged: Optional[SimStats] = None
         n_retries = 0
+        remap_events: List[Dict] = []
+        reprogram_total = 0
         while True:
             batch = sorted(active, key=lambda r: (eff[r.rid], r.rid))
             images = [r.image for r in batch]
@@ -494,8 +507,14 @@ class CmServer:
             if not failed_now:
                 break
             # failure detection: the deadline cycle is when the server can
-            # *know*; with nothing to remap, retries may start right after
-            ready = max(r.fail_cycle for r in failed_now) + 1
+            # *know* — recovery decisions use only cores dead by then
+            detect = max(r.fail_cycle for r in failed_now)
+            n_prev = len(remap_events)
+            ready, paid = self._recover(detect, remap_events)
+            reprogram_total += paid
+            if trace is not None and len(remap_events) > n_prev:
+                from ..faults.recovery import trace_remap_events
+                trace_remap_events(trace, remap_events[n_prev:])
             retry_batch = []
             if self.retry is not None:
                 for r in failed_now:
@@ -526,7 +545,9 @@ class CmServer:
                                       else r.arrival, rid=r.rid)
         report = ServeReport(requests=list(ordered), stats=merged,
                              n_tenants=self.n_tenants,
-                             n_retries=n_retries)
+                             n_retries=n_retries,
+                             remap_events=remap_events,
+                             reprogram_cycles=reprogram_total)
         report.metrics = self._collect_metrics(report)
         self.metrics = report.metrics      # last-serve registry, pull-style
         return report
@@ -550,6 +571,55 @@ class CmServer:
             m.histogram("service_cycles").observe(r.service_cycles)
             m.histogram("latency_cycles").observe(r.latency_cycles)
         return m
+
+    def _recover(self, detect: int, remap_events: List[Dict]):
+        """Remap every tenant whose current program touches a core known
+        dead at ``detect``.  Returns ``(ready, paid)``: the cycle remapped
+        hardware is usable (detection + 1 + the serialized crossbar
+        reprogramming penalty) and the penalty itself.  A tenant whose
+        remap is infeasible (no spare capacity) keeps its program; the
+        failure is recorded and its retries burn out against max_retries.
+        """
+        ready = detect + 1
+        paid = 0
+        if self.faults is None:
+            return ready, paid
+        dead = self.faults.dead_cores(by_cycle=detect)
+        if not dead:
+            return ready, paid
+        from ..faults.recovery import remap_program
+        mesh = self.chip if isinstance(self.chip, ChipMesh) else None
+        chip = None if mesh is not None else self.chip
+        rebuilt = False
+        for t, prog in enumerate(self.programs):
+            hit = sorted(set(prog.cores) & dead)
+            if not hit:
+                continue
+            reserved = set()
+            for u, other in enumerate(self.programs):
+                if u != t:
+                    reserved.update(other.cores)
+            event = {"tenant": t, "cycle": int(detect),
+                     "dead_cores": [int(c) for c in hit]}
+            try:
+                res = remap_program(prog.pgraph.graph, chip=chip, mesh=mesh,
+                                    dead_cores=sorted(dead),
+                                    reserved_cores=sorted(reserved),
+                                    quantizer=self.quantizer)
+            except (MappingError, PartitionError) as e:
+                event.update(ok=False, error=str(e))
+                remap_events.append(event)
+                continue
+            cost = self.reprogram_cost_cycles * res.n_crossbars
+            paid += cost
+            event.update(ok=True, new_cores=[int(c) for c in res.cores],
+                         n_crossbars=res.n_crossbars, reprogram_cycles=cost)
+            remap_events.append(event)
+            self.programs[t] = res.program
+            rebuilt = True
+        if rebuilt:
+            self.sim = self._build_sim()
+        return ready + paid, paid
 
     def serve_images(self, images: Sequence[np.ndarray], arrivals,
                      tenants=None, priorities=None) -> ServeReport:

@@ -16,6 +16,8 @@ state within 2e-3 x max(1, max|output|), the tolerance of
 ``tests/test_kernels.py`` for its Pallas twin scaled by the output's
 magnitude (both sum the same f32 terms in one order, but the kernel fuses
 multiply-adds and its ``expf`` rounds otherwise than PyTorch's ``exp``).
+Listing-1 conv: rtol 1e-4 and atol 1e-4 x max(1, max|y|), the bound of
+``tests/test_kernels.py`` for its Pallas twin scaled the same way.
 """
 
 from __future__ import annotations
@@ -282,3 +284,44 @@ def test_selective_scan_refuses_large_states(cuda_device):
                       torch.float32)
     with pytest.raises(ValueError, match="state"):
         mamba_scan.selective_scan(*args)
+
+
+# (C, H, W, FL, FH, FW, stride, pad): the CM zoo's convs, the Pallas
+# kernel's test cases and a full 256-wide crossbar
+CONV_SHAPES = [(28, 16, 16, 28, 3, 3, 1, 1), (1, 28, 28, 4, 3, 3, 1, 0),
+               (4, 13, 13, 8, 3, 3, 1, 0), (4, 8, 8, 4, 3, 3, 1, 1),
+               (8, 4, 1, 16, 1, 1, 1, 0), (3, 8, 8, 8, 3, 3, 1, 1),
+               (4, 12, 12, 16, 3, 3, 2, 0), (1, 6, 6, 4, 1, 1, 1, 0),
+               (2, 9, 7, 8, 3, 3, 1, 2), (256, 32, 32, 256, 1, 1, 1, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,w,fl,fh,fw,stride,pad", CONV_SHAPES)
+@pytest.mark.parametrize("wdtype", ["int8", "f32"])
+def test_crossbar_conv2d_matches_plain(cuda_device, c, h, w, fl, fh, fw,
+                                       stride, pad, wdtype):
+    """rtol 1e-4 and atol 1e-4 x max(1, max|y|): ``tests/test_kernels.py``'s
+    bound, scaled by the output's magnitude as for the crossbar kernel (the
+    kernel sums in ascending k, the plain version dequantizes first and
+    cuBLAS sums in its own order)."""
+    from repro_torch.kernels import conv2d
+    rng = np.random.default_rng(c * h + fl)
+    wf = torch.from_numpy(rng.normal(size=(fl, c * fh * fw)).astype(
+        np.float32))
+    if wdtype == "int8":
+        wq, sc = ref.quantize_crossbar(wf)
+    else:
+        wq = wf
+        sc = torch.from_numpy(rng.uniform(0.5, 1.5, fl).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(c, w, h)).astype(np.float32))
+    wq, sc = wq.to(cuda_device), sc.to(cuda_device)
+    for xx in (x.transpose(1, 2).contiguous().to(cuda_device),
+               x.to(cuda_device).transpose(1, 2)):          # strided x
+        before = conv2d.LAUNCHES["crossbar_conv2d"]
+        y = conv2d.crossbar_conv2d(xx, wq, sc, stride=stride, pad=pad,
+                                   fh=fh, fw=fw)
+        assert conv2d.LAUNCHES["crossbar_conv2d"] == before + 1
+        want = conv2d.crossbar_conv2d_plain(xx, wq, sc, stride, pad, fh, fw)
+        torch.cuda.synchronize()
+        atol = 1e-4 * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(y, want, rtol=1e-4, atol=atol)

@@ -11,6 +11,7 @@ sources and by serving lenet in a process where both are blocked.
 
 from __future__ import annotations
 
+import inspect
 import os
 import pathlib
 import re
@@ -97,10 +98,22 @@ def test_torch_plane_serve_counters_equal_outputs_close():
 
 
 def test_unported_server_options_raise():
-    chip, prog = _lenet(T)
-    with pytest.raises(NotImplementedError, match="faults"):
-        TR.CmServer(prog, chip, compute_plane="numpy", faults=object(),
-                    deadline=100)
+    """No ``CmServer`` option is left unported: the port's keywords and
+    defaults are the reference's, and each option value the reference
+    refuses raises the same error in the port."""
+    def params(cls):
+        return [(p.name, p.default) for p in
+                inspect.signature(cls.__init__).parameters.values()]
+    assert params(TR.CmServer) == params(RR.CmServer)
+    bad = [(dict(faults=object()), "fault injection needs a deadline"),
+           (dict(deadline=0), "deadline must be > 0"),
+           (dict(policy="lifo"), "unknown admission policy"),
+           (dict(reprogram_cost_cycles=-1), "reprogram_cost_cycles")]
+    for rt in (RR, TR):
+        chip, prog = _lenet(T if rt is TR else R)
+        for kw, msg in bad:
+            with pytest.raises(ValueError, match=msg):
+                rt.CmServer(prog, chip, compute_plane="numpy", **kw)
 
 
 def test_from_reference_graph_round_trip():
@@ -153,6 +166,17 @@ from repro_torch.models import convert
 from repro_torch.serve import ContinuousBatcher, Request, ServeEngine
 import repro_torch.launch.serve
 import repro_torch.kernels.ops
+from repro_torch.faults import RetryPolicy, sample_schedule
+from repro_torch.launch import quickstart
+compile_model(build_lenet_like(), chip, analyze=True)
+rep = CmServer(prog, chip, compute_plane=TorchPlane("cpu"), deadline=400,
+               faults=sample_schedule(8, 400, core_fault_rate=0.3, seed=1),
+               retry=RetryPolicy(), quantizer=dequantize_int8).serve_images(
+    images, poisson_arrivals(4, rate=0.02, seed=1))
+assert rep.requests
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()):
+    quickstart.main(["--device", "cpu"])
 cfg = smoke_config("llama3.2-3b")
 eng = ServeEngine(cfg, max_len=16, device="cpu")
 assert eng.generate(np.zeros((2, 4), np.int32), 3).shape == (2, 3)
