@@ -6,7 +6,10 @@ Phases (any failure raises and the script exits non-zero, printing no
 result line):
 
 1. build the port's CUDA kernels from the sources in this checkout (nvcc at
-   first use) and load them;
+   first use) and load them; print ptxas's registers and spill bytes for
+   every kernel and the HMMA (tensor-core) instructions of each kernel from
+   ``cuobjdump -sass``: the bf16 flash attention kernel must have them at
+   every head dim;
 2. hold each kernel against its plain PyTorch version on CUDA tensors: the
    main path's shapes, lenet-28's shapes and edge shapes (N in {1, 3, 130},
    M = 1, a full 256x256 crossbar at B = 1024, strided x, misaligned
@@ -29,9 +32,10 @@ result line):
    version and a library call at the shape its path launched most often,
    beside the least time the card could take (bytes / 3.35 TB/s or
    operations / peak, whichever is larger); the kernel's device time under
-   torch.profiler, and the library call's (all its kernels summed); the
-   host time of one plane call on each plane; wall
-   time of each serve, in turns.
+   torch.profiler, and the library call's (the union of the intervals of
+   every kernel and copy it launches, per call); the host time of one
+   plane call on each plane; the device's busy and idle share over one
+   profiled serve (the same union); wall time of each serve, in turns.
 
 6. the attention kernels (flash attention, flash decode, int8-KV flash
    decode) against their plain versions at llama3.2-3b's full-width heads
@@ -39,7 +43,10 @@ result line):
    per-row lengths, (B, S, H, D) inputs read through strides, f32 and bf16.
    Tolerances of ``tests/test_kernels.py``: 2e-3 in f32 and 5e-2 in bf16
    (flash attention and flash decode; the int8 decode with a bf16 query
-   too), 2e-5 for the int8 decode against dequantize-then-plain in f32;
+   too), 2e-5 for the int8 decode against dequantize-then-plain in f32.
+   In bf16, flash attention runs on the tensor cores
+   (``flash_attention_mma_kernel``: bf16 products, f32 accumulation, P
+   rounded to bf16 before the P.V product); in f32 on the CUDA cores;
 7. the LM serve path: llama3.2-3b at full width (28 layers, bf16, seeded
    random weights on the card) through ``ServeEngine.generate`` (B = 8,
    prompts of 512, 32 new tokens) and ``ContinuousBatcher`` (8 slots,
@@ -57,8 +64,10 @@ result line):
    plain, plain, kernel); each attention kernel at the shape its path
    launched most often (CUDA events, device time under torch.profiler),
    its plain version and ``F.scaled_dot_product_attention`` (the library
-   yardstick, never called by the port) beside its bound; the device's idle
-   share over one profiled ``generate``.
+   yardstick, never called by the port; causal for flash attention, with a
+   length mask for flash decode; events and device time) beside its bound;
+   flash attention's f32 kernel's device time on the same inputs in f32;
+   the device's idle share over one profiled ``generate``.
 
 9. the selective-scan kernel against its plain version: falcon-mamba-7b's
    prefill shape (B, L, Din, N) = (8, 512, 8192, 16) in bf16, B = 1 at
@@ -99,8 +108,10 @@ result line):
 14. the Listing-1 conv kernel against its plain version at the CM zoo's
    conv shapes (the main path's (28, 16, 16) with 28 filters, lenet-28's
    two, fig2's, the tiny transformer's 1x1 on (d_model, T, 1)), the four
-   cases of ``tests/test_kernels.py`` and a full 256-wide crossbar (C =
-   256, 1x1, 32x32), each with int8 and f32 wq, and strided x: rtol 1e-4
+   cases of ``tests/test_kernels.py``, a full 256-wide crossbar (C =
+   256, 1x1, 32x32), a 3x3 conv over 256 channels whose weights take
+   several chunks and a stride-2 one on 11 x 17, each with int8 and f32
+   wq, and strided x: rtol 1e-4
    and atol 1e-4 x max(1, max|y|) (``tests/test_kernels.py``'s 1e-4,
    scaled by the output's magnitude as for the crossbar kernel); at the
    main path's shape also against ``conv2d_mxv`` (Listing 1 per pixel, in
@@ -125,10 +136,10 @@ result line):
    no error diagnostic; a corrupted frontier table is caught as
    ``frontier-unsound``;
 18. times: the conv kernel at the main path's shape (CUDA events, device
-   time under torch.profiler), its plain version and ``F.conv2d`` (cuDNN,
-   f32 without TF32, on the dequantized weight; timed only) beside its
-   bound; phase 16's serve in turns (torch, numpy, numpy, torch);
-   ``verify_program`` on the main path.
+   time under torch.profiler) with its launch plan, its plain version and
+   ``F.conv2d`` (cuDNN, f32 without TF32, on the dequantized weight; timed
+   only; device time as in 5) beside its bound; phase 16's serve in turns
+   (torch, numpy, numpy, torch); ``verify_program`` on the main path.
 
 Prints the card's name and power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -166,6 +177,7 @@ from repro_torch.kernels import (_build, conv2d,  # noqa: E402
                                  decode_attn, decode_attn_int8, flash_attn,
                                  mamba_scan, mxv)
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
+from repro_torch.kernels._tensors import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.ref import (quantize_crossbar, quantize_vec,  # noqa: E402
                                      selective_scan_ref)
 from repro_torch.launch import quickstart  # noqa: E402
@@ -195,9 +207,11 @@ ATTN_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attn.cu",
 ATTN_MODS = {"flash_attention": flash_attn, "flash_decode": decode_attn,
              "flash_decode_int8": decode_attn_int8}
 # the device-side name each kernel's launches carry under torch.profiler
-ATTN_KERNEL_NAMES = {"flash_attention": "flash_attention_kernel",
+# (flash attention's bf16 kernel; its f32 one is F32_FLASH_KERNEL)
+ATTN_KERNEL_NAMES = {"flash_attention": "flash_attention_mma_kernel",
                      "flash_decode": "decode_kernel",
                      "flash_decode_int8": "decode_kernel"}
+F32_FLASH_KERNEL = "flash_attention_kernel"
 LM_ARCH = "llama3.2-3b"
 BATCH, PROMPT, NEW, MAX_LEN = 8, 512, 32, 2048
 N_REQUESTS, SLOTS = 16, 8
@@ -267,6 +281,16 @@ def _check_int8(x, wq, ws):
     return (got - want).abs().max().item() if got.numel() else 0.0
 
 
+def _us(v):
+    """A device time in µs as printed, or "not measured"."""
+    return "not measured" if v is None else f"{v:.2f} us"
+
+
+def _ms(us):
+    """µs (or None) as ms for the kernels line."""
+    return None if us is None else us / 1e3
+
+
 def _events_ms(fn, reps=50, trials=7, warmup=10):
     """Median over ``trials`` of (CUDA-event time of ``reps`` back-to-back
     calls) / ``reps``."""
@@ -316,15 +340,19 @@ def _device_us(fn, name, reps=50, tries=2):
     return None
 
 
-def _device_total_us(fn, reps=50):
-    """Device time of one call of ``fn`` under torch.profiler: every kernel
-    and copy it launches, summed, over ``reps`` calls (for a library call,
-    whose kernels' names are the library's); None where the profiler shows
-    no device time."""
+def _device_total_us(fn, reps=50, tries=3):
+    """Device time of one call of ``fn`` under torch.profiler: the union of
+    the intervals of every kernel and copy it launches, over ``reps`` calls
+    (for a library call, whose kernels' names are the library's); None
+    where ``tries`` profiles show no device time (a profile now and then
+    records no kernel)."""
     fn()
     torch.cuda.synchronize()
-    _, busy_ms = _device_busy_share(lambda: [fn() for _ in range(reps)])
-    return None if busy_ms is None else busy_ms * 1e3 / reps
+    for _ in range(tries):
+        _, busy_ms, _, _ = _device_busy(lambda: [fn() for _ in range(reps)])
+        if busy_ms is not None:
+            return busy_ms * 1e3 / reps
+    return None
 
 
 def _plane_call_us(plane, desc, V, reps=200):
@@ -338,31 +366,6 @@ def _plane_call_us(plane, desc, V, reps=200):
         plane.mxv_batch(desc, V)
         out.append(time.perf_counter() - t0)
     return statistics.median(out) * 1e6
-
-
-def _device_busy_share(run):
-    """Run ``run()`` under torch.profiler; return (wall ms, device-busy ms):
-    the summed device time of every kernel and copy, or None where the
-    profiler shows no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-    except RuntimeError as e:
-        print(f"torch.profiler gave no trace: {e}")
-        return None, None
-    busy = 0.0
-    for e in events:
-        v = getattr(e, "self_device_time_total", None)
-        if v is None:
-            v = getattr(e, "self_cuda_time_total", 0)
-        busy += v
-    return wall * 1e3, (busy / 1e3 if busy > 0 else None)
 
 
 def _stats_equal(a, b, what):
@@ -401,13 +404,63 @@ def _outputs(rep):
     return [r.output for r in sorted(rep.requests, key=lambda r: r.rid)]
 
 
+def _demangle(names):
+    """Short readable kernel names (``c++filt``'s, without the namespace and
+    the parameter list) for mangled ones; the mangled name where
+    ``c++filt`` is missing."""
+    try:
+        res = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True,
+                             timeout=60)
+        out = res.stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return dict(zip(names, names))
+    short = (d.replace("(anonymous namespace)::", "").replace("void ", "")
+             for d in out)
+    return {n: d.split("(")[0] for n, d in zip(names, short)}
+
+
+def _sass_counts(opcode):
+    """{mangled kernel name: number of ``opcode`` instructions} in the built
+    library's SASS (``cuobjdump -sass``)."""
+    res = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
+                          str(_build.library_path())], capture_output=True,
+                         text=True, check=True, timeout=300)
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and opcode in line:
+            counts[fn] += 1
+    return counts
+
+
 # ------------------------------------------------------------------- phases
 def phase_build():
+    """Build and load the kernels; print ptxas's registers and spills for
+    every kernel, and the tensor-core (HMMA) instructions of each; the
+    tensor-core attention kernel must have some."""
     t0 = time.perf_counter()
     lib = _build.load()
     secs = time.perf_counter() - t0
     print(f"[1] kernels built and loaded in {secs:.2f} s: "
           f"{_build.library_path()}")
+    usage = _build.resource_usage()
+    hmma = _sass_counts("HMMA")
+    names = _demangle(sorted(set(usage) | set(hmma)))
+    print("[1] ptxas registers / spill stores / spill loads (bytes) per "
+          "kernel: " + "; ".join(f"{names[n]} {r}/{st}/{ld}" for n, (r, st, ld)
+                                  in sorted(usage.items(),
+                                            key=lambda kv: names[kv[0]])))
+    print("[1] HMMA (tensor-core) instructions per kernel: " + "; ".join(
+        f"{names[n]} {c}" for n, c in sorted(hmma.items(),
+                                             key=lambda kv: names[kv[0]])
+        if c))
+    mma = {n: c for n, c in hmma.items() if "flash_attention_mma_kernel" in n}
+    if len(mma) != len(HEAD_DIMS) or not all(mma.values()):
+        raise AssertionError(f"[1] the bf16 flash attention kernel is not on "
+                             f"the tensor cores: HMMA counts {mma}")
     return lib
 
 
@@ -493,7 +546,7 @@ def phase_serve(name, graph, plane_kw, tol_check):
                                       torch_plane())[2] * 1e3]
     numpy_ms = [numpy_s * 1e3, _serve(prog, chip, images, arrivals,
                                       NumpyPlane())[2] * 1e3]
-    wall_ms, busy_ms = _device_busy_share(
+    wall_ms, busy_ms, _, _ = _device_busy(
         lambda: _serve(prog, chip, images, arrivals, torch_plane()))
     mxv.LAUNCHES.update(launches)
     calls = sum(shapes.values())
@@ -963,12 +1016,14 @@ def _decode_bound(b, hq, hkv, s, d, lengths, q_elem, kv_elem, scaled):
 
 
 def _time_attention(name, shapes, dev):
-    """ms, device µs, plain ms, library ms and bound of ``name`` at the
-    shape its path launched most often."""
+    """ms, device µs, plain ms, library ms and device µs, and bound of
+    ``name`` at the shape its path launched most often; for flash attention
+    also the f32 kernel's device µs on the same inputs in f32."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(8)
     (shp, length) = shapes.most_frequent(name)
     mod = ATTN_MODS[name]
+    kname, f32_dev_us = ATTN_KERNEL_NAMES[name], None
     if name == "flash_attention":
         (b, hq, sq, d, dts), (_, hkv, sk, _, _) = shp[0], shp[1]
         dt = getattr(torch, dts.split(".")[-1])
@@ -982,6 +1037,16 @@ def _time_attention(name, shapes, dev):
             *args, is_causal=True, enable_gqa=True)
         bound, by = _attn_bound(b, hq, hkv, sq, sk, d, q.element_size())
         desc = (b, hq, hkv, sq, sk, d, dts)
+        if dt != torch.bfloat16:
+            kname = F32_FLASH_KERNEL
+        else:          # the f32 kernel, which f32 callers get, on f32 copies
+            args32 = tuple(x.float() for x in args)
+            before = _all_counts()
+            f32_dev_us = _device_us(
+                lambda: mod.flash_attention(*args32, causal=True),
+                F32_FLASH_KERNEL, reps=20, tries=3)
+            _set_counts(before)
+            del args32
     else:
         (b, hq, d, dts), (_, hkv, s, _, kvs) = shp[0], shp[1]
         dt = getattr(torch, dts.split(".")[-1])
@@ -1012,13 +1077,15 @@ def _time_attention(name, shapes, dev):
                 [int(x) for x in lengths.tolist()])
     before = _all_counts()
     ms = _events_ms(kern, reps=20, trials=5, warmup=3)
-    dev_us = _device_us(kern, ATTN_KERNEL_NAMES[name], reps=20)
+    dev_us = _device_us(kern, kname, reps=20)
     _set_counts(before)
     plain_ms = _events_ms(plain, reps=5, trials=3, warmup=1)
     lib_ms = None if lib is None else _events_ms(lib, reps=20, trials=5,
                                                  warmup=3)
+    lib_dev_us = None if lib is None else _device_total_us(lib, reps=20)
     return dict(shape=desc, ms=ms, dev_us=dev_us, plain_ms=plain_ms,
-                lib_ms=lib_ms, bound_ms=bound, bound_by=by)
+                lib_ms=lib_ms, lib_dev_us=lib_dev_us, bound_ms=bound,
+                bound_by=by, f32_dev_us=f32_dev_us)
 
 
 def phase_lm_times(dev, model, serve, shapes):
@@ -1056,12 +1123,14 @@ def phase_lm_times(dev, model, serve, shapes):
         times[name] = t
         kv = "int8" if name == "flash_decode_int8" else "compute"
         per_gen = serve[kv]["generate"][name]
-        dev_s = "not measured" if t["dev_us"] is None else \
-            f"{t['dev_us']:.2f} us"
+        if name == "flash_attention":
+            print(f"[8] flash_attention's f32 CUDA-core kernel "
+                  f"({F32_FLASH_KERNEL}) at {t['shape'][:6]} in f32: device "
+                  f"{_us(t['f32_dev_us'])}")
         lib_s = "n/a" if t["lib_ms"] is None else \
-            f"{t['lib_ms'] * 1e3:.2f} us"
+            f"{t['lib_ms'] * 1e3:.2f} us, device {_us(t['lib_dev_us'])}"
         print(f"[8] {name} at {t['shape']}: {t['ms'] * 1e3:.2f} us per "
-              f"launch (events), device {dev_s}; plain "
+              f"launch (events), device {_us(t['dev_us'])}; plain "
               f"{t['plain_ms'] * 1e3:.2f} us; library {lib_s}; bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); {per_gen} "
               f"launches per generate")
@@ -1082,9 +1151,12 @@ def attention_kernel_rows(errs, serve, times, lm_paths):
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["lib_ms"],
             "max_abs_err_bf16": errs[name]["bf16"], "shape": t["shape"],
-            "device_ms": None if t["dev_us"] is None else t["dev_us"] / 1e3,
+            "device_ms": _ms(t["dev_us"]),
+            "library_device_ms": _ms(t["lib_dev_us"]),
             "launches_batcher": serve[kv]["batcher"][name],
         })
+    rows[0]["device_ms_f32_kernel"] = _ms(times["times"][
+        "flash_attention"]["f32_dev_us"])
     rows[0]["lm"] = {
         "arch": LM_ARCH,
         "probes": [{"kernel": u, **p} for u, p in times["probes"]],
@@ -1423,7 +1495,9 @@ CONV_SHAPES = [CM_CONV,
                (8, 4, 1, 16, 1, 1, 1, 0),                # tiny transformer
                (3, 8, 8, 8, 3, 3, 1, 1), (4, 12, 12, 16, 3, 3, 2, 0),
                (1, 6, 6, 4, 1, 1, 1, 0), (2, 9, 7, 8, 3, 3, 1, 2),
-               (256, 32, 32, 256, 1, 1, 1, 0)]          # a full crossbar
+               (256, 32, 32, 256, 1, 1, 1, 0),          # a full crossbar
+               (256, 8, 8, 256, 3, 3, 1, 1),     # K = 2304: weights in chunks
+               (6, 11, 17, 10, 3, 3, 2, 1)]              # stride 2, 11 x 17
 FAULT_RATE, FAULT_HORIZON, FAULT_DEADLINE = 0.5, 400, 400
 FAULT_RETRY = RetryPolicy(max_retries=3, backoff_cycles=32)
 
@@ -1717,15 +1791,17 @@ def phase_conv_times(dev):
     lib_ms = _events_ms(lib)
     lib_dev_us = _device_total_us(lib)
     bound_ms, bound_by = _conv_bound(*CM_CONV, 1)
+    oh = (h + 2 * pad - fh) // stride + 1
+    ow = (w + 2 * pad - fw) // stride + 1
+    plan = conv2d.conv_plan(c, fl, fh, fw, stride, oh, ow)
     print(f"[18] crossbar_conv2d at {CM_CONV} int8: {ms * 1e3:.2f} us per "
-          f"launch (events, back to back), device "
-          f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'}; "
-          f"plain {plain_ms * 1e3:.2f} us; F.conv2d (cuDNN, f32) "
-          f"{lib_ms * 1e3:.2f} us, device "
-          f"{'not measured' if lib_dev_us is None else f'{lib_dev_us:.2f} us'}"
-          f"; bound {bound_ms * 1e3:.4f} us ({bound_by})")
+          f"launch (events, back to back), device {_us(dev_us)}; plain "
+          f"{plain_ms * 1e3:.2f} us; F.conv2d (cuDNN, f32) "
+          f"{lib_ms * 1e3:.2f} us, device {_us(lib_dev_us)}; bound "
+          f"{bound_ms * 1e3:.4f} us ({bound_by}); launch plan {plan}")
     return dict(ms=ms, dev_us=dev_us, plain_ms=plain_ms, lib_ms=lib_ms,
-                lib_dev_us=lib_dev_us, bound_ms=bound_ms, bound_by=bound_by)
+                lib_dev_us=lib_dev_us, bound_ms=bound_ms, bound_by=bound_by,
+                plan=dataclasses.asdict(plan))
 
 
 def conv_kernel_row(errs, qs, times, faults, analyze):
@@ -1735,11 +1811,9 @@ def conv_kernel_row(errs, qs, times, faults, analyze):
         "max_abs_err": errs["max_abs_err"], "ms": times["ms"],
         "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["lib_ms"],
-        "shape": list(CM_CONV) + ["int8"],
-        "device_ms": None if times["dev_us"] is None
-        else times["dev_us"] / 1e3,
-        "library_device_ms": None if times["lib_dev_us"] is None
-        else times["lib_dev_us"] / 1e3,
+        "shape": list(CM_CONV) + ["int8"], "plan": times["plan"],
+        "device_ms": _ms(times["dev_us"]),
+        "library_device_ms": _ms(times["lib_dev_us"]),
         "max_abs_err_listing1": errs["listing1_err"],
         "quickstart": {k: qs[k] for k in ("n_convs", "pipelined_cycles",
                                           "sequential_cycles", "wall_s")},

@@ -6,8 +6,10 @@ interface, which :func:`load` opens with ``ctypes``.  The library is built at
 first use, from this package's sources only, into
 ``<repo>/build/repro_torch_kernels/<hash>/``, where ``<hash>`` covers the
 sources, the headers (``csrc/*.cuh``) and the compiler flags: an edited
-kernel gets a new directory and a stale library is never loaded.  Nothing is
-built or imported from CUDA when this module is imported.
+kernel gets a new directory and a stale library is never loaded.  ptxas's
+report of each kernel's registers and spills is kept beside the library
+(:func:`resource_usage`).  Nothing is built or imported from CUDA when this
+module is imported.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,7 +28,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+PTXAS_LOG = "ptxas.log"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,7 +39,7 @@ _ATTN = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _S, _P)
 _DECODE = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _S, _P)
 _DECODE_INT8 = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _S, _P)
 _SCAN = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _S, _P)
-_CONV = (_P, _P, _P, _P) + (_I,) * 10 + (_P,)
+_CONV = (_P, _P, _P, _P) + (_I,) * 12 + (_P,)
 # name -> argtypes; every entry returns the launch's cudaError_t as an int
 SIGNATURES = {
     "crossbar_mxv_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -66,16 +70,17 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """The path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = pathlib.Path(home) / "bin" / "nvcc"
+    cand = pathlib.Path(home) / "bin" / name
     if cand.is_file():
         return str(cand)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin and PATH): the CUDA kernels "
-                           "build only where the CUDA toolkit is installed")
+        raise RuntimeError(f"{name} not found (looked in $CUDA_HOME/bin, "
+                           f"/usr/local/cuda/bin and PATH): the CUDA kernels "
+                           f"build only where the CUDA toolkit is installed")
     return found
 
 
@@ -90,7 +95,7 @@ def build() -> pathlib.Path:
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     # compile to temporary names, then rename: a concurrent or interrupted
     # build never leaves a half-written library under the final name
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
@@ -102,21 +107,46 @@ def build() -> pathlib.Path:
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
-        failed = []
+        failed, reports = [], []
         for cmd, proc in procs:
             _, err = proc.communicate()
+            reports.append(err)
             if proc.returncode != 0:
                 failed.append(f"nvcc failed ({proc.returncode}): "
                               f"{' '.join(cmd)}\n{err}")
         if failed:
             raise RuntimeError("\n".join(failed))
+        pathlib.Path(tmp, PTXAS_LOG).write_text("".join(reports))
         lib = os.path.join(tmp, out.name)
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}): "
                                f"{' '.join(cmd)}\n{res.stderr}")
+        os.replace(os.path.join(tmp, PTXAS_LOG), out.parent / PTXAS_LOG)
         os.replace(lib, out)
+    return out
+
+
+def resource_usage() -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} of every kernel in the built library, from ptxas's report."""
+    text = (library_path().parent / PTXAS_LOG).read_text()
+    out, name, spills = {}, None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = (int(m.group(1)), *spills)
+            name = None
     return out
 
 

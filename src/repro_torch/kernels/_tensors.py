@@ -1,9 +1,9 @@
 """Operand checks shared by the kernels' wrappers.
 
 The attention kernels read their operands through element strides with a
-contiguous last dimension, four elements at a time; these helpers give them
-such views (copying only what does not qualify), the launch stream and the
-per-row lengths.  The scan kernel takes its strides and stream from here too.
+contiguous last dimension, four elements at a time (eight, 16 bytes, in the
+bf16 flash attention kernel); these helpers give them such views (copying
+only what does not qualify), the launch stream and the per-row lengths.  The scan kernel takes its strides and stream from here too.
 """
 
 from __future__ import annotations
@@ -17,12 +17,14 @@ HEAD_DIMS = (32, 64, 128, 256)
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def aligned4(t: torch.Tensor) -> torch.Tensor:
+def aligned(t: torch.Tensor, n: int) -> torch.Tensor:
     """``t`` itself when its last stride is 1 and its data pointer and every
-    other stride are multiples of four elements; else a contiguous copy."""
+    other stride are multiples of ``n`` elements; else a contiguous copy
+    (whose strides are then multiples of ``n`` where its last dimension is:
+    the wrappers check head dims first)."""
     ok = (t.stride(-1) == 1
-          and all(s % 4 == 0 for s in t.stride()[:-1])
-          and t.data_ptr() % (4 * t.element_size()) == 0)
+          and all(s % n == 0 for s in t.stride()[:-1])
+          and t.data_ptr() % (n * t.element_size()) == 0)
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 

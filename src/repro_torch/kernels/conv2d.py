@@ -10,13 +10,16 @@ back to the plain version: the kernel launches or the wrapper raises.
 The signature and layouts are the reference's: x (C, H, W), the crossbar
 wq (FL, C*FH*FW) with k over (c, fh, fw), one scale per filter, and the
 result (FL, OH, OW) f32.  The kernel pads by masked loads, so there is no
-padded copy of x.
+padded copy of x.  Its launch geometry, the column tile, K split and
+channel chunk, is chosen here by :func:`conv_plan`.
 
 ``LAUNCHES`` counts kernel launches (plain-version calls are not counted);
 :func:`reset_launches` zeroes it.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -26,9 +29,10 @@ from .ref import crossbar_conv2d_ref
 LAUNCHES = {"crossbar_conv2d": 0}
 _INT_MAX = 2 ** 31 - 1
 _GRID_MAX = 65535
-# csrc/conv2d.cu's block tile and shared-memory budget: a block stages FH
-# input rows of one channel over the columns of up to TJ output columns
-_TJ, _TF, _SMEM_BYTES = 32, 16, 48 * 1024
+# csrc/conv2d.cu's threads per block, filters per block, shared-memory
+# budget and widest column tile; the H100's SM count, which the grid
+# should reach
+THREADS, TF, SMEM_BYTES, MAX_TJ, SMS = 256, 4, 48 * 1024, 32, 132
 
 crossbar_conv2d_plain = crossbar_conv2d_ref
 
@@ -39,6 +43,47 @@ def reset_launches() -> None:
 
 def _out_size(n: int, pad: int, f: int, stride: int) -> int:
     return (n + 2 * pad - f) // stride + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How ``csrc/conv2d.cu`` cuts one conv: a block owns output row
+    ``blockIdx.x``, ``tj`` columns and ``TF`` filters; its ``THREADS``
+    threads are ``tj`` columns x ``ks`` parts of K (channel c goes to part
+    c % ks); channels are staged ``cc`` at a time in ``smem_bytes`` of
+    shared memory."""
+    tj: int
+    ks: int
+    cc: int
+    grid: tuple[int, int, int]
+    smem_bytes: int
+
+
+def conv_plan(c: int, fl: int, fh: int, fw: int, stride: int, oh: int,
+              ow: int) -> ConvPlan:
+    """The launch geometry of ``crossbar_conv2d`` for a (C, ., .) input,
+    FL filters of FH x FW and an (OH, OW) output.  The column tile starts
+    at the least power of two >= OW (at most 32) and is halved, doubling the
+    K split, while the grid has fewer blocks than the card has SMs and the
+    K split stays below twice the channels (most parts own a channel).
+    Raises ValueError where one channel's input rows and weights do not fit
+    the shared memory."""
+    tj = min(MAX_TJ, 1 << (ow - 1).bit_length())
+
+    def blocks(t):
+        return oh * -(-ow // t) * -(-fl // TF)
+    while tj > 1 and blocks(tj) < SMS and THREADS // (tj // 2) < 2 * c:
+        tj //= 2
+    per_channel = 4 * fh * ((tj - 1) * stride + fw + fw * TF)
+    room = SMEM_BYTES - 4 * THREADS * TF          # after the reduction buffer
+    if per_channel > room:
+        raise ValueError(f"crossbar_conv2d: one channel's {fh} input rows "
+                         f"and weights ({per_channel} bytes) do not fit the "
+                         f"kernel's {room} bytes of shared memory")
+    cc = min(c, room // per_channel)
+    return ConvPlan(tj=tj, ks=THREADS // tj, cc=cc,
+                    grid=(oh, -(-ow // tj), -(-fl // TF)),
+                    smem_bytes=4 * THREADS * TF + cc * per_channel)
 
 
 def _check(x, wq, scale, stride, pad, fh, fw):
@@ -81,13 +126,11 @@ def _check(x, wq, scale, stride, pad, fh, fw):
             raise ValueError(f"{name}: {label} must be contiguous")
     if max(x.numel(), wq.numel(), fl * oh * ow) > _INT_MAX:
         raise ValueError(f"{name}: shape exceeds int32 indexing")
-    if oh > _INT_MAX or -(-ow // _TJ) > _GRID_MAX or -(-fl // _TF) > _GRID_MAX:
+    plan = conv_plan(c, fl, fh, fw, stride, oh, ow)
+    if plan.grid[0] > _INT_MAX or max(plan.grid[1:]) > _GRID_MAX:
         raise ValueError(f"{name}: output ({fl}, {oh}, {ow}) exceeds the "
                          f"kernel's grid")
-    if 4 * fh * ((min(_TJ, ow) - 1) * stride + fw) > _SMEM_BYTES:
-        raise ValueError(f"{name}: one channel's {fh} input rows do not fit "
-                         f"the kernel's {_SMEM_BYTES} bytes of shared memory")
-    return c, h, w, fl, oh, ow, (stride, pad, fh, fw)
+    return c, h, w, fl, oh, ow, (stride, pad, fh, fw), plan
 
 
 def crossbar_conv2d(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
@@ -99,8 +142,8 @@ def crossbar_conv2d(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
 
     x may be strided (it is made contiguous); wq and scale must be
     contiguous."""
-    c, h, w, fl, oh, ow, (stride, pad, fh, fw) = _check(x, wq, scale, stride,
-                                                        pad, fh, fw)
+    c, h, w, fl, oh, ow, (stride, pad, fh, fw), plan = _check(
+        x, wq, scale, stride, pad, fh, fw)
     if x.device.type == "cpu":
         return crossbar_conv2d_plain(x, wq, scale, stride, pad, fh, fw)
     x = x.contiguous()
@@ -113,7 +156,8 @@ def crossbar_conv2d(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                 c, h, w, fl, fh, fw, stride, pad, oh, ow, stream)
+                 c, h, w, fl, fh, fw, stride, pad, oh, ow, plan.tj, plan.cc,
+                 stream)
     _build.check(lib, "crossbar_conv2d", err)
     LAUNCHES["crossbar_conv2d"] += 1
     return y

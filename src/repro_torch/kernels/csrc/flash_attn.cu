@@ -5,35 +5,68 @@
 // q (B, Hq, Sq, D) over k/v (B, Hkv, Sk, D); query head h reads KV head
 // h / G (G = Hq / Hkv); query i sits at absolute position i + Sk - Sq and
 // sees keys at positions <= its own when causal.  The running max, sum and
-// output accumulator are f32; the output is in q's dtype.
+// output accumulator are f32; the output is in q's dtype, in q's strides.
 //
 // What bounds it on this card: at the LM's prefill shapes (Sq = Sk in the
 // hundreds to thousands, D = 128) attention does ~2 * Sq * Sk * D operations
 // per head against ~3 * Sk * D elements moved, hundreds of operations per
-// byte: it is bound by operations, and the card's rate for them is the
-// tensor cores' (989 TFLOP/s in bf16).  This first kernel does not reach
-// them: it computes in f32 on the CUDA cores (67 TFLOP/s at most), which
-// keeps one code path for f32 and bf16 and the f32 accumulation the
-// reference has.  What the design does about the bound within that: each
-// thread owns a 4 x 4 tile of the 64 x 64 score block and a 4-row slice of
-// the output, so every shared-memory load feeds 8 (scores) or 5 (P.V) FMAs;
-// K/V tiles are staged once per block in shared memory and read by all 256
-// threads; blocks stop at the causal diagonal, so causal work is about
-// half of the full square.  Tensor cores (mma/wgmma) and TMA are later work.
+// byte: it is bound by operations, and the card's rate for them is the bf16
+// tensor cores' (989 TFLOP/s).
 //
-// Layout: grid (ceil(Sq / 64), Hq, B); 256 threads as 16 x 16.  Thread
-// (tr, tc) owns query rows tr + 16 i and keys tc + 16 j (i, j < 4) of each
-// 64 x 64 score tile, and output columns in float4 chunks tc + 16 c.  The
-// 16 threads of a row group are one half-warp, so the row max and sum are
-// shuffle reductions.  Q, K, V and P tiles live in dynamic shared memory as
-// f32 (K and Q rows padded by 4 floats against bank conflicts).  Inputs are
-// read through element strides (the last dimension contiguous), so the model
-// passes its (B, S, H, D) tensors as transposed views; edges in Sq and Sk
-// are masked, so any length works.  Rows beyond Sq are computed and not
-// stored.
+// bf16 inputs: flash_attention_mma_kernel, the FlashAttention-2 shape on
+// the tensor cores.  S = Q.K^T and O += P.V run on
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with f32 accumulators in
+// registers; bf16 x bf16 products are exact in f32, so S is as exact as an
+// f32 product of the bf16 inputs.  Operands come from shared memory through
+// ldmatrix (V through ldmatrix.trans).  The S accumulators are rescaled and
+// exponentiated in registers (exp2f, log2 e folded into the scale; row max
+// and sum shared by the four lanes of a row through __shfl_xor_sync 1, 2)
+// and repacked as the A operand of the P.V product: P never goes through
+// shared memory, and it is rounded to bf16 once, there (the one rounding
+// the f32 path has not; a TPU's MXU at default precision rounds there too).
+// The row sum l adds the f32 P.  K and V tiles arrive by 16-byte cp.async
+// into a ring of two stages, so tile j + 1 is in flight while tile j is
+// computed; Q is loaded once per block.  Rows in shared memory are padded by
+// 16 bytes, which makes every ldmatrix and the epilogue free of bank
+// conflicts.  Masks are computed only on the causal diagonal tile and the
+// ragged Sk edge; tiles past the diagonal are not visited.  The epilogue
+// stages O in shared memory and writes it with 16-byte stores through q's
+// strides.  Not done yet: wgmma with TMA (the FlashAttention-3 shape).
+//
+// Layout (bf16): grid (Hq, B, ceil(Sq / 64)), query blocks launched longest
+// first (block z takes query block ceil(Sq / 64) - 1 - z: under a causal
+// mask it has the most keys); 4 warps, each owns 16 query rows.  Key tiles
+// of 64 at D <= 128, where each warp keeps its Q fragments in registers; at
+// D = 256, key tiles of 32 and Q read from shared memory at every tile, to
+// keep the 128 f32 output accumulators a thread holds under 255 registers
+// with no spills.  cp.async of 16 bytes needs the data pointer and the b, h
+// and s strides to be multiples of 8 elements: the wrapper checks them and
+// copies a tensor that breaks this.
+//
+// f32 inputs: flash_attention_kernel, on the CUDA cores in f32 (67 TFLOP/s at
+// most).  An f32 call exists to hold the f32 checks (logits within 2e-3 at
+// depth 4, jamba's reduced config at head_dim 32), which a TF32 or bf16
+// tensor-core product would not; no full-width model path runs f32.  Each
+// thread owns a 4 x 4 tile of the 64 x 64 score block and a 4-row slice of
+// the output, so every shared-memory load feeds 8 (scores) or 5 (P.V)
+// FMAs; K/V tiles are staged once per block in shared memory and read by
+// all 256 threads; blocks stop at the causal diagonal.  Grid (ceil(Sq / 64),
+// Hq, B); 256 threads as 16 x 16.  Thread (tr, tc) owns query rows
+// tr + 16 i and keys tc + 16 j (i, j < 4) of each 64 x 64 score tile, and
+// output columns in float4 chunks tc + 16 c; the 16 threads of a row group
+// are one half-warp, so the row max and sum are shuffle reductions.  Q, K,
+// V and P tiles live in dynamic shared memory as f32 (K and Q rows padded
+// by 4 floats against bank conflicts).
+//
+// Both kernels read their inputs through element strides (the last
+// dimension contiguous), so the model passes its (B, S, H, D) tensors as
+// transposed views; edges in Sq and Sk are masked, so any length works, and
+// rows beyond Sq are computed and not stored.
 //
 // Plain-C entry points (loaded with ctypes): each launches on the given
 // stream and returns cudaGetLastError().
+
+#include <math.h>
 
 #include "common.cuh"
 
@@ -41,16 +74,17 @@ namespace {
 
 using repro_torch::NEG;
 
-constexpr int BQ = 64;   // queries per block
-constexpr int BK = 64;   // keys per tile
-constexpr int NT = 256;  // threads per block, 16 x 16
-
 struct Strides3 {
   long long b, h, s;  // element strides; the d stride is 1
 };
 struct AttnStrides {
   Strides3 q, k, v, o;
 };
+
+// ------------------------------------------------ f32: CUDA-core kernel
+constexpr int BQ = 64;   // queries per block
+constexpr int BK = 64;   // keys per tile
+constexpr int NT = 256;  // threads per block, 16 x 16
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -210,37 +244,337 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Sk, int causal, float sm_scale,
-           const long long* strides, cudaStream_t stream) {
+// --------------------------------------------- bf16: tensor-core kernel
+using bf16 = __nv_bfloat16;
+
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_NT = 32 * MMA_WARPS;  // threads per block
+constexpr int MMA_BQ = 16 * MMA_WARPS;  // queries per block, 16 a warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct MmaTile {
+  static constexpr int BK = D <= 128 ? 64 : 32;  // keys per tile
+  static constexpr bool Q_IN_REGS = D <= 128;
+  static constexpr int LD = D + 8;              // padded row, in elements
+  static constexpr size_t SMEM =
+      sizeof(bf16) * static_cast<size_t>(LD) * (MMA_BQ + 2 * 2 * BK);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !pred (src is then
+// not read, but stays a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most one committed group is still in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 as one register of bf16 pairs, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4): an A fragment
+// holds rows g and g + 8 at columns 2t, 2t + 1 (and + 8); a B fragment holds
+// k rows 2t, 2t + 1 (and + 8) of column g; the accumulator c[0], c[1] is row
+// g at columns 2t, 2t + 1 and c[2], c[3] row g + 8.  ldmatrix.x4 hands each
+// lane one such pair from each of four 8 x 8 matrices, whose rows' addresses
+// come from lanes 0-7, 8-15, 16-23 and 24-31.
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+flash_attention_mma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                           int Sq, int Sk, int G, int causal,
+                           float scale_log2, AttnStrides st) {
+  using Tile = MmaTile<D>;
+  constexpr int BKT = Tile::BK, LD = Tile::LD;
+  constexpr int KD = D / 16;    // k-steps of Q.K^T
+  constexpr int NS = BKT / 8;   // 8-key column blocks of S
+  constexpr int NO = D / 8;     // 8-wide column blocks of O
+  constexpr int CH = D / 8;     // 16-byte chunks of a row
+  extern __shared__ uint4 smem_mma[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_mma);  // [MMA_BQ][LD]
+  bf16* Ks = Qs + MMA_BQ * LD;                   // [2][BKT][LD]
+  bf16* Vs = Ks + 2 * BKT * LD;                  // [2][BKT][LD]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * MMA_BQ;  // longest first
+  const int hk = h / G;
+  const int q_offset = Sk - Sq;
+  const bf16* qg = q + b * st.q.b + h * st.q.h;
+  const bf16* kg = k + b * st.k.b + hk * st.k.h;
+  const bf16* vg = v + b * st.v.b + hk * st.v.h;
+
+  for (int i = tid; i < MMA_BQ * CH; i += MMA_NT) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = q0 + r < Sq;
+    cp_async16(smem_addr(Qs + r * LD + c),
+               qg + (ok ? (q0 + r) * st.q.s + c : 0), ok);
+  }
+  cp_async_commit();
+
+  // keys past the block's last query position are masked for every row
+  const int q_last = min(q0 + MMA_BQ, Sq) - 1;
+  const int kv_end = causal ? min(Sk, q_last + q_offset + 1) : Sk;
+  const int n_tiles = (kv_end + BKT - 1) / BKT;
+
+  auto load_kv = [&](int tile) {
+    const int k0 = tile * BKT;
+    bf16* ks = Ks + (tile & 1) * BKT * LD;
+    bf16* vs = Vs + (tile & 1) * BKT * LD;
+    for (int i = tid; i < BKT * CH; i += MMA_NT) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool ok = k0 + r < Sk;
+      const long long row = ok ? k0 + r : 0;
+      cp_async16(smem_addr(ks + r * LD + c), kg + row * st.k.s + c, ok);
+      cp_async16(smem_addr(vs + r * LD + c), vg + row * st.v.s + c, ok);
+    }
+  };
+  load_kv(0);
+  cp_async_commit();
+
+  const int wr0 = warp * 16;  // the warp's first row of the query block
+  // ldmatrix row addresses: Q (A operand) rows wr0 + lane % 16, column
+  // 8 (lane / 16); K (B operand of S) key (lane / 16) 8 + lane % 8, column
+  // 8 ((lane / 8) % 2); V (B operand of O, transposed) key
+  // ((lane / 8) % 2) 8 + lane % 8, column 8 (lane / 16)
+  const uint32_t q_addr =
+      smem_addr(Qs + (wr0 + (lane & 15)) * LD + ((lane >> 4) << 3));
+  const int k_off = (((lane >> 4) << 3) + (lane & 7)) * LD +
+                    (((lane >> 3) & 1) << 3);
+  const int v_off = ((((lane >> 3) & 1) << 3) + (lane & 7)) * LD +
+                    ((lane >> 4) << 3);
+  const int qpos = q0 + wr0 + g + q_offset;  // row g's position; g + 8: +8
+
+  uint32_t qf[Tile::Q_IN_REGS ? KD : 1][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_r[2] = {NEG, NEG};  // running max of rows g, g + 8 (log2 units)
+  float l_r[2] = {0.f, 0.f};  // this lane's share of their running sums
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) load_kv(j + 1);
+    cp_async_commit();   // possibly empty: tile j is then all but one group
+    cp_async_wait_one();
+    __syncthreads();
+    if constexpr (Tile::Q_IN_REGS) {
+      if (j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], q_addr + kk * 32);
+      }
+    }
+    const int k0 = j * BKT;
+    const bf16* ks = Ks + (j & 1) * BKT * LD;
+    const bf16* vs = Vs + (j & 1) * BKT * LD;
+
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      if constexpr (Tile::Q_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(a, q_addr + kk * 32);
+      }
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, smem_addr(ks + n * 8 * LD + k_off + kk * 16));
+        mma_bf16(s[n], a, bk[0], bk[1]);
+        mma_bf16(s[n + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    const bool masked = k0 + BKT > Sk ||
+                        (causal && k0 + BKT - 1 > q0 + q_offset);
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (masked) {
+          const int key = k0 + n * 8 + 2 * t + (e & 1);
+          if (key >= Sk || (causal && key > qpos + (e >> 1) * 8))
+            x = -INFINITY;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);  // finite: m_r >= NEG
+      alpha[r] = exp2f(m_r[r] - m_new);
+      m_r[r] = m_new;
+      l_r[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - m_r[e >> 1]);  // masked: 0
+        s[n][e] = p;
+        l_r[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+#pragma unroll
+    for (int kk = 0; kk < BKT / 16; ++kk) {
+      // the S accumulators of keys 16 kk .. 16 kk + 15 are the A fragment
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, smem_addr(vs + kk * 16 * LD + v_off + n * 8));
+        mma_bf16(acc[n], a, bv[0], bv[1]);
+        mma_bf16(acc[n + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before refill
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    inv[r] = 1.f / fmaxf(l_r[r], 1e-30f);
+  }
+  // O through the warp's own 16 rows of the Q tile, then 16-byte stores
+  bf16* os = Qs + wr0 * LD;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int col = n * 8 + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(os + g * LD + col) =
+        __floats2bfloat162_rn(acc[n][0] * inv[0], acc[n][1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(os + (g + 8) * LD + col) =
+        __floats2bfloat162_rn(acc[n][2] * inv[1], acc[n][3] * inv[1]);
+  }
+  __syncwarp();
+  bf16* ob = o + b * st.o.b + h * st.o.h;
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const int qi = q0 + wr0 + r;
+    if (qi < Sq)
+      *reinterpret_cast<uint4*>(ob + qi * st.o.s + c) =
+          *reinterpret_cast<const uint4*>(os + r * LD + c);
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int Hq, int Hkv, int Sq, int Sk, int causal, float sm_scale,
+               const AttnStrides& st, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<float, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  flash_attention_kernel<float, D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, Hq / Hkv,
+      causal, sm_scale, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int Hq, int Hkv, int Sq, int Sk, int causal, float sm_scale,
+                const AttnStrides& st, cudaStream_t stream) {
+  constexpr size_t smem = MmaTile<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_mma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(Hq, B, (Sq + MMA_BQ - 1) / MMA_BQ);
+  flash_attention_mma_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, Hq / Hkv,
+      causal, sm_scale * LOG2E, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
+           int B, int Hq, int Hkv, int Sq, int Sk, int causal, float sm_scale,
+           const AttnStrides& st, cudaStream_t stream) {
+  return bf16 ? launch_bf16<D>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal,
+                               sm_scale, st, stream)
+              : launch_f32<D>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal,
+                              sm_scale, st, stream);
+}
+
+int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o,
+             int B, int Hq, int Hkv, int Sq, int Sk, int D, int causal,
+             float sm_scale, const long long* strides, void* stream) {
   const AttnStrides st{{strides[0], strides[1], strides[2]},
                        {strides[3], strides[4], strides[5]},
                        {strides[6], strides[7], strides[8]},
                        {strides[9], strides[10], strides[11]}};
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_attention_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, Hq / Hkv, causal,
-      sm_scale, st);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-             float sm_scale, const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, sm_scale, strides, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, sm_scale, strides, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, sm_scale, strides, s);
-    case 256: return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, sm_scale, strides, s);
+    case 32: return launch<32>(bf16, q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
+    case 64: return launch<64>(bf16, q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
+    case 128: return launch<128>(bf16, q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
+    case 256: return launch<256>(bf16, q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -254,16 +588,18 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int Hq, int Hkv, int Sq, int Sk, int D,
                         int causal, float sm_scale, const long long* strides,
                         void* stream) {
-  return dispatch<float>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal, sm_scale,
-                         strides, stream);
+  return dispatch(false, q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal, sm_scale,
+                  strides, stream);
 }
 
+// q, k, v, o bf16; the data pointers and the b, h, s strides are multiples
+// of 8 elements (cp.async moves 16 bytes)
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          int B, int Hq, int Hkv, int Sq, int Sk, int D,
                          int causal, float sm_scale, const long long* strides,
                          void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal,
-                                 sm_scale, strides, stream);
+  return dispatch(true, q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal, sm_scale,
+                  strides, stream);
 }
 
 }  // extern "C"

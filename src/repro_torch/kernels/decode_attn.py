@@ -75,8 +75,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths)
     _tensors.check_cuda_head_dim("flash_decode", d)
-    q = _tensors.aligned4(q.contiguous())
-    k, v = _tensors.aligned4(k), _tensors.aligned4(v)
+    q = _tensors.aligned(q.contiguous(), 4)
+    k, v = _tensors.aligned(k, 4), _tensors.aligned(v, 4)
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     if b == 0 or hq == 0:
         return out

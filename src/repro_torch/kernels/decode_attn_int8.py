@@ -61,8 +61,8 @@ def flash_decode_int8(q: torch.Tensor, k8: torch.Tensor,
     if q.device.type == "cpu":
         return flash_decode_int8_plain(q, k8, k_scale, v8, v_scale, lengths)
     _tensors.check_cuda_head_dim(name, d)
-    q = _tensors.aligned4(q.contiguous())
-    k8, v8 = _tensors.aligned4(k8), _tensors.aligned4(v8)
+    q = _tensors.aligned(q.contiguous(), 4)
+    k8, v8 = _tensors.aligned(k8, 4), _tensors.aligned(v8, 4)
     if k_scale.stride() != v_scale.stride():
         # the kernel reads both scales through one set of strides
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()

@@ -1,18 +1,26 @@
 """Flash attention (prefill): causal GQA online-softmax attention on Hopper.
 
-``flash_attention`` launches the hand-written CUDA kernel of
+``flash_attention`` launches a hand-written CUDA kernel of
 ``csrc/flash_attn.cu`` (port of the Pallas kernel
 ``repro.kernels.flash_attn.flash_attention``) on CUDA tensors, and runs its
 plain PyTorch version (:func:`flash_attention_plain`, the oracle
-``ref.attention_ref``) on CPU tensors.  A CUDA tensor never falls back to
-the plain version: the kernel launches or the wrapper raises.
+``ref.attention_ref``) on CPU tensors.  The kernel follows the dtype: bf16
+runs on the tensor cores (``flash_attention_mma_kernel``: bf16 products,
+f32 accumulation, P rounded to bf16 before the P.V product), f32 on the
+CUDA cores in f32 (``flash_attention_kernel``), which holds the f32
+checks a tensor-core product would not.  A CUDA tensor never falls back to
+the plain version or to the other kernel: the kernel launches or the
+wrapper raises.
 
 The signature is the reference's, q (B, Hq, Sq, D) and k/v (B, Hkv, Sk, D),
 but any strides with a contiguous last dimension are read as they are: the
 model passes its (B, S, H, D) projections as ``transpose(1, 2)`` views, and
 the output has q's layout (so ``out.transpose(1, 2)`` is contiguous for
 such a q).  Unlike the Pallas wrapper there are no block-size arguments and
-no divisibility rule: the kernel masks its ragged edges.
+no divisibility rule: the kernels mask their ragged edges.  An operand whose
+data pointer or b, h, s strides are not multiples of the kernel's load
+width (4 elements in f32, 8 in bf16: 16 bytes either way) is copied first;
+the model's views are never copied.
 
 ``LAUNCHES`` counts kernel launches (plain-version calls are not counted);
 :func:`reset_launches` zeroes it.
@@ -26,6 +34,8 @@ from . import _build, _tensors
 from .ref import attention_ref
 
 LAUNCHES = {"flash_attention": 0}
+_GRID_MAX = 65535
+BQ_BF16 = 64          # queries per block of the tensor-core kernel
 
 
 def reset_launches() -> None:
@@ -78,13 +88,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
     _tensors.check_cuda_head_dim("flash_attention", d)
-    q, k, v = (_tensors.aligned4(t) for t in (q, k, v))
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and (b > _GRID_MAX or -(-sq // BQ_BF16) > _GRID_MAX):
+        raise ValueError(f"flash_attention: B={b} or Sq={sq} exceeds the "
+                         f"kernel's grid")
+    q, k, v = (_tensors.aligned(t, 8 if bf16 else 4) for t in (q, k, v))
     out = torch.empty_like(q)        # q's layout; its last stride is 1
     if b == 0 or hq == 0 or sq == 0:
         return out
     lib = _build.load()
-    fn = lib.flash_attention_f32 if q.dtype == torch.float32 \
-        else lib.flash_attention_bf16
+    fn = lib.flash_attention_bf16 if bf16 else lib.flash_attention_f32
     st = _tensors.strides((q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
                           (out, (0, 1, 2)))
     with torch.cuda.device(q.device):

@@ -15,6 +15,7 @@ row by row against the reference's ``decode_ref``.
 from __future__ import annotations
 
 import ast
+import dataclasses
 import pathlib
 
 import jax.numpy as jnp
@@ -27,8 +28,11 @@ from repro.kernels.conv2d import crossbar_conv2d as pallas_conv2d
 from repro.kernels.decode_attn import flash_decode as pallas_decode
 from repro.kernels.decode_attn_int8 import flash_decode_int8 as pallas_int8
 from repro.kernels.flash_attn import flash_attention as pallas_flash
-from repro_torch.kernels import (conv2d, decode_attn, decode_attn_int8,
-                                 flash_attn, mamba_scan, mxv, ops)
+from repro_torch.configs.base import smoke_config
+from repro_torch.kernels import (_tensors, conv2d, decode_attn,
+                                 decode_attn_int8, flash_attn, mamba_scan,
+                                 mxv, ops)
+from repro_torch.models import layers
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 RNG = np.random.default_rng(0)
@@ -109,6 +113,107 @@ def test_flash_attention_refuses_bad_operands():
         flash_attn.flash_attention(q, q[:, :3], q[:, :3])
     with pytest.raises(TypeError):
         flash_attn.flash_attention(q, q.double(), q)
+
+
+def _attention_p_bf16(q, k, v, causal, bk=64):
+    """Online-softmax attention of bf16 q, k, v as the tensor-core kernel
+    computes it: f32 scores of the bf16 inputs, running max and sum in f32,
+    and P rounded to bf16 before the P.V product, tile by tile of ``bk``
+    keys (the kernel's one rounding that the f32 path has not)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(hq // hkv, 1)
+    vf = v.float().repeat_interleave(hq // hkv, 1)
+    qf = q.float() * d ** -0.5
+    m = torch.full((b, hq, sq, 1), -1e30)
+    l = torch.zeros((b, hq, sq, 1))
+    acc = torch.zeros((b, hq, sq, d))
+    iq = torch.arange(sq)[:, None] + (sk - sq)
+    for k0 in range(0, sk, bk):
+        s = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
+        if causal:
+            ik = torch.arange(k0, min(k0 + bk, sk))[None]
+            s = torch.where(ik <= iq, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, k0:k0 + bk]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+@pytest.mark.parametrize("s", [64, 128])
+def test_bf16_p_rounding_stays_within_the_pallas_kernels_bound(s):
+    """The tensor-core kernel's arithmetic, emulated in plain torch on the
+    CPU, against the Pallas kernel (interpret mode) on the same bf16 inputs
+    at llama3.2-3b's heads (24 query, 8 KV, head dim 128): within 5e-2, the
+    bf16 bound the kernel is held to on the card."""
+    rng = np.random.default_rng(s)
+    q, k, v = (rng.normal(size=(1, h, s, 128)).astype(np.float32)
+               for h in (24, 8, 8))
+    want = pallas_flash(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                        causal=True, bq=64, bk=64)
+    got = _attention_p_bf16(*(_t(x).to(torch.bfloat16) for x in (q, k, v)),
+                            causal=True)
+    _close(got.float().numpy(), np.asarray(want, np.float32), 5e-2)
+    # and the plain version, which keeps P in f32, agrees with it as closely
+    plain = flash_attn.flash_attention(
+        *(_t(x).to(torch.bfloat16) for x in (q, k, v)), causal=True)
+    _close(got.float().numpy(), plain.float().numpy(), 5e-2)
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_aligned_copies_only_what_breaks_the_load_width(n):
+    """``_tensors.aligned(t, n)``: ``t`` itself where its data pointer and
+    every stride but the last (which is 1) are multiples of n elements, a
+    contiguous copy otherwise."""
+    base = torch.arange(2 * 40 * 6 * 64, dtype=torch.float32).reshape(
+        2, 40, 6, 64).to(torch.bfloat16)
+    view = base.transpose(1, 2)                 # the model's layout
+    assert _tensors.aligned(view, n) is view
+    assert _tensors.aligned(base, n) is base
+    flat = torch.zeros(base.numel() + 8, dtype=torch.bfloat16)
+    flat[1:1 + base.numel()] = base.reshape(-1)
+    shifted = flat[1:1 + base.numel()].view(base.shape)   # pointer + 2 bytes
+    wide4 = torch.zeros(2, 40, 6, 68, dtype=torch.bfloat16)
+    wide4[..., :64] = base
+    narrow4 = wide4[..., :64]                   # h stride 68: 4 | 68, 8 ∤ 68
+    wide2 = torch.zeros(2, 40, 6, 66, dtype=torch.bfloat16)
+    wide2[..., :64] = base
+    cases = [(shifted, True), (narrow4, n == 8), (wide2[..., :64], True),
+             (base.transpose(2, 3), True)]      # last stride not 1
+    for t, copied in cases:
+        out = _tensors.aligned(t, n)
+        assert (out is not t) == copied
+        assert torch.equal(out, t)
+        if copied:
+            assert out.is_contiguous()
+
+
+def test_flash_attention_takes_the_models_views_without_a_copy(monkeypatch):
+    """The q, k, v views ``models.layers.attention`` hands the flash kernel
+    in bf16, its (B, S, H, D) projections transposed, meet the bf16
+    kernel's 8-element rule, so the wrapper reads them in place."""
+    cfg = dataclasses.replace(smoke_config("llama3.2-3b"), head_dim=32,
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    p = layers.init_attention(cfg, gen)
+    x = torch.randn(2, 24, cfg.d_model, generator=gen).to(torch.bfloat16)
+    pos = torch.arange(24)[None].expand(2, 24)
+    seen = []
+
+    def record(q, k, v, causal=True, use_kernel=True):
+        seen.append((q, k, v))
+        return flash_attn.flash_attention_plain(q, k, v, causal)
+    monkeypatch.setattr(ops, "attention", record)
+    layers.attention(cfg, p, x, pos)
+    (q, k, v), = seen
+    assert q.dtype == torch.bfloat16 and q.shape[-1] == 32
+    for t in (q, k, v):
+        assert not t.is_contiguous()            # a transposed view
+        assert _tensors.aligned(t, 8) is t
 
 
 # ------------------------------------------------------------- decode attn

@@ -7,10 +7,14 @@ mode) and ``repro.kernels.ref.crossbar_conv2d_ref`` on the same numpy
 inputs, at rtol/atol 1e-4 (``tests/test_kernels.py``'s bound for the Pallas
 kernel: both sum the same f32 products in different orders).  The CUDA
 kernel itself is held against the plain version on the card
-(``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``).
+(``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``); its launch plan,
+``conv2d.conv_plan``, is Python and is held here: every output written
+once, every channel summed once, the shared memory within its budget.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import pytest
@@ -123,3 +127,80 @@ def test_quickstart_runs_on_cpu(capsys):
     text = capsys.readouterr().out
     assert "all outputs match the reference executor — OK" in text
     assert "Listing 1 on cpu: 4 convs match" in text
+
+
+# ------------------------------------------------------------ launch plan
+def _check_plan(c, fl, fh, fw, stride, oh, ow):
+    """Walk ``csrc/conv2d.cu``'s index math under ``conv_plan``'s choice and
+    check that it covers the conv exactly once."""
+    plan = conv2d.conv_plan(c, fl, fh, fw, stride, oh, ow)
+    tj, ks, cc = plan.tj, plan.ks, plan.cc
+    assert tj * ks == conv2d.THREADS and conv2d.TF * tj <= conv2d.THREADS
+    assert 1 <= tj <= conv2d.MAX_TJ and 1 <= cc <= c
+    ws = (tj - 1) * stride + fw                 # staged input columns
+    assert plan.smem_bytes == 4 * (conv2d.THREADS * conv2d.TF
+                                   + cc * fh * (ws + fw * conv2d.TF))
+    assert plan.smem_bytes <= conv2d.SMEM_BYTES
+    # every (f, j) of an output row written once (blockIdx.x is the row)
+    assert plan.grid[0] == oh
+    written = collections.Counter()
+    for by in range(plan.grid[1]):
+        for bz in range(plan.grid[2]):
+            for t in range(conv2d.TF * tj):
+                f, j = bz * conv2d.TF + t // tj, by * tj + t % tj
+                if f < fl and j < ow:
+                    written[f, j] += 1
+    assert written == {(f, j): 1 for f in range(fl) for j in range(ow)}
+    # every channel summed once by one K part: chunks of cc, channel cc0
+    # of a chunk to part cc0 % ks (each of its fh * fw taps in the part)
+    summed = collections.Counter()
+    for part in range(ks):
+        for c0 in range(0, c, cc):
+            for cc0 in range(part, min(cc, c - c0), ks):
+                summed[c0 + cc0] += 1
+    assert summed == {ch: 1 for ch in range(c)}
+    # the last staged column a thread reads lies inside the slab
+    assert (tj - 1) * stride + fw - 1 < ws
+    return plan
+
+
+ZOO = dict(CASES, full_crossbar=(256, 32, 32, 256, 1, 1, 1, 0),
+           k2304=(256, 8, 8, 256, 3, 3, 1, 1),
+           stride2_nonsquare=(6, 11, 17, 10, 3, 3, 2, 1))
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_conv_plan_covers_the_zoos_convs_once(name):
+    c, h, w, fl, fh, fw, stride, pad = ZOO[name]
+    oh = (h + 2 * pad - fh) // stride + 1
+    ow = (w + 2 * pad - fw) // stride + 1
+    plan = _check_plan(c, fl, fh, fw, stride, oh, ow)
+    if name == "main_path":
+        # the grid covers the card: at least one block per SM
+        assert plan.tj == 8 and plan.ks == 32
+        assert np.prod(plan.grid) >= conv2d.SMS
+    if name == "k2304":
+        assert plan.cc < c                      # the weights take chunks
+
+
+def test_conv_plan_covers_random_shapes():
+    hyp = pytest.importorskip("hypothesis")
+    st = hyp.strategies
+
+    @hyp.settings(max_examples=200, deadline=None, database=None)
+    @hyp.given(c=st.integers(1, 600), fl=st.integers(1, 70),
+               fh=st.integers(1, 7), fw=st.integers(1, 7),
+               stride=st.integers(1, 4), oh=st.integers(1, 40),
+               ow=st.integers(1, 70))
+    def check(c, fl, fh, fw, stride, oh, ow):
+        _check_plan(c, fl, fh, fw, stride, oh, ow)
+    check()
+
+
+def test_conv_plan_refuses_what_does_not_fit():
+    """One channel's input rows and weights past the shared memory raise
+    where the plan is made, before any launch (so on the CPU too)."""
+    with pytest.raises(ValueError, match="shared memory"):
+        conv2d.conv_plan(1, 4, 3, 3, 200, 1, 35)
+    plan = conv2d.conv_plan(1, 4, 3, 3, 100, 1, 35)
+    assert plan.smem_bytes <= conv2d.SMEM_BYTES

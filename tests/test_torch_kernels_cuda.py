@@ -16,6 +16,8 @@ state within 2e-3 x max(1, max|output|), the tolerance of
 ``tests/test_kernels.py`` for its Pallas twin scaled by the output's
 magnitude (both sum the same f32 terms in one order, but the kernel fuses
 multiply-adds and its ``expf`` rounds otherwise than PyTorch's ``exp``).
+The bf16 flash attention kernel runs on the tensor cores and rounds P to
+bf16 before the P.V product; it is held to the same 5e-2.
 Listing-1 conv: rtol 1e-4 and atol 1e-4 x max(1, max|y|), the bound of
 ``tests/test_kernels.py`` for its Pallas twin scaled the same way.
 """
@@ -228,6 +230,82 @@ def test_flash_decode_scalar_and_zero_length(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk", [
+    (1, 3, 1, 100, 100),      # G = 3; 2 query blocks, far below 132 SMs
+    (2, 8, 8, 77, 203),       # G = 1; Sq < Sk, causal offset 126
+    (1, 16, 2, 1, 65),        # G = 8; one query after 64 keys
+    (2, 24, 3, 130, 131)])    # G = 8; 3 query blocks, ragged Sq and Sk
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_tensor_cores(cuda_device, d, b, hq, hkv, sq,
+                                           sk, causal):
+    """The tensor-core kernel at every built head dim, on lengths that are
+    not multiples of its 64-query and 64- or 32-key tiles."""
+    from repro_torch.kernels import flash_attn
+    rng = np.random.default_rng(d * 1000 + sq + sk)
+    dt = torch.bfloat16
+    q = _bshd(rng, b, sq, hq, d, cuda_device, dt)
+    k = _bshd(rng, b, sk, hkv, d, cuda_device, dt)
+    v = _bshd(rng, b, sk, hkv, d, cuda_device, dt)
+    before = flash_attn.LAUNCHES["flash_attention"]
+    got = flash_attn.flash_attention(q, k, v, causal=causal)
+    assert flash_attn.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.transpose(1, 2).is_contiguous()
+    _attn_close(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_copies_only_misaligned_operands(cuda_device, dtype):
+    """16-byte loads need the data pointer and the b, h, s strides to be
+    multiples of 16 bytes: a view that breaks this is copied, and gives the
+    plain result; the model's (B, S, H, D) projections are read in place."""
+    from repro_torch.kernels import _tensors, flash_attn
+    rng = np.random.default_rng(3)
+    b, s, hq, hkv, d = 2, 70, 8, 2, 64
+    n = 16 // torch.empty((), dtype=dtype).element_size()
+    # the model's layout: projections reshaped to (B, S, H, D), transposed
+    x = _randn(rng, (b, s, 96), cuda_device, dtype)
+    wq = _randn(rng, (96, hq * d), cuda_device, dtype, 0.1)
+    wk = _randn(rng, (96, hkv * d), cuda_device, dtype, 0.1)
+    wv = _randn(rng, (96, hkv * d), cuda_device, dtype, 0.1)
+    q, k, v = ((x @ w).reshape(b, s, -1, d).transpose(1, 2)
+               for w in (wq, wk, wv))
+    for t in (q, k, v):
+        assert _tensors.aligned(t, n) is t
+    want = flash_attn.flash_attention_plain(q, k, v, causal=True)
+    _attn_close(flash_attn.flash_attention(q, k, v), want, dtype)
+    # a data pointer off by half the load width, and a head stride that is
+    # not a multiple of it
+    buf = torch.empty(q.numel() + n, dtype=dtype, device=cuda_device)
+    q_off = buf[n // 2:n // 2 + q.numel()].view(b, s, hq, d)
+    q_off.copy_(q.transpose(1, 2))
+    q_off = q_off.transpose(1, 2)
+    wide = torch.zeros(b, s, hkv, d + n // 2, dtype=dtype,
+                       device=cuda_device)
+    wide[..., :d] = k.transpose(1, 2)
+    k_wide = wide[..., :d].transpose(1, 2)
+    for t in (q_off, k_wide):
+        assert _tensors.aligned(t, n) is not t
+    _attn_close(flash_attn.flash_attention(q_off, k_wide, v), want, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_attention_mma_kernel_fits_its_registers(cuda_device):
+    """ptxas's report of the built library: the tensor-core kernel at every
+    head dim keeps to the 255 registers a thread has, with no spills."""
+    from repro_torch.kernels import _build
+    _build.load()
+    usage = {n: u for n, u in _build.resource_usage().items()
+             if "flash_attention_mma_kernel" in n}
+    assert len(usage) == 4, usage
+    for name, (regs, spill_st, spill_ld) in usage.items():
+        assert regs <= 255 and spill_st == 0 and spill_ld == 0, (name, regs)
+
+
+@pytest.mark.cuda
 def test_attention_kernels_refuse_unbuilt_head_dims(cuda_device):
     from repro_torch.kernels import decode_attn, flash_attn
     q = torch.zeros((1, 2, 4, 16), device=cuda_device)
@@ -287,12 +365,15 @@ def test_selective_scan_refuses_large_states(cuda_device):
 
 
 # (C, H, W, FL, FH, FW, stride, pad): the CM zoo's convs, the Pallas
-# kernel's test cases and a full 256-wide crossbar
+# kernel's test cases, a full 256-wide crossbar, a 3x3 conv over 256
+# channels whose weights take several chunks, and a strided non-square one
 CONV_SHAPES = [(28, 16, 16, 28, 3, 3, 1, 1), (1, 28, 28, 4, 3, 3, 1, 0),
                (4, 13, 13, 8, 3, 3, 1, 0), (4, 8, 8, 4, 3, 3, 1, 1),
                (8, 4, 1, 16, 1, 1, 1, 0), (3, 8, 8, 8, 3, 3, 1, 1),
                (4, 12, 12, 16, 3, 3, 2, 0), (1, 6, 6, 4, 1, 1, 1, 0),
-               (2, 9, 7, 8, 3, 3, 1, 2), (256, 32, 32, 256, 1, 1, 1, 0)]
+               (2, 9, 7, 8, 3, 3, 1, 2), (256, 32, 32, 256, 1, 1, 1, 0),
+               (256, 8, 8, 256, 3, 3, 1, 1),    # K = 2304: weights in chunks
+               (6, 11, 17, 10, 3, 3, 2, 1)]     # stride 2, non-square
 
 
 @pytest.mark.cuda
