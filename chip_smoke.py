@@ -7,9 +7,9 @@ result line):
 
 1. build the port's CUDA kernels from the sources in this checkout (nvcc at
    first use) and load them; print ptxas's registers and spill bytes for
-   every kernel and the HMMA (tensor-core) instructions of each kernel from
-   ``cuobjdump -sass``: the bf16 flash attention kernel must have them at
-   every head dim;
+   every kernel and the tensor-core instructions (HMMA, HGMMA) of each
+   kernel from ``cuobjdump -sass``: the bf16 flash attention kernel must
+   have HGMMA (wgmma) at every head dim;
 2. hold each kernel against its plain PyTorch version on CUDA tensors: the
    main path's shapes, lenet-28's shapes and edge shapes (N in {1, 3, 130},
    M = 1, a full 256x256 crossbar at B = 1024, strided x, misaligned
@@ -45,7 +45,7 @@ result line):
    (flash attention and flash decode; the int8 decode with a bf16 query
    too), 2e-5 for the int8 decode against dequantize-then-plain in f32.
    In bf16, flash attention runs on the tensor cores
-   (``flash_attention_mma_kernel``: bf16 products, f32 accumulation, P
+   (``flash_attention_wgmma_kernel``: bf16 products, f32 accumulation, P
    rounded to bf16 before the P.V product); in f32 on the CUDA cores;
 7. the LM serve path: llama3.2-3b at full width (28 layers, bf16, seeded
    random weights on the card) through ``ServeEngine.generate`` (B = 8,
@@ -153,6 +153,7 @@ import dataclasses
 import io
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -208,7 +209,7 @@ ATTN_MODS = {"flash_attention": flash_attn, "flash_decode": decode_attn,
              "flash_decode_int8": decode_attn_int8}
 # the device-side name each kernel's launches carry under torch.profiler
 # (flash attention's bf16 kernel; its f32 one is F32_FLASH_KERNEL)
-ATTN_KERNEL_NAMES = {"flash_attention": "flash_attention_mma_kernel",
+ATTN_KERNEL_NAMES = {"flash_attention": "flash_attention_wgmma_kernel",
                      "flash_decode": "decode_kernel",
                      "flash_decode_int8": "decode_kernel"}
 F32_FLASH_KERNEL = "flash_attention_kernel"
@@ -420,9 +421,9 @@ def _demangle(names):
     return {n: d.split("(")[0] for n, d in zip(names, short)}
 
 
-def _sass_counts(opcode):
-    """{mangled kernel name: number of ``opcode`` instructions} in the built
-    library's SASS (``cuobjdump -sass``)."""
+def _sass_counts(opcodes):
+    """{mangled kernel name: {opcode: number of its instructions}} in the
+    built library's SASS (``cuobjdump -sass``), for each of ``opcodes``."""
     res = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
                           str(_build.library_path())], capture_output=True,
                          text=True, check=True, timeout=300)
@@ -430,37 +431,40 @@ def _sass_counts(opcode):
     for line in res.stdout.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and opcode in line:
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys(opcodes, 0)
+        elif fn is not None:
+            ops = re.findall(r"\b[A-Z0-9]+(?=[. ])", line)
+            for op in opcodes:
+                counts[fn][op] += op in ops
     return counts
 
 
 # ------------------------------------------------------------------- phases
 def phase_build():
     """Build and load the kernels; print ptxas's registers and spills for
-    every kernel, and the tensor-core (HMMA) instructions of each; the
-    tensor-core attention kernel must have some."""
+    every kernel, and the tensor-core instructions (HMMA, HGMMA) of each;
+    the bf16 flash attention kernel must have HGMMA at every head dim."""
     t0 = time.perf_counter()
     lib = _build.load()
     secs = time.perf_counter() - t0
     print(f"[1] kernels built and loaded in {secs:.2f} s: "
           f"{_build.library_path()}")
     usage = _build.resource_usage()
-    hmma = _sass_counts("HMMA")
-    names = _demangle(sorted(set(usage) | set(hmma)))
+    tc = _sass_counts(("HMMA", "HGMMA"))
+    names = _demangle(sorted(set(usage) | set(tc)))
     print("[1] ptxas registers / spill stores / spill loads (bytes) per "
           "kernel: " + "; ".join(f"{names[n]} {r}/{st}/{ld}" for n, (r, st, ld)
                                   in sorted(usage.items(),
                                             key=lambda kv: names[kv[0]])))
-    print("[1] HMMA (tensor-core) instructions per kernel: " + "; ".join(
-        f"{names[n]} {c}" for n, c in sorted(hmma.items(),
-                                             key=lambda kv: names[kv[0]])
-        if c))
-    mma = {n: c for n, c in hmma.items() if "flash_attention_mma_kernel" in n}
-    if len(mma) != len(HEAD_DIMS) or not all(mma.values()):
+    print("[1] tensor-core instructions per kernel (HMMA, HGMMA): " +
+          "; ".join(f"{names[n]} {c['HMMA']}, {c['HGMMA']}"
+                    for n, c in sorted(tc.items(), key=lambda kv: names[kv[0]])
+                    if any(c.values())))
+    wg = {n: c["HGMMA"] for n, c in tc.items()
+          if ATTN_KERNEL_NAMES["flash_attention"] in n}
+    if len(wg) != len(HEAD_DIMS) or not all(wg.values()):
         raise AssertionError(f"[1] the bf16 flash attention kernel is not on "
-                             f"the tensor cores: HMMA counts {mma}")
+                             f"the tensor cores: HGMMA counts {wg}")
     return lib
 
 
@@ -647,9 +651,7 @@ def phase_times(dev, paths, errs):
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "shape_bnm": [b, n, m],
-            "device_ms": None if dev_us is None else dev_us / 1e3,
-            "library_device_ms": None if lib_dev_us is None
-            else lib_dev_us / 1e3,
+            "device_ms": _ms(dev_us), "library_device_ms": _ms(lib_dev_us),
             "serve_wall_ms": path["torch_ms"],
             "serve_wall_ms_numpy_plane": path["numpy_ms"],
             "plane_call_us": call_us, "numpy_plane_call_us": numpy_call_us,
@@ -657,13 +659,11 @@ def phase_times(dev, paths, errs):
             "serve_profiled_wall_ms": path["profiled_wall_ms"],
         })
         print(f"[5] {name} at (B, N, M) = {(b, n, m)}: {ms * 1e3:.2f} us per "
-              f"launch (events, back to back), device "
-              f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'}; "
+              f"launch (events, back to back), device {_us(dev_us)}; "
               f"plain {plain_ms * 1e3:.2f} us; library "
               f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'} "
-              f"({why}; device "
-              f"{'not measured' if lib_dev_us is None else f'{lib_dev_us:.2f} us'}"
-              f"); bound {bound_ms * 1e3:.4f} us ({bound_by}); "
+              f"({why}; device {_us(lib_dev_us)}); bound "
+              f"{bound_ms * 1e3:.4f} us ({bound_by}); "
               f"{launches} launches per serve; one TorchPlane call "
               f"(upload, launch, download) {call_us:.1f} us, one NumpyPlane "
               f"call {numpy_call_us:.1f} us")

@@ -12,11 +12,9 @@
 // is 28 channels of 16 x 16 and 28 filters: 64.5 KB in and out, 3.6 MFLOP),
 // so by bytes or by f32 operations the work could be over in well under a
 // microsecond: the kernel is bound by its own latency, from the launch and
-// the staging of its operands to the last store.  The first kernel ran 32
-// blocks at the main path's shape, each thread walking 4 x 252 dependent
-// FMAs with every weight read byte by byte from global memory (28.6 us of
-// device time on an H100, 2.8x cuDNN's F.conv2d).  What this design does
-// about it:
+// the staging of its operands to the last store: the chains of dependent
+// loads and FMAs a thread walks, and how many of them the card runs at
+// once.  What the design does about it:
 //   - no global load in the FMA loop: per chunk of channels the block
 //     stages its filters' slice of wq in shared memory as f32, dequantized
 //     once, next to the input rows it reads, in one pass with BATCH loads a
@@ -32,10 +30,8 @@
 //     fewer blocks than the card's 132 SMs and the split stays below twice
 //     the channels.  At the main path's shape: TJ = 8, KS = 32, a grid of
 //     (16, 2, 7) = 224 blocks of 8 warps, at least 132 blocks.
-// Measured on an H100 at that shape (PERF.md): ~1.7 us of the kernel's ~4 us
-// is launch, reduction and store (a kernel that stages and multiplies
-// nothing), ~0.9 us the global loads and the rest the staging's
-// arithmetic and the FMAs.
+// On an H100 at that shape: 4.1-4.3 us of device time, against 5.2 us for
+// cuDNN's F.conv2d in the same run (PERF.md).
 // f32 on the CUDA cores: a TF32 tensor-core product would break the 1e-4
 // bound against the plain version and Listing 1, and at 3.6 MFLOP the
 // arithmetic is not what bounds the kernel.  The scale is applied once per

@@ -13,35 +13,38 @@
 // byte: it is bound by operations, and the card's rate for them is the bf16
 // tensor cores' (989 TFLOP/s).
 //
-// bf16 inputs: flash_attention_mma_kernel, the FlashAttention-2 shape on
-// the tensor cores.  S = Q.K^T and O += P.V run on
-// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with f32 accumulators in
-// registers; bf16 x bf16 products are exact in f32, so S is as exact as an
-// f32 product of the bf16 inputs.  Operands come from shared memory through
-// ldmatrix (V through ldmatrix.trans).  The S accumulators are rescaled and
+// bf16 inputs: flash_attention_wgmma_kernel, on Hopper's warpgroup tensor
+// cores.  One warpgroup (4 warps, 16 query rows each) a block of 64
+// queries.  S = Q.K^T runs on wgmma.mma_async m64nBKk16 with Q and K read
+// by the tensor cores straight from shared memory, and O += P.V on
+// m64nDk16 with P from registers and V from shared memory (transposed by
+// the instruction); both accumulate in f32 registers (csrc/wgmma.cuh).
+// bf16 x bf16 products are exact in f32, so S is as exact as an f32
+// product of the bf16 inputs.  The S accumulators are rescaled and
 // exponentiated in registers (exp2f, log2 e folded into the scale; row max
 // and sum shared by the four lanes of a row through __shfl_xor_sync 1, 2)
-// and repacked as the A operand of the P.V product: P never goes through
-// shared memory, and it is rounded to bf16 once, there (the one rounding
-// the f32 path has not; a TPU's MXU at default precision rounds there too).
-// The row sum l adds the f32 P.  K and V tiles arrive by 16-byte cp.async
-// into a ring of two stages, so tile j + 1 is in flight while tile j is
-// computed; Q is loaded once per block.  Rows in shared memory are padded by
-// 16 bytes, which makes every ldmatrix and the epilogue free of bank
-// conflicts.  Masks are computed only on the causal diagonal tile and the
-// ragged Sk edge; tiles past the diagonal are not visited.  The epilogue
-// stages O in shared memory and writes it with 16-byte stores through q's
-// strides.  Not done yet: wgmma with TMA (the FlashAttention-3 shape).
+// and are, in wgmma's register layout, the A operand of the P.V product:
+// P never goes through shared memory, and it is rounded to bf16 once,
+// there (the one rounding the f32 path has not; a TPU's MXU at default
+// precision rounds there too).  The row sum l adds the f32 P.  Q, K and V
+// arrive by 16-byte cp.async into wgmma's 128-byte-swizzled layout (free
+// of bank conflicts), K and V into a ring of two stages, so tile j + 1 is
+// in flight while tile j is computed; Q is loaded once per block.  Masks
+// are computed only on the causal diagonal tile and the ragged Sk edge;
+// tiles past the diagonal are not visited.  The epilogue stages O in
+// shared memory and writes it with 16-byte stores through q's strides.
+// Not done yet: TMA loads, a producer warp and two consumer warpgroups in
+// turns (the FlashAttention-3 shape).
 //
 // Layout (bf16): grid (Hq, B, ceil(Sq / 64)), query blocks launched longest
 // first (block z takes query block ceil(Sq / 64) - 1 - z: under a causal
-// mask it has the most keys); 4 warps, each owns 16 query rows.  Key tiles
-// of 64 at D <= 128, where each warp keeps its Q fragments in registers; at
-// D = 256, key tiles of 32 and Q read from shared memory at every tile, to
-// keep the 128 f32 output accumulators a thread holds under 255 registers
-// with no spills.  cp.async of 16 bytes needs the data pointer and the b, h
-// and s strides to be multiples of 8 elements: the wrapper checks them and
-// copies a tensor that breaks this.
+// mask it has the most keys).  Key tiles of 64 at D <= 128 and of 32 at
+// D = 256, which keeps the 128 f32 output accumulators a thread holds at
+// D = 256 under 255 registers with no spills; D = 32 is staged and
+// multiplied as 64 wide (the swizzle atom), its upper half zero.  cp.async
+// of 16 bytes needs the data pointer and the b, h and s strides to be
+// multiples of 8 elements: the wrapper checks them and copies a tensor
+// that breaks this.
 //
 // f32 inputs: flash_attention_kernel, on the CUDA cores in f32 (67 TFLOP/s at
 // most).  An f32 call exists to hold the f32 checks (logits within 2e-3 at
@@ -69,6 +72,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -247,18 +251,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // --------------------------------------------- bf16: tensor-core kernel
 using bf16 = __nv_bfloat16;
 
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_NT = 32 * MMA_WARPS;  // threads per block
-constexpr int MMA_BQ = 16 * MMA_WARPS;  // queries per block, 16 a warp
+constexpr int WG_NT = 128;  // one warpgroup: four warps, 16 query rows each
+constexpr int WG_BQ = 64;   // queries per block
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
-struct MmaTile {
+struct WgTile {
   static constexpr int BK = D <= 128 ? 64 : 32;  // keys per tile
-  static constexpr bool Q_IN_REGS = D <= 128;
-  static constexpr int LD = D + 8;              // padded row, in elements
-  static constexpr size_t SMEM =
-      sizeof(bf16) * static_cast<size_t>(LD) * (MMA_BQ + 2 * 2 * BK);
+  static constexpr int DP = D < 64 ? 64 : D;     // staged row, in elements
+  static constexpr int Q_BYTES = WG_BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;
+  // Q, two stages of K and of V, and room to align the tiles to 1024 bytes
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 4 * KV_BYTES;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -279,30 +283,42 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+// this thread's writes to shared memory become visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving registers across an asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// c (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Byte offset of 16-byte chunk c of row r in a tile of R rows stored in
+// wgmma's 128-byte-swizzled layout: rows of 64 elements (128 bytes) per
+// swizzle atom, atoms of R rows one after another along the row, chunk c of
+// an atom's row r at position c ^ (r % 8).  No two of the eight rows of a
+// group share a bank.
+__device__ __forceinline__ int swizzled(int r, int c, int R) {
+  return (c >> 3) * R * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// wgmma's shared-memory matrix descriptor for a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (in 16-byte units)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
 // two f32 as one register of bf16 pairs, lo in the low half
@@ -311,87 +327,91 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4): an A fragment
-// holds rows g and g + 8 at columns 2t, 2t + 1 (and + 8); a B fragment holds
-// k rows 2t, 2t + 1 (and + 8) of column g; the accumulator c[0], c[1] is row
-// g at columns 2t, 2t + 1 and c[2], c[3] row g + 8.  ldmatrix.x4 hands each
-// lane one such pair from each of four 8 x 8 matrices, whose rows' addresses
-// come from lanes 0-7, 8-15, 16-23 and 24-31.
+// S (64 x BK) (+)= Q.K^T over 16 of D, and O (64 x DP) += P.V over 16 keys
+template <int BK>
+__device__ __forceinline__ void mma_s(float (&s)[BK / 2], uint64_t q_desc,
+                                      uint64_t k_desc, int accumulate) {
+  if constexpr (BK == 64) repro_torch::wgmma_ss_n64(s, q_desc, k_desc, accumulate);
+  else repro_torch::wgmma_ss_n32(s, q_desc, k_desc, accumulate);
+}
+template <int DP>
+__device__ __forceinline__ void mma_o(float (&o)[DP / 2],
+                                      const uint32_t (&p)[4],
+                                      uint64_t v_desc) {
+  if constexpr (DP == 64) repro_torch::wgmma_rs_n64(o, p, v_desc);
+  else if constexpr (DP == 128) repro_torch::wgmma_rs_n128(o, p, v_desc);
+  else repro_torch::wgmma_rs_n256(o, p, v_desc);
+}
+
+// The accumulators of a 64 x N wgmma: thread (warp w, lane 4 g + t) holds
+// element [4 n + e] = row 16 w + g + 8 (e / 2), column 8 n + 2 t + e % 2.
+// The A operand from registers has the same rows: a[0], a[1] are row g at
+// columns 2t, 2t + 1 and 2t + 8, 2t + 9 of a 16-wide slice, a[2], a[3]
+// row g + 8; so S's accumulators of keys 16 kk .. 16 kk + 15 are P's A
+// operand once rounded to bf16.
 template <int D>
-__global__ void __launch_bounds__(MMA_NT)
-flash_attention_mma_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ o,
-                           int Sq, int Sk, int G, int causal,
-                           float scale_log2, AttnStrides st) {
-  using Tile = MmaTile<D>;
-  constexpr int BKT = Tile::BK, LD = Tile::LD;
-  constexpr int KD = D / 16;    // k-steps of Q.K^T
-  constexpr int NS = BKT / 8;   // 8-key column blocks of S
-  constexpr int NO = D / 8;     // 8-wide column blocks of O
-  constexpr int CH = D / 8;     // 16-byte chunks of a row
-  extern __shared__ uint4 smem_mma[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_mma);  // [MMA_BQ][LD]
-  bf16* Ks = Qs + MMA_BQ * LD;                   // [2][BKT][LD]
-  bf16* Vs = Ks + 2 * BKT * LD;                  // [2][BKT][LD]
+__global__ void __launch_bounds__(WG_NT)
+flash_attention_wgmma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, bf16* __restrict__ o,
+                             int Sq, int Sk, int G, int causal,
+                             float scale_log2, AttnStrides st) {
+  using Tile = WgTile<D>;
+  constexpr int BKT = Tile::BK, DP = Tile::DP;
+  constexpr int CH = DP / 8;   // 16-byte chunks of a staged row
+  constexpr int DCH = D / 8;   // of them, the ones that hold data
+  constexpr int NS = BKT / 8;  // 8-key column blocks of S
+  extern __shared__ uint8_t smem_wg[];
+  const uint32_t raw = smem_addr(smem_wg);
+  uint8_t* Qs = smem_wg + (((raw + 1023) & ~1023u) - raw);
+  uint8_t* Ks = Qs + Tile::Q_BYTES;       // [2][KV_BYTES]
+  uint8_t* Vs = Ks + 2 * Tile::KV_BYTES;  // [2][KV_BYTES]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * MMA_BQ;  // longest first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * WG_BQ;  // longest first
   const int hk = h / G;
   const int q_offset = Sk - Sq;
   const bf16* qg = q + b * st.q.b + h * st.q.h;
   const bf16* kg = k + b * st.k.b + hk * st.k.h;
   const bf16* vg = v + b * st.v.b + hk * st.v.h;
 
-  for (int i = tid; i < MMA_BQ * CH; i += MMA_NT) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = q0 + r < Sq;
-    cp_async16(smem_addr(Qs + r * LD + c),
-               qg + (ok ? (q0 + r) * st.q.s + c : 0), ok);
+  for (int i = tid; i < WG_BQ * CH; i += WG_NT) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = q0 + r < Sq && c < DCH;
+    cp_async16(smem_addr(Qs + swizzled(r, c, WG_BQ)),
+               qg + (ok ? (q0 + r) * st.q.s + c * 8 : 0), ok);
   }
   cp_async_commit();
 
   // keys past the block's last query position are masked for every row
-  const int q_last = min(q0 + MMA_BQ, Sq) - 1;
+  const int q_last = min(q0 + WG_BQ, Sq) - 1;
   const int kv_end = causal ? min(Sk, q_last + q_offset + 1) : Sk;
   const int n_tiles = (kv_end + BKT - 1) / BKT;
 
   auto load_kv = [&](int tile) {
     const int k0 = tile * BKT;
-    bf16* ks = Ks + (tile & 1) * BKT * LD;
-    bf16* vs = Vs + (tile & 1) * BKT * LD;
-    for (int i = tid; i < BKT * CH; i += MMA_NT) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool ok = k0 + r < Sk;
-      const long long row = ok ? k0 + r : 0;
-      cp_async16(smem_addr(ks + r * LD + c), kg + row * st.k.s + c, ok);
-      cp_async16(smem_addr(vs + r * LD + c), vg + row * st.v.s + c, ok);
+    uint8_t* ks = Ks + (tile & 1) * Tile::KV_BYTES;
+    uint8_t* vs = Vs + (tile & 1) * Tile::KV_BYTES;
+    for (int i = tid; i < BKT * CH; i += WG_NT) {
+      const int r = i / CH, c = i % CH;
+      const bool ok = k0 + r < Sk && c < DCH;
+      const long long at = ok ? (k0 + r) * st.k.s + c * 8 : 0;
+      const long long av = ok ? (k0 + r) * st.v.s + c * 8 : 0;
+      const int off = swizzled(r, c, BKT);
+      cp_async16(smem_addr(ks + off), kg + at, ok);
+      cp_async16(smem_addr(vs + off), vg + av, ok);
     }
   };
   load_kv(0);
   cp_async_commit();
 
-  const int wr0 = warp * 16;  // the warp's first row of the query block
-  // ldmatrix row addresses: Q (A operand) rows wr0 + lane % 16, column
-  // 8 (lane / 16); K (B operand of S) key (lane / 16) 8 + lane % 8, column
-  // 8 ((lane / 8) % 2); V (B operand of O, transposed) key
-  // ((lane / 8) % 2) 8 + lane % 8, column 8 (lane / 16)
-  const uint32_t q_addr =
-      smem_addr(Qs + (wr0 + (lane & 15)) * LD + ((lane >> 4) << 3));
-  const int k_off = (((lane >> 4) << 3) + (lane & 7)) * LD +
-                    (((lane >> 3) & 1) << 3);
-  const int v_off = ((((lane >> 3) & 1) << 3) + (lane & 7)) * LD +
-                    ((lane >> 4) << 3);
-  const int qpos = q0 + wr0 + g + q_offset;  // row g's position; g + 8: +8
-
-  uint32_t qf[Tile::Q_IN_REGS ? KD : 1][4];
-  float acc[NO][4];
+  const int qpos = q0 + warp * 16 + g + q_offset;  // row g's; g + 8: +8
+  const uint32_t q_addr = smem_addr(Qs);
+  float acc[DP / 2];
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m_r[2] = {NEG, NEG};  // running max of rows g, g + 8 (log2 units)
   float l_r[2] = {0.f, 0.f};  // this lane's share of their running sums
 
@@ -399,39 +419,28 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     if (j + 1 < n_tiles) load_kv(j + 1);
     cp_async_commit();   // possibly empty: tile j is then all but one group
     cp_async_wait_one();
+    fence_async_smem();
     __syncthreads();
-    if constexpr (Tile::Q_IN_REGS) {
-      if (j == 0) {
-#pragma unroll
-        for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], q_addr + kk * 32);
-      }
-    }
     const int k0 = j * BKT;
-    const bf16* ks = Ks + (j & 1) * BKT * LD;
-    const bf16* vs = Vs + (j & 1) * BKT * LD;
+    const uint32_t k_addr = smem_addr(Ks + (j & 1) * Tile::KV_BYTES);
+    const uint32_t v_addr = smem_addr(Vs + (j & 1) * Tile::KV_BYTES);
 
-    float s[NS][4];
+    // S = Q.K^T: both K-major; step kk reads 32 bytes of each row, atom
+    // kk / 4; 8-row groups 1024 bytes apart
+    float s[BKT / 2];
+    fence_regs(s);
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4];
-      if constexpr (Tile::Q_IN_REGS) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
-      } else {
-        ldmatrix_x4(a, q_addr + kk * 32);
-      }
-#pragma unroll
-      for (int n = 0; n < NS; n += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, smem_addr(ks + n * 8 * LD + k_off + kk * 16));
-        mma_bf16(s[n], a, bk[0], bk[1]);
-        mma_bf16(s[n + 1], a, bk[2], bk[3]);
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t step = (kk & 3) * 32;
+      mma_s<BKT>(s,
+                 smem_desc(q_addr + (kk >> 2) * WG_BQ * 128 + step, 16, 1024),
+                 smem_desc(k_addr + (kk >> 2) * BKT * 128 + step, 16, 1024),
+                 kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
 
     const bool masked = k0 + BKT > Sk ||
                         (causal && k0 + BKT - 1 > q0 + q_offset);
@@ -440,13 +449,13 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
+        float x = s[4 * n + e] * scale_log2;
         if (masked) {
           const int key = k0 + n * 8 + 2 * t + (e & 1);
           if (key >= Sk || (causal && key > qpos + (e >> 1) * 8))
             x = -INFINITY;
         }
-        s[n][e] = x;
+        s[4 * n + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     float alpha[2];
@@ -460,33 +469,32 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
       l_r[r] *= alpha[r];
     }
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int i = 0; i < BKT / 2; ++i) {
+      const float p = exp2f(s[i] - m_r[(i >> 1) & 1]);  // masked: 0
+      s[i] = p;
+      l_r[(i >> 1) & 1] += p;
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m_r[e >> 1]);  // masked: 0
-        s[n][e] = p;
-        l_r[e >> 1] += p;
-      }
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
+    // O += P.V: P from registers, V MN-major (16 keys a step, 2048 bytes;
+    // 8-key groups 1024 bytes apart, 64-column atoms BK * 128 bytes apart)
+    uint32_t pa[BKT / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BKT / 16; ++kk) {
-      // the S accumulators of keys 16 kk .. 16 kk + 15 are the A fragment
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, smem_addr(vs + kk * 16 * LD + v_off + n * 8));
-        mma_bf16(acc[n], a, bv[0], bv[1]);
-        mma_bf16(acc[n + 1], a, bv[2], bv[3]);
-      }
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKT / 16; ++kk)
+      mma_o<DP>(acc, pa[kk], smem_desc(v_addr + kk * 2048, BKT * 128, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
     __syncthreads();  // every warp is done with this stage before refill
   }
 
@@ -497,24 +505,28 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     inv[r] = 1.f / fmaxf(l_r[r], 1e-30f);
   }
-  // O through the warp's own 16 rows of the Q tile, then 16-byte stores
-  bf16* os = Qs + wr0 * LD;
+  // O through a row-padded tile over the K/V stages (no one reads them
+  // now), then 16-byte stores
+  constexpr int LD = D + 8;
+  bf16* os = reinterpret_cast<bf16*>(Ks);
+  const int r0 = warp * 16;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t;
-    *reinterpret_cast<__nv_bfloat162*>(os + g * LD + col) =
-        __floats2bfloat162_rn(acc[n][0] * inv[0], acc[n][1] * inv[0]);
-    *reinterpret_cast<__nv_bfloat162*>(os + (g + 8) * LD + col) =
-        __floats2bfloat162_rn(acc[n][2] * inv[1], acc[n][3] * inv[1]);
+    *reinterpret_cast<__nv_bfloat162*>(os + (r0 + g) * LD + col) =
+        __floats2bfloat162_rn(acc[4 * n] * inv[0], acc[4 * n + 1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(os + (r0 + g + 8) * LD + col) =
+        __floats2bfloat162_rn(acc[4 * n + 2] * inv[1],
+                              acc[4 * n + 3] * inv[1]);
   }
   __syncwarp();
   bf16* ob = o + b * st.o.b + h * st.o.h;
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const int qi = q0 + wr0 + r;
+  for (int i = lane; i < 16 * DCH; i += 32) {
+    const int r = i / DCH, c = (i % DCH) * 8;
+    const int qi = q0 + r0 + r;
     if (qi < Sq)
       *reinterpret_cast<uint4*>(ob + qi * st.o.s + c) =
-          *reinterpret_cast<const uint4*>(os + r * LD + c);
+          *reinterpret_cast<const uint4*>(os + (r0 + r) * LD + c);
   }
 }
 
@@ -539,13 +551,13 @@ template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int Hq, int Hkv, int Sq, int Sk, int causal, float sm_scale,
                 const AttnStrides& st, cudaStream_t stream) {
-  constexpr size_t smem = MmaTile<D>::SMEM;
+  constexpr size_t smem = WgTile<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_mma_kernel<D>,
+      flash_attention_wgmma_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(Hq, B, (Sq + MMA_BQ - 1) / MMA_BQ);
-  flash_attention_mma_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+  const dim3 grid(Hq, B, (Sq + WG_BQ - 1) / WG_BQ);
+  flash_attention_wgmma_kernel<D><<<grid, WG_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, Hq / Hkv,
       causal, sm_scale * LOG2E, st);

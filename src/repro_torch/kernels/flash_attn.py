@@ -5,10 +5,10 @@
 ``repro.kernels.flash_attn.flash_attention``) on CUDA tensors, and runs its
 plain PyTorch version (:func:`flash_attention_plain`, the oracle
 ``ref.attention_ref``) on CPU tensors.  The kernel follows the dtype: bf16
-runs on the tensor cores (``flash_attention_mma_kernel``: bf16 products,
-f32 accumulation, P rounded to bf16 before the P.V product), f32 on the
-CUDA cores in f32 (``flash_attention_kernel``), which holds the f32
-checks a tensor-core product would not.  A CUDA tensor never falls back to
+runs on Hopper's warpgroup tensor cores (``flash_attention_wgmma_kernel``:
+bf16 products, f32 accumulation, P rounded to bf16 before the P.V
+product), f32 on the CUDA cores in f32 (``flash_attention_kernel``), which
+holds the f32 checks a tensor-core product would not.  A CUDA tensor never falls back to
 the plain version or to the other kernel: the kernel launches or the
 wrapper raises.
 

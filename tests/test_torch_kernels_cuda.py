@@ -16,8 +16,8 @@ state within 2e-3 x max(1, max|output|), the tolerance of
 ``tests/test_kernels.py`` for its Pallas twin scaled by the output's
 magnitude (both sum the same f32 terms in one order, but the kernel fuses
 multiply-adds and its ``expf`` rounds otherwise than PyTorch's ``exp``).
-The bf16 flash attention kernel runs on the tensor cores and rounds P to
-bf16 before the P.V product; it is held to the same 5e-2.
+The bf16 flash attention kernel runs on the tensor cores (wgmma) and rounds
+P to bf16 before the P.V product; it is held to the same 5e-2.
 Listing-1 conv: rtol 1e-4 and atol 1e-4 x max(1, max|y|), the bound of
 ``tests/test_kernels.py`` for its Pallas twin scaled the same way.
 """
@@ -293,13 +293,13 @@ def test_flash_attention_copies_only_misaligned_operands(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_attention_mma_kernel_fits_its_registers(cuda_device):
+def test_flash_attention_tensor_core_kernel_fits_its_registers(cuda_device):
     """ptxas's report of the built library: the tensor-core kernel at every
     head dim keeps to the 255 registers a thread has, with no spills."""
     from repro_torch.kernels import _build
     _build.load()
     usage = {n: u for n, u in _build.resource_usage().items()
-             if "flash_attention_mma_kernel" in n}
+             if "flash_attention_wgmma_kernel" in n}
     assert len(usage) == 4, usage
     for name, (regs, spill_st, spill_ld) in usage.items():
         assert regs <= 255 and spill_st == 0 and spill_ld == 0, (name, regs)
