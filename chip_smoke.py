@@ -9,7 +9,8 @@ result line):
    first use) and load them; print ptxas's registers and spill bytes for
    every kernel and the tensor-core instructions (HMMA, HGMMA) of each
    kernel from ``cuobjdump -sass``: the bf16 flash attention kernel must
-   have HGMMA (wgmma) at every head dim;
+   have HGMMA (wgmma) at every head dim, and the decode kernels
+   (``decode_split_kernel``, ``decode_merge_kernel``) must be built;
 2. hold each kernel against its plain PyTorch version on CUDA tensors: the
    main path's shapes, lenet-28's shapes and edge shapes (N in {1, 3, 130},
    M = 1, a full 256x256 crossbar at B = 1024, strided x, misaligned
@@ -40,13 +41,19 @@ result line):
 6. the attention kernels (flash attention, flash decode, int8-KV flash
    decode) against their plain versions at llama3.2-3b's full-width heads
    (Hq 24, Hkv 8, D 128): S in {1, 17, 128, 512, 2048}, B in {1, 8}, ragged
-   per-row lengths, (B, S, H, D) inputs read through strides, f32 and bf16.
-   Tolerances of ``tests/test_kernels.py``: 2e-3 in f32 and 5e-2 in bf16
-   (flash attention and flash decode; the int8 decode with a bf16 query
-   too), 2e-5 for the int8 decode against dequantize-then-plain in f32.
-   In bf16, flash attention runs on the tensor cores
+   per-row lengths with, at B = 8, one row of length 0 (every position
+   masked: the mean of V over all S, as the Pallas kernel gives), (B, S,
+   H, D) inputs read through strides, f32 and bf16; flash attention also
+   non-causal, with Sq < Sk, and causal with 100 queries over 33 keys (the
+   67 rows before the first key get the mean of V).  Tolerances of
+   ``tests/test_kernels.py``: 2e-3 in f32 and 5e-2 in bf16 (flash
+   attention and flash decode; the int8 decode with a bf16 query too),
+   2e-5 for the int8 decode against dequantize-then-plain in f32.  In
+   bf16, flash attention runs on the tensor cores
    (``flash_attention_wgmma_kernel``: bf16 products, f32 accumulation, P
-   rounded to bf16 before the P.V product); in f32 on the CUDA cores;
+   rounded to bf16 before the P.V product); in f32 on the CUDA cores.  A
+   decode call is two kernels, ``decode_split_kernel`` (partials per chunk
+   of 64 positions) and ``decode_merge_kernel``;
 7. the LM serve path: llama3.2-3b at full width (28 layers, bf16, seeded
    random weights on the card) through ``ServeEngine.generate`` (B = 8,
    prompts of 512, 32 new tokens) and ``ContinuousBatcher`` (8 slots,
@@ -62,12 +69,18 @@ result line):
    max(1, max|logit|) (measured on the card, PERF.md);
 8. times: prefill ms and decode tok/s from ``throughput_probe`` (kernel,
    plain, plain, kernel); each attention kernel at the shape its path
-   launched most often (CUDA events, device time under torch.profiler),
-   its plain version and ``F.scaled_dot_product_attention`` (the library
-   yardstick, never called by the port; causal for flash attention, with a
-   length mask for flash decode; events and device time) beside its bound;
-   flash attention's f32 kernel's device time on the same inputs in f32;
-   the device's idle share over one profiled ``generate``.
+   launched most often (CUDA events; device time under torch.profiler: the
+   flash kernel's own, and for a decode call the union of the intervals of
+   its split and merge kernels, with each one's own time, the launch
+   plan's grids and the blocks working at these lengths, and again with
+   the cache cold in L2, as a decode step finds it: calls rotating over
+   copies of the cache that add up to 1.5 x the L2), its plain version and
+   ``F.scaled_dot_product_attention`` (the library yardstick, never called
+   by the port; causal for flash attention, with a length mask for flash
+   decode, warm and cold; events and device time) beside its bound; flash
+   attention's f32 kernel's device time on the same inputs in f32; flash
+   decode's device time with every row at 64, 529, 1024 and 2048
+   positions; the device's idle share over one profiled ``generate``.
 
 9. the selective-scan kernel against its plain version: falcon-mamba-7b's
    prefill shape (B, L, Din, N) = (8, 512, 8192, 16) in bf16, B = 1 at
@@ -151,7 +164,9 @@ import collections
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -190,6 +205,7 @@ from repro_torch.serve import ContinuousBatcher, Request, ServeEngine  # noqa: E
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth, f32
 # outside the tensor cores, int8 tensor cores.  Rates assume the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6
 PEAK_OPS = {"f32": 67e12, "int8": 1979e12, "bf16": 989e12}
 SOURCE = "src/repro_torch/kernels/csrc/mxv.cu"
 REPLACES = {"crossbar_mxv": "src/repro/kernels/mxv.py:72",
@@ -207,12 +223,12 @@ ATTN_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attn.cu",
                     "src/repro_torch/kernels/csrc/decode_attn.cu"}
 ATTN_MODS = {"flash_attention": flash_attn, "flash_decode": decode_attn,
              "flash_decode_int8": decode_attn_int8}
-# the device-side name each kernel's launches carry under torch.profiler
-# (flash attention's bf16 kernel; its f32 one is F32_FLASH_KERNEL)
-ATTN_KERNEL_NAMES = {"flash_attention": "flash_attention_wgmma_kernel",
-                     "flash_decode": "decode_kernel",
-                     "flash_decode_int8": "decode_kernel"}
+# the device-side name flash attention's bf16 launches carry under
+# torch.profiler (its f32 kernel is F32_FLASH_KERNEL); a decode call
+# launches the two DECODE_KERNELS, and its device time is their union
+WGMMA_FLASH_KERNEL = "flash_attention_wgmma_kernel"
 F32_FLASH_KERNEL = "flash_attention_kernel"
+DECODE_KERNELS = ("decode_split_kernel", "decode_merge_kernel")
 LM_ARCH = "llama3.2-3b"
 BATCH, PROMPT, NEW, MAX_LEN = 8, 512, 32, 2048
 N_REQUESTS, SLOTS = 16, 8
@@ -341,19 +357,36 @@ def _device_us(fn, name, reps=50, tries=2):
     return None
 
 
-def _device_total_us(fn, reps=50, tries=3):
-    """Device time of one call of ``fn`` under torch.profiler: the union of
-    the intervals of every kernel and copy it launches, over ``reps`` calls
-    (for a library call, whose kernels' names are the library's); None
-    where ``tries`` profiles show no device time (a profile now and then
-    records no kernel)."""
+def _device_total_us(fn, reps=50, profiles=3):
+    """Device time of one call of ``fn`` under torch.profiler, over ``reps``
+    calls: for each kernel or copy a call launches (a library call's
+    kernels carry the library's names), its mean duration times its
+    launches per call, summed; the median over ``profiles`` profiles, None
+    where none shows device time.  A call's kernels run one after another
+    on one stream, so this is the union of their intervals.  The profiler
+    now and then drops device events: each name's mean is over the events
+    it holds, where a union over fewer calls' events, divided by ``reps``,
+    would read short."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        _, busy_ms, _, _ = _device_busy(lambda: [fn() for _ in range(reps)])
-        if busy_ms is not None:
-            return busy_ms * 1e3 / reps
-    return None
+    totals = []
+    for _ in range(profiles):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = collections.defaultdict(list)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                spans[e.name].append(e.time_range.end - e.time_range.start)
+        total = sum(round(len(d) / reps) * statistics.fmean(d)
+                    for d in spans.values())
+        if total > 0:
+            totals.append(total)
+    return statistics.median(totals) if totals else None
 
 
 def _plane_call_us(plane, desc, V, reps=200):
@@ -460,8 +493,15 @@ def phase_build():
           "; ".join(f"{names[n]} {c['HMMA']}, {c['HGMMA']}"
                     for n, c in sorted(tc.items(), key=lambda kv: names[kv[0]])
                     if any(c.values())))
+    for kname in DECODE_KERNELS:
+        found = {names[n]: u for n, u in usage.items() if kname in n}
+        if not found:
+            raise AssertionError(f"[1] {kname} is not in the built library")
+        print(f"[1] {kname}: registers / spill stores / spill loads: " +
+              "; ".join(f"{n} {r}/{st}/{ld}"
+                        for n, (r, st, ld) in sorted(found.items())))
     wg = {n: c["HGMMA"] for n, c in tc.items()
-          if ATTN_KERNEL_NAMES["flash_attention"] in n}
+          if WGMMA_FLASH_KERNEL in n}
     if len(wg) != len(HEAD_DIMS) or not all(wg.values()):
         raise AssertionError(f"[1] the bf16 flash attention kernel is not on "
                              f"the tensor cores: HGMMA counts {wg}")
@@ -738,6 +778,8 @@ def phase_attention_kernels(dev):
             lengths = torch.randint(1, s + 1, (b,), generator=gen,
                                     device=dev, dtype=torch.int32)
             lengths[0] = s
+            if b > 1:        # every position masked: the mean of V over S
+                lengths[1] = 0
             for dt in (f32, bf16):
                 tol = 2e-3 if dt == f32 else 5e-2
                 what = f"B={b} S={s} {dt}"
@@ -762,15 +804,19 @@ def phase_attention_kernels(dev):
                      2e-5 if dt == f32 else 5e-2,
                      f"flash_decode_int8 {what}")
                 n_cases += 3
-    # non-causal, and the last 33 of 100 positions as queries
-    for causal, sq, sk in ((False, 100, 100), (True, 33, 100)):
-        q = bshd(2, sq, hq, f32).transpose(1, 2)
-        k, v = (bshd(2, sk, hkv, f32).transpose(1, 2) for _ in range(2))
-        note("flash_attention", f32,
-             flash_attn.flash_attention(q, k, v, causal=causal),
-             flash_attn.flash_attention_plain(q, k, v, causal), 2e-3,
-             f"flash_attention causal={causal} Sq={sq} Sk={sk}")
-        n_cases += 1
+    # non-causal, the last 33 of 100 positions as queries, and 100 queries
+    # over 33 keys (the first 67 rows see no key: the mean of V)
+    for causal, sq, sk in ((False, 100, 100), (True, 33, 100),
+                           (True, 100, 33)):
+        for dt in (f32, bf16):
+            q = bshd(2, sq, hq, dt).transpose(1, 2)
+            k, v = (bshd(2, sk, hkv, dt).transpose(1, 2) for _ in range(2))
+            note("flash_attention", dt,
+                 flash_attn.flash_attention(q, k, v, causal=causal),
+                 flash_attn.flash_attention_plain(q, k, v, causal),
+                 2e-3 if dt == f32 else 5e-2,
+                 f"flash_attention causal={causal} Sq={sq} Sk={sk} {dt}")
+            n_cases += 1
     torch.cuda.synchronize()
     _set_counts(before)                # checking launches do not count
     print(f"[6] {n_cases} attention kernel-vs-plain cases agree: max abs err "
@@ -1023,8 +1069,9 @@ def _time_attention(name, shapes, dev):
     gen = torch.Generator(device=dev).manual_seed(8)
     (shp, length) = shapes.most_frequent(name)
     mod = ATTN_MODS[name]
-    kname, f32_dev_us = ATTN_KERNEL_NAMES[name], None
+    f32_dev_us, decode, cold, lib_cold = None, None, None, None
     if name == "flash_attention":
+        kname = WGMMA_FLASH_KERNEL
         (b, hq, sq, d, dts), (_, hkv, sk, _, _) = shp[0], shp[1]
         dt = getattr(torch, dts.split(".")[-1])
         q = torch.randn(b, sq, hq, d, generator=gen, device=dev).to(dt)
@@ -1075,17 +1122,72 @@ def _time_attention(name, shapes, dev):
                                   q.element_size(), elem, scaled)
         desc = (b, hq, hkv, s, d, dts, "lengths",
                 [int(x) for x in lengths.tolist()])
+        plan = decode_attn.decode_plan(b, hq, hkv, s, d)
+        rows = torch.where(lengths <= 0, s, torch.clamp(lengths, max=s))
+        working = int((-(-rows // plan.chunk)).sum().item()) * hkv * \
+            plan.groups
+        decode = dict(split_grid=plan.split_grid, merge_grid=plan.merge_grid,
+                      working_blocks=working)
+        # the cache as a decode step finds it, cold in L2 (28 layers' caches
+        # lie between two reads of one): calls rotate over copies of the
+        # cache whose bytes read add up to 1.5 x the L2
+        read = 2 * int(rows.sum().item()) * hkv * d * elem
+        copies = [args] + [tuple(t.clone() if t.dim() == 4 else t
+                                 for t in args)
+                           for _ in range(math.ceil(1.5 * L2_BYTES / read))]
+        call, cold_args = getattr(mod, name), itertools.cycle(copies)
+        cold = lambda: call(*next(cold_args))
+        decode["copies"] = len(copies)
+        if lib is not None:
+            lib_args = itertools.cycle([(kt, vt)] + [
+                (c[1], c[2]) for c in copies[1:]])
+            lib_cold = lambda: F.scaled_dot_product_attention(
+                q[:, :, None], *next(lib_args), attn_mask=mask,
+                enable_gqa=True)
     before = _all_counts()
     ms = _events_ms(kern, reps=20, trials=5, warmup=3)
-    dev_us = _device_us(kern, kname, reps=20)
+    if decode is None:
+        dev_us = _device_us(kern, kname, reps=20)
+    else:            # two kernels a call: the union of their intervals
+        dev_us = _device_total_us(kern, reps=20)
+        for kn in DECODE_KERNELS:
+            decode[kn + "_us"] = _device_us(kern, kn, reps=20, tries=3)
+        decode["cold_us"] = _device_total_us(cold, reps=20)
     _set_counts(before)
     plain_ms = _events_ms(plain, reps=5, trials=3, warmup=1)
     lib_ms = None if lib is None else _events_ms(lib, reps=20, trials=5,
                                                  warmup=3)
     lib_dev_us = None if lib is None else _device_total_us(lib, reps=20)
+    if decode is not None:
+        decode["lib_cold_us"] = None if lib_cold is None else \
+            _device_total_us(lib_cold, reps=20)
     return dict(shape=desc, ms=ms, dev_us=dev_us, plain_ms=plain_ms,
                 lib_ms=lib_ms, lib_dev_us=lib_dev_us, bound_ms=bound,
-                bound_by=by, f32_dev_us=f32_dev_us)
+                bound_by=by, f32_dev_us=f32_dev_us, decode=decode)
+
+
+def _decode_by_length(dev, lengths=(64, 529, 1024, 2048)):
+    """flash_decode's device time in bf16 at llama3.2-3b's decode heads
+    over a MAX_LEN-position cache, every row at each length: {length: (the
+    call's, the split kernel's, the merge kernel's µs)}, from one chunk a
+    row (the split kernel's latency, on 64 blocks) to the whole cache (2048
+    blocks, 67 MB)."""
+    cfg = get_arch(LM_ARCH)
+    b, hq, hkv, d = BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(b, hq, d, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, MAX_LEN, hkv, d, generator=gen, device=dev)
+            .bfloat16().transpose(1, 2) for _ in range(2))
+    out = {}
+    before = _all_counts()
+    for n in lengths:
+        rows = torch.full((b,), n, dtype=torch.int32, device=dev)
+        call = lambda: decode_attn.flash_decode(q, k, v, rows)
+        out[n] = (_device_total_us(call, reps=20),
+                  *(_device_us(call, kn, reps=20, tries=3)
+                    for kn in DECODE_KERNELS))
+    _set_counts(before)
+    return out
 
 
 def phase_lm_times(dev, model, serve, shapes):
@@ -1127,6 +1229,18 @@ def phase_lm_times(dev, model, serve, shapes):
             print(f"[8] flash_attention's f32 CUDA-core kernel "
                   f"({F32_FLASH_KERNEL}) at {t['shape'][:6]} in f32: device "
                   f"{_us(t['f32_dev_us'])}")
+        if t["decode"] is not None:
+            dec = t["decode"]
+            print(f"[8] {name} split-KV plan at {t['shape'][:5]}: split grid "
+                  f"{dec['split_grid']} ({dec['working_blocks']} blocks "
+                  f"working at these lengths), merge grid "
+                  f"{dec['merge_grid']}; device: split "
+                  f"{_us(dec['decode_split_kernel_us'])}, merge "
+                  f"{_us(dec['decode_merge_kernel_us'])}, the call "
+                  f"(union) {_us(t['dev_us'])}; cold in L2 (calls rotating "
+                  f"over {dec['copies']} copies of the cache): the call "
+                  f"{_us(dec['cold_us'])}, SDPA "
+                  f"{_us(dec['lib_cold_us']) if t['lib_ms'] else 'n/a'}")
         lib_s = "n/a" if t["lib_ms"] is None else \
             f"{t['lib_ms'] * 1e3:.2f} us, device {_us(t['lib_dev_us'])}"
         print(f"[8] {name} at {t['shape']}: {t['ms'] * 1e3:.2f} us per "
@@ -1134,6 +1248,12 @@ def phase_lm_times(dev, model, serve, shapes):
               f"{t['plain_ms'] * 1e3:.2f} us; library {lib_s}; bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); {per_gen} "
               f"launches per generate")
+    by_length = _decode_by_length(dev)
+    print("[8] flash_decode bf16 at (8, 24, 8, 2048, 128), device time by "
+          "row length (every row at it), the call (split + merge): " +
+          "; ".join(f"{n}: {_us(a)} ({_us(sp)} + {_us(mg)})"
+                    for n, (a, sp, mg) in by_length.items()))
+    times["flash_decode"]["decode"]["by_length_us"] = by_length
     return dict(probes=probes, int8_probe=int8_probe, wall_ms=wall_ms,
                 busy_ms=busy_ms, device_events=n_dev, times=times)
 
@@ -1155,6 +1275,21 @@ def attention_kernel_rows(errs, serve, times, lm_paths):
             "library_device_ms": _ms(t["lib_dev_us"]),
             "launches_batcher": serve[kv]["batcher"][name],
         })
+        if t["decode"] is not None:
+            dec = t["decode"]
+            rows[-1]["split_kv"] = {
+                "split_grid": dec["split_grid"],
+                "merge_grid": dec["merge_grid"],
+                "working_blocks": dec["working_blocks"],
+                "split_device_ms": _ms(dec["decode_split_kernel_us"]),
+                "merge_device_ms": _ms(dec["decode_merge_kernel_us"]),
+                "cache_copies_cold": dec["copies"],
+                "device_ms_cold": _ms(dec["cold_us"]),
+                "library_device_ms_cold": _ms(dec["lib_cold_us"])}
+            if "by_length_us" in dec:
+                rows[-1]["split_kv"]["device_ms_by_length"] = {
+                    n: [_ms(us) for us in t3]
+                    for n, t3 in dec["by_length_us"].items()}
     rows[0]["device_ms_f32_kernel"] = _ms(times["times"][
         "flash_attention"]["f32_dev_us"])
     rows[0]["lm"] = {

@@ -1,9 +1,11 @@
 """Operand checks shared by the kernels' wrappers.
 
 The attention kernels read their operands through element strides with a
-contiguous last dimension, four elements at a time (eight, 16 bytes, in the
-bf16 flash attention kernel); these helpers give them such views (copying
-only what does not qualify), the launch stream and the per-row lengths.  The scan kernel takes its strides and stream from here too.
+contiguous last dimension, in loads of 16 bytes (4 f32, 8 bf16 or 16 int8
+elements: the bf16 flash attention kernel and the decode kernels' k and v)
+or of four elements; these helpers give them such views (copying only what
+does not qualify), the launch stream and the per-row lengths.  The scan
+kernel takes its strides and stream from here too.
 """
 
 from __future__ import annotations

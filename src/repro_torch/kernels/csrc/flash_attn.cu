@@ -59,12 +59,29 @@
 // output columns in float4 chunks tc + 16 c; the 16 threads of a row group
 // are one half-warp, so the row max and sum are shuffle reductions.  Q, K,
 // V and P tiles live in dynamic shared memory as f32 (K and Q rows padded
-// by 4 floats against bank conflicts).
+// by 4 floats against bank conflicts), and after them D floats for the mean
+// of V that rows before the first key get (below).
 //
 // Both kernels read their inputs through element strides (the last
 // dimension contiguous), so the model passes its (B, S, H, D) tensors as
 // transposed views; edges in Sq and Sk are masked, so any length works, and
 // rows beyond Sq are computed and not stored.
+//
+// Causal with Sq > Sk: a query row at absolute position < 0 comes before
+// every key.  The Pallas kernel masks with the finite -1e30, so such a row
+// has a uniform softmax and gets the mean of V over all Sk keys; both
+// kernels give the same.  The wgmma kernel: a block holding such a row
+// visits every key tile (not only those up to its last row's position),
+// and the row takes one equal score, 0, at every key < Sk where a masked
+// score of a later row is -inf; it tests for such rows only in its masked
+// (diagonal and ragged) tiles, under the block's own flag.  The f32
+// kernel is the one it was (it leaves such rows 0), and prefix_mean_kernel,
+// launched after it only when Sq > Sk, writes them the mean of V: extra
+// work in its tile loop would have touched every block, and its registers
+// sit at ptxas's 128 with no room.  Rows at positions >= 0 compute what
+// they computed before, bit for bit (a fully masked tile leaves their max,
+// sum and accumulator unchanged), and blocks without such a row, every
+// block when Sq <= Sk, do no extra work in their tile loops.
 //
 // Plain-C entry points (loaded with ctypes): each launches on the given
 // stream and returns cudaGetLastError().
@@ -77,6 +94,9 @@
 namespace {
 
 using repro_torch::NEG;
+using repro_torch::cp_async16;
+using repro_torch::cp_async_commit;
+using repro_torch::smem_addr;
 
 struct Strides3 {
   long long b, h, s;  // element strides; the d stride is 1
@@ -248,6 +268,24 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Causal with Sq > Sk, f32: flash_attention_kernel sees no key for the
+// rows before the first key and leaves them 0; this kernel, launched after
+// it only then, writes them the mean of V over all Sk keys.  One block per
+// (query head, row of the batch).
+__global__ void __launch_bounds__(NT)
+prefix_mean_kernel(const float* __restrict__ v, float* __restrict__ o, int Sq,
+                   int Sk, int G, int D, AttnStrides st) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const float* vb = v + b * st.v.b + (h / G) * st.v.h;
+  float* ob = o + b * st.o.b + h * st.o.h;
+  for (int c = threadIdx.x; c < D; c += NT) {
+    float sum = 0.f;
+    for (int kk = 0; kk < Sk; ++kk) sum += vb[kk * st.v.s + c];
+    const float mean = sum / static_cast<float>(Sk);
+    for (int r = 0; r < Sq - Sk; ++r) ob[r * st.o.s + c] = mean;
+  }
+}
+
 // --------------------------------------------- bf16: tensor-core kernel
 using bf16 = __nv_bfloat16;
 
@@ -265,24 +303,6 @@ struct WgTile {
   static constexpr size_t SMEM = 1024 + Q_BYTES + 4 * KV_BYTES;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !pred (src is then
-// not read, but stays a valid address)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 // this thread's writes to shared memory become visible to wgmma's reads
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -385,9 +405,11 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
   }
   cp_async_commit();
 
-  // keys past the block's last query position are masked for every row
+  // keys past the block's last query position are masked for every row; a
+  // block with a row before the first key (Sq > Sk) visits every key
+  const bool pre = causal && q0 + q_offset < 0;
   const int q_last = min(q0 + WG_BQ, Sq) - 1;
-  const int kv_end = causal ? min(Sk, q_last + q_offset + 1) : Sk;
+  const int kv_end = causal && !pre ? min(Sk, q_last + q_offset + 1) : Sk;
   const int n_tiles = (kv_end + BKT - 1) / BKT;
 
   auto load_kv = [&](int tile) {
@@ -418,7 +440,7 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) load_kv(j + 1);
     cp_async_commit();   // possibly empty: tile j is then all but one group
-    cp_async_wait_one();
+    repro_torch::cp_async_wait<1>();
     fence_async_smem();
     __syncthreads();
     const int k0 = j * BKT;
@@ -452,8 +474,11 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
         float x = s[4 * n + e] * scale_log2;
         if (masked) {
           const int key = k0 + n * 8 + 2 * t + (e & 1);
-          if (key >= Sk || (causal && key > qpos + (e >> 1) * 8))
+          const int row_pos = qpos + (e >> 1) * 8;
+          if (key >= Sk)
             x = -INFINITY;
+          else if (causal && key > row_pos)  // before the first key: equal
+            x = pre && row_pos < 0 ? 0.f : -INFINITY;
         }
         s[4 * n + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -544,6 +569,11 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, Hq / Hkv,
       causal, sm_scale, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !causal || Sq <= Sk) return static_cast<int>(err);
+  prefix_mean_kernel<<<dim3(Hq, B), NT, 0, stream>>>(
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, Hq / Hkv,
+      D, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 """Flash decode over an int8 KV cache, on Hopper.
 
-``flash_decode_int8`` launches the hand-written CUDA kernel of
+``flash_decode_int8`` launches the hand-written split-KV kernels of
 ``csrc/decode_attn.cu`` (port of the Pallas kernel
 ``repro.kernels.decode_attn_int8.flash_decode_int8``) on CUDA tensors, and
 runs its plain PyTorch version (:func:`flash_decode_int8_plain`, the oracle
@@ -10,12 +10,15 @@ tensors.  A CUDA tensor never falls back to the plain version.
 k8/v8 are int8 (B, Hkv, S, D) and their scales f32 (B, Hkv, S, 1), one per
 (position, head): the layout of ``models.layers.kv_quantize`` seen through
 ``transpose(1, 2)`` views of the model's (B, S, Hkv, ·) cache, read through
-strides without a copy.  The kernel dequantizes each element after the load
-and accumulates in f32, so the cache's bytes are half a bf16 cache's.
-``length`` is a scalar or a (B,) integer tensor, as for
-``decode_attn.flash_decode``.
+strides without a copy.  The kernels apply each position's scales after
+the load (to its dot product and to its softmax weight) and accumulate in
+f32, so the cache's bytes are half a bf16 cache's.  ``length`` is a scalar
+or a (B,) integer tensor, as for ``decode_attn.flash_decode``, with the
+same split, merge and launch plan (``decode_attn.decode_plan``); a row with
+``length <= 0`` gets the mean of the dequantized V over all S positions.
 
-``LAUNCHES`` counts kernel launches; :func:`reset_launches` zeroes it.
+``LAUNCHES`` counts wrapper calls that launch the kernels, one per call;
+:func:`reset_launches` zeroes it.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, _tensors
-from .decode_attn import check_decode
+from .decode_attn import check_decode, decode_plan
 from .ref import decode_int8_ref
 
 LAUNCHES = {"flash_decode_int8": 0}
@@ -61,14 +64,16 @@ def flash_decode_int8(q: torch.Tensor, k8: torch.Tensor,
     if q.device.type == "cpu":
         return flash_decode_int8_plain(q, k8, k_scale, v8, v_scale, lengths)
     _tensors.check_cuda_head_dim(name, d)
+    plan = decode_plan(b, hq, hkv, s, d)
     q = _tensors.aligned(q.contiguous(), 4)
-    k8, v8 = _tensors.aligned(k8, 4), _tensors.aligned(v8, 4)
+    k8, v8 = _tensors.aligned(k8, 16), _tensors.aligned(v8, 16)
     if k_scale.stride() != v_scale.stride():
         # the kernel reads both scales through one set of strides
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     if b == 0 or hq == 0:
         return out
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
     lib = _build.load()
     fn = lib.flash_decode_int8_f32 if q.dtype == torch.float32 \
         else lib.flash_decode_int8_bf16
@@ -77,8 +82,8 @@ def flash_decode_int8(q: torch.Tensor, k8: torch.Tensor,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(),
                  v8.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
-                 lengths.data_ptr(), b, hq, hkv, s, d, 1.0 / (d ** 0.5), st,
-                 _tensors.stream(q.device))
+                 lengths.data_ptr(), ws.data_ptr(), b, hq, hkv, s, d,
+                 plan.chunk, 1.0 / (d ** 0.5), st, _tensors.stream(q.device))
     _build.check(lib, name, err)
     LAUNCHES[name] += 1
     return out

@@ -22,7 +22,9 @@ data pointer or b, h, s strides are not multiples of the kernel's load
 width (4 elements in f32, 8 in bf16: 16 bytes either way) is copied first;
 the model's views are never copied.
 
-``LAUNCHES`` counts kernel launches (plain-version calls are not counted);
+``LAUNCHES`` counts wrapper calls that launch the kernels, one per call
+(plain-version calls are not counted; an f32 causal call with Sq > Sk also
+launches ``prefix_mean_kernel`` for the rows before the first key);
 :func:`reset_launches` zeroes it.
 """
 
@@ -68,10 +70,6 @@ def _check(q, k, v, causal):
         raise ValueError(f"{name}: Hq={hq} is not a multiple of Hkv={hkv}")
     if sk == 0:
         raise ValueError(f"{name}: no keys (Sk == 0)")
-    if causal and sq > sk:
-        raise ValueError(f"{name}: causal attention needs Sq <= Sk (query i "
-                         f"sits at position i + Sk - Sq), got Sq={sq}, "
-                         f"Sk={sk}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{name}: q, k, v must be on one device")
     if q.device.type not in ("cpu", "cuda"):
@@ -83,7 +81,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q (B, Hq, Sq, D); k/v (B, Hkv, Sk, D), f32 or bf16 -> (B, Hq, Sq, D)
     in q's dtype.  Query head h reads KV head ``h // (Hq // Hkv)``; with
-    ``causal`` query i sees keys at positions ``<= i + Sk - Sq``."""
+    ``causal`` query i sees keys at positions ``<= i + Sk - Sq``.  Where
+    Sq > Sk, a query row before the first key (``i + Sk - Sq < 0``) sees
+    none and gets the mean of V over all Sk keys, as the Pallas kernel
+    (which masks with the finite -1e30) and the plain version give."""
     b, hq, hkv, sq, sk, d = _check(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)

@@ -107,8 +107,13 @@ def test_flash_attention_reads_the_models_layout():
 
 def test_flash_attention_refuses_bad_operands():
     q = torch.zeros(1, 4, 8, 16)
-    with pytest.raises(ValueError, match="Sq <= Sk"):
-        flash_attn.flash_attention(q, q[:, :2, :4], q[:, :2, :4])
+    # causal with Sq > Sk is not refused: the rows before the first key get
+    # the mean of V over all Sk keys, as the Pallas kernel gives
+    rng = np.random.default_rng(11)
+    qn, kn, vn = (rng.normal(size=(1, h, s, 16)).astype(np.float32)
+                  for h, s in ((4, 8), (2, 4), (2, 4)))
+    _close(flash_attn.flash_attention(_t(qn), _t(kn), _t(vn)),
+           pallas_flash(qn, kn, vn, causal=True, bq=8, bk=4), 2e-3)
     with pytest.raises(ValueError, match="multiple"):
         flash_attn.flash_attention(q, q[:, :3], q[:, :3])
     with pytest.raises(TypeError):

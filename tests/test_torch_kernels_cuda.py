@@ -143,7 +143,9 @@ def _bshd(rng, b, s, h, d, dev, dtype):
     (1, 4, 4, 128, 128, 64), (2, 8, 2, 256, 256, 32), (1, 4, 1, 128, 128, 64),
     (2, 4, 2, 64, 256, 32),                       # the test_kernels.py cases
     (1, 24, 8, 1, 1, 128), (2, 24, 8, 17, 17, 128), (1, 24, 8, 130, 130, 128),
-    (2, 24, 8, 33, 100, 128), (1, 8, 1, 70, 70, 256)])
+    (2, 24, 8, 33, 100, 128), (1, 8, 1, 70, 70, 256),
+    # Sq > Sk: causal rows before the first key get the mean of V
+    (2, 24, 8, 100, 33, 128), (1, 4, 2, 64, 1, 64), (1, 8, 1, 130, 70, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_matches_plain(cuda_device, b, hq, hkv, sq, sk, d,
@@ -177,19 +179,36 @@ def _cache(rng, b, s, hkv, d, dev, dtype, quant):
     return q8(k) + q8(v)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,hq,hkv,s,d,lengths", [
-    (1, 8, 2, 256, 64, [200]), (4, 4, 4, 512, 32, [512, 1, 300, 77]),
-    (2, 16, 2, 256, 64, [17, 256]),
+# lengths 0 (every position masked: the mean of V over all S), 1,
+# chunk - 1, chunk, chunk + 1 (the split kernel's 64-position chunks),
+# S - 1, S and past S; G in {1, 3, 4, 7, 8, 16} and every head dim
+DECODE_CASES = [
+    (8, 24, 8, 2048, 128, [0, 1, 63, 64, 65, 2047, 2048, 3000]),  # llama
     (8, 24, 8, 2048, 128, [1, 17, 128, 512, 2048, 2047, 600, 33]),
+    (2, 16, 16, 300, 128, [0, 300]),               # G = 1 (qwen2-moe)
+    (1, 8, 2, 256, 64, [200]),                     # G = 4
+    (2, 16, 2, 256, 64, [17, 256]),                # G = 8
+    (4, 4, 4, 512, 32, [512, 1, 300, 77]),         # G = 1, D = 32
+    (2, 6, 2, 96, 32, [0, 64]),                    # G = 3, D = 32
+    (2, 40, 10, 130, 128, [65, 129]),              # G = 4 (phi3-medium)
     (2, 28, 4, 300, 128, [300, 299]),              # G = 7
     (1, 8, 1, 64, 256, [64]),                      # gemma's MQA, D = 256
-    (3, 32, 2, 100, 64, [5, 100, 1000])])          # G = 16, length > S
+    (2, 8, 1, 200, 256, [0, 199]),
+    (3, 32, 2, 100, 64, [5, 100, 1000]),           # G = 16: two head groups
+    (1, 32, 2, 64, 256, [64])]                     # G = 16, D = 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d,lengths", DECODE_CASES)
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_matches_plain(cuda_device, b, hq, hkv, s, d, lengths,
                                     quant, dtype):
-    from repro_torch.kernels import decode_attn, decode_attn_int8
+    """The split-KV kernels against the plain version, over the model's
+    (B, S, Hkv, D) cache views read without a copy; one launch count per
+    call; a second call bit-equal to the first (the merge adds the
+    partials in a fixed order)."""
+    from repro_torch.kernels import _tensors, decode_attn, decode_attn_int8
     rng = np.random.default_rng(s + b)
     q = _randn(rng, (b, hq, d), cuda_device, dtype)
     length = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
@@ -197,15 +216,25 @@ def test_flash_decode_matches_plain(cuda_device, b, hq, hkv, s, d, lengths,
         k8, ks, v8, vs = _cache(rng, b, s, hkv, d, cuda_device, dtype, True)
         mod, name = decode_attn_int8, "flash_decode_int8"
         args = (q, k8, ks, v8, vs, length)
-        got = decode_attn_int8.flash_decode_int8(*args)
+        cache = (k8, v8)
+        call = decode_attn_int8.flash_decode_int8
         want = decode_attn_int8.flash_decode_int8_plain(*args)
     else:
         k, v = _cache(rng, b, s, hkv, d, cuda_device, dtype, False)
         mod, name = decode_attn, "flash_decode"
-        got = decode_attn.flash_decode(q, k, v, length)
-        want = decode_attn.flash_decode_plain(q, k, v, length)
+        args = (q, k, v, length)
+        cache = (k, v)
+        call = decode_attn.flash_decode
+        want = decode_attn.flash_decode_plain(*args)
+    for t in cache:                 # the (B, S, Hkv, D) layout, in place
+        assert t.stride(2) == hkv * d and t.stride(1) == d
+        assert _tensors.aligned(t, 16 // t.element_size()) is t
+    before = mod.LAUNCHES[name]
+    got = call(*args)
+    again = call(*args)
     torch.cuda.synchronize()
-    assert mod.LAUNCHES[name] > 0
+    assert mod.LAUNCHES[name] == before + 2
+    assert torch.equal(got, again)
     if quant and dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     else:
@@ -214,19 +243,23 @@ def test_flash_decode_matches_plain(cuda_device, b, hq, hkv, s, d, lengths,
 
 @pytest.mark.cuda
 def test_flash_decode_scalar_and_zero_length(cuda_device):
+    """A scalar length, and rows of length 0 held to the plain version:
+    every position masked gives the mean of V over all S positions, as the
+    Pallas kernel and the plain version give."""
     from repro_torch.kernels import decode_attn
     rng = np.random.default_rng(5)
     q = _randn(rng, (3, 8, 64), cuda_device)
     k, v = _cache(rng, 3, 96, 2, 64, cuda_device, torch.float32, False)
     _attn_close(decode_attn.flash_decode(q, k, v, 50),
                 decode_attn.flash_decode_plain(q, k, v, 50), torch.float32)
-    # length 0 masks every position: the kernel gives zeros
-    zero = decode_attn.flash_decode(q, k, v, torch.tensor(
-        [0, 7, 0], dtype=torch.int32, device=cuda_device))
-    assert torch.equal(zero[0], torch.zeros_like(zero[0]))
-    assert torch.equal(zero[2], torch.zeros_like(zero[2]))
-    _attn_close(zero[1:2], decode_attn.flash_decode_plain(
-        q[1:2], k[1:2], v[1:2], 7), torch.float32)
+    _attn_close(decode_attn.flash_decode(q, k, v, 0),
+                decode_attn.flash_decode_plain(q, k, v, 0), torch.float32)
+    lengths = torch.tensor([0, 7, -3], dtype=torch.int32, device=cuda_device)
+    zero = decode_attn.flash_decode(q, k, v, lengths)
+    _attn_close(zero, decode_attn.flash_decode_plain(q, k, v, lengths),
+                torch.float32)
+    mean_v = v.float().mean(2).repeat_interleave(4, 1)
+    _attn_close(zero[0], mean_v[0], torch.float32)
 
 
 @pytest.mark.cuda
@@ -235,12 +268,14 @@ def test_flash_decode_scalar_and_zero_length(cuda_device):
     (1, 3, 1, 100, 100),      # G = 3; 2 query blocks, far below 132 SMs
     (2, 8, 8, 77, 203),       # G = 1; Sq < Sk, causal offset 126
     (1, 16, 2, 1, 65),        # G = 8; one query after 64 keys
-    (2, 24, 3, 130, 131)])    # G = 8; 3 query blocks, ragged Sq and Sk
+    (2, 24, 3, 130, 131),     # G = 8; 3 query blocks, ragged Sq and Sk
+    (1, 8, 2, 150, 40)])      # G = 4; Sq > Sk: 110 rows before the first key
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bf16_tensor_cores(cuda_device, d, b, hq, hkv, sq,
                                            sk, causal):
     """The tensor-core kernel at every built head dim, on lengths that are
-    not multiples of its 64-query and 64- or 32-key tiles."""
+    not multiples of its 64-query and 64- or 32-key tiles, and with more
+    queries than keys."""
     from repro_torch.kernels import flash_attn
     rng = np.random.default_rng(d * 1000 + sq + sk)
     dt = torch.bfloat16
