@@ -33,8 +33,10 @@ result line):
    version and a library call at the shape its path launched most often,
    beside the least time the card could take (bytes / 3.35 TB/s or
    operations / peak, whichever is larger); the kernel's device time under
-   torch.profiler, and the library call's (the union of the intervals of
-   every kernel and copy it launches, per call); the host time of one
+   torch.profiler, and the library call's (``_device_total_us``: per call,
+   the union of the intervals of every kernel and copy it launches, or,
+   in a profile that dropped events, each kernel's mean duration times its
+   launches per call, summed; both printed); the host time of one
    plane call on each plane; the device's busy and idle share over one
    profiled serve (the same union); wall time of each serve, in turns.
 
@@ -70,11 +72,14 @@ result line):
 8. times: prefill ms and decode tok/s from ``throughput_probe`` (kernel,
    plain, plain, kernel); each attention kernel at the shape its path
    launched most often (CUDA events; device time under torch.profiler: the
-   flash kernel's own, and for a decode call the union of the intervals of
-   its split and merge kernels, with each one's own time, the launch
-   plan's grids and the blocks working at these lengths, and again with
-   the cache cold in L2, as a decode step finds it: calls rotating over
-   copies of the cache that add up to 1.5 x the L2), its plain version and
+   flash kernel's own, and for a decode call ``_device_total_us`` over its
+   split and merge kernels, with each one's own time, and again with the
+   cache cold in L2, as a decode step finds it: calls rotating over copies
+   of the cache that add up to 1.5 x the L2; the launch plan's grids and
+   working blocks as ``decode_plan`` computes them, beside the split
+   blocks counted on the card, those that wrote partials into a workspace
+   filled with NaN, whose output must equal the call's bit for bit; the
+   wrapper's host time per call), its plain version and
    ``F.scaled_dot_product_attention`` (the library yardstick, never called
    by the port; causal for flash attention, with a length mask for flash
    decode, warm and cold; events and device time) beside its bound; flash
@@ -197,6 +202,7 @@ from repro_torch.kernels._tensors import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.ref import (quantize_crossbar, quantize_vec,  # noqa: E402
                                      selective_scan_ref)
 from repro_torch.launch import quickstart  # noqa: E402
+from repro_torch.launch.decode_host_cost import host_us_per_call  # noqa: E402
 from repro_torch.models import build_model, lm  # noqa: E402
 from repro_torch.models.layers import kv_quantize  # noqa: E402
 from repro_torch.runtime import CmServer, poisson_arrivals  # noqa: E402
@@ -357,21 +363,22 @@ def _device_us(fn, name, reps=50, tries=2):
     return None
 
 
-def _device_total_us(fn, reps=50, profiles=3):
+def _device_total_us(fn, label, reps=50, profiles=3):
     """Device time of one call of ``fn`` under torch.profiler, over ``reps``
-    calls: for each kernel or copy a call launches (a library call's
-    kernels carry the library's names), its mean duration times its
-    launches per call, summed; the median over ``profiles`` profiles, None
-    where none shows device time.  A call's kernels run one after another
-    on one stream, so this is the union of their intervals.  The profiler
-    now and then drops device events: each name's mean is over the events
-    it holds, where a union over fewer calls' events, divided by ``reps``,
-    would read short."""
+    calls (a library call's kernels carry the library's names): the median
+    over ``profiles`` profiles, None where none shows device time.  Each
+    profile gives two readings: the union of the intervals of every kernel
+    and copy, divided by ``reps``, and the sum over each kernel name of
+    its mean duration times its launches per call.  A profile in which
+    every name has a multiple of ``reps`` events dropped none, and gives
+    its union (kernels that overlap count once); one that dropped events,
+    as the profiler does now and then, gives its sum (its union would read
+    short).  Prints both readings under ``label``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    totals = []
+    unions, sums, used, dropped = [], [], [], []
     for _ in range(profiles):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -381,12 +388,43 @@ def _device_total_us(fn, reps=50, profiles=3):
         spans = collections.defaultdict(list)
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                spans[e.name].append(e.time_range.end - e.time_range.start)
-        total = sum(round(len(d) / reps) * statistics.fmean(d)
+                spans[e.name].append((e.time_range.start, e.time_range.end))
+        if not spans:
+            continue
+        union = _union(itertools.chain.from_iterable(spans.values())) / reps
+        total = sum(round(len(d) / reps) * statistics.fmean(b - a
+                                                            for a, b in d)
                     for d in spans.values())
-        if total > 0:
-            totals.append(total)
-    return statistics.median(totals) if totals else None
+        drop = any(len(d) % reps for d in spans.values())
+        if drop:
+            dropped.append({n[:40]: len(d) for n, d in spans.items()})
+        unions.append(union)
+        sums.append(total)
+        used.append(total if drop else union)
+    if not used:
+        print(f"{label}: device time not measured (no device events)")
+        return None
+    print(f"{label}: device time per call over {reps} calls, median of "
+          f"{len(used)} profiles: union {statistics.median(unions):.2f} us, "
+          f"sum of each kernel's mean x launches per call "
+          f"{statistics.median(sums):.2f} us; taken "
+          f"{statistics.median(used):.2f} us; {len(dropped)} profile(s) "
+          f"dropped events" + (f", events per kernel in the first: "
+                               f"{dropped[0]}" if dropped else ""))
+    return statistics.median(used)
+
+
+def _union(spans):
+    """The length of the union of ``(start, end)`` intervals."""
+    spans = sorted(spans)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return busy + hi - lo
 
 
 def _plane_call_us(plane, desc, V, reps=200):
@@ -676,7 +714,8 @@ def phase_times(dev, paths, errs):
         mxv.LAUNCHES.update(before)      # timing launches do not count
         plain_ms = _events_ms(plain)
         lib_ms = _events_ms(lib) if lib_ok else None
-        lib_dev_us = _device_total_us(lib) if lib_ok else None
+        lib_dev_us = _device_total_us(lib, f"[5] {name}'s library call") \
+            if lib_ok else None
         bound_ms, bound_by = _bound(kind, b, n, m)
         launches = path["launches"][name]
         desc = make_descriptor(np.random.default_rng(2).normal(size=(m, n)),
@@ -1020,23 +1059,15 @@ def _device_busy(run):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
     host = sorted(((e.key, e.count, e.self_cpu_time_total / 1e3)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU),
                   key=lambda r: -r[2])[:8]
     if not spans:
         return wall * 1e3, None, 0, host
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy += hi - lo
-            lo, hi = a, b
-        else:
-            hi = max(hi, b)
-    busy += hi - lo
-    return wall * 1e3, busy / 1e3, len(spans), host
+    return wall * 1e3, _union(spans) / 1e3, len(spans), host
 
 
 def _attn_bound(b, hq, hkv, sq, sk, d, elem):
@@ -1124,10 +1155,24 @@ def _time_attention(name, shapes, dev):
                 [int(x) for x in lengths.tolist()])
         plan = decode_attn.decode_plan(b, hq, hkv, s, d)
         rows = torch.where(lengths <= 0, s, torch.clamp(lengths, max=s))
-        working = int((-(-rows // plan.chunk)).sum().item()) * hkv * \
-            plan.groups
-        decode = dict(split_grid=plan.split_grid, merge_grid=plan.merge_grid,
-                      working_blocks=working)
+        decode = dict(plan=plan, plan_blocks=int(
+            (-(-rows // plan.chunk)).sum().item()) * hkv * plan.groups)
+        # the blocks that worked, counted on the card: a workspace filled
+        # with NaN shows which partials the split kernel wrote, and the
+        # output is the same bit for bit (the merge reads no other)
+        counts = _all_counts()
+        ws = torch.full(plan.workspace, float("nan"), device=dev)
+        got = mod.launch(*args, workspace=ws)
+        if not torch.equal(got, kern()):
+            raise AssertionError(f"[8] {name}: a NaN-filled workspace "
+                                 f"changed the output")
+        decode["written_blocks"] = decode_attn.written_blocks(plan, ws)
+        if decode["written_blocks"] != decode["plan_blocks"]:
+            raise AssertionError(f"[8] {name}: {decode['written_blocks']} "
+                                 f"split blocks wrote partials, the plan "
+                                 f"gives {decode['plan_blocks']}")
+        decode["host_us"] = host_us_per_call(kern)
+        _set_counts(counts)
         # the cache as a decode step finds it, cold in L2 (28 layers' caches
         # lie between two reads of one): calls rotate over copies of the
         # cache whose bytes read add up to 1.5 x the L2
@@ -1149,18 +1194,20 @@ def _time_attention(name, shapes, dev):
     if decode is None:
         dev_us = _device_us(kern, kname, reps=20)
     else:            # two kernels a call: the union of their intervals
-        dev_us = _device_total_us(kern, reps=20)
+        dev_us = _device_total_us(kern, f"[8] {name} call")
         for kn in DECODE_KERNELS:
             decode[kn + "_us"] = _device_us(kern, kn, reps=20, tries=3)
-        decode["cold_us"] = _device_total_us(cold, reps=20)
+        decode["cold_us"] = _device_total_us(
+            cold, f"[8] {name} call, cold in L2")
     _set_counts(before)
     plain_ms = _events_ms(plain, reps=5, trials=3, warmup=1)
     lib_ms = None if lib is None else _events_ms(lib, reps=20, trials=5,
                                                  warmup=3)
-    lib_dev_us = None if lib is None else _device_total_us(lib, reps=20)
+    lib_dev_us = None if lib is None else _device_total_us(
+        lib, f"[8] {name}'s SDPA")
     if decode is not None:
         decode["lib_cold_us"] = None if lib_cold is None else \
-            _device_total_us(lib_cold, reps=20)
+            _device_total_us(lib_cold, f"[8] {name}'s SDPA, cold in L2")
     return dict(shape=desc, ms=ms, dev_us=dev_us, plain_ms=plain_ms,
                 lib_ms=lib_ms, lib_dev_us=lib_dev_us, bound_ms=bound,
                 bound_by=by, f32_dev_us=f32_dev_us, decode=decode)
@@ -1183,7 +1230,8 @@ def _decode_by_length(dev, lengths=(64, 529, 1024, 2048)):
     for n in lengths:
         rows = torch.full((b,), n, dtype=torch.int32, device=dev)
         call = lambda: decode_attn.flash_decode(q, k, v, rows)
-        out[n] = (_device_total_us(call, reps=20),
+        out[n] = (_device_total_us(
+                      call, f"[8] flash_decode, every row at {n}"),
                   *(_device_us(call, kn, reps=20, tries=3)
                     for kn in DECODE_KERNELS))
     _set_counts(before)
@@ -1231,10 +1279,14 @@ def phase_lm_times(dev, model, serve, shapes):
                   f"{_us(t['f32_dev_us'])}")
         if t["decode"] is not None:
             dec = t["decode"]
-            print(f"[8] {name} split-KV plan at {t['shape'][:5]}: split grid "
-                  f"{dec['split_grid']} ({dec['working_blocks']} blocks "
-                  f"working at these lengths), merge grid "
-                  f"{dec['merge_grid']}; device: split "
+            plan = dec["plan"]
+            print(f"[8] {name} split-KV plan at {t['shape'][:5]} (computed "
+                  f"by decode_plan): split grid {plan.split_grid}, "
+                  f"{dec['plan_blocks']} of whose blocks start below their "
+                  f"row's length, merge grid {plan.merge_grid}; on the "
+                  f"card {dec['written_blocks']} split blocks wrote "
+                  f"partials; host {dec['host_us']:.2f} us per call (1000 "
+                  f"back to back, perf_counter); device: split "
                   f"{_us(dec['decode_split_kernel_us'])}, merge "
                   f"{_us(dec['decode_merge_kernel_us'])}, the call "
                   f"(union) {_us(t['dev_us'])}; cold in L2 (calls rotating "
@@ -1278,12 +1330,10 @@ def attention_kernel_rows(errs, serve, times, lm_paths):
         if t["decode"] is not None:
             dec = t["decode"]
             rows[-1]["split_kv"] = {
-                "split_grid": dec["split_grid"],
-                "merge_grid": dec["merge_grid"],
-                "working_blocks": dec["working_blocks"],
+                "written_blocks": dec["written_blocks"],
+                "host_ms": _ms(dec["host_us"]),
                 "split_device_ms": _ms(dec["decode_split_kernel_us"]),
                 "merge_device_ms": _ms(dec["decode_merge_kernel_us"]),
-                "cache_copies_cold": dec["copies"],
                 "device_ms_cold": _ms(dec["cold_us"]),
                 "library_device_ms_cold": _ms(dec["lib_cold_us"])}
             if "by_length_us" in dec:
@@ -1924,7 +1974,7 @@ def phase_conv_times(dev):
     lib = lambda: torch.nn.functional.conv2d(x[None], w4, stride=stride,
                                              padding=pad)
     lib_ms = _events_ms(lib)
-    lib_dev_us = _device_total_us(lib)
+    lib_dev_us = _device_total_us(lib, "[18] F.conv2d")
     bound_ms, bound_by = _conv_bound(*CM_CONV, 1)
     oh = (h + 2 * pad - fh) // stride + 1
     ow = (w + 2 * pad - fw) // stride + 1

@@ -36,10 +36,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _S = ctypes.POINTER(ctypes.c_longlong)      # an array of element strides
 _ATTN = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _S, _P)
-# q, k, v, out, length, workspace; B, Hq, Hkv, S, D, chunk; scale
-_DECODE = (_P,) * 6 + (_I,) * 6 + (_F, _S, _P)
+# q, k, v, out, length, workspace; B, Hq, Hkv, S, D; scale
+_DECODE = (_P,) * 6 + (_I,) * 5 + (_F, _S, _P)
 # q, k8, k scale, v8, v scale, out, length, workspace; as _DECODE
-_DECODE_INT8 = (_P,) * 8 + (_I,) * 6 + (_F, _S, _P)
+_DECODE_INT8 = (_P,) * 8 + (_I,) * 5 + (_F, _S, _P)
 _SCAN = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _S, _P)
 _CONV = (_P, _P, _P, _P) + (_I,) * 12 + (_P,)
 # name -> argtypes; every entry returns the launch's cudaError_t as an int

@@ -80,7 +80,7 @@
 //
 // Plain-C entry points (loaded with ctypes): each launches both kernels on
 // the given stream and returns cudaGetLastError(), or cudaErrorInvalidValue
-// for a chunk size or head dim the kernels are not built for.
+// for a head dim the kernels are not built for.
 
 #include "common.cuh"
 
@@ -456,9 +456,8 @@ int launch(const void* q, const void* k, const void* ks, const void* v,
 template <typename TQ, typename TKV, bool QUANT>
 int dispatch(const void* q, const void* k, const void* ks, const void* v,
              const void* vs, void* o, const void* length, void* ws, int B,
-             int Hq, int Hkv, int S, int D, int chunk, float sm_scale,
+             int Hq, int Hkv, int S, int D, float sm_scale,
              const long long* strides, void* stream) {
-  if (chunk != CHUNK) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return launch<TQ, TKV, QUANT, 32>(q, k, ks, v, vs, o, length, ws, B, Hq, Hkv, S, sm_scale, strides, s);
@@ -473,46 +472,45 @@ int dispatch(const void* q, const void* k, const void* ks, const void* v,
 
 extern "C" {
 
-// ws: the f32 workspace (B, Hq, ceil(S / chunk), D + 4); chunk: the
-// wrapper's plan, which must be this file's CHUNK.  strides: 13 element
-// strides: q (b, h), k (b, h, s), v (b, h, s), out (b, h), scales
+// ws: the f32 workspace (B, Hq, ceil(S / CHUNK), D + 4).  strides: 13
+// element strides: q (b, h), k (b, h, s), v (b, h, s), out (b, h), scales
 // (b, h, s); the scale strides are ignored here
 int flash_decode_f32(const void* q, const void* k, const void* v, void* o,
                      const void* length, void* ws, int B, int Hq, int Hkv,
-                     int S, int D, int chunk, float sm_scale,
-                     const long long* strides, void* stream) {
+                     int S, int D, float sm_scale, const long long* strides,
+                     void* stream) {
   return dispatch<float, float, false>(q, k, nullptr, v, nullptr, o, length,
-                                       ws, B, Hq, Hkv, S, D, chunk, sm_scale,
+                                       ws, B, Hq, Hkv, S, D, sm_scale,
                                        strides, stream);
 }
 
 int flash_decode_bf16(const void* q, const void* k, const void* v, void* o,
                       const void* length, void* ws, int B, int Hq, int Hkv,
-                      int S, int D, int chunk, float sm_scale,
-                      const long long* strides, void* stream) {
+                      int S, int D, float sm_scale, const long long* strides,
+                      void* stream) {
   return dispatch<__nv_bfloat16, __nv_bfloat16, false>(
-      q, k, nullptr, v, nullptr, o, length, ws, B, Hq, Hkv, S, D, chunk,
-      sm_scale, strides, stream);
+      q, k, nullptr, v, nullptr, o, length, ws, B, Hq, Hkv, S, D, sm_scale,
+      strides, stream);
 }
 
 int flash_decode_int8_f32(const void* q, const void* k8, const void* ks,
                           const void* v8, const void* vs, void* o,
                           const void* length, void* ws, int B, int Hq,
-                          int Hkv, int S, int D, int chunk, float sm_scale,
+                          int Hkv, int S, int D, float sm_scale,
                           const long long* strides, void* stream) {
   return dispatch<float, int8_t, true>(q, k8, ks, v8, vs, o, length, ws, B,
-                                       Hq, Hkv, S, D, chunk, sm_scale,
-                                       strides, stream);
+                                       Hq, Hkv, S, D, sm_scale, strides,
+                                       stream);
 }
 
 int flash_decode_int8_bf16(const void* q, const void* k8, const void* ks,
                            const void* v8, const void* vs, void* o,
                            const void* length, void* ws, int B, int Hq,
-                           int Hkv, int S, int D, int chunk, float sm_scale,
+                           int Hkv, int S, int D, float sm_scale,
                            const long long* strides, void* stream) {
   return dispatch<__nv_bfloat16, int8_t, true>(q, k8, ks, v8, vs, o, length,
-                                               ws, B, Hq, Hkv, S, D, chunk,
-                                               sm_scale, strides, stream);
+                                               ws, B, Hq, Hkv, S, D, sm_scale,
+                                               strides, stream);
 }
 
 }  // extern "C"

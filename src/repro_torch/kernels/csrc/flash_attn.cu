@@ -59,8 +59,7 @@
 // output columns in float4 chunks tc + 16 c; the 16 threads of a row group
 // are one half-warp, so the row max and sum are shuffle reductions.  Q, K,
 // V and P tiles live in dynamic shared memory as f32 (K and Q rows padded
-// by 4 floats against bank conflicts), and after them D floats for the mean
-// of V that rows before the first key get (below).
+// by 4 floats against bank conflicts).
 //
 // Both kernels read their inputs through element strides (the last
 // dimension contiguous), so the model passes its (B, S, H, D) tensors as
@@ -69,19 +68,16 @@
 //
 // Causal with Sq > Sk: a query row at absolute position < 0 comes before
 // every key.  The Pallas kernel masks with the finite -1e30, so such a row
-// has a uniform softmax and gets the mean of V over all Sk keys; both
-// kernels give the same.  The wgmma kernel: a block holding such a row
-// visits every key tile (not only those up to its last row's position),
-// and the row takes one equal score, 0, at every key < Sk where a masked
-// score of a later row is -inf; it tests for such rows only in its masked
-// (diagonal and ragged) tiles, under the block's own flag.  The f32
-// kernel is the one it was (it leaves such rows 0), and prefix_mean_kernel,
-// launched after it only when Sq > Sk, writes them the mean of V: extra
-// work in its tile loop would have touched every block, and its registers
-// sit at ptxas's 128 with no room.  Rows at positions >= 0 compute what
-// they computed before, bit for bit (a fully masked tile leaves their max,
-// sum and accumulator unchanged), and blocks without such a row, every
-// block when Sq <= Sk, do no extra work in their tile loops.
+// has a uniform softmax and gets the mean of V over all Sk keys.  Both
+// attention kernels see no key for such a row and leave it 0 (its sum is
+// 0, floored at 1e-30); prefix_mean_kernel<T>, launched after either only
+// when causal and Sq > Sk, writes those rows the mean of V (summed in
+// f32, rounded once to T).  The attention kernels are left as they were:
+// a test in their tile loops would run in every block, and the f32
+// kernel's registers sit at ptxas's 128 with no room.  Rows at positions
+// >= 0 compute what they computed before, bit for bit, and a call with
+// Sq <= Sk launches the one attention kernel.  No model path sends
+// Sq > Sk.
 //
 // Plain-C entry points (loaded with ctypes): each launches on the given
 // stream and returns cudaGetLastError().
@@ -268,22 +264,41 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Causal with Sq > Sk, f32: flash_attention_kernel sees no key for the
-// rows before the first key and leaves them 0; this kernel, launched after
-// it only then, writes them the mean of V over all Sk keys.  One block per
+// Causal with Sq > Sk: the attention kernels see no key for the rows
+// before the first key and leave them 0; this kernel, launched after either
+// only then, writes them the mean of V over all Sk keys.  One block per
 // (query head, row of the batch).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(NT)
-prefix_mean_kernel(const float* __restrict__ v, float* __restrict__ o, int Sq,
-                   int Sk, int G, int D, AttnStrides st) {
+prefix_mean_kernel(const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
+                   int G, int D, AttnStrides st) {
   const int h = blockIdx.x, b = blockIdx.y;
-  const float* vb = v + b * st.v.b + (h / G) * st.v.h;
-  float* ob = o + b * st.o.b + h * st.o.h;
+  const T* vb = v + b * st.v.b + (h / G) * st.v.h;
+  T* ob = o + b * st.o.b + h * st.o.h;
   for (int c = threadIdx.x; c < D; c += NT) {
     float sum = 0.f;
-    for (int kk = 0; kk < Sk; ++kk) sum += vb[kk * st.v.s + c];
+    for (int kk = 0; kk < Sk; ++kk) sum += to_f32(vb[kk * st.v.s + c]);
     const float mean = sum / static_cast<float>(Sk);
-    for (int r = 0; r < Sq - Sk; ++r) ob[r * st.o.s + c] = mean;
+    for (int r = 0; r < Sq - Sk; ++r)
+      repro_torch::store(ob + r * st.o.s + c, mean);
   }
+}
+
+// Launches prefix_mean_kernel<T> where a causal call has Sq > Sk; else
+// returns the error state as it is.
+template <typename T>
+int prefix_mean(const void* v, void* o, int B, int Hq, int Hkv, int Sq, int Sk,
+                int causal, int D, const AttnStrides& st, cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !causal || Sq <= Sk) return static_cast<int>(err);
+  prefix_mean_kernel<T><<<dim3(Hq, B), NT, 0, stream>>>(
+      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, Hq / Hkv, D, st);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // --------------------------------------------- bf16: tensor-core kernel
@@ -405,11 +420,9 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
   }
   cp_async_commit();
 
-  // keys past the block's last query position are masked for every row; a
-  // block with a row before the first key (Sq > Sk) visits every key
-  const bool pre = causal && q0 + q_offset < 0;
+  // keys past the block's last query position are masked for every row
   const int q_last = min(q0 + WG_BQ, Sq) - 1;
-  const int kv_end = causal && !pre ? min(Sk, q_last + q_offset + 1) : Sk;
+  const int kv_end = causal ? min(Sk, q_last + q_offset + 1) : Sk;
   const int n_tiles = (kv_end + BKT - 1) / BKT;
 
   auto load_kv = [&](int tile) {
@@ -474,11 +487,8 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
         float x = s[4 * n + e] * scale_log2;
         if (masked) {
           const int key = k0 + n * 8 + 2 * t + (e & 1);
-          const int row_pos = qpos + (e >> 1) * 8;
-          if (key >= Sk)
+          if (key >= Sk || (causal && key > qpos + (e >> 1) * 8))
             x = -INFINITY;
-          else if (causal && key > row_pos)  // before the first key: equal
-            x = pre && row_pos < 0 ? 0.f : -INFINITY;
         }
         s[4 * n + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -569,12 +579,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, Hq / Hkv,
       causal, sm_scale, st);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !causal || Sq <= Sk) return static_cast<int>(err);
-  prefix_mean_kernel<<<dim3(Hq, B), NT, 0, stream>>>(
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, Hq / Hkv,
-      D, st);
-  return static_cast<int>(cudaGetLastError());
+  return prefix_mean<float>(v, o, B, Hq, Hkv, Sq, Sk, causal, D, st, stream);
 }
 
 template <int D>
@@ -591,7 +596,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, Hq / Hkv,
       causal, sm_scale * LOG2E, st);
-  return static_cast<int>(cudaGetLastError());
+  return prefix_mean<bf16>(v, o, B, Hq, Hkv, Sq, Sk, causal, D, st, stream);
 }
 
 template <int D>

@@ -23,12 +23,14 @@ gives the chunk, the grids and the workspace from the shapes alone: the
 lengths stay on the device and are never read by the host.
 
 ``LAUNCHES`` counts wrapper calls that launch the kernels, one per call
-(plain-version calls are not counted); :func:`reset_launches` zeroes it.
+(plain-version calls and direct calls of :func:`launch`, which takes a
+caller's workspace, are not counted); :func:`reset_launches` zeroes it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -72,13 +74,15 @@ class DecodePlan:
     workspace: tuple[int, int, int, int]
 
 
+@functools.lru_cache(maxsize=64)
 def decode_plan(b: int, hq: int, hkv: int, s: int, d: int) -> DecodePlan:
     """The launch plan of the decode kernels (float or int8 cache) for q
     (B, Hq, D) over a k/v cache (B, Hkv, S, D).  It depends on the shapes
     only: the lengths are not an argument, so the host never reads them.  A
     block whose chunk starts at or past its row's length exits at once; the
     rest do the work.  Raises ValueError where the grid exceeds the
-    card's."""
+    card's.  Cached: a model calls it with the same shapes at every decode
+    step of every layer."""
     groups = -(-(hq // hkv) // MAXG)
     n_chunks = -(-s // CHUNK)
     if b * groups > _GRID_MAX or n_chunks > _GRID_MAX:
@@ -126,6 +130,20 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lengths = _tensors.row_lengths("flash_decode", length, b, q.device)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths)
+    out = launch(q, k, v, lengths)
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           lengths: torch.Tensor, workspace: torch.Tensor | None = None
+           ) -> torch.Tensor:
+    """The kernels on CUDA operands that :func:`flash_decode` has checked,
+    with (B,) int32 ``lengths``; not counted in ``LAUNCHES``.  The f32
+    workspace of the plan's shape is allocated here unless given: a caller
+    that fills it first sees which partials the split kernel wrote."""
+    b, hq, d = q.shape
+    hkv, s = k.shape[1:3]
     _tensors.check_cuda_head_dim("flash_decode", d)
     plan = decode_plan(b, hq, hkv, s, d)
     q = _tensors.aligned(q.contiguous(), 4)
@@ -133,7 +151,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     if b == 0 or hq == 0:
         return out
-    ws = torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
+    ws = workspace_for(plan, q.device, workspace)
     lib = _build.load()
     fn = lib.flash_decode_f32 if q.dtype == torch.float32 \
         else lib.flash_decode_bf16
@@ -143,7 +161,35 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lengths.data_ptr(), ws.data_ptr(), b, hq, hkv, s, d,
-                 plan.chunk, 1.0 / (d ** 0.5), st, _tensors.stream(q.device))
+                 1.0 / (d ** 0.5), st, _tensors.stream(q.device))
     _build.check(lib, "flash_decode", err)
-    LAUNCHES["flash_decode"] += 1
     return out
+
+
+def written_blocks(plan: DecodePlan, workspace: torch.Tensor) -> int:
+    """The split blocks that wrote their partials into ``workspace``, which
+    held NaN before the call: a block writes m (slot D) for each of its
+    query heads, and a block that exits past its row's length writes
+    nothing."""
+    b, hq, nc, _ = plan.workspace
+    hkv = plan.split_grid[0]
+    g = hq // hkv
+    wrote = ~torch.isnan(workspace[..., -4]).view(b, hkv, g, nc)
+    return sum(int(wrote[:, :, h:h + MAXG].any(2).sum())
+               for h in range(0, g, MAXG))
+
+
+def workspace_for(plan: DecodePlan, device: torch.device,
+                  given: torch.Tensor | None = None) -> torch.Tensor:
+    """The f32 workspace of ``plan``: ``given`` once checked, else a new
+    (uninitialised) one."""
+    if given is None:
+        return torch.empty(plan.workspace, dtype=torch.float32,
+                           device=device)
+    if (given.dtype != torch.float32 or tuple(given.shape) != plan.workspace
+            or not given.is_contiguous() or given.device != device):
+        raise ValueError(f"flash_decode: the workspace must be a contiguous "
+                         f"float32 {plan.workspace} on {device}, got "
+                         f"{given.dtype} {tuple(given.shape)} on "
+                         f"{given.device}")
+    return given

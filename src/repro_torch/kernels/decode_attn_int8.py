@@ -17,8 +17,8 @@ or a (B,) integer tensor, as for ``decode_attn.flash_decode``, with the
 same split, merge and launch plan (``decode_attn.decode_plan``); a row with
 ``length <= 0`` gets the mean of the dequantized V over all S positions.
 
-``LAUNCHES`` counts wrapper calls that launch the kernels, one per call;
-:func:`reset_launches` zeroes it.
+``LAUNCHES`` counts wrapper calls that launch the kernels, one per call
+(not direct calls of :func:`launch`); :func:`reset_launches` zeroes it.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, _tensors
-from .decode_attn import check_decode, decode_plan
+from .decode_attn import check_decode, decode_plan, workspace_for
 from .ref import decode_int8_ref
 
 LAUNCHES = {"flash_decode_int8": 0}
@@ -63,6 +63,19 @@ def flash_decode_int8(q: torch.Tensor, k8: torch.Tensor,
     lengths = _tensors.row_lengths(name, length, b, q.device)
     if q.device.type == "cpu":
         return flash_decode_int8_plain(q, k8, k_scale, v8, v_scale, lengths)
+    out = launch(q, k8, k_scale, v8, v_scale, lengths)
+    LAUNCHES[name] += 1
+    return out
+
+
+def launch(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
+           v8: torch.Tensor, v_scale: torch.Tensor, lengths: torch.Tensor,
+           workspace: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernels on CUDA operands that :func:`flash_decode_int8` has
+    checked, as ``decode_attn.launch``; not counted in ``LAUNCHES``."""
+    name = "flash_decode_int8"
+    b, hq, d = q.shape
+    hkv, s = k8.shape[1:3]
     _tensors.check_cuda_head_dim(name, d)
     plan = decode_plan(b, hq, hkv, s, d)
     q = _tensors.aligned(q.contiguous(), 4)
@@ -73,7 +86,7 @@ def flash_decode_int8(q: torch.Tensor, k8: torch.Tensor,
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     if b == 0 or hq == 0:
         return out
-    ws = torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
+    ws = workspace_for(plan, q.device, workspace)
     lib = _build.load()
     fn = lib.flash_decode_int8_f32 if q.dtype == torch.float32 \
         else lib.flash_decode_int8_bf16
@@ -83,7 +96,6 @@ def flash_decode_int8(q: torch.Tensor, k8: torch.Tensor,
         err = fn(q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(),
                  v8.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
                  lengths.data_ptr(), ws.data_ptr(), b, hq, hkv, s, d,
-                 plan.chunk, 1.0 / (d ** 0.5), st, _tensors.stream(q.device))
+                 1.0 / (d ** 0.5), st, _tensors.stream(q.device))
     _build.check(lib, name, err)
-    LAUNCHES[name] += 1
     return out

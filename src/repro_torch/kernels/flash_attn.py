@@ -23,7 +23,7 @@ width (4 elements in f32, 8 in bf16: 16 bytes either way) is copied first;
 the model's views are never copied.
 
 ``LAUNCHES`` counts wrapper calls that launch the kernels, one per call
-(plain-version calls are not counted; an f32 causal call with Sq > Sk also
+(plain-version calls are not counted; a causal call with Sq > Sk also
 launches ``prefix_mean_kernel`` for the rows before the first key);
 :func:`reset_launches` zeroes it.
 """

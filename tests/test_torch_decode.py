@@ -137,6 +137,39 @@ def test_decode_plan_covers_random_shapes(b, hkv, g, s, d):
     _check_plan(b, g * hkv, hkv, s, d)
 
 
+@pytest.mark.parametrize("b,hq,hkv,s,d,lengths", [
+    (8, 24, 8, 2048, 128, [529] * 8),          # llama's decode: 576
+    (3, 32, 2, 100, 64, [5, 100, 1000]),       # G = 16: two head groups
+    (2, 16, 16, 300, 128, [0, 300]),           # G = 1, a length-0 row
+    (2, 28, 4, 300, 128, [-2, 64])])           # G = 7
+def test_written_blocks_counts_the_working_blocks(b, hq, hkv, s, d, lengths):
+    """``written_blocks`` (what ``chip_smoke.py`` reads from a workspace
+    filled with NaN before a call on the card) on a workspace written as
+    the split kernel writes it: m for each query head of each block whose
+    chunk starts below its row's length."""
+    plan = decode_attn.decode_plan(b, hq, hkv, s, d)
+    ws = torch.full(plan.workspace, float("nan"))
+    for row, length in enumerate(lengths):
+        L = s if length <= 0 else min(length, s)
+        ws[row, :, :-(-L // plan.chunk), d] = 0.0
+    assert decode_attn.written_blocks(plan, ws) == \
+        _working_blocks(plan, lengths, s)
+
+
+def test_workspace_for_refuses_a_wrong_workspace():
+    plan = decode_attn.decode_plan(2, 8, 2, 100, 64)
+    cpu = torch.device("cpu")
+    assert tuple(decode_attn.workspace_for(plan, cpu).shape) == \
+        plan.workspace
+    good = torch.zeros(plan.workspace)
+    assert decode_attn.workspace_for(plan, cpu, good) is good
+    for bad in (torch.zeros(plan.workspace, dtype=torch.float64),
+                torch.zeros(plan.workspace[:-1] + (8,)),
+                torch.zeros(plan.workspace[::-1]).permute(3, 2, 1, 0)):
+        with pytest.raises(ValueError, match="workspace"):
+            decode_attn.workspace_for(plan, cpu, bad)
+
+
 def test_decode_plan_raises_past_the_grid():
     with pytest.raises(ValueError, match="grid"):
         decode_attn.decode_plan(70000, 8, 8, 64, 128)
@@ -161,14 +194,15 @@ def test_decode_path_never_reads_lengths_on_the_host():
     assert params == ["b", "hq", "hkv", "s", "d"]
     host_reads = {"item", "tolist", "cpu", "numpy", "synchronize"}
     for fn in (decode_attn.decode_plan, decode_attn.flash_decode,
-               decode_attn_int8.flash_decode_int8, _tensors.row_lengths):
+               decode_attn.launch, decode_attn_int8.flash_decode_int8,
+               decode_attn_int8.launch, _tensors.row_lengths):
         assert not _calls(fn) & host_reads, fn.__name__
 
 
 def test_decode_kernels_are_one_template_with_two_launches():
     """The four C entry points share one split template and one merge
     kernel (the old one-block-per-row ``decode_kernel`` is gone), and each
-    takes the workspace and the plan's chunk size."""
+    takes the workspace; the chunk is the source's constant, the plan's."""
     src = (KERNELS / "csrc" / "decode_attn.cu").read_text()
     assert "decode_split_kernel" in src and "decode_merge_kernel" in src
     assert "decode_kernel<" not in src and " decode_kernel(" not in src
@@ -176,9 +210,9 @@ def test_decode_kernels_are_one_template_with_two_launches():
     assert f"constexpr int MAXG = {decode_attn.MAXG};" in src
     assert f"constexpr int NW = {decode_attn.MERGE_ROWS};" in src
     for name in ("flash_decode_f32", "flash_decode_bf16"):
-        assert len(_build.SIGNATURES[name]) == 15
+        assert len(_build.SIGNATURES[name]) == 14
     for name in ("flash_decode_int8_f32", "flash_decode_int8_bf16"):
-        assert len(_build.SIGNATURES[name]) == 17
+        assert len(_build.SIGNATURES[name]) == 16
 
 
 # ------------------------------------------------- split-and-merge emulation
@@ -315,3 +349,22 @@ def test_flash_attention_causal_sq_past_sk_matches_pallas(b, hq, hkv, sq, sk,
     mean_v = np.repeat(v.mean(axis=2, keepdims=True), hq // hkv, axis=1)
     _close(want[:, :, :first], np.broadcast_to(
         mean_v, (b, hq, first, d)), 1e-5)
+
+
+def test_host_cost_script_loads_another_checkout_beside_this_one():
+    """``launch.decode_host_cost --other SRC`` imports another checkout's
+    decode wrappers into the same process under another package name;
+    here this checkout's own ``src``, whose wrappers must then give the
+    same result as this process's on CPU tensors."""
+    from repro_torch.launch import decode_host_cost
+    src = pathlib.Path(decode_attn.__file__).resolve().parents[2]
+    dec, dec8 = decode_host_cost._other(str(src))
+    assert dec.__name__ == "other_repro_torch.kernels.decode_attn"
+    assert dec8.__name__ == "other_repro_torch.kernels.decode_attn_int8"
+    assert dec is not decode_attn
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+               for sh in ((2, 4, 32), (2, 2, 40, 32), (2, 2, 40, 32)))
+    lengths = torch.tensor([0, 17], dtype=torch.int32)
+    assert torch.equal(dec.flash_decode(q, k, v, lengths),
+                       decode_attn.flash_decode(q, k, v, lengths))

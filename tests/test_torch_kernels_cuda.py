@@ -207,7 +207,10 @@ def test_flash_decode_matches_plain(cuda_device, b, hq, hkv, s, d, lengths,
     """The split-KV kernels against the plain version, over the model's
     (B, S, Hkv, D) cache views read without a copy; one launch count per
     call; a second call bit-equal to the first (the merge adds the
-    partials in a fixed order)."""
+    partials in a fixed order); a third through ``launch`` on a workspace
+    filled with NaN, bit-equal too (the merge reads only the partials the
+    split kernel wrote) and not counted, whose written blocks are those
+    whose chunk starts below the row's length (all S for a length <= 0)."""
     from repro_torch.kernels import _tensors, decode_attn, decode_attn_int8
     rng = np.random.default_rng(s + b)
     q = _randn(rng, (b, hq, d), cuda_device, dtype)
@@ -232,9 +235,15 @@ def test_flash_decode_matches_plain(cuda_device, b, hq, hkv, s, d, lengths,
     before = mod.LAUNCHES[name]
     got = call(*args)
     again = call(*args)
+    plan = decode_attn.decode_plan(b, hq, hkv, s, d)
+    ws = torch.full(plan.workspace, float("nan"), device=cuda_device)
+    nan_ws = mod.launch(*args, workspace=ws)
     torch.cuda.synchronize()
     assert mod.LAUNCHES[name] == before + 2
-    assert torch.equal(got, again)
+    assert torch.equal(got, again) and torch.equal(got, nan_ws)
+    rows = [s if n <= 0 else min(n, s) for n in lengths]
+    assert decode_attn.written_blocks(plan, ws) == \
+        sum(-(-n // plan.chunk) for n in rows) * hkv * plan.groups
     if quant and dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     else:
