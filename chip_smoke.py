@@ -9,8 +9,10 @@ result line):
    first use) and load them; print ptxas's registers and spill bytes for
    every kernel and the tensor-core instructions (HMMA, HGMMA) of each
    kernel from ``cuobjdump -sass``: the bf16 flash attention kernel must
-   have HGMMA (wgmma) at every head dim, and the decode kernels
-   (``decode_split_kernel``, ``decode_merge_kernel``) must be built;
+   have HGMMA (wgmma) at every head dim, the decode kernels
+   (``decode_split_kernel``, ``decode_merge_kernel``) must be built, and
+   the scan kernel (``scan_lanes_kernel``) built without spills at every
+   instantiation;
 2. hold each kernel against its plain PyTorch version on CUDA tensors: the
    main path's shapes, lenet-28's shapes and edge shapes (N in {1, 3, 130},
    M = 1, a full 256x256 crossbar at B = 1024, strided x, misaligned
@@ -89,12 +91,17 @@ result line):
 
 9. the selective-scan kernel against its plain version: falcon-mamba-7b's
    prefill shape (B, L, Din, N) = (8, 512, 8192, 16) in bf16, B = 1 at
-   L in {16, 1000}, L = 1, N in {4, 16}, B/C as strided column slices of one
+   L in {16, 128, 1000, 1024}, L = 1, N in {4, 16, 17, 64}, Din 1024 at
+   B = 1 (``scan_plan`` gives 8 lanes a channel), a Din
+   no block's width divides, B/C as strided column slices of one
    projection (the model's layout), f32 inputs, A and d_skip drawn for
    each channel; y and the final state
    within 2e-3 x max(1, max|output|) (``tests/test_kernels.py``'s 2e-3 for
-   the Pallas twin, scaled by the output's magnitude: the kernel fuses
-   multiply-adds and its ``expf`` rounds otherwise than PyTorch's ``exp``);
+   the Pallas twin, scaled by the output's magnitude: the kernel sums in
+   other orders, fuse multiply-adds and take exp as 2^(x log2 e) on the
+   special-function unit); two launches bit-equal at (8, 512, 8192, 16)
+   and (1, 1024, 1024, 16), the second under CUDA's sync debug mode (the
+   wrapper never synchronises with the host);
 10. falcon-mamba-7b at full width and depth (64 Mamba layers, d 4096,
    bf16, seeded random weights on the card) through ``ServeEngine.generate``
    (B = 8, prompts of 512, 32 new tokens) and ``ContinuousBatcher`` (8
@@ -118,10 +125,14 @@ result line):
    prefills, flash attention 1 x prefills, the decode kernel of the cache's
    type 1 x decode steps;
 13. times: falcon-mamba prefill ms and decode tok/s from ``throughput_probe``
-   (kernel, plain, plain, kernel); the scan kernel at the prefill shape
-   (CUDA events, device time under torch.profiler), its plain version and
-   its bound; the device's idle share over one profiled falcon-mamba
-   ``generate``.
+   (kernel, plain, plain, kernel); the scan at the prefill shape and at
+   the batcher's B = 1 for L in {16, 128, 512, 1024} (CUDA events, device
+   time of the call under torch.profiler: the scan kernel's mean times
+   its launches a call, as the profiler drops most scan events,
+   ``launch.scan_times.device_us``; time per
+   (b, t, d, n) element; the plan's grid as ``scan_plan`` computes it; the
+   exponentials' estimate), its plain version and its bound; the device's
+   idle share over one profiled falcon-mamba ``generate``.
 
 14. the Listing-1 conv kernel against its plain version at the CM zoo's
    conv shapes (the main path's (28, 16, 16) with 28 filters, lenet-28's
@@ -203,6 +214,8 @@ from repro_torch.kernels.ref import (quantize_crossbar, quantize_vec,  # noqa: E
                                      selective_scan_ref)
 from repro_torch.launch import quickstart  # noqa: E402
 from repro_torch.launch.decode_host_cost import host_us_per_call  # noqa: E402
+from repro_torch.launch.scan_times import (EXP_PER_S, scan_inputs,  # noqa: E402
+                                           device_us as scan_device_us)
 from repro_torch.models import build_model, lm  # noqa: E402
 from repro_torch.models.layers import kv_quantize  # noqa: E402
 from repro_torch.runtime import CmServer, poisson_arrivals  # noqa: E402
@@ -235,6 +248,7 @@ ATTN_MODS = {"flash_attention": flash_attn, "flash_decode": decode_attn,
 WGMMA_FLASH_KERNEL = "flash_attention_wgmma_kernel"
 F32_FLASH_KERNEL = "flash_attention_kernel"
 DECODE_KERNELS = ("decode_split_kernel", "decode_merge_kernel")
+SCAN_KERNEL = "scan_lanes_kernel"        # one launch a scan call
 LM_ARCH = "llama3.2-3b"
 BATCH, PROMPT, NEW, MAX_LEN = 8, 512, 32, 2048
 N_REQUESTS, SLOTS = 16, 8
@@ -253,7 +267,6 @@ MOE_NEW = 8
 MAMBA_BF16_LOGIT_BOUND = 0.075
 # the special-function units: 16 exponentials per clock per SM (H100 SXM,
 # 132 SMs, 1,980 MHz boost clock), for the scan's estimate beside its bound
-EXP_PER_S = 16 * 132 * 1.98e9
 STAT_FIELDS = ("cycles", "messages", "bytes_sent")
 DICT_FIELDS = ("busy", "sram_high_water")
 
@@ -538,6 +551,13 @@ def phase_build():
         print(f"[1] {kname}: registers / spill stores / spill loads: " +
               "; ".join(f"{n} {r}/{st}/{ld}"
                         for n, (r, st, ld) in sorted(found.items())))
+    scan = {names[n]: u for n, u in usage.items()
+            if SCAN_KERNEL in n}
+    if not scan or any(st or ld for _, st, ld in scan.values()):
+        raise AssertionError(f"[1] the scan kernel is missing or spills: "
+                             f"{scan}")
+    print("[1] scan kernel, registers (no spills): " +
+          "; ".join(f"{n} {r}" for n, (r, _, _) in sorted(scan.items())))
     wg = {n: c["HGMMA"] for n, c in tc.items()
           if WGMMA_FLASH_KERNEL in n}
     if len(wg) != len(HEAD_DIMS) or not all(wg.values()):
@@ -1354,26 +1374,6 @@ def attention_kernel_rows(errs, serve, times, lm_paths):
 
 
 # ------------------------------------------------ Mamba, MoE, hybrid phases
-def _scan_inputs(gen, b, l, d, n, dev, dtype, strided=False):
-    """Scan operands at falcon-mamba's scales: dt as softplus gives it
-    (small, positive), B/C O(1); A = -exp(A_log) and d_skip drawn for each
-    channel, so that a kernel reading another channel's A or D disagrees
-    (``init_mamba`` makes them the same in every channel); with ``strided``
-    B and C are column slices of one (B, L, dtr + 2N) projection, the
-    model's layout."""
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
-    u = rnd(b, l, d).to(dtype)
-    dt = torch.nn.functional.softplus(rnd(b, l, d) - 4.0).to(dtype)
-    a = -torch.exp(rnd(d, n))
-    if strided:
-        proj = rnd(b, l, 256 + 2 * n).to(dtype)
-        bm, cm = proj[..., 256:256 + n], proj[..., 256 + n:]
-    else:
-        bm, cm = rnd(b, l, n).to(dtype), rnd(b, l, n).to(dtype)
-    return u, dt, a, bm, cm, rnd(d)
-
-
 def _rel_err(got, want, what):
     """max|got - want| and that over max(1, max|want|), held to 2e-3."""
     if got.dtype != want.dtype or got.shape != want.shape \
@@ -1390,29 +1390,51 @@ def _rel_err(got, want, what):
 
 
 def phase_scan_kernel(dev):
-    """Kernel 7 against its plain version (y and the final state)."""
+    """Kernel 7 against its plain version (y and the final state), two
+    launches bit-equal, no host synchronisation in the wrapper."""
     gen = torch.Generator(device=dev).manual_seed(9)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(8, 512, 8192, 16, bf16, True),       # falcon-mamba prefill
              (1, 16, 8192, 16, bf16, True), (1, 1000, 8192, 16, bf16, True),
              (8, 1, 8192, 16, bf16, True), (2, 300, 1024, 4, bf16, False),
              (2, 77, 8192, 16, f32, False), (1, 1000, 8192, 16, f32, True),
-             (3, 64, 200, 4, f32, True)]
+             (3, 64, 200, 4, f32, True),
+             # the batcher's B = 1 at L = 128 and 1024; the same at Din
+             # 1024 (8 lanes a channel); N = 17 and 64 in groups of 16;
+             # Din no block's width divides
+             (1, 128, 8192, 16, bf16, True), (1, 1024, 8192, 16, bf16, True),
+             (1, 128, 1024, 16, bf16, True), (1, 1024, 1024, 16, f32, True),
+             (2, 200, 2000, 17, bf16, True), (1, 700, 520, 64, f32, False),
+             (4, 129, 1001, 4, bf16, True), (1, 333, 136, 4, f32, True)]
     before = _all_counts()
     err = {f32: (0.0, 0.0), bf16: (0.0, 0.0)}
     for b, l, d, n, dt, strided in cases:
-        args = _scan_inputs(gen, b, l, d, n, dev, dt, strided)
+        args = scan_inputs(gen, b, l, d, n, dev, dt, strided)
         y, h = mamba_scan.selective_scan(*args, return_state=True)
         wy, wh = selective_scan_ref(*args, return_state=True)
         torch.cuda.synchronize()
         what = f"selective_scan (B, L, D, N) = {(b, l, d, n)} {dt}"
         for e in (_rel_err(y, wy, what + " y"), _rel_err(h, wh, what + " hT")):
             err[dt] = (max(err[dt][0], e[0]), max(err[dt][1], e[1]))
+    for b, l, d in ((BATCH, PROMPT, 8192), (1, 1024, 1024)):
+        args = scan_inputs(gen, b, l, d, 16, dev, bf16, True)
+        y1, h1 = mamba_scan.selective_scan(*args, return_state=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")     # raises on a host sync
+        try:
+            y2, h2 = mamba_scan.selective_scan(*args, return_state=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not (torch.equal(y1, y2) and torch.equal(h1, h2)):
+            raise AssertionError(f"selective_scan at {(b, l, d, 16)}: two "
+                                 f"launches differ")
     _set_counts(before)
     print(f"[9] {len(cases)} selective_scan kernel-vs-plain cases agree (y "
-          f"and hT): max abs err {err[f32][0]:.3g} (f32), {err[bf16][0]:.3g} "
-          f"(bf16 inputs); largest share of max(1, max|output|) "
-          f"{max(err[f32][1], err[bf16][1]):.3g} (bound 2e-3)")
+          f"and hT): max abs err {err[f32][0]:.3g} (f32), "
+          f"{err[bf16][0]:.3g} (bf16 inputs); largest share of max(1, max|output|) "
+          f"{max(err[f32][1], err[bf16][1]):.3g} (bound 2e-3); two launches "
+          f"bit-equal at (8, 512, 8192, 16) and (1, 1024, 1024, 16), no host "
+          f"synchronisation")
     return {"f32": err[f32][0], "bf16": err[bf16][0],
             "rel": max(err[f32][1], err[bf16][1])}
 
@@ -1612,13 +1634,19 @@ def phase_mamba_times(dev, model):
         lambda: eng.generate(prompts, NEW))
     din, n = 2 * cfg.d_model, cfg.ssm.state
     gen = torch.Generator(device=dev).manual_seed(10)
-    args = _scan_inputs(gen, BATCH, PROMPT, din, n, dev, torch.bfloat16, True)
+    args = scan_inputs(gen, BATCH, PROMPT, din, n, dev, torch.bfloat16, True)
     kern = lambda: mamba_scan.selective_scan(*args, return_state=True)
     ms = _events_ms(kern, reps=20, trials=5, warmup=3)
-    dev_us = _device_us(kern, "scan_kernel", reps=20)
+    dev_us = scan_device_us(kern)
     plain_ms = _events_ms(
         lambda: selective_scan_ref(*args, return_state=True),
         reps=2, trials=3, warmup=1)
+    b1 = {}          # the batcher's single-sequence prefills
+    for l in (16, 128, 512, 1024):
+        a1 = scan_inputs(gen, 1, l, din, n, dev, torch.bfloat16, True)
+        k1 = lambda: mamba_scan.selective_scan(*a1, return_state=True)
+        b1[l] = (_events_ms(k1, reps=20, trials=5, warmup=3),
+                 scan_device_us(k1))
     _set_counts(before)
     (bound, by), exp_ms = _scan_bound(BATCH, PROMPT, din, n, 2)
     print(f"[13] {MAMBA_ARCH} throughput_probe(B=8, prompt=512, 32 tokens) in "
@@ -1639,10 +1667,30 @@ def phase_mamba_times(dev, model):
           f"{plain_ms * 1e3:.1f} us; bound {bound * 1e3:.2f} us ({by}); "
           f"exponentials at 16 per clock per SM: an estimated "
           f"{exp_ms * 1e3:.1f} us")
+    per_elem = {}
+    for b, l, (e_ms, d_us) in [(BATCH, PROMPT, (ms, dev_us))] + [
+            (1, l, v) for l, v in b1.items()]:
+        plan = mamba_scan.scan_plan(b, l, din, n, torch.bfloat16)
+        elems = b * l * din * n
+        per_elem[b, l] = None if d_us is None else d_us / elems * 1e6
+        print(f"[13] selective_scan (B, L) = {(b, l)}: device {_us(d_us)}, "
+              f"{e_ms * 1e3:.2f} us per launch (events); "
+              + ("per (b, t, d, n) element not measured" if d_us is None
+                 else f"{per_elem[b, l]:.4f} ps per (b, t, d, n) element")
+              + f"; plan computed by scan_plan: {plan.states} states x "
+              f"{plan.lanes} lanes a channel, grid "
+              f"{plan.grid}, {plan.working_warps} working warps; "
+              f"exponentials' estimate {elems / EXP_PER_S * 1e6:.2f} us")
+    if None not in (per_elem[BATCH, PROMPT], per_elem[1, 1024]):
+        print(f"[13] selective_scan per element at B = 1, L = 1024 over "
+              f"B = {BATCH} x {PROMPT}: "
+              f"{per_elem[1, 1024] / per_elem[BATCH, PROMPT]:.3f}")
     return dict(probes=probes, wall_ms=wall_ms, busy_ms=busy_ms,
                 device_events=n_dev, ms=ms, dev_us=dev_us, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, exp_ms=exp_ms,
-                shape=[BATCH, PROMPT, din, n, "bfloat16"])
+                shape=[BATCH, PROMPT, din, n, "bfloat16"],
+                b1={l: {"ms": e_ms, "device_ms": _ms(d_us)}
+                    for l, (e_ms, d_us) in b1.items()})
 
 
 def scan_kernel_row(errs, serve, paths, times, moe, hybrid):
@@ -1658,6 +1706,7 @@ def scan_kernel_row(errs, serve, paths, times, moe, hybrid):
         "device_ms": None if times["dev_us"] is None
         else times["dev_us"] / 1e3,
         "launches_batcher": serve["batcher"]["selective_scan"],
+        "b1_by_prompt": times["b1"],
         "mamba": {
             "arch": MAMBA_ARCH,
             "probes": [{"kernel": u, **p} for u, p in times["probes"]],

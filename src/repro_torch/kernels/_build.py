@@ -40,7 +40,8 @@ _ATTN = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _S, _P)
 _DECODE = (_P,) * 6 + (_I,) * 5 + (_F, _S, _P)
 # q, k8, k scale, v8, v scale, out, length, workspace; as _DECODE
 _DECODE_INT8 = (_P,) * 8 + (_I,) * 5 + (_F, _S, _P)
-_SCAN = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _S, _P)
+# u, dt, a, B, C, D, y, hT; B, L, Din, N; S, G, tile, vec (the plan)
+_SCAN = (_P,) * 8 + (_I,) * 8 + (_S, _P)
 _CONV = (_P, _P, _P, _P) + (_I,) * 12 + (_P,)
 # name -> argtypes; every entry returns the launch's cudaError_t as an int
 SIGNATURES = {

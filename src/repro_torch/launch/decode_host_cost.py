@@ -23,15 +23,13 @@ object: per package and wrapper, the minimum and the median over
 from __future__ import annotations
 
 import argparse
-import importlib
-import importlib.util
 import json
-import pathlib
 import statistics
-import sys
 import time
 
 import torch
+
+from ._checkout import load_other
 
 
 def host_us_per_call(fn, calls: int = 1000, runs: int = 5) -> float:
@@ -55,19 +53,9 @@ def _runs(fn, calls, runs):
 
 
 def _other(src: str):
-    """The decode wrappers of the ``repro_torch`` under ``src``, imported
-    as the package ``other_repro_torch`` (its kernels use relative imports
-    only, and build into that checkout's own ``build/``)."""
-    root = pathlib.Path(src).resolve() / "repro_torch"
-    spec = importlib.util.spec_from_file_location(
-        "other_repro_torch", root / "__init__.py",
-        submodule_search_locations=[str(root)])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = pkg
-    spec.loader.exec_module(pkg)
-    return (importlib.import_module("other_repro_torch.kernels.decode_attn"),
-            importlib.import_module(
-                "other_repro_torch.kernels.decode_attn_int8"))
+    """The decode wrappers of the ``repro_torch`` under ``src``
+    (``_checkout.load_other``)."""
+    return load_other(src, "kernels.decode_attn", "kernels.decode_attn_int8")
 
 
 def main(argv=None) -> dict:

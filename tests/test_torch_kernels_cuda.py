@@ -14,8 +14,9 @@ flash decode; the output rounds once to bf16), 2e-5 for the int8 decode
 against dequantize-then-plain in f32.  Selective scan: y and the final
 state within 2e-3 x max(1, max|output|), the tolerance of
 ``tests/test_kernels.py`` for its Pallas twin scaled by the output's
-magnitude (both sum the same f32 terms in one order, but the kernel fuses
-multiply-adds and its ``expf`` rounds otherwise than PyTorch's ``exp``).
+magnitude (the kernel sums the state's columns in other orders, fuses
+multiply-adds, and takes exp(x) as 2^(x log2 e) on the special-function
+unit).
 The bf16 flash attention kernel runs on the tensor cores (wgmma) and rounds
 P to bf16 before the P.V product; it is held to the same 5e-2.
 Listing-1 conv: rtol 1e-4 and atol 1e-4 x max(1, max|y|), the bound of
@@ -383,7 +384,11 @@ def _scan_close(got, want):
 @pytest.mark.parametrize("b,l,d,n,strided", [
     (1, 64, 32, 8, False), (2, 128, 64, 16, False), (1, 256, 16, 4, False),
     (1, 1, 100, 16, False), (1, 1000, 8192, 16, True), (3, 33, 130, 5, True),
-    (8, 512, 1024, 16, True)])
+    (8, 512, 1024, 16, True),
+    # B = 1 at 8 lanes a channel over many steps, a ragged last round;
+    # N = 1 and 2; D not a block's
+    (1, 1024, 1024, 16, True), (1, 333, 136, 4, True), (1, 100, 24, 1, False),
+    (2, 70, 333, 2, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_selective_scan_matches_plain(cuda_device, b, l, d, n, strided,
                                       dtype):
@@ -400,12 +405,40 @@ def test_selective_scan_matches_plain(cuda_device, b, l, d, n, strided,
 
 
 @pytest.mark.cuda
-def test_selective_scan_refuses_large_states(cuda_device):
+@pytest.mark.parametrize("n", [17, 32, 64])
+def test_selective_scan_takes_large_states(cuda_device, n):
+    """N > 16 runs in groups of 16 columns (the Pallas kernel takes any
+    N): y and hT against the plain version."""
     from repro_torch.kernels import mamba_scan
-    args = _scan_args(np.random.default_rng(0), 1, 4, 8, 17, cuda_device,
-                      torch.float32)
-    with pytest.raises(ValueError, match="state"):
-        mamba_scan.selective_scan(*args)
+    args = _scan_args(np.random.default_rng(n), 1, 300, 136, n, cuda_device,
+                      torch.bfloat16, strided=True)
+    y, h = mamba_scan.selective_scan(*args, return_state=True)
+    wy, wh = ref.selective_scan_ref(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert mamba_scan.scan_plan(1, 300, 136, n, torch.bfloat16).groups > 1
+    _scan_close(y, wy)
+    _scan_close(h, wh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d", [(8, 512, 8192), (1, 1024, 1024)])
+def test_selective_scan_is_deterministic_and_never_synchronises(
+        cuda_device, b, l, d):
+    """Two launches give the same bits (no atomics; the groups' and the
+    lanes' sums in a fixed order), and the wrapper makes no host
+    synchronisation (CUDA's sync debug mode raises on one)."""
+    from repro_torch.kernels import mamba_scan
+    args = _scan_args(np.random.default_rng(1), b, l, d, 16, cuda_device,
+                      torch.bfloat16, strided=True)
+    mamba_scan.selective_scan(*args, return_state=True)   # built, loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y1, h1 = mamba_scan.selective_scan(*args, return_state=True)
+        y2, h2 = mamba_scan.selective_scan(*args, return_state=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
 # (C, H, W, FL, FH, FW, stride, pad): the CM zoo's convs, the Pallas
