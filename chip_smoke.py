@@ -7,16 +7,21 @@ result line):
 
 1. build the port's CUDA kernels from the sources in this checkout (nvcc at
    first use) and load them; print ptxas's registers and spill bytes for
-   every kernel and the tensor-core instructions (HMMA, HGMMA) of each
-   kernel from ``cuobjdump -sass``: the bf16 flash attention kernel must
-   have HGMMA (wgmma) at every head dim, the decode kernels
+   every kernel and the tensor-core instructions (HMMA, HGMMA, IMMA) of
+   each kernel from ``cuobjdump -sass``: the bf16 flash attention kernel
+   must have HGMMA (wgmma) at every head dim, the int8 crossbar kernel
+   (``crossbar_mxv_int8_kernel``) IMMA (mma.sync s8), the decode kernels
    (``decode_split_kernel``, ``decode_merge_kernel``) must be built, and
-   the scan kernel (``scan_lanes_kernel``) built without spills at every
-   instantiation;
+   the crossbar kernels and the scan kernel (``scan_lanes_kernel``, at
+   every instantiation) built without spills;
 2. hold each kernel against its plain PyTorch version on CUDA tensors: the
    main path's shapes, lenet-28's shapes and edge shapes (N in {1, 3, 130},
-   M = 1, a full 256x256 crossbar at B = 1024, strided x, misaligned
-   weights, bf16 x).  Float kernel: allclose at rtol 1e-5 and atol 1e-5 x
+   M = 1, a full 256x256 crossbar at B = 1024, batch sizes either side of
+   a change of ``mxv_plan``'s layout, N of 256 and 300, N of 3000 and 5001
+   in several chunks of k, rows not 4-byte aligned, strided x, misaligned
+   weights, bf16 x, also at odd N and one element off its alignment), and
+   each kernel bit-equal to itself over two launches at every shape.
+   Float kernel: allclose at rtol 1e-5 and atol 1e-5 x
    max(1, max|output|) in f32 (both sum f32 products, in different orders,
    so the rounding error scales with the terms), 5e-2 the same way in bf16
    (one bf16 rounding of the output).  Int8 kernel: bit-equal (exact
@@ -34,7 +39,10 @@ result line):
 5. times (CUDA events, median after warm-up) of each kernel, its plain
    version and a library call at the shape its path launched most often,
    beside the least time the card could take (bytes / 3.35 TB/s or
-   operations / peak, whichever is larger); the kernel's device time under
+   operations / peak, whichever is larger), with ``mxv_plan``'s grid and
+   layout and the wrapper's host time per call
+   (``decode_host_cost.host_us_per_call``); both kernels' device time at
+   the main path's crossbar at B = 1 and 256; the kernel's device time under
    torch.profiler, and the library call's (``_device_total_us``: per call,
    the union of the intervals of every kernel and copy it launches, or,
    in a profile that dropped events, each kernel's mean duration times its
@@ -116,7 +124,11 @@ result line):
    tokens; flash attention launches exactly 24 x prefills and flash decode
    24 x decode steps; kernel path against plain path at depth 4 in f32, as
    in 10 (at full depth in bf16 the difference is printed, not held: a
-   rounding difference can route a token to another expert);
+   rounding difference can route a token to another expert).  Both paths'
+   top-4 experts of every (token, MoE layer), prefill and each decode
+   step, recorded by wrapping ``layers.moe``: the share of pairs whose sets
+   differ, the first layer with a difference, and the worst logit
+   difference over the batch rows whose routing agrees in every layer;
 12. jamba-1.5-large-398b at its reduced smoke width, with head_dim 32 for
    the smoke config's 16 (the smallest head dim the flash kernels are built
    for); 398 B parameters do not fit one card, and this is a correctness
@@ -214,6 +226,9 @@ from repro_torch.kernels.ref import (quantize_crossbar, quantize_vec,  # noqa: E
                                      selective_scan_ref)
 from repro_torch.launch import quickstart  # noqa: E402
 from repro_torch.launch.decode_host_cost import host_us_per_call  # noqa: E402
+from repro_torch.launch.mxv_times import (  # noqa: E402
+    crossbar as _crossbar, events_ms as _events_ms,
+    plane_call_us as _plane_call_us)
 from repro_torch.launch.scan_times import (EXP_PER_S, scan_inputs,  # noqa: E402
                                            device_us as scan_device_us)
 from repro_torch.models import build_model, lm  # noqa: E402
@@ -249,6 +264,8 @@ WGMMA_FLASH_KERNEL = "flash_attention_wgmma_kernel"
 F32_FLASH_KERNEL = "flash_attention_kernel"
 DECODE_KERNELS = ("decode_split_kernel", "decode_merge_kernel")
 SCAN_KERNEL = "scan_lanes_kernel"        # one launch a scan call
+# the crossbar kernels' names (the float one at f32 and bf16 x)
+MXV_KERNELS = ("crossbar_mxv_kernel", "crossbar_mxv_int8_kernel")
 LM_ARCH = "llama3.2-3b"
 BATCH, PROMPT, NEW, MAX_LEN = 8, 512, 32, 2048
 N_REQUESTS, SLOTS = 16, 8
@@ -272,12 +289,6 @@ DICT_FIELDS = ("busy", "sram_high_water")
 
 
 # ------------------------------------------------------------------ helpers
-def _crossbar(m, n, gen, dev):
-    w = torch.randn(m, n, generator=gen)
-    wq, ws = quantize_crossbar(w)
-    return wq.to(dev), ws.to(dev)
-
-
 def _misaligned(wq):
     """The same int8 matrix at a data pointer one byte past alignment."""
     buf = torch.empty(wq.numel() + 1, dtype=torch.int8, device=wq.device)
@@ -325,25 +336,6 @@ def _us(v):
 def _ms(us):
     """µs (or None) as ms for the kernels line."""
     return None if us is None else us / 1e3
-
-
-def _events_ms(fn, reps=50, trials=7, warmup=10):
-    """Median over ``trials`` of (CUDA-event time of ``reps`` back-to-back
-    calls) / ``reps``."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(trials):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b) / reps)
-    return statistics.median(out)
 
 
 def _device_us(fn, name, reps=50, tries=2):
@@ -440,19 +432,6 @@ def _union(spans):
     return busy + hi - lo
 
 
-def _plane_call_us(plane, desc, V, reps=200):
-    """Median host time of one ``plane.mxv_batch`` call: upload, launch,
-    download (the ``.cpu()`` at its end waits for the card)."""
-    for _ in range(10):
-        plane.mxv_batch(desc, V)
-    out = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        plane.mxv_batch(desc, V)
-        out.append(time.perf_counter() - t0)
-    return statistics.median(out) * 1e6
-
-
 def _stats_equal(a, b, what):
     for f in STAT_FIELDS:
         if getattr(a, f) != getattr(b, f):
@@ -526,24 +505,38 @@ def _sass_counts(opcodes):
 # ------------------------------------------------------------------- phases
 def phase_build():
     """Build and load the kernels; print ptxas's registers and spills for
-    every kernel, and the tensor-core instructions (HMMA, HGMMA) of each;
-    the bf16 flash attention kernel must have HGMMA at every head dim."""
+    every kernel, and the tensor-core instructions (HMMA, HGMMA, IMMA) of
+    each; the bf16 flash attention kernel must have HGMMA at every head
+    dim, the int8 crossbar kernel IMMA, and no crossbar kernel spills."""
     t0 = time.perf_counter()
     lib = _build.load()
     secs = time.perf_counter() - t0
     print(f"[1] kernels built and loaded in {secs:.2f} s: "
           f"{_build.library_path()}")
     usage = _build.resource_usage()
-    tc = _sass_counts(("HMMA", "HGMMA"))
+    tc = _sass_counts(("HMMA", "HGMMA", "IMMA"))
     names = _demangle(sorted(set(usage) | set(tc)))
     print("[1] ptxas registers / spill stores / spill loads (bytes) per "
           "kernel: " + "; ".join(f"{names[n]} {r}/{st}/{ld}" for n, (r, st, ld)
                                   in sorted(usage.items(),
                                             key=lambda kv: names[kv[0]])))
-    print("[1] tensor-core instructions per kernel (HMMA, HGMMA): " +
-          "; ".join(f"{names[n]} {c['HMMA']}, {c['HGMMA']}"
+    print("[1] tensor-core instructions per kernel (HMMA, HGMMA, IMMA): " +
+          "; ".join(f"{names[n]} {c['HMMA']}, {c['HGMMA']}, {c['IMMA']}"
                     for n, c in sorted(tc.items(), key=lambda kv: names[kv[0]])
                     if any(c.values())))
+    crossbar = {names[n]: u for n, u in usage.items()
+                if names[n].startswith(MXV_KERNELS)}
+    if len(crossbar) != 3 or any(st or ld for _, st, ld in crossbar.values()):
+        raise AssertionError(f"[1] the crossbar kernels are missing or "
+                             f"spill: {crossbar}")
+    imma = {names[n]: c["IMMA"] for n, c in tc.items()
+            if names[n].startswith(MXV_KERNELS[1])}
+    if not imma or not all(imma.values()):
+        raise AssertionError(f"[1] the int8 crossbar kernel is not on the "
+                             f"int8 tensor cores: IMMA counts {imma}")
+    print("[1] crossbar kernels, registers (no spills): " +
+          "; ".join(f"{n} {r}" for n, (r, _, _) in sorted(crossbar.items()))
+          + f"; IMMA in the int8 one: {imma}")
     for kname in DECODE_KERNELS:
         found = {names[n]: u for n, u in usage.items() if kname in n}
         if not found:
@@ -574,7 +567,14 @@ def phase_kernels(dev):
                      (4, 9, (1, 100, 676)), (8, 36, (1, 100, 144)),
                      (10, 200, (1,)),                       # lenet-28
                      (5, 1, (3,)), (33, 3, (3, 9)), (129, 130, (5, 17)),
-                     (1, 64, (4,)), (256, 256, (1024,))]:   # edges
+                     (1, 64, (4,)), (256, 256, (1024,)),    # edges
+                     # either side of a change of mxv_plan's layout, N of
+                     # 256 (16-byte rows) and 300; k in several chunks,
+                     # rows not 4-byte aligned in one chunk and in several
+                     (28, 256, (262, 263)), (28, 252, (524, 525)),
+                     (10, 300, (524, 525)),
+                     (4, 252, (2096, 2097)), (300, 300, (4,)),
+                     (28, 3000, (64,)), (9, 2001, (3,)), (3, 5001, (2,))]:
         for b in bs:
             cases.append((b, n, m))
     n_cases = 0
@@ -587,6 +587,16 @@ def phase_kernels(dev):
             err["crossbar_mxv_int8"] = max(err["crossbar_mxv_int8"],
                                            _check_int8(x, w, ws))
             n_cases += 2
+        # two launches of each kernel bit-equal (a fixed order of sums)
+        xq, xs = quantize_vec(x)
+        before = dict(mxv.LAUNCHES)
+        if not (torch.equal(mxv.crossbar_mxv(x, wq, ws),
+                            mxv.crossbar_mxv(x, wq, ws))
+                and torch.equal(mxv.crossbar_mxv_int8(xq, xs, wq, ws),
+                                mxv.crossbar_mxv_int8(xq, xs, wq, ws))):
+            raise AssertionError(f"crossbar kernels differ between two "
+                                 f"launches at {(b, n, m)}")
+        mxv.LAUNCHES.update(before)
     # strided (transposed) activations, made contiguous by the wrappers
     wq, ws = _crossbar(28, 252, gen, dev)
     xt = torch.randn(252, 64, generator=gen).to(dev).T
@@ -601,16 +611,27 @@ def phase_kernels(dev):
     for b in (1, 196):
         x = torch.randn(b, 252, generator=gen).to(dev, torch.bfloat16)
         bf_err = max(bf_err, _check_float(x, wq, ws, 5e-2))
+    # bf16 rows not 4-byte aligned (odd N), and x one element past its
+    # allocation's alignment
+    for b, n, m in ((7, 9, 4), (5, 131, 5), (64, 252, 28)):
+        x = torch.randn(b, n, generator=gen).to(dev, torch.bfloat16)
+        buf = torch.empty(b * n + 1, dtype=torch.bfloat16, device=dev)
+        x_off = buf[1:].view(b, n)
+        x_off.copy_(x)
+        w8, s8 = _crossbar(m, n, gen, dev)
+        for xx in (x, x_off):
+            bf_err = max(bf_err, _check_float(xx, w8, s8, 5e-2))
     # B == 0 / M == 0 return empty results without a launch
     before = dict(mxv.LAUNCHES)
     empty = mxv.crossbar_mxv(torch.empty(0, 9, device=dev),
                              *_crossbar(4, 9, gen, dev))
     if empty.shape != (0, 4) or mxv.LAUNCHES != before:
         raise AssertionError("B == 0 must return (0, M) without a launch")
-    n_cases += 6
+    n_cases += 12
     print(f"[2] {n_cases} kernel-vs-plain cases agree: max abs err "
           f"crossbar_mxv {err['crossbar_mxv']:.3g} (f32), {bf_err:.3g} "
-          f"(bf16); crossbar_mxv_int8 {err['crossbar_mxv_int8']:.3g}")
+          f"(bf16); crossbar_mxv_int8 {err['crossbar_mxv_int8']:.3g}; "
+          f"two launches bit-equal at each of {len(cases)} shapes")
     return err
 
 
@@ -702,6 +723,14 @@ def _bound(kind, b, n, m):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _plan_text(b, n, m, dtype):
+    """``mxv_plan``'s grid and layout, as phase 5 prints them."""
+    p = mxv.mxv_plan(b, n, m, dtype)
+    return (f"plan computed by mxv_plan: grid {p.grid[0]} x {p.grid[1]} "
+            f"of {p.threads} threads, {p.mt} columns x {p.rows} rows a "
+            f"block, k in {p.ks} parts of {p.kc}, {p.smem_bytes} B shared")
+
+
 def phase_times(dev, paths, errs):
     gen = torch.Generator().manual_seed(1)
     out = []
@@ -731,7 +760,10 @@ def phase_times(dev, paths, errs):
         before = dict(mxv.LAUNCHES)
         ms = _events_ms(kern)
         dev_us = _device_us(kern, f"{name}_kernel")
+        host_us = host_us_per_call(kern, calls=500)
         mxv.LAUNCHES.update(before)      # timing launches do not count
+        plan = _plan_text(b, n, m, torch.int8 if kind == "int8"
+                          else torch.float32)
         plain_ms = _events_ms(plain)
         lib_ms = _events_ms(lib) if lib_ok else None
         lib_dev_us = _device_total_us(lib, f"[5] {name}'s library call") \
@@ -756,9 +788,12 @@ def phase_times(dev, paths, errs):
             "plane_call_us": call_us, "numpy_plane_call_us": numpy_call_us,
             "serve_device_busy_ms": path["device_busy_ms"],
             "serve_profiled_wall_ms": path["profiled_wall_ms"],
+            "wrapper_host_us": host_us,
         })
-        print(f"[5] {name} at (B, N, M) = {(b, n, m)}: {ms * 1e3:.2f} us per "
-              f"launch (events, back to back), device {_us(dev_us)}; "
+        print(f"[5] {name} at (B, N, M) = {(b, n, m)} ({plan}): "
+              f"{ms * 1e3:.2f} us per launch (events, back to back), "
+              f"device {_us(dev_us)}, wrapper's host time "
+              f"{host_us:.2f} us a call; "
               f"plain {plain_ms * 1e3:.2f} us; library "
               f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'} "
               f"({why}; device {_us(lib_dev_us)}); bound "
@@ -774,9 +809,16 @@ def phase_times(dev, paths, errs):
         before = dict(mxv.LAUNCHES)
         t_f = _events_ms(lambda: mxv.crossbar_mxv(x, wq, ws))
         t_i = _events_ms(lambda: mxv.crossbar_mxv_int8(xq, xs, wq, ws))
+        d_f = _device_us(lambda: mxv.crossbar_mxv(x, wq, ws),
+                         MXV_KERNELS[0])
+        d_i = _device_us(lambda: mxv.crossbar_mxv_int8(xq, xs, wq, ws),
+                         MXV_KERNELS[1])
         mxv.LAUNCHES.update(before)
-        print(f"[5] 28x252 at B={b}: crossbar_mxv {t_f * 1e3:.2f} us, "
-              f"crossbar_mxv_int8 {t_i * 1e3:.2f} us; bounds "
+        print(f"[5] 28x252 at B={b}: crossbar_mxv {t_f * 1e3:.2f} us per "
+              f"launch, device {_us(d_f)} "
+              f"({_plan_text(b, 252, 28, torch.float32)}), "
+              f"crossbar_mxv_int8 {t_i * 1e3:.2f} us, device {_us(d_i)} "
+              f"({_plan_text(b, 252, 28, torch.int8)}); bounds "
               f"{_bound('f32', b, 252, 28)[0] * 1e3:.4f} / "
               f"{_bound('int8', b, 252, 28)[0] * 1e3:.4f} us")
     return out
@@ -1009,14 +1051,78 @@ def _logit_steps(cfg, model, prompts, steps, use_kernel, feed=None):
     return out, torch.stack(fed, 1)
 
 
-def _compare_paths(cfg, model, prompts, steps, tol, what):
+@contextlib.contextmanager
+def _routing_log(log):
+    """Record the top-k experts of every ``layers.moe`` call, as (B, T, K)
+    sorted indices, by wrapping it as ``_count_calls`` wraps a plane: the
+    router's logits, softmax and ``torch.topk`` again on the same input."""
+    from repro_torch.models import layers
+    inner = layers.moe
+
+    def recorded(cfg, p, x, **kw):
+        probs = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)
+        log.append(torch.topk(probs, cfg.moe.top_k, dim=-1)[1].sort(-1).values)
+        return inner(cfg, p, x, **kw)
+
+    layers.moe = recorded
+    try:
+        yield log
+    finally:
+        layers.moe = inner
+
+
+def _routing_stats(logs, got, want):
+    """Routing of the kernel path (``logs[0]``) against the plain path
+    (``logs[1]``), one entry a MoE call, the calls of a forward in layer
+    order, the prefill's first (it routes (B, T, d); a decode step (1, B,
+    d), one token a row): the share of (token, layer) pairs whose top-k
+    sets differ, the first layer with a difference, the batch rows whose
+    routing agrees in every layer of every step, and the worst |logit
+    difference| / max(1, max|logit|) over those rows."""
+    if len(logs[0]) != len(logs[1]) or len(logs[0]) % len(got):
+        raise AssertionError(f"routing logs of {len(logs[0])} and "
+                             f"{len(logs[1])} calls for {len(got)} steps")
+    per_step = len(logs[0]) // len(got)
+    pairs = differ = 0
+    first = None
+    rows_ok = torch.ones(got[0].shape[0], dtype=torch.bool,
+                         device=got[0].device)
+    for i, (a, b) in enumerate(zip(*logs)):
+        flip = (a != b).any(-1)
+        if i >= per_step:
+            flip = flip.T                              # (B, T) as prefill
+        pairs += flip.numel()
+        differ += int(flip.sum())
+        if flip.any() and (first is None or i % per_step < first):
+            first = i % per_step
+        rows_ok &= ~flip.any(-1)
+    worst = None
+    if rows_ok.any():
+        worst = max(((g[rows_ok] - w[rows_ok]).abs().max()
+                     / max(1.0, w[rows_ok].abs().max().item())).item()
+                    for g, w in zip(got, want))
+    return {"moe_layers": per_step, "pairs": pairs, "pairs_differing": differ,
+            "share_differing": differ / pairs, "first_layer_differing": first,
+            "rows_agreeing": int(rows_ok.sum()), "rows": len(rows_ok),
+            "worst_on_agreeing_rows": worst}
+
+
+def _compare_paths(cfg, model, prompts, steps, tol, what, routing=None):
     """Kernel path against the plain path on the same inputs; returns the
     worst |logit difference| / max(1, max|logit|) over the prefill and
-    every decode step."""
+    every decode step.  Given a dict ``routing``, records both paths' MoE
+    routing and puts ``_routing_stats`` into it."""
     before = _all_counts()
-    got, fed = _logit_steps(cfg, model, prompts, steps, True)
-    want, _ = _logit_steps(cfg, model, prompts, steps, False, feed=fed)
+    logs = ([], [])
+    with (_routing_log(logs[0]) if routing is not None
+          else contextlib.nullcontext()):
+        got, fed = _logit_steps(cfg, model, prompts, steps, True)
+    with (_routing_log(logs[1]) if routing is not None
+          else contextlib.nullcontext()):
+        want, _ = _logit_steps(cfg, model, prompts, steps, False, feed=fed)
     _set_counts(before)
+    if routing is not None:
+        routing.update(_routing_stats(logs, got, want))
     worst = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
         if not torch.isfinite(g).all():
@@ -1507,10 +1613,11 @@ def phase_mamba_serve(model):
             "batcher_stats": dict(cb.stats)}
 
 
-def phase_paths(dev, arch, model, new, bf16_bound, tag):
+def phase_paths(dev, arch, model, new, bf16_bound, tag, routing=None):
     """Kernel path against plain path on the card: depth cut to 4 in f32
     (logits and greedy tokens), and ``model`` at full depth in bf16, held
-    to ``bf16_bound`` or, where it is None, measured only."""
+    to ``bf16_bound`` or, where it is None, measured only (with the MoE
+    routing of both paths put into the dict ``routing``, if given)."""
     prompts, _ = _lm_workload(model.cfg.vocab_size)
     small = build_model(dataclasses.replace(
         get_arch(arch), n_layers=4, param_dtype="float32",
@@ -1530,7 +1637,7 @@ def phase_paths(dev, arch, model, new, bf16_bound, tag):
     res[f"bf16_{model.cfg.n_layers}layer"] = _compare_paths(
         model.cfg, model, prompts, 4,
         float("inf") if bf16_bound is None else bf16_bound,
-        f"{arch} bf16 {model.cfg.n_layers}-layer")
+        f"{arch} bf16 {model.cfg.n_layers}-layer", routing)
     print(f"[{tag}] {arch} kernel path vs plain path, worst |logit diff| / "
           f"max(1, max|logit|): " + ", ".join(f"{k} {v:.3g}"
                                               for k, v in res.items())
@@ -1554,9 +1661,20 @@ def phase_moe(dev, model):
           f"{secs:.2f} s, launches {counts}")
     # bf16 at full depth is measured, not held: a rounding difference in a
     # router's input can move a token to another expert, and at decode's
-    # capacity of 1 token per expert that moves its neighbours too
-    paths = phase_paths(dev, MOE_ARCH, model, MOE_NEW, None, 11)
-    return {"generate": counts, "generate_s": secs, "paths": paths}
+    # capacity of 1 token per expert that moves its neighbours too.  The
+    # routing of both paths is recorded to tell the flips apart.
+    routing = {}
+    paths = phase_paths(dev, MOE_ARCH, model, MOE_NEW, None, 11, routing)
+    print(f"[11] {MOE_ARCH} bf16 full depth, top-{cfg.moe.top_k} routing of "
+          f"the kernel path against the plain path: "
+          f"{routing['pairs_differing']} of {routing['pairs']} (token, "
+          f"layer) pairs differ (share {routing['share_differing']:.4g}), "
+          f"first in MoE layer {routing['first_layer_differing']}; "
+          f"{routing['rows_agreeing']} of {routing['rows']} batch rows agree "
+          f"in every layer and step, their worst |logit diff| / max(1, "
+          f"max|logit|) {routing['worst_on_agreeing_rows']}")
+    return {"generate": counts, "generate_s": secs, "paths": paths,
+            "routing": routing}
 
 
 def phase_hybrid(dev):
@@ -2032,10 +2150,10 @@ def phase_conv_times(dev):
           f"launch (events, back to back), device {_us(dev_us)}; plain "
           f"{plain_ms * 1e3:.2f} us; F.conv2d (cuDNN, f32) "
           f"{lib_ms * 1e3:.2f} us, device {_us(lib_dev_us)}; bound "
-          f"{bound_ms * 1e3:.4f} us ({bound_by}); launch plan {plan}")
+          f"{bound_ms * 1e3:.4f} us ({bound_by}); launch plan computed by "
+          f"conv_plan: {plan}")
     return dict(ms=ms, dev_us=dev_us, plain_ms=plain_ms, lib_ms=lib_ms,
-                lib_dev_us=lib_dev_us, bound_ms=bound_ms, bound_by=bound_by,
-                plan=dataclasses.asdict(plan))
+                lib_dev_us=lib_dev_us, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def conv_kernel_row(errs, qs, times, faults, analyze):
@@ -2045,7 +2163,7 @@ def conv_kernel_row(errs, qs, times, faults, analyze):
         "max_abs_err": errs["max_abs_err"], "ms": times["ms"],
         "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"], "library_ms": times["lib_ms"],
-        "shape": list(CM_CONV) + ["int8"], "plan": times["plan"],
+        "shape": list(CM_CONV) + ["int8"],
         "device_ms": _ms(times["dev_us"]),
         "library_device_ms": _ms(times["lib_dev_us"]),
         "max_abs_err_listing1": errs["listing1_err"],

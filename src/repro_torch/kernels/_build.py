@@ -35,6 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _S = ctypes.POINTER(ctypes.c_longlong)      # an array of element strides
+_PLAN = ctypes.POINTER(ctypes.c_int)        # a launch plan's fields
 _ATTN = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _S, _P)
 # q, k, v, out, length, workspace; B, Hq, Hkv, S, D; scale
 _DECODE = (_P,) * 6 + (_I,) * 5 + (_F, _S, _P)
@@ -45,9 +46,9 @@ _SCAN = (_P,) * 8 + (_I,) * 8 + (_S, _P)
 _CONV = (_P, _P, _P, _P) + (_I,) * 12 + (_P,)
 # name -> argtypes; every entry returns the launch's cudaError_t as an int
 SIGNATURES = {
-    "crossbar_mxv_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "crossbar_mxv_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "crossbar_mxv_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "crossbar_mxv_f32": (_P, _P, _P, _P, _I, _I, _I, _PLAN, _P),
+    "crossbar_mxv_bf16": (_P, _P, _P, _P, _I, _I, _I, _PLAN, _P),
+    "crossbar_mxv_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _PLAN, _P),
     "crossbar_conv2d_i8": _CONV,
     "crossbar_conv2d_f32": _CONV,
     "flash_attention_f32": _ATTN,

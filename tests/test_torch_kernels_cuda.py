@@ -74,8 +74,8 @@ def test_kernels_match_plain(cuda_device, b, n, m):
 @pytest.mark.cuda
 def test_strided_misaligned_bf16_and_empty(cuda_device):
     x, wq, ws = _inputs(64, 130, 28, 0, cuda_device)
-    # weights one byte past 4-byte alignment: every row takes the scalar
-    # head and tail around its aligned words
+    # weights one byte past 4-byte alignment: the rows go as one region and
+    # are unpacked in shared memory
     buf = torch.empty(wq.numel() + 1, dtype=torch.int8, device=cuda_device)
     wmis = buf[1:].view(wq.shape)
     wmis.copy_(wq)
@@ -119,6 +119,63 @@ def test_main_path_on_torch_plane(cuda_device):
     for a, b in zip(o_np, o_t):
         for v in a:
             np.testing.assert_allclose(b[v], a[v], rtol=1e-5, atol=2e-5)
+
+
+def _plan_boundaries(n, m, dtype, limit=4400):
+    """Batch sizes on either side of each B below ``limit`` at which
+    ``mxv_plan``'s layout (rows a block, k parts, threads) changes."""
+    plan = mxv.mxv_plan.__wrapped__
+    out, prev = {1}, None
+    for b in range(1, limit):
+        p = plan(b, n, m, dtype)
+        key = (p.mt, p.rows, p.ks, p.kc, p.threads)
+        if prev is not None and key != prev:
+            out |= {b - 1, b}
+        prev = key
+    return sorted(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 8, 10, 28])
+@pytest.mark.parametrize("n", [252, 256, 300])
+def test_kernels_across_plan_boundaries(cuda_device, n, m):
+    """Both kernels on either side of every batch size where the launch
+    plan changes its layout (N = 256: 16-byte rows; 252 and 300: the float
+    kernel's crossbar slice as one region, the int8 kernel's rows by 4-byte
+    copies): the float kernel within its bound of the plain version, the
+    int8 kernel bit-equal, and each bit-equal to itself over two
+    launches."""
+    for dtype in (torch.float32, torch.int8):
+        for b in _plan_boundaries(n, m, dtype):
+            x, wq, ws = _inputs(b, n, m, b + n, cuda_device)
+            if dtype == torch.int8:
+                xq, xs = ref.quantize_vec(x)
+                y = mxv.crossbar_mxv_int8(xq, xs, wq, ws)
+                assert torch.equal(y, mxv.crossbar_mxv_int8_plain(xq, xs, wq,
+                                                                  ws)), b
+                assert torch.equal(y, mxv.crossbar_mxv_int8(xq, xs, wq, ws))
+            else:
+                y = mxv.crossbar_mxv(x, wq, ws)
+                _assert_float_close(y, mxv.crossbar_mxv_plain(x, wq, ws))
+                assert torch.equal(y, mxv.crossbar_mxv(x, wq, ws)), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(64, 3000, 28), (4, 5000, 3),
+                                   (2, 5001, 3), (3, 2001, 9)])
+def test_kernels_take_k_in_chunks(cuda_device, b, n, m):
+    """N past one chunk of the plan's shared memory, or one chunk above 48
+    KB (the kernels' dynamic limit is raised); N = 5001 and 2001 give rows
+    that are not 4-byte aligned, staged byte by byte over several chunks
+    and as one region in one chunk."""
+    x, wq, ws = _inputs(b, n, m, n, cuda_device)
+    assert mxv.mxv_plan(b, n, m).chunk < n or \
+        mxv.mxv_plan(b, n, m).smem_bytes > 48 * 1024
+    _assert_float_close(mxv.crossbar_mxv(x, wq, ws),
+                        mxv.crossbar_mxv_plain(x, wq, ws))
+    xq, xs = ref.quantize_vec(x)
+    assert torch.equal(mxv.crossbar_mxv_int8(xq, xs, wq, ws),
+                       mxv.crossbar_mxv_int8_plain(xq, xs, wq, ws))
 
 
 # ------------------------------------------------------------ attention
