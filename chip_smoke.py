@@ -128,7 +128,11 @@ result line):
    top-4 experts of every (token, MoE layer), prefill and each decode
    step, recorded by wrapping ``layers.moe``: the share of pairs whose sets
    differ, the first layer with a difference, and the worst logit
-   difference over the batch rows whose routing agrees in every layer;
+   difference over the batch rows whose routing agrees in every layer; for
+   MoE layer 0 of the prefill, the flips, the plain path's router margins
+   (k-th minus (k+1)-th probability) at the flips against every token's,
+   and how many flips have a margin below the largest router-probability
+   difference between the paths at that token (and below twice it);
 12. jamba-1.5-large-398b at its reduced smoke width, with head_dim 32 for
    the smoke config's 16 (the smallest head dim the flash kernels are built
    for); 398 B parameters do not fit one card, and this is a correctness
@@ -182,6 +186,24 @@ result line):
    only; device time as in 5) beside its bound; phase 16's serve in turns
    (torch, numpy, numpy, torch); ``verify_program`` on the main path.
 
+19. the autotuned CM programs (``configs/tuned/lenet.json``: 79 cycles;
+   ``resnet4.json``: 159 cycles on a 2-chip chain mesh, every conv
+   replicated x4): ``python -m repro_torch.tune --model <m> --check``
+   returns 0 for both (host seconds printed); each compiled with
+   ``compile_model(tune=m, quantizer=dequantize_int8)`` runs on the event
+   engine, pipelined, on the images the search costs it on, on
+   ``NumpyPlane`` and on ``TorchPlane`` on the card: cycles equal the
+   artifact's, every ``SimStats`` field equal to the numpy plane's,
+   outputs within ``_float_tol``, ``crossbar_mxv`` launches = plane calls,
+   the (B, N, M) -> calls table printed; lenet again on
+   ``TorchPlane(dac=True)`` (``crossbar_mxv_int8`` launches = calls,
+   ``_dac_tol``); then phase 3's serve of 8 Poisson requests through
+   ``CmServer`` of the tuned program and the artifact's baseline config,
+   wall ms in turns (tuned, baseline, baseline, tuned), cycles of both,
+   and the device's idle share over one profiled tuned serve.  The
+   crossbar rows of the ``kernels`` line add the tuned runs' launches
+   (``launches_by_path``).
+
 Prints the card's name and power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -208,8 +230,8 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch.analysis import verify_program  # noqa: E402
-from repro_torch.core import (NumpyPlane, TorchPlane,  # noqa: E402
-                              build_fig2_graph, build_lenet_like,
+from repro_torch.core import (NumpyPlane, Simulator,  # noqa: E402
+                              TorchPlane, build_fig2_graph, build_lenet_like,
                               build_resnet_block_chain, compile_model,
                               dequantize_int8, make_chip, make_descriptor,
                               place_tenants)
@@ -1055,13 +1077,18 @@ def _logit_steps(cfg, model, prompts, steps, use_kernel, feed=None):
 def _routing_log(log):
     """Record the top-k experts of every ``layers.moe`` call, as (B, T, K)
     sorted indices, by wrapping it as ``_count_calls`` wraps a plane: the
-    router's logits, softmax and ``torch.topk`` again on the same input."""
+    router's logits, softmax and ``torch.topk`` again on the same input.
+    Beside them each entry keeps the router's probabilities (B, T, E) and
+    its margin (B, T), the k-th largest probability minus the (k+1)-th."""
     from repro_torch.models import layers
     inner = layers.moe
 
     def recorded(cfg, p, x, **kw):
+        k = cfg.moe.top_k
         probs = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)
-        log.append(torch.topk(probs, cfg.moe.top_k, dim=-1)[1].sort(-1).values)
+        top = torch.topk(probs, k + 1, dim=-1)[0]
+        log.append((torch.topk(probs, k, dim=-1)[1].sort(-1).values, probs,
+                    top[..., k - 1] - top[..., k]))
         return inner(cfg, p, x, **kw)
 
     layers.moe = recorded
@@ -1078,7 +1105,14 @@ def _routing_stats(logs, got, want):
     d), one token a row): the share of (token, layer) pairs whose top-k
     sets differ, the first layer with a difference, the batch rows whose
     routing agrees in every layer of every step, and the worst |logit
-    difference| / max(1, max|logit|) over those rows."""
+    difference| / max(1, max|logit|) over those rows.  For MoE layer 0 of
+    the prefill (``layer0``): its flips; the plain path's margins at the
+    flipped tokens (max, median) against its median margin over every
+    token; and how many flips have a margin below the largest |router
+    probability difference| between the two paths at that token
+    (``explained``: the paths' inputs differ by more than the margin) or
+    below twice it (``within_2x``: the k-th and (k+1)-th can each move by
+    the difference)."""
     if len(logs[0]) != len(logs[1]) or len(logs[0]) % len(got):
         raise AssertionError(f"routing logs of {len(logs[0])} and "
                              f"{len(logs[1])} calls for {len(got)} steps")
@@ -1087,7 +1121,20 @@ def _routing_stats(logs, got, want):
     first = None
     rows_ok = torch.ones(got[0].shape[0], dtype=torch.bool,
                          device=got[0].device)
-    for i, (a, b) in enumerate(zip(*logs)):
+    (k_sets, k_probs, _), (p_sets, p_probs, margin) = logs[0][0], logs[1][0]
+    flip0 = (k_sets != p_sets).any(-1)
+    gap = (k_probs - p_probs).abs().amax(-1)
+    m_flip, g_flip = margin[flip0], gap[flip0]
+    layer0 = {
+        "pairs": flip0.numel(), "flips": int(flip0.sum()),
+        "flip_margin_max": m_flip.max().item() if m_flip.numel() else None,
+        "flip_margin_median": (m_flip.median().item() if m_flip.numel()
+                               else None),
+        "margin_median": margin.median().item(),
+        "prob_diff_max": gap.max().item(),
+        "explained": int((m_flip < g_flip).sum()),
+        "within_2x": int((m_flip < 2 * g_flip).sum())}
+    for i, ((a, _, _), (b, _, _)) in enumerate(zip(*logs)):
         flip = (a != b).any(-1)
         if i >= per_step:
             flip = flip.T                              # (B, T) as prefill
@@ -1104,7 +1151,7 @@ def _routing_stats(logs, got, want):
     return {"moe_layers": per_step, "pairs": pairs, "pairs_differing": differ,
             "share_differing": differ / pairs, "first_layer_differing": first,
             "rows_agreeing": int(rows_ok.sum()), "rows": len(rows_ok),
-            "worst_on_agreeing_rows": worst}
+            "worst_on_agreeing_rows": worst, "layer0": layer0}
 
 
 def _compare_paths(cfg, model, prompts, steps, tol, what, routing=None):
@@ -1673,6 +1720,17 @@ def phase_moe(dev, model):
           f"{routing['rows_agreeing']} of {routing['rows']} batch rows agree "
           f"in every layer and step, their worst |logit diff| / max(1, "
           f"max|logit|) {routing['worst_on_agreeing_rows']}")
+    l0 = routing["layer0"]
+    print(f"[11] {MOE_ARCH} MoE layer 0 of the prefill: {l0['flips']} of "
+          f"{l0['pairs']} tokens flip; the plain path's top-"
+          f"{cfg.moe.top_k} margin (k-th minus (k+1)-th probability) at the "
+          f"flips: max {l0['flip_margin_max']}, median "
+          f"{l0['flip_margin_median']}, against a median of "
+          f"{l0['margin_median']} over every token; the largest router "
+          f"probability difference between the paths {l0['prob_diff_max']}; "
+          f"{l0['explained']} of {l0['flips']} flips have a margin below "
+          f"that token's probability difference (explained by the inputs' "
+          f"rounding), {l0['within_2x']} below twice it")
     return {"generate": counts, "generate_s": secs, "paths": paths,
             "routing": routing}
 
@@ -2173,6 +2231,152 @@ def conv_kernel_row(errs, qs, times, faults, analyze):
     }
 
 
+# ------------------------------------------------------ tuned CM programs
+TUNED = ("lenet", "resnet4")
+
+
+def _plain(v):
+    """A dataclass as nested dicts and lists, to compare every field."""
+    if dataclasses.is_dataclass(v):
+        return {f.name: _plain(getattr(v, f.name))
+                for f in dataclasses.fields(v)}
+    if isinstance(v, dict):
+        return {k: _plain(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_plain(x) for x in v]
+    return v
+
+
+def _tuned_run(prog, chip, images, plane):
+    """The tuner's own run of a program (event engine, pipelined, stalls
+    on) on ``plane``; (outputs, stats, (B, N, M) -> calls, launches)."""
+    shapes = collections.Counter()
+    _count_calls(plane, shapes)
+    sim = Simulator(prog, chip, check_raw=False, engine="event",
+                    compute_plane=plane)
+    _zero_counts()
+    outs, stats = sim.run(images, schedule="pipelined", stalls=True)
+    torch.cuda.synchronize()
+    return outs, stats, shapes, _all_counts()
+
+
+def phase_tuned(dev):
+    """[19] The committed autotuned programs on the card: the recorded
+    searches regenerate their artifacts under Z3's mapper (the CPU tests
+    hold them under the backtracking one), the tuned programs simulate on
+    ``TorchPlane`` to the artifacts' cycles with the numpy plane's
+    counters, and ``CmServer`` serves them and the baseline configs.
+    Returns each program's kernel launches by plane kind ("float", "dac")."""
+    from repro_torch.core import mapping, poly
+    from repro_torch.tune import TuneConfig, ZOO, load_tuned
+    from repro_torch.tune.__main__ import main as tune_main
+    out = {}
+    # the CPU tests reproduce the artifacts with the backtracking mapper;
+    # where Z3 is installed the searches map with it, so check them again
+    backends = (f"mapper {'z3' if mapping.HAVE_Z3 else 'backtracking'}, "
+                f"polyhedral backend {'islpy' if poly.HAVE_ISL else 'fisl'}")
+    for name in TUNED:
+        out[name] = {}
+        if not mapping.HAVE_Z3:
+            print(f"[19] tune --check {name}: not run ({backends}, the "
+                  f"CPU tests' mapper)")
+            continue
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            rc = tune_main(["--model", name, "--check"])
+        secs = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"[19] tune --check {name}: rc {rc}\n"
+                                 f"{log.getvalue()}")
+        print(f"[19] python -m repro_torch.tune --model {name} --check: "
+              f"rc 0 in {secs:.2f} s of host time ({backends}); "
+              f"{log.getvalue().splitlines()[0]}")
+    for name in TUNED:
+        entry, art = ZOO[name], load_tuned(name)
+        graph, chip = entry.build(), entry.chip()
+        prog = compile_model(graph, chip, tune=name,
+                             quantizer=dequantize_int8)
+        shp = tuple(int(x) for x in graph.values[graph.inputs[0]].shape)
+        rng = np.random.default_rng(entry.workload.seed)   # the tuner's
+        images = [rng.normal(size=shp).astype(np.float32)
+                  for _ in range(entry.workload.n_images)]
+        ref, rstats, _, _ = _tuned_run(prog, chip, images, NumpyPlane())
+        planes = [("float", TorchPlane(dev), "crossbar_mxv", _float_tol)]
+        if name == "lenet":
+            planes.append(("dac", TorchPlane(dev, dac=True),
+                           "crossbar_mxv_int8", _dac_tol))
+        res = out[name]
+        n_chips = 1 if prog.mesh is None else prog.mesh.n_chips
+        for kind, plane, kname, tol in planes:
+            if plane.device.type != "cuda":
+                raise AssertionError(f"[19] {name}: {plane!r} not on the card")
+            got, stats, shapes, launches = _tuned_run(prog, chip, images,
+                                                      plane)
+            what = f"[19] {name} {kind}"
+            if stats.cycles != art["cycles"]:
+                raise AssertionError(f"{what}: {stats.cycles} cycles, the "
+                                     f"artifact records {art['cycles']}")
+            want, have = _plain(rstats), _plain(stats)
+            differ = [f for f in want if want[f] != have[f]]
+            if differ:
+                raise AssertionError(f"{what}: SimStats {differ} differ "
+                                     f"from the numpy plane's")
+            worst = 0.0
+            for a, b in zip(ref, got):
+                for v in a:
+                    if b[v].shape != a[v].shape or not np.isfinite(b[v]).all():
+                        raise AssertionError(f"{what}: bad output {v}")
+                    worst = max(worst, tol(a[v], b[v], v))
+            calls = sum(shapes.values())
+            others = {k: n for k, n in launches.items() if k != kname and n}
+            if not 0 < launches[kname] == calls or others:
+                raise AssertionError(f"{what}: {launches[kname]} {kname} "
+                                     f"launches for {calls} plane calls; "
+                                     f"other launches {others}")
+            res[kind] = launches[kname]
+            print(f"{what}: {stats.cycles} cycles (artifact "
+                  f"{art['cycles']}) on {n_chips} chip(s), "
+                  f"{len(prog.cores)} cores; SimStats equal to NumpyPlane's; "
+                  f"worst output err {worst:.3g}; {calls} plane calls = "
+                  f"{kname} launches")
+            print(f"{what} (B, N, M) -> calls: " + ", ".join(
+                f"{k}:{v}" for k, v in sorted(shapes.items())))
+        # serves of 8 Poisson requests (phase 3's), tuned and baseline in
+        # turns; timing runs: each checked on the card, launches not kept
+        base = compile_model(graph, chip, quantizer=dequantize_int8,
+                             tune=TuneConfig.from_json_dict(
+                                 art["baseline"]["config"]))
+        rng = np.random.default_rng(0)
+        simgs = [rng.normal(size=shp).astype(np.float32) for _ in range(8)]
+        arrivals = poisson_arrivals(8, rate=0.002, seed=7)
+        turns, cycles = [], {}
+        for which in ("tuned", "baseline", "baseline", "tuned"):
+            _zero_counts()
+            rep, shapes, secs, plane = _serve(
+                prog if which == "tuned" else base, chip, simgs, arrivals,
+                None)
+            if not (isinstance(plane, TorchPlane)
+                    and plane.device.type == "cuda") or \
+                    not 0 < _all_counts()["crossbar_mxv"] == \
+                    sum(shapes.values()):
+                raise AssertionError(f"[19] {name} {which} serve: not every "
+                                     f"plane call launched on the card")
+            turns.append([which, secs * 1e3])
+            cycles[which] = int(rep.stats.cycles)
+        wall_ms, busy_ms, _, _ = _device_busy(
+            lambda: _serve(prog, chip, simgs, arrivals, None))
+        _zero_counts()
+        busy = "device busy not measured" if busy_ms is None else (
+            f"device busy {busy_ms:.3f} ms, idle share "
+            f"{1 - busy_ms / wall_ms:.4f}")
+        print(f"[19] {name} CmServer, 8 requests: wall ms in turns " +
+              ", ".join(f"{w} {ms:.1f}" for w, ms in turns) +
+              f"; cycles tuned {cycles['tuned']}, baseline "
+              f"{cycles['baseline']}; profiled tuned serve: wall "
+              f"{wall_ms:.1f} ms, {busy}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and "
@@ -2239,6 +2443,14 @@ def main() -> int:
     conv_times = phase_conv_times(dev)
     kernels.append(conv_kernel_row(conv_errs, qs, conv_times, faults,
                                    analyze))
+    tuned = phase_tuned(dev)
+    for row in kernels:              # the crossbar rows: launches by path
+        kind = {"crossbar_mxv": "float",
+                "crossbar_mxv_int8": "dac"}.get(row["name"])
+        if kind is not None:
+            row["launches_by_path"] = {
+                f"tuned_{name}": tuned[name][kind]
+                for name in TUNED if kind in tuned[name]}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)

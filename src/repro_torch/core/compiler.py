@@ -10,9 +10,7 @@ configurations the paper describes ("these configurations, bundled together
 and serialized, initialize the accelerator").
 
 Port of ``repro.core.compiler``: the same code, with every import inside
-``repro_torch``; ``tests/test_torch_*.py`` hold the two equal.  The
-autotuner (``tune=``) is not ported yet, and asking for it raises
-``NotImplementedError``.
+``repro_torch``; ``tests/test_torch_*.py`` hold the two equal.
 """
 
 from __future__ import annotations
@@ -106,13 +104,21 @@ def compile_model(graph: Graph, chip: ChipSpec, quantizer=None,
     ``chip_cuts`` (mesh flows only) overrides the chip partitioner's DP
     with explicit contiguous cut boundaries (``partition_chips(cuts=)``).
 
-    ``tune`` (an autotuned configuration from ``repro.tune``) is not
-    ported yet and raises ``NotImplementedError``.
+    ``tune`` applies an autotuned configuration: a
+    :class:`repro_torch.tune.TuneConfig`, a ``TuneResult``, a loaded
+    ``configs/tuned/*.json`` artifact, or a path to one.  Its replication
+    plan / chip count / topology / cut points fill any of those arguments
+    not given explicitly (explicit arguments win).
     """
     if tune is not None:
-        raise NotImplementedError(
-            "compile_model(tune=...): the autotuner (repro.tune) is not "
-            "ported yet; see ROADMAP.md, Queue 1, item 6 ('tune/')")
+        from ..tune import resolve_tuned
+        cfg = resolve_tuned(tune)
+        if replicate is None:
+            replicate = cfg.replicate_plan() or None
+        if mesh is None and chips == 1 and cfg.chips > 1:
+            mesh = make_mesh(cfg.chips, chip=chip, topology=cfg.topology)
+        if chip_cuts is None:
+            chip_cuts = cfg.chip_cuts
     if mesh is None and chips > 1:
         mesh = make_mesh(chips, chip=chip)
     if chip_cuts is not None and mesh is None:

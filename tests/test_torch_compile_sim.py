@@ -164,13 +164,19 @@ def test_port_graph_zoo_equals_reference():
 
 
 def test_unported_compile_options_raise():
-    """The autotuner is not ported and ``tune=`` raises; the static
-    verifier is, and ``analyze=True`` compiles as in the reference."""
+    """The compile options that once raised in the port now compile as in
+    the reference: ``analyze=True`` (the static verifier) and
+    ``tune="lenet"`` (the committed autotuned configuration)."""
     g = T.build_lenet_like()
     chip = T.make_chip(8, "banded")
     prog = T.compile_model(g, chip, analyze=True)
     assert T.serialize_config(prog) == R.serialize_config(
         R.compile_model(R.build_lenet_like(), R.make_chip(8, "banded"),
                         analyze=True))
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        T.compile_model(g, chip, tune="lenet")
+    kw = dict(n_cores=18, topology="all_to_all", dma_pixels_per_cycle=16)
+    tuned = T.compile_model(g, T.make_chip(**kw), tune="lenet")
+    assert T.serialize_config(tuned) == R.serialize_config(
+        R.compile_model(R.build_lenet_like(), R.make_chip(**kw),
+                        tune="lenet"))
+    assert T.serialize_config(tuned) != T.serialize_config(
+        T.compile_model(g, T.make_chip(**kw)))
