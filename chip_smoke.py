@@ -70,18 +70,35 @@ result line):
    random weights on the card) through ``ServeEngine.generate`` (B = 8,
    prompts of 512, 32 new tokens) and ``ContinuousBatcher`` (8 slots,
    max_len 2048, 16 requests of 16-1000 prompt tokens, 32 new each), with
-   ``kv_dtype`` "compute" and "int8": the launch counts are layers x
-   prefills (flash attention) and layers x decode steps (the decode kernel
-   of the cache's type; the other one 0).  Then the kernel path against
+   ``kv_dtype`` "compute" and "int8", both replaying their captured decode
+   step (``serve.graphs.DecodeGraph``, the engines' default on the card)
+   and the batcher its captured bucket prefills (``PrefillGraph``): the
+   launch counts are layers x prefills (flash attention) and layers x
+   decode steps (the decode kernel of the cache's type; the other one 0),
+   a replay adding what its capture launched and the captures' own
+   launches kept out.  Phase 20 follows.  Then the kernel path against
    ``use_kernel=False`` on the card: depth cut to 4 layers in f32, prefill
    and decode logits within 2e-3 x max(1, max|logit|) and, with the float
    cache, greedy tokens equal (with the int8 cache the share of equal
    tokens is printed: a rounding difference can flip an int8 code);
    full depth in bf16, logits within ``BF16_LOGIT_BOUND`` x
    max(1, max|logit|) (measured on the card, PERF.md);
-8. times: prefill ms and decode tok/s from ``throughput_probe`` (kernel,
-   plain, plain, kernel); each attention kernel at the shape its path
-   launched most often (CUDA events; device time under torch.profiler: the
+8. times: prefill ms and decode tok/s from ``throughput_probe`` in turns
+   (graph, eager, eager, graph: the captured decode step against
+   ``compile=False``), the plain path's and the int8 cache's (graph); a
+   profiled ``generate`` each way (wall ms, device-busy ms, idle share, the
+   graph captured before the profile; the profiler records the replayed
+   kernels one by one), the same call profiled for device activity only
+   (wall and busy from that one call), and the full profile's busy time
+   over an unprofiled call's wall, an estimate from two calls; the engine's B = 8 prefill profiled, and a B = 1
+   bucket prefill (the batcher's, buckets 16, 128, 512, 1024) eager and
+   replayed from a ``PrefillGraph``: wall ms, and over one profiled call
+   wall, device busy and idle share, logits bit-equal (the batcher
+   captures buckets up to ``PREFILL_GRAPH_MAX_BUCKET``, those whose eager
+   idle share was above 0.5); each attention kernel at the shape its path
+   launched most often (decode at every row's length in the middle step
+   of the generate, ``DECODE_LENGTH``: CUDA events; device time under
+   torch.profiler: the
    flash kernel's own, and for a decode call ``_device_total_us`` over its
    split and merge kernels, with each one's own time, and again with the
    cache cold in L2, as a decode step finds it: calls rotating over copies
@@ -95,7 +112,7 @@ result line):
    decode, warm and cold; events and device time) beside its bound; flash
    attention's f32 kernel's device time on the same inputs in f32; flash
    decode's device time with every row at 64, 529, 1024 and 2048
-   positions; the device's idle share over one profiled ``generate``.
+   positions.
 
 9. the selective-scan kernel against its plain version: falcon-mamba-7b's
    prefill shape (B, L, Din, N) = (8, 512, 8192, 16) in bf16, B = 1 at
@@ -115,14 +132,16 @@ result line):
    (B = 8, prompts of 512, 32 new tokens) and ``ContinuousBatcher`` (8
    slots, 16 requests of 16-1000 prompt tokens, 32 new each): the scan
    launches exactly 64 x prefills and never in decode, the attention
-   kernels 0 times.  Kernel path against ``use_kernel=False`` (the plain
+   kernels 0 times (a captured decode step, captured bucket prefills);
+   phase 20 follows.  Kernel path against ``use_kernel=False`` (the plain
    chunked scan): depth cut to 4 in f32, logits within 2e-3 x max(1,
    max|logit|) and greedy tokens equal; full depth in bf16, logits within
    ``MAMBA_BF16_LOGIT_BOUND``;
 11. qwen2-moe-a2.7b at full width and depth (24 layers, 60 routed experts
    top-4 and 4 shared, bf16): ``generate`` at B = 8, prompts of 512, 8 new
    tokens; flash attention launches exactly 24 x prefills and flash decode
-   24 x decode steps; kernel path against plain path at depth 4 in f32, as
+   24 x decode steps; phase 20; kernel path against plain path at depth 4
+   in f32, as
    in 10 (at full depth in bf16 the difference is printed, not held: a
    rounding difference can route a token to another expert).  Both paths'
    top-4 experts of every (token, MoE layer), prefill and each decode
@@ -132,23 +151,26 @@ result line):
    MoE layer 0 of the prefill, the flips, the plain path's router margins
    (k-th minus (k+1)-th probability) at the flips against every token's,
    and how many flips have a margin below the largest router-probability
-   difference between the paths at that token (and below twice it);
+   difference between the paths at that token (and below twice it); the
+   kernel path's own margins at the flips, and how many flips have both
+   paths' margins below that token's difference and below the median
+   difference over the tokens that do not flip (``near_tie``);
 12. jamba-1.5-large-398b at its reduced smoke width, with head_dim 32 for
    the smoke config's 16 (the smallest head dim the flash kernels are built
    for); 398 B parameters do not fit one card, and this is a correctness
    check, not a size: kernel path
    against plain path in f32 with both cache types; the scan launches 7 x
    prefills, flash attention 1 x prefills, the decode kernel of the cache's
-   type 1 x decode steps;
+   type 1 x decode steps; phase 20 with both cache types;
 13. times: falcon-mamba prefill ms and decode tok/s from ``throughput_probe``
-   (kernel, plain, plain, kernel); the scan at the prefill shape and at
+   (graph, eager, eager, graph), the profiled generates and prefills of 8;
+   the scan at the prefill shape and at
    the batcher's B = 1 for L in {16, 128, 512, 1024} (CUDA events, device
    time of the call under torch.profiler: the scan kernel's mean times
    its launches a call, as the profiler drops most scan events,
    ``launch.scan_times.device_us``; time per
    (b, t, d, n) element; the plan's grid as ``scan_plan`` computes it; the
-   exponentials' estimate), its plain version and its bound; the device's
-   idle share over one profiled falcon-mamba ``generate``.
+   exponentials' estimate), its plain version and its bound.
 
 14. the Listing-1 conv kernel against its plain version at the CM zoo's
    conv shapes (the main path's (28, 16, 16) with 28 filters, lenet-28's
@@ -204,6 +226,19 @@ result line):
    crossbar rows of the ``kernels`` line add the tuned runs' launches
    (``launches_by_path``).
 
+20. (run after phases 7, 10, 11 and 12, on each model while it is on the
+   card: llama3.2-3b with both caches, falcon-mamba-7b, qwen2-moe-a2.7b,
+   the reduced jamba with both caches) the captured decode step against
+   the eager one on the same inputs: prefill and 4 decode steps' logits
+   bit-equal (``torch.equal``), ``generate``'s greedy tokens equal and its
+   launch counts equal, and for llama3.2-3b's float cache and
+   falcon-mamba-7b the batcher's tokens request by request and its launch
+   counts (graph: decode step and bucket prefills captured, one pool and
+   one prefill cache for all) and the card memory the batcher holds after
+   its run, each way (its caches' bytes, its graph pool's segments); each graph's capture ms, warm-up and capture
+   launches and launches per replay; one step's host ms and span on the
+   stream (CUDA events), replayed and eager.
+
 Prints the card's name and power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -239,9 +274,9 @@ from repro_torch.core.graph import conv2d_mxv  # noqa: E402
 from repro_torch.faults import (FaultyPlane, RetryPolicy,  # noqa: E402
                                 sample_schedule)
 from repro_torch.configs.base import get_arch  # noqa: E402
-from repro_torch.kernels import (_build, conv2d,  # noqa: E402
-                                 decode_attn, decode_attn_int8, flash_attn,
-                                 mamba_scan, mxv)
+from repro_torch.kernels import (_build, add_launches,  # noqa: E402
+                                 conv2d, decode_attn, decode_attn_int8,
+                                 flash_attn, launch_counts, mamba_scan, mxv)
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels._tensors import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.ref import (quantize_crossbar, quantize_vec,  # noqa: E402
@@ -257,6 +292,8 @@ from repro_torch.models import build_model, lm  # noqa: E402
 from repro_torch.models.layers import kv_quantize  # noqa: E402
 from repro_torch.runtime import CmServer, poisson_arrivals  # noqa: E402
 from repro_torch.serve import ContinuousBatcher, Request, ServeEngine  # noqa: E402
+from repro_torch.serve.graphs import DecodeGraph, PrefillGraph  # noqa: E402
+from repro_torch.serve.scheduler import PREFILL_GRAPH_MAX_BUCKET  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth, f32
 # outside the tensor cores, int8 tensor cores.  Rates assume the 700 W limit.
@@ -290,6 +327,10 @@ SCAN_KERNEL = "scan_lanes_kernel"        # one launch a scan call
 MXV_KERNELS = ("crossbar_mxv_kernel", "crossbar_mxv_int8_kernel")
 LM_ARCH = "llama3.2-3b"
 BATCH, PROMPT, NEW, MAX_LEN = 8, 512, 32, 2048
+# the rows' length in the middle decode step of the main path's generate
+# (PROMPT + NEW // 2 positions and the new one), where phase 8 times the
+# decode kernels
+DECODE_LENGTH = PROMPT + NEW // 2 + 1
 N_REQUESTS, SLOTS = 16, 8
 # bf16 logits of the kernel path against the plain path at full depth, as a
 # share of max(1, max|logit|): 0.0189 measured on an H100 (PERF.md), held
@@ -847,21 +888,12 @@ def phase_times(dev, paths, errs):
 
 
 # --------------------------------------------------------- attention phases
-COUNTED = (mxv, flash_attn, decode_attn, decode_attn_int8, mamba_scan,
-           conv2d)
-
-
-def _all_counts():
-    out = {}
-    for mod in COUNTED:
-        out.update(mod.LAUNCHES)
-    return out
+_all_counts = launch_counts
 
 
 def _set_counts(counts):
-    for mod in COUNTED:
-        for k in mod.LAUNCHES:
-            mod.LAUNCHES[k] = counts[k]
+    now = launch_counts()
+    add_launches({k: counts[k] - n for k, n in now.items()})
 
 
 def _zero_counts():
@@ -950,8 +982,9 @@ def phase_attention_kernels(dev):
 
 class _ShapeLog:
     """While entered, records the shape of every attention op the model
-    calls (through ``kernels.ops``), to time each kernel at the shape its
-    path launches most often."""
+    calls from Python (through ``kernels.ops``), to time each kernel at the
+    shape its path launches most often.  A captured decode step calls them
+    in its warm-up and capture only, at the shapes its replays launch."""
 
     def __init__(self):
         self.calls = collections.defaultdict(list)
@@ -964,8 +997,8 @@ class _ShapeLog:
 
             def logged(*args, _fn=fn, _name=name, **kw):
                 self.calls[_name].append(
-                    (tuple(tuple(a.shape) + (str(a.dtype),) for a in args
-                           if isinstance(a, torch.Tensor)), args[-1]))
+                    tuple(tuple(a.shape) + (str(a.dtype),) for a in args
+                          if isinstance(a, torch.Tensor)))
                 return _fn(*args, **kw)
             setattr(kernel_ops, name, logged)
         return self
@@ -975,13 +1008,11 @@ class _ShapeLog:
             setattr(kernel_ops, name, fn)
 
     def most_frequent(self, name):
-        """(shapes, one length argument) of the most frequent call shape."""
+        """The operands' shapes of the most frequent call shape."""
         calls = self.calls[name]
         if not calls:
             return None
-        common = collections.Counter(c[0] for c in calls).most_common(1)[0][0]
-        same = [c for c in calls if c[0] == common]
-        return common, same[len(same) // 2][1]
+        return collections.Counter(calls).most_common(1)[0][0]
 
 
 def _lm_cfg(kv, **over):
@@ -1112,7 +1143,13 @@ def _routing_stats(logs, got, want):
     probability difference| between the two paths at that token
     (``explained``: the paths' inputs differ by more than the margin) or
     below twice it (``within_2x``: the k-th and (k+1)-th can each move by
-    the difference)."""
+    the difference, so every flip is); the kernel path's own margin at the
+    flips (max, median); and the flips at which both paths' margins are
+    below that token's largest difference (``both_below_own``) and below
+    the median of that difference over the tokens that do not flip
+    (``near_tie``: each path is nearer a tie than the paths' typical
+    rounding difference, the rule that settles whether a flip is a near
+    tie)."""
     if len(logs[0]) != len(logs[1]) or len(logs[0]) % len(got):
         raise AssertionError(f"routing logs of {len(logs[0])} and "
                              f"{len(logs[1])} calls for {len(got)} steps")
@@ -1121,10 +1158,12 @@ def _routing_stats(logs, got, want):
     first = None
     rows_ok = torch.ones(got[0].shape[0], dtype=torch.bool,
                          device=got[0].device)
-    (k_sets, k_probs, _), (p_sets, p_probs, margin) = logs[0][0], logs[1][0]
+    (k_sets, k_probs, k_margin), (p_sets, p_probs, margin) = \
+        logs[0][0], logs[1][0]
     flip0 = (k_sets != p_sets).any(-1)
     gap = (k_probs - p_probs).abs().amax(-1)
-    m_flip, g_flip = margin[flip0], gap[flip0]
+    m_flip, g_flip, r_flip = margin[flip0], gap[flip0], k_margin[flip0]
+    noise = gap[~flip0].median().item()
     layer0 = {
         "pairs": flip0.numel(), "flips": int(flip0.sum()),
         "flip_margin_max": m_flip.max().item() if m_flip.numel() else None,
@@ -1133,8 +1172,14 @@ def _routing_stats(logs, got, want):
         "margin_median": margin.median().item(),
         "prob_diff_max": gap.max().item(),
         "explained": int((m_flip < g_flip).sum()),
-        "within_2x": int((m_flip < 2 * g_flip).sum())}
-    for i, ((a, _, _), (b, _, _)) in enumerate(zip(*logs)):
+        "within_2x": int((m_flip < 2 * g_flip).sum()),
+        "kernel_margin_max": r_flip.max().item() if r_flip.numel() else None,
+        "kernel_margin_median": (r_flip.median().item() if r_flip.numel()
+                                 else None),
+        "both_below_own": int(((m_flip < g_flip) & (r_flip < g_flip)).sum()),
+        "nonflip_diff_median": noise,
+        "near_tie": int(((m_flip < noise) & (r_flip < noise)).sum())}
+    for i, ((a, *_), (b, *_)) in enumerate(zip(*logs)):
         flip = (a != b).any(-1)
         if i >= per_step:
             flip = flip.T                              # (B, T) as prefill
@@ -1182,6 +1227,296 @@ def _compare_paths(cfg, model, prompts, steps, tol, what, routing=None):
     return worst
 
 
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _step_times(step, reps=5):
+    """Median host ms to enqueue ``step()`` and median ms between CUDA events
+    recorded around it (the step's span on the stream), the card
+    synchronised before each."""
+    host, span = [], []
+    for _ in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        e0.record()
+        t0 = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t0) * 1e3)
+        e1.record()
+        torch.cuda.synchronize()
+        span.append(e0.elapsed_time(e1))
+    return statistics.median(host), statistics.median(span)
+
+
+def _batcher_memory(cb):
+    """Card memory a batcher holds, MiB: {"caches": the bytes of its live
+    cache and of its bucket prefills' cache, "prefill_caches": how many of
+    those there are, "pool": the segments of its graphs' memory pool,
+    "pool_streams": the streams they were allocated on}."""
+    caches = [cb.cache] + list({id(g.cache): g.cache for g in
+                                cb.prefill_graphs.values()}.values())
+    out = {"caches": sum(t.numel() * t.element_size() for c in caches
+                         for e in c["layers"] for t in e.values()) / 2**20,
+           "prefill_caches": len(caches) - 1, "pool": 0.0, "pool_streams": 0}
+    if cb.graph is not None:
+        pool = tuple(cb.graph.graph.pool())
+        segs = [s for s in torch.cuda.memory_snapshot()
+                if tuple(s["segment_pool_id"]) == pool]
+        out["pool"] = sum(s["total_size"] for s in segs) / 2**20
+        out["pool_streams"] = len({s["stream"] for s in segs})
+    return out
+
+
+def _memory_text(m):
+    return (f"caches {m['caches']:.1f} MiB ({m['prefill_caches']} prefill "
+            f"cache(s)), graph pool {m['pool']:.1f} MiB on "
+            f"{m['pool_streams']} stream(s)")
+
+
+def phase_graph_vs_eager(tag, cfg, model, prompts, new, reqs=None,
+                         steps=4):
+    """The captured decode step (``DecodeGraph``, the engines' default on
+    the card) against the eager one on the same inputs: prefill and
+    ``steps`` decode steps' logits bit-equal, fed the eager path's greedy
+    tokens; ``generate``'s greedy tokens and launch counts equal; given
+    ``reqs`` (prompts), the batcher's tokens request by request and its
+    launch counts too.  Also the graph's capture ms, its warm-up and
+    capture launches (kept out of ``LAUNCHES``), its launches per replay,
+    and one step's host ms and span on the stream, both ways."""
+    before = _all_counts()
+    want, fed = _logit_steps(cfg, model, prompts, steps, True)
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=model.device)
+    with torch.no_grad():
+        graph = DecodeGraph(cfg, model, tokens.shape[0], MAX_LEN)
+        got = [lm.prefill(cfg, model, tokens, MAX_LEN, cache=graph.cache)[0]]
+        for j in range(steps):
+            got.append(graph.replay(fed[:, j]).clone())
+        for j, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g, w):
+                rel = ((g - w).abs().max()
+                       / max(1.0, w.abs().max().item())).item()
+                raise AssertionError(f"[20] {tag}: logits of step {j} differ "
+                                     f"between graph and eager ({rel:.3g} of "
+                                     f"max(1, max|logit|))")
+        tok = fed[:, -1]
+        replay_ms = _step_times(lambda: graph.replay(tok))
+        eager_ms = _step_times(lambda: lm.decode_step(cfg, model, graph.cache,
+                                                      tok))
+    out = {"capture_ms": graph.capture_ms,
+           "setup_launches": _nonzero(graph.setup_launches),
+           "launches_per_replay": _nonzero(graph.launches),
+           "step_host_ms": {"graph": replay_ms[0], "eager": eager_ms[0]},
+           "step_span_ms": {"graph": replay_ms[1], "eager": eager_ms[1]},
+           "logit_steps_bit_equal": steps + 1}
+    del graph, got, want
+    runs = {}
+    for compile in (True, False):
+        eng = ServeEngine(cfg, max_len=MAX_LEN, params=model, compile=compile)
+        _zero_counts()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, new)
+        torch.cuda.synchronize()
+        runs[compile] = (toks, _all_counts(), time.perf_counter() - t0)
+        del eng
+    if not np.array_equal(runs[True][0], runs[False][0]):
+        raise AssertionError(f"[20] {tag}: generate's tokens differ between "
+                             f"graph and eager")
+    _expect(runs[True][1], runs[False][1], f"[20] {tag} generate (graph "
+            f"against eager)")
+    out["generate_s"] = {"graph, capture included": runs[True][2],
+                         "eager": runs[False][2]}
+    out["generate_launches"] = _nonzero(runs[True][1])
+    if reqs is not None:
+        served, held = {}, {}
+        for compile in (True, False):
+            cb = ContinuousBatcher(cfg, n_slots=SLOTS, max_len=MAX_LEN,
+                                   params=model, compile=compile)
+            rs = [Request(rid=i, prompt=p, max_new=new)
+                  for i, p in enumerate(reqs)]
+            for r in rs:
+                cb.submit(r)
+            _zero_counts()
+            t0 = time.perf_counter()
+            cb.run_until_drained()
+            torch.cuda.synchronize()
+            served[compile] = ([r.out for r in rs], _all_counts(),
+                               time.perf_counter() - t0)
+            held["graph" if compile else "eager"] = _batcher_memory(cb)
+        if served[True][0] != served[False][0]:
+            raise AssertionError(f"[20] {tag}: the batcher's tokens differ "
+                                 f"between graph and eager")
+        _expect(served[True][1], served[False][1],
+                f"[20] {tag} batcher (graph against eager)")
+        out["batcher_s"] = {"graph, captures included": served[True][2],
+                            "eager": served[False][2]}
+        out["batcher_held_mib"] = held
+    _set_counts(before)
+    _free()
+    print(f"[20] {tag}: graph against eager on the same inputs: prefill and "
+          f"{steps} decode steps' logits bit-equal, generate's "
+          f"{prompts.shape[0]} x {new} tokens equal, launches equal "
+          f"{out['generate_launches']}"
+          + ("" if reqs is None else
+             f"; batcher's {len(reqs)} requests equal token for token, "
+             f"launches equal; card memory it holds after its run: "
+             + "; ".join(f"{way} {_memory_text(m)}"
+                         for way, m in out["batcher_held_mib"].items()))
+          + f"; capture {out['capture_ms']:.1f} ms, warm-up and capture "
+          f"launches {out['setup_launches']} (not counted), per replay "
+          f"{out['launches_per_replay']}; one step's host ms / span on the "
+          f"stream: graph {replay_ms[0]:.3f} / {replay_ms[1]:.3f}, eager "
+          f"{eager_ms[0]:.3f} / {eager_ms[1]:.3f}; seconds "
+          + ", ".join(f"{k} {v:.2f}" for d in ("generate_s", "batcher_s")
+                      for k, v in out.get(d, {}).items()))
+    return out
+
+
+def _bucket_prefills(model, buckets=(16, 128, 512, 1024), reps=3):
+    """A B = 1 bucket prefill (the batcher's), eager and replayed from a
+    ``PrefillGraph``: each one's wall ms (median of ``reps``, synchronised)
+    and, over one profiled call, wall ms, device-busy ms and idle share;
+    the bucket captured by the batcher or not.  Logits bit-equal."""
+    cfg = model.cfg
+    rng = np.random.default_rng(12)
+    before = _all_counts()
+    out = {}
+    for bucket in buckets:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, bucket)),
+                               device=model.device)
+        graph = PrefillGraph(cfg, model, 1, bucket, MAX_LEN)
+        row = {"captured": bucket <= PREFILL_GRAPH_MAX_BUCKET,
+               "capture_ms": graph.capture_ms}
+        with torch.no_grad():
+            ways = {"eager": lambda: lm.prefill(cfg, model, toks, MAX_LEN)[0],
+                    "graph": lambda: graph.replay(toks)}
+            if not torch.equal(ways["eager"](), ways["graph"]()):
+                raise AssertionError(f"prefill bucket {bucket}: graph and "
+                                     f"eager logits differ")
+            for way, run in ways.items():
+                walls = []
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                w, b, n, _ = _device_busy(run)
+                row[way] = {"wall_ms": statistics.median(walls),
+                            "profiled_wall_ms": w, "busy_ms": b,
+                            "idle_share": None if b is None else 1 - b / w,
+                            "device_events": n}
+        out[bucket] = row
+        del graph
+    _set_counts(before)
+    _free()
+    return out
+
+
+def _print_prefills(tag, arch, rows):
+    print(f"[{tag}] {arch} B = 1 bucket prefill (the batcher's), eager and "
+          f"replayed: " + "; ".join(
+              f"bucket {b}: " + ", ".join(
+                  f"{way} {r[way]['wall_ms']:.2f} ms (profiled: wall "
+                  f"{r[way]['profiled_wall_ms']:.2f}, busy "
+                  f"{_ms_text(r[way]['busy_ms'])}, idle share "
+                  f"{_share_text(r[way]['idle_share'])})"
+                  for way in ("eager", "graph"))
+              + f", captured by the batcher: {r['captured']}"
+              for b, r in rows.items()))
+
+
+def _ms_text(ms):
+    return "not measured" if ms is None else f"{ms:.2f} ms"
+
+
+def _share_text(x):
+    return "not measured" if x is None else f"{x:.4f}"
+
+
+def _probe_turns(cfg, model):
+    """``throughput_probe`` in turns, graph, eager, eager, graph."""
+    out = []
+    for compile in (True, False, False, True):
+        eng = ServeEngine(cfg, max_len=PROMPT + NEW + 1, params=model,
+                          compile=compile)
+        out.append((compile, eng.throughput_probe(BATCH, PROMPT, NEW)))
+        del eng
+    return out
+
+
+def _profiled_generates(cfg, model, prompts):
+    """One profiled ``generate`` each way, graph then eager, after a call
+    that captures the graph: {way: (wall ms, busy ms, device events, host
+    ops, wall ms of the same call unprofiled, (wall ms, busy ms) of a call
+    profiled for device activity only)}.  The full profile's idle share is
+    the measurement; the profiler adds host time to every graph launch
+    (one record per replayed kernel), so the device-only profile, whose
+    wall and busy time come from one call too, is the second reading, and
+    busy time over the unprofiled call's wall an estimate from two."""
+    out = {}
+    for compile in (True, False):
+        eng = ServeEngine(cfg, max_len=MAX_LEN, params=model, compile=compile)
+        eng.generate(prompts, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompts, NEW)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        device_only = _device_busy(lambda: eng.generate(prompts, NEW),
+                                   host_ops=False)[:2]
+        out["graph" if compile else "eager"] = _device_busy(
+            lambda: eng.generate(prompts, NEW)) + (wall, device_only)
+        del eng
+    return out
+
+
+def _print_probes(tag, arch, probes, extra=""):
+    print(f"[{tag}] {arch} throughput_probe(B=8, prompt=512, 32 tokens) in "
+          f"turns: " + "; ".join(
+              f"{'graph' if c else 'eager'}: prefill "
+              f"{p['prefill_s'] * 1e3:.1f} ms, decode "
+              f"{p['decode_tok_per_s']:.1f} tok/s" for c, p in probes)
+          + extra)
+
+
+def _print_profiled(tag, arch, profiled):
+    for way, (wall_ms, busy_ms, n_dev, host, plain_wall,
+              (d_wall, d_busy)) in profiled.items():
+        busy = "device busy not measured" if busy_ms is None else (
+            f"device busy {busy_ms:.1f} ms, idle share "
+            f"{1 - busy_ms / wall_ms:.4f}")
+        d_busy_text = "device busy not measured" if d_busy is None else (
+            f"device busy {d_busy:.1f} ms, idle share "
+            f"{1 - d_busy / d_wall:.4f}")
+        est = "" if busy_ms is None else (
+            f", estimate from two calls (busy above over the unprofiled "
+            f"wall) {1 - busy_ms / plain_wall:.4f}")
+        print(f"[{tag}] profiled {arch} generate (B=8, 512 + 32, kernel "
+              f"path, {way}): wall {wall_ms:.1f} ms, {busy}, {n_dev} device "
+              f"events; profiled for device activity only: wall "
+              f"{d_wall:.1f} ms, {d_busy_text}; unprofiled wall "
+              f"{plain_wall:.1f} ms{est}; host ops by self CPU ms: "
+              + ", ".join(f"{k} x{n} {ms:.1f}" for k, n, ms in host))
+
+
+def _profiled_json(profiled):
+    out = {}
+    for way, (w, b, n, _, *more) in profiled.items():
+        out[way] = {"wall_ms": w, "device_busy_ms": b,
+                    "idle_share": None if b is None else 1 - b / w,
+                    "device_events": n}
+        if more:
+            plain, (d_wall, d_busy) = more
+            out[way].update(
+                device_only={"wall_ms": d_wall, "device_busy_ms": d_busy,
+                             "idle_share": None if d_busy is None
+                             else 1 - d_busy / d_wall},
+                unprofiled_wall_ms=plain,
+                idle_share_estimate=None if b is None else 1 - b / plain)
+    return out
+
+
 def phase_lm_paths(dev, model):
     """The kernel path against ``use_kernel=False`` on the card."""
     prompts, _ = _lm_workload(model.cfg.vocab_size)
@@ -1219,15 +1554,18 @@ def phase_lm_paths(dev, model):
     return res
 
 
-def _device_busy(run):
+def _device_busy(run, host_ops=True):
     """Run ``run()`` under torch.profiler; (wall ms, device-busy ms, device
     events, the host ops with the most self CPU time): busy is the union
     of the intervals of every device event (kernels, copies), None where
-    the profiler shows none."""
+    the profiler shows none.  ``host_ops=False`` records device activity
+    only (no host ops)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1271,7 +1609,7 @@ def _time_attention(name, shapes, dev):
     also the f32 kernel's device µs on the same inputs in f32."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(8)
-    (shp, length) = shapes.most_frequent(name)
+    shp = shapes.most_frequent(name)
     mod = ATTN_MODS[name]
     f32_dev_us, decode, cold, lib_cold = None, None, None, None
     if name == "flash_attention":
@@ -1301,7 +1639,8 @@ def _time_attention(name, shapes, dev):
     else:
         (b, hq, d, dts), (_, hkv, s, _, kvs) = shp[0], shp[1]
         dt = getattr(torch, dts.split(".")[-1])
-        lengths = torch.as_tensor(length, device=dev).to(torch.int32).clone()
+        lengths = torch.full((b,), DECODE_LENGTH, dtype=torch.int32,
+                             device=dev)
         q = torch.randn(b, hq, d, generator=gen, device=dev).to(dt)
         k, v = (torch.randn(b, s, hkv, d, generator=gen, device=dev)
                 for _ in range(2))
@@ -1415,31 +1754,32 @@ def phase_lm_times(dev, model, serve, shapes):
     prompts, _ = _lm_workload(model.cfg.vocab_size)
     cfg = _lm_cfg("compute")
     before = _all_counts()
-    probes = []
-    for use in (True, False, False, True):
-        eng = ServeEngine(cfg, max_len=PROMPT + NEW + 1, params=model,
-                          use_kernel=use)
-        probes.append((use, eng.throughput_probe(BATCH, PROMPT, NEW)))
+    probes = _probe_turns(cfg, model)
+    plain_probe = ServeEngine(cfg, max_len=PROMPT + NEW + 1, params=model,
+                              use_kernel=False).throughput_probe(
+                                  BATCH, PROMPT, NEW)
     int8_probe = ServeEngine(_lm_cfg("int8"), max_len=PROMPT + NEW + 1,
                              params=model).throughput_probe(BATCH, PROMPT,
                                                             NEW)
-    eng = ServeEngine(cfg, max_len=MAX_LEN, params=model)
-    wall_ms, busy_ms, n_dev, host = _device_busy(
-        lambda: eng.generate(prompts, NEW))
+    profiled = _profiled_generates(cfg, model, prompts)
+    engine_prefill = _device_busy(lambda: lm.prefill(
+        cfg, model, torch.as_tensor(prompts, dtype=torch.int64,
+                                    device=model.device), MAX_LEN))
+    prefills = _bucket_prefills(model)
     _set_counts(before)
-    print("[8] throughput_probe(B=8, prompt=512, 32 tokens) in turns: " +
-          "; ".join(f"{'kernel' if u else 'plain'}: prefill "
-                    f"{p['prefill_s'] * 1e3:.1f} ms, decode "
-                    f"{p['decode_tok_per_s']:.1f} tok/s" for u, p in probes)
-          + f"; int8 KV, kernel: prefill {int8_probe['prefill_s'] * 1e3:.1f}"
-          f" ms, decode {int8_probe['decode_tok_per_s']:.1f} tok/s")
-    busy = "device busy not measured" if busy_ms is None else (
-        f"device busy {busy_ms:.1f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.4f}")
-    print(f"[8] profiled generate (B=8, 512 + 32, kernel path): wall "
-          f"{wall_ms:.1f} ms, {busy}, {n_dev} device events; host ops by "
-          f"self CPU ms: " + ", ".join(f"{k} x{n} {ms:.1f}"
-                                       for k, n, ms in host))
+    _print_probes(8, LM_ARCH, probes,
+                  f"; plain path (graph): prefill "
+                  f"{plain_probe['prefill_s'] * 1e3:.1f} ms, decode "
+                  f"{plain_probe['decode_tok_per_s']:.1f} tok/s; int8 KV "
+                  f"(graph): prefill {int8_probe['prefill_s'] * 1e3:.1f} ms, "
+                  f"decode {int8_probe['decode_tok_per_s']:.1f} tok/s")
+    _print_profiled(8, LM_ARCH, profiled)
+    w, b = engine_prefill[:2]
+    print(f"[8] {LM_ARCH} engine prefill B={BATCH} x {PROMPT} (eager), "
+          f"profiled: wall {w:.2f} ms, busy {_ms_text(b)}, idle share "
+          f"{_share_text(None if b is None else 1 - b / w)}")
+    _print_prefills(8, LM_ARCH, prefills)
+    wall_ms, busy_ms, n_dev = profiled["graph"][:3]
     times = {}
     for name in ATTN_MODS:
         t = _time_attention(name, shapes, dev)
@@ -1479,11 +1819,15 @@ def phase_lm_times(dev, model, serve, shapes):
           "; ".join(f"{n}: {_us(a)} ({_us(sp)} + {_us(mg)})"
                     for n, (a, sp, mg) in by_length.items()))
     times["flash_decode"]["decode"]["by_length_us"] = by_length
-    return dict(probes=probes, int8_probe=int8_probe, wall_ms=wall_ms,
-                busy_ms=busy_ms, device_events=n_dev, times=times)
+    return dict(probes=probes, plain_probe=plain_probe,
+                int8_probe=int8_probe, wall_ms=wall_ms, busy_ms=busy_ms,
+                device_events=n_dev, times=times,
+                profiled=_profiled_json(profiled),
+                engine_prefill=_profiled_json({"eager": engine_prefill}),
+                bucket_prefills=prefills)
 
 
-def attention_kernel_rows(errs, serve, times, lm_paths):
+def attention_kernel_rows(errs, serve, times, lm_paths, graph_runs):
     rows = []
     for name in ATTN_MODS:
         t = times["times"][name]
@@ -1517,11 +1861,16 @@ def attention_kernel_rows(errs, serve, times, lm_paths):
         "flash_attention"]["f32_dev_us"])
     rows[0]["lm"] = {
         "arch": LM_ARCH,
-        "probes": [{"kernel": u, **p} for u, p in times["probes"]],
+        "probes": [{"graph": c, **p} for c, p in times["probes"]],
+        "plain_probe": times["plain_probe"],
         "int8_probe": times["int8_probe"],
         "generate_wall_ms_profiled": times["wall_ms"],
         "generate_device_busy_ms": times["busy_ms"],
         "generate_device_events": times["device_events"],
+        "generate_profiled": times["profiled"],
+        "engine_prefill_profiled": times["engine_prefill"],
+        "bucket_prefills": times["bucket_prefills"],
+        "graph_vs_eager": graph_runs,
         "logit_diff_kernel_vs_plain": lm_paths}
     return rows
 
@@ -1706,6 +2055,7 @@ def phase_moe(dev, model):
             f"{MOE_ARCH} generate")
     print(f"[11] {MOE_ARCH}: generate B={BATCH} x {PROMPT} + {MOE_NEW} in "
           f"{secs:.2f} s, launches {counts}")
+    graph = phase_graph_vs_eager(MOE_ARCH, cfg, model, prompts, MOE_NEW)
     # bf16 at full depth is measured, not held: a rounding difference in a
     # router's input can move a token to another expert, and at decode's
     # capacity of 1 token per expert that moves its neighbours too.  The
@@ -1730,9 +2080,15 @@ def phase_moe(dev, model):
           f"probability difference between the paths {l0['prob_diff_max']}; "
           f"{l0['explained']} of {l0['flips']} flips have a margin below "
           f"that token's probability difference (explained by the inputs' "
-          f"rounding), {l0['within_2x']} below twice it")
+          f"rounding), {l0['within_2x']} below twice it; the kernel path's "
+          f"own margin at the flips: max {l0['kernel_margin_max']}, median "
+          f"{l0['kernel_margin_median']}; {l0['both_below_own']} of "
+          f"{l0['flips']} flips have both paths' margins below that token's "
+          f"probability difference; {l0['near_tie']} of {l0['flips']} have "
+          f"both below the median difference over the tokens that do not "
+          f"flip, {l0['nonflip_diff_median']} (near-tie flips)")
     return {"generate": counts, "generate_s": secs, "paths": paths,
-            "routing": routing}
+            "routing": routing, "graph_vs_eager": graph}
 
 
 def phase_hybrid(dev):
@@ -1770,7 +2126,10 @@ def phase_hybrid(dev):
             raise AssertionError(f"{HYBRID_ARCH} (reduced): greedy tokens "
                                  f"differ between the kernel and plain paths")
         out[kv] = {"launches": counts, "logit_diff": worst,
-                   "tokens_equal": same}
+                   "tokens_equal": same,
+                   "graph_vs_eager": phase_graph_vs_eager(
+                       f"{HYBRID_ARCH} (reduced) kv={kv}", cfg, model,
+                       prompts, NEW)}
         del model
         _free()
     print(f"[12] {HYBRID_ARCH} at its reduced smoke width (d 64, head_dim "
@@ -1800,14 +2159,13 @@ def phase_mamba_times(dev, model):
     cfg = model.cfg
     prompts, _ = _lm_workload(cfg.vocab_size)
     before = _all_counts()
-    probes = []
-    for use in (True, False, False, True):
-        eng = ServeEngine(cfg, max_len=PROMPT + NEW + 1, params=model,
-                          use_kernel=use)
-        probes.append((use, eng.throughput_probe(BATCH, PROMPT, NEW)))
-    eng = ServeEngine(cfg, max_len=MAX_LEN, params=model)
-    wall_ms, busy_ms, n_dev, host = _device_busy(
-        lambda: eng.generate(prompts, NEW))
+    probes = _probe_turns(cfg, model)
+    profiled = _profiled_generates(cfg, model, prompts)
+    engine_prefill = _device_busy(lambda: lm.prefill(
+        cfg, model, torch.as_tensor(prompts, dtype=torch.int64,
+                                    device=model.device), MAX_LEN))
+    prefills = _bucket_prefills(model)
+    wall_ms, busy_ms, n_dev = profiled["graph"][:3]
     din, n = 2 * cfg.d_model, cfg.ssm.state
     gen = torch.Generator(device=dev).manual_seed(10)
     args = scan_inputs(gen, BATCH, PROMPT, din, n, dev, torch.bfloat16, True)
@@ -1825,18 +2183,13 @@ def phase_mamba_times(dev, model):
                  scan_device_us(k1))
     _set_counts(before)
     (bound, by), exp_ms = _scan_bound(BATCH, PROMPT, din, n, 2)
-    print(f"[13] {MAMBA_ARCH} throughput_probe(B=8, prompt=512, 32 tokens) in "
-          f"turns: " + "; ".join(
-              f"{'kernel' if u else 'plain'}: prefill "
-              f"{p['prefill_s'] * 1e3:.1f} ms, decode "
-              f"{p['decode_tok_per_s']:.1f} tok/s" for u, p in probes))
-    busy = "device busy not measured" if busy_ms is None else (
-        f"device busy {busy_ms:.1f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.4f}")
-    print(f"[13] profiled {MAMBA_ARCH} generate (B=8, 512 + 32, kernel path): "
-          f"wall {wall_ms:.1f} ms, {busy}, {n_dev} device events; host ops "
-          f"by self CPU ms: " + ", ".join(f"{k} x{c} {t:.1f}"
-                                          for k, c, t in host))
+    _print_probes(13, MAMBA_ARCH, probes)
+    _print_profiled(13, MAMBA_ARCH, profiled)
+    w, b = engine_prefill[:2]
+    print(f"[13] {MAMBA_ARCH} engine prefill B={BATCH} x {PROMPT} (eager), "
+          f"profiled: wall {w:.2f} ms, busy {_ms_text(b)}, idle share "
+          f"{_share_text(None if b is None else 1 - b / w)}")
+    _print_prefills(13, MAMBA_ARCH, prefills)
     print(f"[13] selective_scan at (B, L, Din, N) = {(BATCH, PROMPT, din, n)} "
           f"bf16, strided B/C: {ms * 1e3:.2f} us per launch (events), device "
           f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'}; plain "
@@ -1862,6 +2215,9 @@ def phase_mamba_times(dev, model):
               f"B = {BATCH} x {PROMPT}: "
               f"{per_elem[1, 1024] / per_elem[BATCH, PROMPT]:.3f}")
     return dict(probes=probes, wall_ms=wall_ms, busy_ms=busy_ms,
+                profiled=_profiled_json(profiled),
+                engine_prefill=_profiled_json({"eager": engine_prefill}),
+                bucket_prefills=prefills,
                 device_events=n_dev, ms=ms, dev_us=dev_us, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, exp_ms=exp_ms,
                 shape=[BATCH, PROMPT, din, n, "bfloat16"],
@@ -1885,11 +2241,15 @@ def scan_kernel_row(errs, serve, paths, times, moe, hybrid):
         "b1_by_prompt": times["b1"],
         "mamba": {
             "arch": MAMBA_ARCH,
-            "probes": [{"kernel": u, **p} for u, p in times["probes"]],
+            "probes": [{"graph": c, **p} for c, p in times["probes"]],
             "generate_wall_ms_profiled": times["wall_ms"],
             "generate_device_busy_ms": times["busy_ms"],
             "generate_device_events": times["device_events"],
+            "generate_profiled": times["profiled"],
+            "engine_prefill_profiled": times["engine_prefill"],
+            "bucket_prefills": times["bucket_prefills"],
             "batcher_stats": serve["batcher_stats"],
+            "graph_vs_eager": serve["graph_vs_eager"],
             "logit_diff_kernel_vs_plain": paths},
         "moe": {"arch": MOE_ARCH, **moe},
         "hybrid_reduced": {"arch": HYBRID_ARCH, **hybrid},
@@ -2416,14 +2776,23 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     shapes = _ShapeLog()
     serve = phase_lm_serve(model, shapes)
+    prompts, req_prompts = _lm_workload(model.cfg.vocab_size)
+    graph_runs = {kv: phase_graph_vs_eager(
+        f"{LM_ARCH} kv={kv}", _lm_cfg(kv), model, prompts, NEW,
+        req_prompts if kv == "compute" else None)
+        for kv in ("compute", "int8")}
     lm_paths = phase_lm_paths(dev, model)
     times = phase_lm_times(dev, model, serve, shapes)
-    kernels += attention_kernel_rows(attn_errs, serve, times, lm_paths)
+    kernels += attention_kernel_rows(attn_errs, serve, times, lm_paths,
+                                     graph_runs)
     del model, shapes
     _free()
     scan_errs = phase_scan_kernel(dev)
     fm = _build_full(MAMBA_ARCH, dev)
     fm_serve = phase_mamba_serve(fm)
+    fm_prompts, fm_reqs = _lm_workload(fm.cfg.vocab_size)
+    fm_serve["graph_vs_eager"] = phase_graph_vs_eager(
+        MAMBA_ARCH, fm.cfg, fm, fm_prompts, NEW, fm_reqs)
     fm_paths = phase_paths(dev, MAMBA_ARCH, fm, NEW, MAMBA_BF16_LOGIT_BOUND,
                            10)
     fm_times = phase_mamba_times(dev, fm)

@@ -16,8 +16,12 @@ The decode cache keeps the reference's structure, ``{"layers": [per period
 position: {"k", "v"[, "k_scale", "v_scale"]} with leaves (P, B, S, Hkv, ·)
 for attention, {"conv" (P, B, K-1, Din), "ssm" (P, B, Din, N) f32} for
 Mamba], "length": (B,) int32}``, and :func:`decode_step` updates it **in
-place** (``models.layers.attention_decode`` and the Mamba states) before
-returning it with ``length + 1``.
+place**: the K/V (``models.layers.attention_decode``), the Mamba states
+and, after the last layer, ``length`` itself (``add_(1)``), so a step
+captured once as a CUDA graph (``serve.graphs``) advances the cache at
+every replay.  :func:`prefill` fills a new cache or, given ``cache=``, one
+the caller owns; :func:`reset_cache` sets a cache back to
+:func:`init_cache`'s values in place.
 
 The logits are ``h.f32 @ W.f32^T``, as in the reference.  For a bf16
 unembedding ``W`` (the tied embedding of llama3.2-3b: 128,256 x 3,072) the
@@ -158,8 +162,9 @@ class LM(nn.Module):
     def init_cache(self, batch: int, max_len: int) -> Dict:
         return init_cache(self.cfg, batch, max_len, self.device)
 
-    def prefill(self, tokens, max_len: int, use_kernel: bool = True):
-        return prefill(self.cfg, self, tokens, max_len, use_kernel)
+    def prefill(self, tokens, max_len: int, use_kernel: bool = True,
+                cache: Optional[Dict] = None):
+        return prefill(self.cfg, self, tokens, max_len, use_kernel, cache)
 
     def decode_step(self, cache: Dict, tokens, use_kernel: bool = True):
         return decode_step(self.cfg, self, cache, tokens, use_kernel)
@@ -286,12 +291,40 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> Dict:
                                   device=device)}
 
 
+def reset_cache(cache: Dict) -> None:
+    """Set ``cache`` in place to :func:`init_cache`'s values: zeros, int8
+    scales one, length 0."""
+    for entry in cache["layers"]:
+        for name, leaf in entry.items():
+            leaf.fill_(1 if name.endswith("_scale") else 0)
+    cache["length"].zero_()
+
+
+def _check_cache(cfg: ArchConfig, cache: Dict, batch: int,
+                 max_len: int) -> None:
+    """Raise unless ``cache`` has :func:`init_cache`'s structure, shapes and
+    dtypes for ``batch`` rows of ``max_len`` positions."""
+    want = init_cache(cfg, batch, max_len, "meta")
+    got_layers = cache["layers"]
+    ok = len(got_layers) == len(want["layers"]) and all(
+        set(g) == set(w) and all(
+            g[n].shape == w[n].shape and g[n].dtype == w[n].dtype
+            for n in w) for g, w in zip(got_layers, want["layers"]))
+    length = cache["length"]
+    if not ok or length.shape != (batch,) or length.dtype != torch.int32:
+        raise ValueError(f"{cfg.name}: the cache is not one of {batch} rows "
+                         f"of {max_len} positions")
+
+
 def decode_step(cfg: ArchConfig, model: LM, cache: Dict, tokens,
                 use_kernel: bool = True):
     """One token for every sequence.  tokens (B,) integer.
 
-    Updates ``cache`` in place and returns (logits (B, V) f32, cache) with
-    ``cache["length"]`` advanced by one.  Every row's length must stay
+    Updates ``cache`` in place, ``cache["length"]`` too (the same tensor,
+    advanced by one after the last layer), and returns (logits (B, V) f32,
+    cache).  The step reads nothing back to the host and allocates no
+    shape that depends on the data, so it can be captured as a CUDA graph
+    (``serve.graphs.DecodeGraph``).  Every row's length must stay
     below the cache's ``max_len`` for its token to be kept (the reference
     drops it too).  A MoE layer routes the B tokens as one dispatch group,
     as the reference does, so its capacity couples the rows."""
@@ -328,24 +361,33 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Dict, tokens,
             else:
                 x = x + L.mlp(cfg, p.mlp, h)
     h = L.apply_norm(cfg, model.final_norm, x)[:, 0]      # (B, d)
-    cache["length"] = length + 1
+    length.add_(1)
     return _logits(model, h), cache
 
 
 def prefill(cfg: ArchConfig, model: LM, tokens, max_len: int,
-            use_kernel: bool = True):
+            use_kernel: bool = True, cache: Optional[Dict] = None):
     """Process a full prompt; return (last_logits (B, V) f32, filled
-    cache)."""
+    cache).
+
+    Given ``cache`` (B rows of ``max_len`` positions, as :func:`init_cache`
+    makes them), the prompt's state is written into it, in place, instead
+    of into a new cache: its first S positions, the Mamba states and the
+    length.  The rest is left as it was, so a caller that reuses a cache
+    resets it first (:func:`reset_cache`)."""
     b, s = tokens.shape[:2]
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens does not fit a cache of "
                          f"{max_len}")
     dev = model.device
+    if cache is None:
+        cache = init_cache(cfg, b, max_len, dev)
+    else:
+        _check_cache(cfg, cache, b, max_len)
     pos = torch.arange(s, device=dev)[None].expand(b, s)
     x = embed_tokens(cfg, model, tokens)
     h, _, extras = backbone(cfg, model, x, pos, collect_cache=True,
                             use_kernel=use_kernel)
-    cache = init_cache(cfg, b, max_len, dev)
     for pos_i, c in enumerate(cache["layers"]):
         for per, ex in enumerate(extras[pos_i]):
             if "conv" in c:

@@ -3,10 +3,13 @@
 Port of ``repro.serve.engine``: configure once (parameters resident on the
 card), then stream requests through — prefill fills the KV caches (and the Mamba
 states), ``decode_step`` advances every sequence one token per call,
-greedy.  The reference jit-compiles both steps; here they run eagerly,
-their attention and selective scan through the port's kernels
-(``use_kernel=False`` selects the plain PyTorch versions instead, for
-comparison).
+greedy.  The reference jit-compiles both steps.  Here the decode step is
+captured once per batch size as a CUDA graph (``serve.graphs.DecodeGraph``,
+``compile="auto"`` on a CUDA device, or ``True``) and replayed over a
+static cache that prefill fills in place; ``compile=False``, and
+``"auto"`` on the CPU, run it eagerly.  Prefill runs eagerly.  Attention
+and the selective scan go through the port's kernels (``use_kernel=False``
+selects the plain PyTorch versions instead, for comparison).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..models import LM, build_model, lm
+from .graphs import DecodeGraph, resolve_compile
 
 
 def check_params(cfg: ArchConfig, params: LM) -> None:
@@ -40,12 +44,22 @@ class ServeEngine:
     seed: int = 0
     device: Any = "cuda"
     use_kernel: bool = True
+    compile: Any = "auto"
 
     def __post_init__(self):
         if self.params is None:
             self.params = build_model(self.cfg, self.device, self.seed)
         check_params(self.cfg, self.params)
         self.device = self.params.device
+        self._compiled = resolve_compile(self.compile, self.device)
+        self.graphs: Dict[int, DecodeGraph] = {}   # by batch size
+
+    def _graph(self, batch: int) -> DecodeGraph:
+        """The captured decode step for ``batch`` rows, made at first use."""
+        if batch not in self.graphs:
+            self.graphs[batch] = DecodeGraph(self.cfg, self.params, batch,
+                                             self.max_len, self.use_kernel)
+        return self.graphs[batch]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -62,8 +76,17 @@ class ServeEngine:
         with torch.no_grad():
             tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
                                      device=self.device)
-            logits, cache = lm.prefill(self.cfg, model, tokens,
-                                       self.max_len, self.use_kernel)
+            if self._compiled:
+                graph = self._graph(tokens.shape[0])
+                lm.reset_cache(graph.cache)
+                logits, _ = lm.prefill(self.cfg, model, tokens, self.max_len,
+                                       self.use_kernel, cache=graph.cache)
+                step = graph.replay
+            else:
+                logits, cache = lm.prefill(self.cfg, model, tokens,
+                                           self.max_len, self.use_kernel)
+                step = lambda tok: lm.decode_step(  # noqa: E731
+                    self.cfg, model, cache, tok, self.use_kernel)[0]
             b = logits.shape[0]
             out = np.zeros((b, n_tokens), np.int32)
             done = np.zeros((b,), bool)
@@ -76,15 +99,14 @@ class ServeEngine:
                     done |= tok_np == eos
                     if done.all():
                         break
-                logits, cache = lm.decode_step(self.cfg, model, cache, tok,
-                                               self.use_kernel)
-                tok = torch.argmax(logits, -1)
+                tok = torch.argmax(step(tok), -1)
         return out
 
     def throughput_probe(self, batch: int, prompt_len: int,
                          n_tokens: int = 8) -> Dict[str, float]:
         """Tokens/sec measurement harness (the reference's), with the card
-        synchronised at the end of each timed call."""
+        synchronised at the end of each timed call.  The warm-up call
+        captures the decode step, so the timed calls replay it."""
         rng = np.random.default_rng(0)
         prompts = rng.integers(0, self.cfg.vocab_size,
                                (batch, prompt_len)).astype(np.int32)

@@ -8,8 +8,16 @@ sequences free their slot for the next queued request.
     it), writes the request's KV/SSM state into its slot of the live cache;
     the padding's K/V stay in the cache, masked, and the slot's length is
     the true prompt length.  A Mamba layer's conv and SSM states are taken
-    after the padding, as in the reference (no mask reaches them);
-  * one batched ``decode_step`` advances every slot;
+    after the padding, as in the reference (no mask reaches them).  On a
+    CUDA device the prefill of a bucket up to ``PREFILL_GRAPH_MAX_BUCKET``
+    is captured at its first use (``serve.graphs.PrefillGraph``, the
+    reference's jitted prefill per bucket) and replayed; the bucket graphs
+    share one single-sequence cache and, with the decode graph, one memory
+    pool;
+  * one batched ``decode_step`` advances every slot: on a CUDA device a
+    replay of the step captured over the live cache at construction, while
+    no slot is live (``serve.graphs.DecodeGraph``, the reference's jitted
+    ``decode_step``; ``compile=False`` runs it eagerly);
   * per-slot lengths come from the cache's ``length`` vector.
 
 As in the reference, decode is seeded with the prompt's last token, so that
@@ -25,7 +33,7 @@ couples the rows.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -34,6 +42,13 @@ from ..configs.base import ArchConfig
 from ..models import LM, build_model, lm
 from ..runtime.runtime import Request
 from .engine import check_params
+from .graphs import DecodeGraph, PrefillGraph, resolve_compile
+
+# the largest prompt bucket whose prefill is captured: an eager B = 1
+# bucket prefill left the card idle for more than half its wall time up to
+# bucket 512 for both llama3.2-3b and falcon-mamba-7b on an H100 (at 1024
+# falcon-mamba's was below half; PERF.md); larger buckets run eagerly
+PREFILL_GRAPH_MAX_BUCKET = 512
 
 
 def _buckets(n: int, sizes=(16, 32, 64, 128, 256, 512, 1024, 2048, 4096)):
@@ -49,7 +64,7 @@ class ContinuousBatcher:
     def __init__(self, cfg: ArchConfig, n_slots: int, max_len: int,
                  params: Optional[LM] = None, eos: Optional[int] = None,
                  seed: int = 0, device: Any = "cuda",
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, compile: Any = "auto"):
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
@@ -60,7 +75,16 @@ class ContinuousBatcher:
         check_params(cfg, self.params)
         self.model = self.params
         self.device = self.model.device
-        self.cache = lm.init_cache(cfg, n_slots, max_len, self.device)
+        # the captured step owns the live cache; it was reset after capture
+        self.graph: Optional[DecodeGraph] = None
+        self.prefill_graphs: Dict[int, PrefillGraph] = {}   # by bucket
+        if resolve_compile(compile, self.device):
+            self.graph = DecodeGraph(cfg, self.model, n_slots, max_len,
+                                     use_kernel)
+            self.cache = self.graph.cache
+            self._prefill_cache = lm.init_cache(cfg, 1, max_len, self.device)
+        else:
+            self.cache = lm.init_cache(cfg, n_slots, max_len, self.device)
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.queue: List[Request] = []
         self.last_tok = np.zeros((n_slots,), np.int32)
@@ -70,8 +94,19 @@ class ContinuousBatcher:
     def _prefill(self, tokens: torch.Tensor, true_len: int):
         # run the full-bucket prefill, then reset length to the true prompt
         # length (the suffix is padding that the length mask hides)
-        _, cache = lm.prefill(self.cfg, self.model, tokens, self.max_len,
-                              self.use_kernel)
+        bucket = tokens.shape[1]
+        if self.graph is not None and bucket <= PREFILL_GRAPH_MAX_BUCKET:
+            if bucket not in self.prefill_graphs:
+                self.prefill_graphs[bucket] = PrefillGraph(
+                    self.cfg, self.model, 1, bucket, self.max_len,
+                    self.use_kernel, cache=self._prefill_cache,
+                    pool=self.graph.graph.pool())
+            graph = self.prefill_graphs[bucket]
+            graph.replay(tokens)
+            cache = graph.cache
+        else:
+            _, cache = lm.prefill(self.cfg, self.model, tokens, self.max_len,
+                                  self.use_kernel)
         cache["length"].fill_(true_len)
         return cache
 
@@ -118,9 +153,11 @@ class ContinuousBatcher:
             self.stats["slot_busy_ticks"] += len(live)
             tok = torch.as_tensor(self.last_tok.astype(np.int64),
                                   device=self.device)
-            logits, self.cache = lm.decode_step(self.cfg, self.model,
-                                                self.cache, tok,
-                                                self.use_kernel)
+            if self.graph is not None:
+                logits = self.graph.replay(tok)
+            else:
+                logits, _ = lm.decode_step(self.cfg, self.model, self.cache,
+                                           tok, self.use_kernel)
             logits = logits.cpu().numpy()
         for i in live:
             req = self.slots[i]
