@@ -154,7 +154,14 @@ result line):
    difference between the paths at that token (and below twice it); the
    kernel path's own margins at the flips, and how many flips have both
    paths' margins below that token's difference and below the median
-   difference over the tokens that do not flip (``near_tie``);
+   difference over the tokens that do not flip (``near_tie``); at each
+   flip that is not a near tie, where layer 0's two paths part
+   (``_layer0_parting``: the attention output, its projection, the
+   residual, the router's input and logits, recomputed both ways and
+   checked against the recorded router probabilities bit for bit; each
+   one's largest difference in bf16 rounding steps, the first over one
+   step, and the attention output's distance from the flash kernel's own
+   arithmetic, P rounded to bf16, for either path);
 12. jamba-1.5-large-398b at its reduced smoke width, with head_dim 32 for
    the smoke config's 16 (the smallest head dim the flash kernels are built
    for); 398 B parameters do not fit one card, and this is a correctness
@@ -226,9 +233,37 @@ result line):
    crossbar rows of the ``kernels`` line add the tuned runs' launches
    (``launches_by_path``).
 
-20. (run after phases 7, 10, 11 and 12, on each model while it is on the
+21. the enc-dec and VLM families at full width and depth, each served on
+   the inputs ``throughput_probe`` draws (the reference's
+   ``default_rng(0)``: B = 8 prompts of 512 tokens and 512 standard-normal
+   embeddings): qwen2-vl-7b (28 layers, d 3584, 28/4 heads of 128, G = 7,
+   M-RoPE, qkv bias, untied head, bf16) and seamless-m4t-large-v2 (24
+   encoder + 24 decoder layers, d 1024, 16/16 heads of 64, layernorm, tied
+   256,206-row embedding, bf16).  One ``generate`` (32 new tokens, the
+   captured step) with its launches held exactly: qwen2-vl 28 flash
+   attention and 28 flash decode a step; seamless 72 flash attention (24
+   non-causal encoder, 24 causal self, 24 non-causal cross) and 48 flash
+   decode a step (self and cross), and again with 16 decoder tokens over
+   the 512 frames (cross-attention with Sq < Sk); every flash call of an
+   eager generate held against its plain version on its own inputs, once
+   per served shape (``_HeldCalls``: 2e-3 in f32; in bf16 5e-2 and two
+   bf16 steps at max|output| plus, for flash attention, 2^-8 max|V| for
+   its P rounded to bf16, a bound that the plain version with a 64-key
+   tile dropped, or with the decode lengths one short, must miss); phase
+   20;
+   ``throughput_probe`` in turns (graph, eager, eager, graph); kernel path
+   against plain path as in 10 (4 + 4 layers in f32 at 2e-3, tokens equal;
+   full depth in bf16 at ``BF16_LOGIT_BOUND``).  Then flash attention at
+   seamless's encoder shape (8, 16, 16, 512, 64) non-causal and flash
+   decode at qwen2-vl's (8, 28, 4, 2048-position cache, 128), lengths
+   ``DECODE_LENGTH``, timed as in 8 beside SDPA on the same call and the
+   bound; the flash rows of the ``kernels`` line gain each family
+   generate's launches (``launches_by_path``) and these times.
+
+20. (run after phases 7, 10, 11, 12 and 21, on each model while it is on the
    card: llama3.2-3b with both caches, falcon-mamba-7b, qwen2-moe-a2.7b,
-   the reduced jamba with both caches) the captured decode step against
+   the reduced jamba with both caches, qwen2-vl-7b, seamless-m4t-large-v2)
+   the captured decode step against
    the eager one on the same inputs: prefill and 4 decode steps' logits
    bit-equal (``torch.equal``), ``generate``'s greedy tokens equal and its
    launch counts equal, and for llama3.2-3b's float cache and
@@ -239,6 +274,8 @@ result line):
    launches and launches per replay; one step's host ms and span on the
    stream (CUDA events), replayed and eager.
 
+Each phase's wall seconds (a model's build and free included) follow it
+on a ``[wall]`` line, and the sum over every phase after the last one.
 Prints the card's name and power limit, then one ``{"kernels": [...]}``
 line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -288,10 +325,12 @@ from repro_torch.launch.mxv_times import (  # noqa: E402
     plane_call_us as _plane_call_us)
 from repro_torch.launch.scan_times import (EXP_PER_S, scan_inputs,  # noqa: E402
                                            device_us as scan_device_us)
+from repro_torch import models as port_models  # noqa: E402
 from repro_torch.models import build_model, lm  # noqa: E402
 from repro_torch.models.layers import kv_quantize  # noqa: E402
 from repro_torch.runtime import CmServer, poisson_arrivals  # noqa: E402
 from repro_torch.serve import ContinuousBatcher, Request, ServeEngine  # noqa: E402
+from repro_torch.serve.engine import prefill_batch  # noqa: E402
 from repro_torch.serve.graphs import DecodeGraph, PrefillGraph  # noqa: E402
 from repro_torch.serve.scheduler import PREFILL_GRAPH_MAX_BUCKET  # noqa: E402
 
@@ -339,6 +378,10 @@ BF16_LOGIT_BOUND = 0.05
 MAMBA_ARCH, MOE_ARCH, HYBRID_ARCH = ("falcon-mamba-7b", "qwen2-moe-a2.7b",
                                      "jamba-1.5-large-398b")
 MOE_NEW = 8
+ENCDEC_ARCH, VLM_ARCH = "seamless-m4t-large-v2", "qwen2-vl-7b"
+# decoder tokens of phase 21's second seamless generate, over PROMPT
+# encoder frames: cross-attention with Sq < Sk in prefill
+ENCDEC_SHORT = 16
 # bf16 logits of falcon-mamba-7b's kernel path against its plain path at
 # full depth, as a share of max(1, max|logit|): 0.0592 on an H100 80GB HBM3
 # at 700 W, the same in every run (seeded weights, deterministic kernels;
@@ -1087,19 +1130,25 @@ def phase_lm_serve(model, shapes):
     return out
 
 
-def _logit_steps(cfg, model, prompts, steps, use_kernel, feed=None):
+def _logit_steps(cfg, model, prompts, steps, use_kernel, feed=None,
+                 embeds=None):
     """Prefill logits, then ``steps`` decode steps' logits, each step fed
     the argmax of the last logits (greedy) or, given ``feed`` (B, steps),
-    those tokens: so both paths can run on the same inputs."""
-    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=model.device)
+    those tokens: so both paths can run on the same inputs.  A model with
+    embedding inputs prefills from ``embeds`` (and, an enc-dec, the
+    prompts), and the VLM's steps take their tokens' embeddings, as the
+    engine feeds them."""
+    batch = prefill_batch(cfg, prompts, embeds, model.device)
     with torch.no_grad():
-        logits, cache = lm.prefill(cfg, model, tokens, MAX_LEN, use_kernel)
+        logits, cache = port_models.prefill(cfg, model, batch, MAX_LEN,
+                                            use_kernel)
         out, fed = [logits], []
         for j in range(steps):
             tok = torch.argmax(logits, -1) if feed is None else feed[:, j]
             fed.append(tok)
-            logits, cache = lm.decode_step(cfg, model, cache, tok,
-                                           use_kernel)
+            logits, cache = port_models.decode_step(
+                cfg, model, cache, port_models.step_input(cfg, model, tok),
+                use_kernel)
             out.append(logits)
     return out, torch.stack(fed, 1)
 
@@ -1179,6 +1228,11 @@ def _routing_stats(logs, got, want):
         "both_below_own": int(((m_flip < g_flip) & (r_flip < g_flip)).sum()),
         "nonflip_diff_median": noise,
         "near_tie": int(((m_flip < noise) & (r_flip < noise)).sum())}
+    # the flips that are not near ties: (row, token) and both paths'
+    # router probabilities there, for ``_layer0_parting``
+    far = flip0 & ~((margin < noise) & (k_margin < noise))
+    layer0["far"] = [tuple(int(i) for i in rt) for rt in far.nonzero()]
+    layer0["far_probs"] = (k_probs[far], p_probs[far])
     for i, ((a, *_), (b, *_)) in enumerate(zip(*logs)):
         flip = (a != b).any(-1)
         if i >= per_step:
@@ -1199,7 +1253,8 @@ def _routing_stats(logs, got, want):
             "worst_on_agreeing_rows": worst, "layer0": layer0}
 
 
-def _compare_paths(cfg, model, prompts, steps, tol, what, routing=None):
+def _compare_paths(cfg, model, prompts, steps, tol, what, routing=None,
+                   embeds=None):
     """Kernel path against the plain path on the same inputs; returns the
     worst |logit difference| / max(1, max|logit|) over the prefill and
     every decode step.  Given a dict ``routing``, records both paths' MoE
@@ -1208,10 +1263,12 @@ def _compare_paths(cfg, model, prompts, steps, tol, what, routing=None):
     logs = ([], [])
     with (_routing_log(logs[0]) if routing is not None
           else contextlib.nullcontext()):
-        got, fed = _logit_steps(cfg, model, prompts, steps, True)
+        got, fed = _logit_steps(cfg, model, prompts, steps, True,
+                                embeds=embeds)
     with (_routing_log(logs[1]) if routing is not None
           else contextlib.nullcontext()):
-        want, _ = _logit_steps(cfg, model, prompts, steps, False, feed=fed)
+        want, _ = _logit_steps(cfg, model, prompts, steps, False, feed=fed,
+                               embeds=embeds)
     _set_counts(before)
     if routing is not None:
         routing.update(_routing_stats(logs, got, want))
@@ -1275,7 +1332,7 @@ def _memory_text(m):
 
 
 def phase_graph_vs_eager(tag, cfg, model, prompts, new, reqs=None,
-                         steps=4):
+                         steps=4, embeds=None):
     """The captured decode step (``DecodeGraph``, the engines' default on
     the card) against the eager one on the same inputs: prefill and
     ``steps`` decode steps' logits bit-equal, fed the eager path's greedy
@@ -1283,15 +1340,20 @@ def phase_graph_vs_eager(tag, cfg, model, prompts, new, reqs=None,
     ``reqs`` (prompts), the batcher's tokens request by request and its
     launch counts too.  Also the graph's capture ms, its warm-up and
     capture launches (kept out of ``LAUNCHES``), its launches per replay,
-    and one step's host ms and span on the stream, both ways."""
+    and one step's host ms and span on the stream, both ways.  A model
+    with embedding inputs takes ``embeds`` (the enc-dec's graph is made
+    for their S_enc)."""
     before = _all_counts()
-    want, fed = _logit_steps(cfg, model, prompts, steps, True)
-    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=model.device)
+    want, fed = _logit_steps(cfg, model, prompts, steps, True, embeds=embeds)
+    batch = prefill_batch(cfg, prompts, embeds, model.device)
     with torch.no_grad():
-        graph = DecodeGraph(cfg, model, tokens.shape[0], MAX_LEN)
-        got = [lm.prefill(cfg, model, tokens, MAX_LEN, cache=graph.cache)[0]]
+        graph = DecodeGraph(cfg, model, prompts.shape[0], MAX_LEN,
+                            enc_len=port_models.encoder_frames(cfg, batch))
+        got = [port_models.prefill(cfg, model, batch, MAX_LEN,
+                                   cache=graph.cache)[0]]
         for j in range(steps):
-            got.append(graph.replay(fed[:, j]).clone())
+            got.append(graph.replay(port_models.step_input(
+                cfg, model, fed[:, j])).clone())
         for j, (g, w) in enumerate(zip(got, want)):
             if not torch.equal(g, w):
                 rel = ((g - w).abs().max()
@@ -1299,10 +1361,10 @@ def phase_graph_vs_eager(tag, cfg, model, prompts, new, reqs=None,
                 raise AssertionError(f"[20] {tag}: logits of step {j} differ "
                                      f"between graph and eager ({rel:.3g} of "
                                      f"max(1, max|logit|))")
-        tok = fed[:, -1]
+        tok = port_models.step_input(cfg, model, fed[:, -1])
         replay_ms = _step_times(lambda: graph.replay(tok))
-        eager_ms = _step_times(lambda: lm.decode_step(cfg, model, graph.cache,
-                                                      tok))
+        eager_ms = _step_times(lambda: port_models.decode_step(
+            cfg, model, graph.cache, tok))
     out = {"capture_ms": graph.capture_ms,
            "setup_launches": _nonzero(graph.setup_launches),
            "launches_per_replay": _nonzero(graph.launches),
@@ -1315,7 +1377,7 @@ def phase_graph_vs_eager(tag, cfg, model, prompts, new, reqs=None,
         eng = ServeEngine(cfg, max_len=MAX_LEN, params=model, compile=compile)
         _zero_counts()
         t0 = time.perf_counter()
-        toks = eng.generate(prompts, new)
+        toks = eng.generate(prompts, new, embeds=embeds)
         torch.cuda.synchronize()
         runs[compile] = (toks, _all_counts(), time.perf_counter() - t0)
         del eng
@@ -1581,11 +1643,12 @@ def _device_busy(run, host_ops=True):
     return wall * 1e3, _union(spans) / 1e3, len(spans), host
 
 
-def _attn_bound(b, hq, hkv, sq, sk, d, elem):
-    """Causal flash attention: every input read once, the output written
-    once; 4 d operations per unmasked (query, key) pair and head."""
+def _attn_bound(b, hq, hkv, sq, sk, d, elem, causal=True):
+    """Flash attention: every input read once, the output written once; 4 d
+    operations per unmasked (query, key) pair and head."""
     off = sk - sq
-    pairs = sum(min(sk, i + 1 + off) for i in range(sq))
+    pairs = sum(min(sk, max(0, i + 1 + off)) for i in range(sq)) \
+        if causal else sq * sk
     nbytes = elem * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
     ops = 4 * d * pairs * b * hq
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["bf16"] * 1e3
@@ -1957,13 +2020,14 @@ def _build_full(arch, dev):
     return model
 
 
-def _generate_counted(cfg, model, prompts, new, max_len=MAX_LEN):
+def _generate_counted(cfg, model, prompts, new, max_len=MAX_LEN,
+                      embeds=None):
     """Greedy tokens of one kernel-path ``generate`` and the launch counts
     of exactly that run."""
     eng = ServeEngine(cfg, max_len=max_len, params=model)
     _zero_counts()
     t0 = time.perf_counter()
-    toks = eng.generate(prompts, new)
+    toks = eng.generate(prompts, new, embeds=embeds)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = _all_counts()
@@ -1971,6 +2035,20 @@ def _generate_counted(cfg, model, prompts, new, max_len=MAX_LEN):
             toks.max() >= cfg.vocab_size:
         raise AssertionError(f"{cfg.name} generate: bad tokens {toks}")
     return toks, counts, secs
+
+
+def _probe_inputs(cfg):
+    """What ``throughput_probe`` draws at B = 8, 512 positions: the
+    reference's ``default_rng(0)`` prompts and, for a model with embedding
+    inputs, its standard-normal embeddings (None otherwise)."""
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (BATCH, PROMPT)).astype(
+        np.int32)
+    embeds = None
+    if cfg.embed_inputs:
+        embeds = rng.standard_normal((BATCH, PROMPT, cfg.d_model)).astype(
+            np.float32)
+    return prompts, embeds
 
 
 def phase_mamba_serve(model):
@@ -2013,16 +2091,24 @@ def phase_paths(dev, arch, model, new, bf16_bound, tag, routing=None):
     """Kernel path against plain path on the card: depth cut to 4 in f32
     (logits and greedy tokens), and ``model`` at full depth in bf16, held
     to ``bf16_bound`` or, where it is None, measured only (with the MoE
-    routing of both paths put into the dict ``routing``, if given)."""
+    routing of both paths put into the dict ``routing``, if given).  A
+    model with embedding inputs runs on ``throughput_probe``'s inputs, an
+    enc-dec's encoder cut to 4 layers too."""
     prompts, _ = _lm_workload(model.cfg.vocab_size)
-    small = build_model(dataclasses.replace(
-        get_arch(arch), n_layers=4, param_dtype="float32",
-        compute_dtype="float32"), dev, seed=1)
+    embeds = None
+    if model.cfg.embed_inputs:
+        prompts, embeds = _probe_inputs(model.cfg)
+    over = dict(n_layers=4, param_dtype="float32", compute_dtype="float32")
+    if model.cfg.is_encdec:
+        over["encoder_layers"] = 4
+    small = build_model(dataclasses.replace(get_arch(arch), **over), dev,
+                        seed=1)
     res = {"f32_4layer": _compare_paths(small.cfg, small, prompts, 4, 2e-3,
-                                        f"{arch} f32 4-layer")}
+                                        f"{arch} f32 4-layer",
+                                        embeds=embeds)}
     before = _all_counts()
     toks = [ServeEngine(small.cfg, max_len=MAX_LEN, params=small,
-                        use_kernel=use).generate(prompts, new)
+                        use_kernel=use).generate(prompts, new, embeds=embeds)
             for use in (True, False)]
     _set_counts(before)
     if not np.array_equal(toks[0], toks[1]):
@@ -2033,7 +2119,7 @@ def phase_paths(dev, arch, model, new, bf16_bound, tag, routing=None):
     res[f"bf16_{model.cfg.n_layers}layer"] = _compare_paths(
         model.cfg, model, prompts, 4,
         float("inf") if bf16_bound is None else bf16_bound,
-        f"{arch} bf16 {model.cfg.n_layers}-layer", routing)
+        f"{arch} bf16 {model.cfg.n_layers}-layer", routing, embeds=embeds)
     print(f"[{tag}] {arch} kernel path vs plain path, worst |logit diff| / "
           f"max(1, max|logit|): " + ", ".join(f"{k} {v:.3g}"
                                               for k, v in res.items())
@@ -2087,8 +2173,164 @@ def phase_moe(dev, model):
           f"probability difference; {l0['near_tie']} of {l0['flips']} have "
           f"both below the median difference over the tokens that do not "
           f"flip, {l0['nonflip_diff_median']} (near-tie flips)")
+    l0["parting"] = _layer0_parting(cfg, model,
+                                    _lm_workload(cfg.vocab_size)[0],
+                                    l0.pop("far"), l0.pop("far_probs"))
     return {"generate": counts, "generate_s": secs, "paths": paths,
             "routing": routing, "graph_vs_eager": graph}
+
+
+def _bf16_steps(a, b):
+    """max |a - b| in bf16 rounding steps at the tensors' scale: the step of
+    a bf16 at max(|a|, |b|) over all elements, 2^(e - 7) for a magnitude in
+    [2^e, 2^(e + 1)).  (An element near zero, where a step is tiny, would
+    make an elementwise count meaningless.)"""
+    a, b = a.float(), b.float()
+    mag = max(a.abs().max().item(), b.abs().max().item(), 1e-30)
+    return ((a - b).abs().max() / 2.0 ** (math.floor(math.log2(mag)) - 7)
+            ).item()
+
+
+def _parting_readings(a, b):
+    """|a - b| of one token's tensor read three ways: in bf16 steps at the
+    token's scale (``_bf16_steps``); element by element, the largest count
+    of bf16 steps at each element's own magnitude (an element near zero
+    counts many); and, favouring neither, the largest relative difference
+    over the elements at or above 1% of the token's largest magnitude."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs())
+    diff = (a - b).abs()
+    step = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+    big = mag >= 0.01 * mag.max()
+    return {"scale_steps": _bf16_steps(a, b),
+            "element_steps": (diff / step).max().item(),
+            "rel_over_1pct": (diff[big] / mag[big]).max().item()}
+
+
+def _attention_p_bf16(q, k, v, bk=64):
+    """Causal attention of bf16 q, k, v (B, H, S, D) as the tensor-core
+    flash kernel computes it: f32 scores, running max and sum in f32, P
+    rounded to bf16 before the P.V product, tile by tile of ``bk`` keys
+    (``tests/test_torch_attn.py``'s emulation, on the card)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    dev = q.device
+    kf = k.float().repeat_interleave(hq // hkv, 1)
+    vf = v.float().repeat_interleave(hq // hkv, 1)
+    qf = q.float() * d ** -0.5
+    m = torch.full((b, hq, sq, 1), -1e30, device=dev)
+    l_sum = torch.zeros((b, hq, sq, 1), device=dev)
+    acc = torch.zeros((b, hq, sq, d), device=dev)
+    iq = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+    for k0 in range(0, sk, bk):
+        sc = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
+        ik = torch.arange(k0, min(k0 + bk, sk), device=dev)[None]
+        sc = torch.where(ik <= iq, sc, -torch.inf)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        pr = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        l_sum = l_sum * alpha + pr.sum(-1, keepdim=True)
+        acc = acc * alpha + pr.bfloat16().float() @ vf[:, :, k0:k0 + bk]
+        m = m_new
+    return (acc / l_sum.clamp_min(1e-30)).bfloat16()
+
+
+# layer 0's tensors from the attention on, in the order the layer makes them
+LAYER0_TENSORS = ("attention output", "attention projection", "residual",
+                  "router input", "router logits")
+
+
+def _layer0_parting(cfg, model, prompts, far, far_probs):
+    """Where layer 0's kernel path and plain path part, at the routing
+    flips of MoE layer 0 that are not near ties (``far``: (row, token)
+    pairs; ``far_probs``: both paths' router probabilities there, as
+    recorded).  Layer 0 is recomputed both ways as ``lm._position_block``
+    runs it (the same ops on the same inputs: the recorded probabilities
+    must come out bit for bit), and for each flip every tensor's largest
+    difference between the paths at that token, in bf16 rounding steps at
+    the token's scale of that tensor (``_bf16_steps``), is reported with
+    the first tensor over one step, and read two more ways
+    (``_parting_readings``: element by element, and relative over the
+    elements at or above 1% of the token's largest).  The
+    attention output is also held against ``_attention_p_bf16``, the flash
+    kernel's own arithmetic (P rounded to bf16): the kernel's distance to
+    it and the plain path's."""
+    from repro_torch.models import layers as lay
+    dev = model.device
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    b, s = tokens.shape
+    p = model.layers[0]
+    before = _all_counts()
+    with torch.no_grad():
+        x = model.embed[tokens]
+        h = lay.apply_norm(cfg, p.norm1, x)
+        pos = torch.arange(s, device=dev)[None].expand(b, s)
+        q, k, v = lay._project_qkv(cfg, p.attn, h, h)
+        q = lay.positional_rotate(cfg, q, pos)
+        k = lay.positional_rotate(cfg, k, pos)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        emul = _attention_p_bf16(qt, kt, vt).transpose(1, 2)
+        paths = {}
+        for way, use in (("kernel", True), ("plain", False)):
+            o = kernel_ops.attention(qt, kt, vt, causal=True,
+                                     use_kernel=use).transpose(1, 2)
+            y = o.reshape(b, s, -1) @ p.attn["wo"]
+            x1 = x + y
+            h2 = lay.apply_norm(cfg, p.norm2, x1)
+            paths[way] = dict(zip(LAYER0_TENSORS, (
+                o, y, x1, h2, h2.to(torch.float32) @ p.moe["router"])))
+    _set_counts(before)
+    rows = torch.tensor([r for r, _ in far], dtype=torch.int64, device=dev)
+    cols = torch.tensor([t for _, t in far], dtype=torch.int64, device=dev)
+    exact = all(torch.equal(torch.softmax(
+        paths[way]["router logits"], -1)[rows, cols], want)
+        for way, want in zip(("kernel", "plain"), far_probs))
+    flips = []
+    for (r, t) in far:
+        reads = {name: _parting_readings(paths["kernel"][name][r, t],
+                                         paths["plain"][name][r, t])
+                 for name in LAYER0_TENSORS}
+        steps = {n: x["scale_steps"] for n, x in reads.items()}
+        first = next((n for n in LAYER0_TENSORS if steps[n] > 1), None)
+        flips.append({
+            "row": r, "token": t, "bf16_steps": steps,
+            "element_steps": {n: x["element_steps"] for n, x in reads.items()},
+            "rel_over_1pct": {n: x["rel_over_1pct"] for n, x in reads.items()},
+            "first_over_one": first,
+            "kernel_vs_emulation_steps": _bf16_steps(
+                paths["kernel"]["attention output"][r, t], emul[r, t]),
+            "kernel_equals_emulation": torch.equal(
+                paths["kernel"]["attention output"][r, t], emul[r, t]),
+            "plain_vs_emulation_steps": _bf16_steps(
+                paths["plain"]["attention output"][r, t], emul[r, t])})
+    out = {"recomputed_probs_bit_equal": exact, "flips": flips}
+    print(f"[11] {MOE_ARCH} layer 0 at the {len(far)} flips that are not "
+          f"near ties: recomputed router probabilities bit-equal to the "
+          f"recorded ones: {exact}; at each (row, token), the largest "
+          f"kernel-vs-plain difference in bf16 steps at the token's scale "
+          f"of each tensor ("
+          + ", ".join(LAYER0_TENSORS) + "), the first over one step, and "
+          "the attention output's distance in steps from the flash kernel's "
+          "own arithmetic (P rounded to bf16), kernel (bit-equal?) / plain: "
+          + "; ".join(f"({f['row']}, {f['token']}): "
+                      + " / ".join(f"{f['bf16_steps'][n]:.3g}"
+                                   for n in LAYER0_TENSORS)
+                      + f", first {f['first_over_one']}, "
+                      f"{f['kernel_vs_emulation_steps']:.3g} "
+                      f"({f['kernel_equals_emulation']}) / "
+                      f"{f['plain_vs_emulation_steps']:.3g}"
+                      for f in flips))
+    print(f"[11] {MOE_ARCH} layer 0 at the same flips, the same tensors, "
+          f"read element by element (the largest count of bf16 steps at "
+          f"each element's own magnitude) / as the largest relative "
+          f"difference over the elements at or above 1% of the token's "
+          f"largest: "
+          + "; ".join(f"({f['row']}, {f['token']}): "
+                      + ", ".join(f"{f['element_steps'][n]:.3g} / "
+                                  f"{f['rel_over_1pct'][n]:.3g}"
+                                  for n in LAYER0_TENSORS)
+                      for f in flips))
+    return out
 
 
 def phase_hybrid(dev):
@@ -2140,6 +2382,275 @@ def phase_hybrid(dev):
                       f"greedy tokens equal {r['tokens_equal']:.3f}"
                       for kv, r in out.items()))
     return out
+
+
+# ------------------------------------------------ enc-dec and VLM families
+def _attention_without(q, k, v, causal, lo, hi):
+    """``attention_ref``'s arithmetic (f32, the output in q's dtype) with
+    keys ``[lo, hi)`` masked out: what a flash kernel that skipped that
+    tile of keys would give."""
+    d, sq, sk = q.shape[-1], q.shape[2], k.shape[2]
+    g = q.shape[1] // k.shape[1]
+    kf, vf = (t.float().repeat_interleave(g, 1) for t in (k, v))
+    sc = q.float() @ kf.transpose(-1, -2) / d ** 0.5
+    ik = torch.arange(sk, device=q.device)
+    keep = ((ik < lo) | (ik >= hi))[None]
+    if causal:
+        keep = keep & (ik[None] <= torch.arange(sq, device=q.device)[:, None]
+                       + sk - sq)
+    sc = torch.where(keep, sc, -torch.inf)
+    return (torch.softmax(sc, -1) @ vf).to(q.dtype)
+
+
+def _held_bound(name, want, v):
+    """The largest difference a flash kernel's bf16 output may have from
+    its plain version (f32 arithmetic, one rounding to bf16): two bf16
+    steps at the output's largest value (each side rounds once; a step is
+    at most 2^-7 of the value), and for flash attention twice the
+    tensor-core kernel's rounding of P to bf16 before P.V (at most 2^-9 of
+    each term p v, so at most 2^-9 max|V| after the division by the f32
+    sum of P).  The decode kernel keeps P in f32."""
+    bound = 2.0 ** -6 * want.abs().max().item()
+    if name == "flash_attention":
+        bound += 2.0 ** -8 * v.abs().max().item()
+    return bound
+
+
+class _HeldCalls:
+    """While entered, holds every call the model makes of the flash kernels
+    (``flash_attention``, ``flash_decode``, through ``kernels.ops``)
+    against the plain version on the very same inputs, once per distinct
+    (kernel, operand shapes and dtypes, causal): the served shapes, on the
+    served values.  f32: phase 6's 2e-3.  bf16: phase 6's 5e-2 and
+    ``_held_bound``, at the scale of the call's own output and V.  Each bf16 bound is shown to see
+    a fault: the plain version with keys 64-127 dropped (flash attention
+    over 128 keys or more) and with every row's length one short (flash
+    decode) must miss it.  ``held`` gets {kernel: [{"shapes", "causal",
+    "err", "max_want", "max_v", "bound", "fault_err"}]}.  Run it on an
+    eager step: a captured one would record the plain version too."""
+
+    def __init__(self, held):
+        self.held = held
+        self._orig = {}
+
+    def _hold(self, name, out, args, causal):
+        what = f"[21] {name} {[tuple(a.shape) for a in args[:3]]} " \
+               f"{out.dtype} causal={causal}"
+        q, k, v = args[:3]
+        attn = name == "flash_attention"
+        want = (flash_attn.flash_attention_plain(q, k, v, causal) if attn
+                else decode_attn.flash_decode_plain(*args))
+        fault_err = None
+        if out.dtype == torch.float32:
+            err, bound = _attn_err(out, want, 2e-3, what), 2e-3
+        else:
+            err = _attn_err(out, want, 5e-2, what)        # phase 6's rule
+            bound = _held_bound(name, want, v)
+            if err > bound:
+                raise AssertionError(f"{what}: max err {err} over the bound "
+                                     f"{bound}")
+            fault = None                    # one tile of keys: no fault
+            if not attn:
+                fault = decode_attn.flash_decode_plain(q, k, v, args[3] - 1)
+            elif k.shape[2] >= 128:
+                fault = _attention_without(q, k, v, causal, 64, 128)
+            if fault is not None:
+                fault_err = (fault.float() - want.float()).abs().nan_to_num(
+                    0.0).max().item()
+                if fault_err <= bound:
+                    raise AssertionError(
+                        f"{what}: the bound {bound} would pass the fault "
+                        f"({fault_err}): the check cannot see it")
+        return {"shapes": [list(a.shape) for a in args
+                           if isinstance(a, torch.Tensor)],
+                "causal": causal, "err": err,
+                "max_want": want.abs().max().item(),
+                "max_v": v.abs().max().item(), "bound": bound,
+                "fault_err": fault_err}
+
+    def __enter__(self):
+        for name in ("flash_attention", "flash_decode"):
+            fn = getattr(kernel_ops, name)
+            self._orig[name] = fn
+
+            def held(*args, _fn=fn, _name=name, **kw):
+                out = _fn(*args, **kw)
+                causal = kw.get("causal")
+                key = tuple((tuple(a.shape), str(a.dtype)) for a in args
+                            if isinstance(a, torch.Tensor)) + (causal,)
+                seen = self.held.setdefault(_name, {})
+                if key not in seen:
+                    seen[key] = self._hold(_name, out, args, causal)
+                return out
+            setattr(kernel_ops, name, held)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(kernel_ops, name, fn)
+
+
+def _family_kernel_times(dev):
+    """The two served shapes no earlier path has, in bf16: flash attention
+    at seamless-m4t's encoder, (B, Hq, Hkv, S, D) = (8, 16, 16, 512, 64)
+    non-causal, and flash decode at qwen2-vl's heads (8, 28, 4, MAX_LEN,
+    128, G = 7) with every row at ``DECODE_LENGTH``: µs per launch (CUDA
+    events), device µs (torch.profiler; a decode call's two kernels'
+    union), the plain version's ms, SDPA's on the same call (events and
+    device; never called by the port) and the bound."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(10)
+    out = {}
+    before = _all_counts()
+    enc = get_arch(ENCDEC_ARCH)
+    hq, hkv, d = enc.n_heads, enc.n_kv_heads, enc.hd
+    q = torch.randn(BATCH, PROMPT, hq, d, generator=gen, device=dev)
+    k, v = (torch.randn(BATCH, PROMPT, hkv, d, generator=gen, device=dev)
+            for _ in range(2))
+    args = tuple(t.bfloat16().transpose(1, 2) for t in (q, k, v))
+    bound = _attn_bound(BATCH, hq, hkv, PROMPT, PROMPT, d, 2, causal=False)
+    kern = lambda: flash_attn.flash_attention(*args, causal=False)
+    lib = lambda: F.scaled_dot_product_attention(*args, enable_gqa=True)
+    out["flash_attention"] = dict(
+        shape=[BATCH, hq, hkv, PROMPT, PROMPT, d, "bfloat16", "non-causal"],
+        ms=_events_ms(kern, reps=20, trials=5, warmup=3),
+        dev_us=_device_us(kern, WGMMA_FLASH_KERNEL, reps=20, tries=3),
+        plain_ms=_events_ms(lambda: flash_attn.flash_attention_plain(
+            *args, False), reps=5, trials=3, warmup=1),
+        lib_ms=_events_ms(lib, reps=20, trials=5, warmup=3),
+        lib_dev_us=_device_total_us(
+            lib, f"[21] SDPA at {ENCDEC_ARCH}'s encoder"),
+        bound_ms=bound[0], bound_by=bound[1])
+    vlm = get_arch(VLM_ARCH)
+    hq, hkv, d = vlm.n_heads, vlm.n_kv_heads, vlm.hd
+    lengths = torch.full((BATCH,), DECODE_LENGTH, dtype=torch.int32,
+                         device=dev)
+    q = torch.randn(BATCH, hq, d, generator=gen, device=dev).bfloat16()
+    kt, vt = (torch.randn(BATCH, MAX_LEN, hkv, d, generator=gen, device=dev)
+              .bfloat16().transpose(1, 2) for _ in range(2))
+    mask = (torch.arange(MAX_LEN, device=dev)[None]
+            < lengths[:, None].long())[:, None, None, :]
+    bound = _decode_bound(BATCH, hq, hkv, MAX_LEN, d, lengths, 2, 2, False)
+    kern = lambda: decode_attn.flash_decode(q, kt, vt, lengths)
+    lib = lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
+    out["flash_decode"] = dict(
+        shape=[BATCH, hq, hkv, MAX_LEN, d, "bfloat16", "lengths",
+               DECODE_LENGTH],
+        ms=_events_ms(kern, reps=20, trials=5, warmup=3),
+        dev_us=_device_total_us(kern, f"[21] flash_decode at {VLM_ARCH}'s "
+                                      f"heads"),
+        plain_ms=_events_ms(lambda: decode_attn.flash_decode_plain(
+            q, kt, vt, lengths), reps=5, trials=3, warmup=1),
+        lib_ms=_events_ms(lib, reps=20, trials=5, warmup=3),
+        lib_dev_us=_device_total_us(lib, f"[21] SDPA at {VLM_ARCH}'s "
+                                         f"decode heads"),
+        bound_ms=bound[0], bound_by=bound[1])
+    _set_counts(before)
+    for name, t in out.items():
+        print(f"[21] {name} at {t['shape']}: {t['ms'] * 1e3:.2f} us per "
+              f"launch (events), device "
+              + ("not measured" if t["dev_us"] is None
+                 else f"{t['dev_us']:.2f} us")
+              + f"; bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); "
+              f"plain {t['plain_ms']:.3f} ms; SDPA {t['lib_ms'] * 1e3:.2f} "
+              f"us per call, device "
+              + ("not measured" if t["lib_dev_us"] is None
+                 else f"{t['lib_dev_us']:.2f} us"))
+    return out
+
+
+def phase_family(dev, arch):
+    """An enc-dec (seamless-m4t-large-v2) or VLM (qwen2-vl-7b) model at full
+    width and depth through ``ServeEngine``, on the inputs
+    ``throughput_probe`` draws (B = 8, 512 prompt tokens and 512
+    embeddings): one generate's launch counts held exactly (flash attention
+    once per self- and cross-attention layer in prefill, the encoder's
+    included; flash decode once per self- and cross-attention layer and
+    step); seamless again over 16 decoder tokens (cross-attention with Sq <
+    Sk); every flash call of an eager generate held against its plain
+    version on its own inputs (``_HeldCalls``); phase 20's graph against
+    eager; ``throughput_probe`` in turns; and phase 10's kernel path against
+    plain path (4 layers in f32 at 2e-3, full depth in bf16 at
+    ``BF16_LOGIT_BOUND``)."""
+    model = _build_full(arch, dev)
+    cfg = model.cfg
+    n = cfg.n_layers
+    is_encdec = cfg.is_encdec
+    prompts, embeds = _probe_inputs(cfg)
+    want = {"flash_attention": n + (cfg.encoder_layers + n if is_encdec
+                                    else 0),
+            "flash_decode": NEW * n * (2 if is_encdec else 1),
+            "flash_decode_int8": 0, "selective_scan": 0, "crossbar_mxv": 0,
+            "crossbar_mxv_int8": 0, "crossbar_conv2d": 0}
+    out = {}
+    runs = [("generate", prompts)]
+    if is_encdec:
+        runs.append((f"generate_{ENCDEC_SHORT}_over_{PROMPT}",
+                     prompts[:, :ENCDEC_SHORT]))
+    for key, p in runs:
+        _, counts, secs = _generate_counted(cfg, model, p, NEW,
+                                            embeds=embeds)
+        _expect(counts, want, f"[21] {arch} {key}")
+        out[key] = {"launches": _nonzero(counts), "s": secs}
+        print(f"[21] {arch} {key}: B={BATCH}, prompt {p.shape[1]} tokens "
+              f"over {embeds.shape[1]} embeddings, {NEW} new, graph step, "
+              f"in {secs:.2f} s; launches {_nonzero(counts)} (exact)")
+    held = {}
+    eng = ServeEngine(cfg, max_len=MAX_LEN, params=model, compile=False)
+    before = _all_counts()
+    with _HeldCalls(held):
+        for _, p in runs:
+            eng.generate(p, 2, embeds=embeds)
+    _set_counts(before)
+    del eng
+    out["held"] = {k: list(v.values()) for k, v in held.items()}
+    print(f"[21] {arch}: every flash call of an eager generate against its "
+          f"plain version on its own inputs, once per served shape: max abs "
+          f"err, max|want|, max|V|, bound, and the fault's max abs err "
+          f"(keys 64-127 dropped / lengths one short): "
+          + "; ".join(f"{k} {h['shapes']} causal={h['causal']}: "
+                      f"{h['err']:.4g}, {h['max_want']:.4g}, "
+                      f"{h['max_v']:.4g}, {h['bound']:.4g}, "
+                      + ("-" if h["fault_err"] is None
+                         else f"{h['fault_err']:.4g}")
+                      for k, v in out["held"].items() for h in v))
+    out["graph_vs_eager"] = phase_graph_vs_eager(arch, cfg, model, prompts,
+                                                 NEW, embeds=embeds)
+    out["probes"] = [{"graph": c, **p} for c, p in _probe_turns(cfg, model)]
+    _print_probes(21, arch, [(p["graph"], p) for p in out["probes"]])
+    out["paths"] = phase_paths(dev, arch, model, NEW, BF16_LOGIT_BOUND, 21)
+    del model
+    _free()
+    return out
+
+
+def family_kernel_cells(kernels, families, times):
+    """Phase 21 in the ``kernels`` line: on the flash attention and flash
+    decode rows, each family generate's launches and the new served shape's
+    times."""
+    for row in kernels:
+        name = row["name"]
+        if name not in times:
+            continue
+        row["launches_by_path"] = {
+            f"{arch} {run}": out[run]["launches"].get(name, 0)
+            for arch, out in families.items() for run in out
+            if run.startswith("generate")}
+        t = times[name]
+        row["family_shape"] = {
+            "shape": t["shape"], "ms": t["ms"], "device_ms": _ms(t["dev_us"]),
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["lib_ms"],
+            "library_device_ms": _ms(t["lib_dev_us"])}
+        row["held_by_family"] = {arch: out["held"].get(name)
+                                 for arch, out in families.items()}
+        if name == "flash_attention":           # the paths' records, once
+            row["families"] = {
+                arch: {"probes": out["probes"],
+                       "graph_vs_eager": out["graph_vs_eager"],
+                       "logit_diff_kernel_vs_plain": out["paths"]}
+                for arch, out in families.items()}
 
 
 def _scan_bound(b, l, d, n, elem):
@@ -2737,6 +3248,16 @@ def phase_tuned(dev):
     return out
 
 
+def _timed(fn, *args, **kw):
+    """``fn(*args, **kw)``, with its wall seconds printed (a model's build
+    and free included where ``fn`` does them)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    label = " ".join([fn.__name__] + [a for a in args if isinstance(a, str)])
+    print(f"[wall] {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and "
@@ -2748,13 +3269,15 @@ def main() -> int:
     torch.cuda.set_device(dev)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    phase_build()
-    errs = phase_kernels(dev)
+    t_start = time.perf_counter()
+    _timed(phase_build)
+    errs = _timed(phase_kernels, dev)
     paths = {
-        "main": phase_serve("main", build_resnet_block_chain(2, c=28, img=16),
-                            None, _float_tol),
-        "dac": phase_serve("dac", build_lenet_like(img=28),
-                           {"device": dev, "dac": True}, _dac_tol),
+        "main": _timed(phase_serve, "main",
+                       build_resnet_block_chain(2, c=28, img=16), None,
+                       _float_tol),
+        "dac": _timed(phase_serve, "dac", build_lenet_like(img=28),
+                      {"device": dev, "dac": True}, _dac_tol),
     }
     main_calls, main_l = paths["main"]["calls"], paths["main"]["launches"]
     if not 0 < main_l["crossbar_mxv"] == main_calls:
@@ -2766,8 +3289,8 @@ def main() -> int:
     if not 0 < dac_l["crossbar_mxv_int8"] == paths["dac"]["calls"]:
         raise AssertionError(f"DAC path: {dac_l['crossbar_mxv_int8']} int8 "
                              f"launches for {paths['dac']['calls']} calls")
-    kernels = phase_times(dev, paths, errs)
-    attn_errs = phase_attention_kernels(dev)
+    kernels = _timed(phase_times, dev, paths, errs)
+    attn_errs = _timed(phase_attention_kernels, dev)
     t0 = time.perf_counter()
     model = build_model(get_arch(LM_ARCH), dev, seed=0)
     torch.cuda.synchronize()
@@ -2775,44 +3298,49 @@ def main() -> int:
           f"parameters initialised on the card in "
           f"{time.perf_counter() - t0:.1f} s")
     shapes = _ShapeLog()
-    serve = phase_lm_serve(model, shapes)
+    serve = _timed(phase_lm_serve, model, shapes)
     prompts, req_prompts = _lm_workload(model.cfg.vocab_size)
-    graph_runs = {kv: phase_graph_vs_eager(
-        f"{LM_ARCH} kv={kv}", _lm_cfg(kv), model, prompts, NEW,
-        req_prompts if kv == "compute" else None)
+    graph_runs = {kv: _timed(
+        phase_graph_vs_eager, f"{LM_ARCH} kv={kv}", _lm_cfg(kv), model,
+        prompts, NEW, req_prompts if kv == "compute" else None)
         for kv in ("compute", "int8")}
-    lm_paths = phase_lm_paths(dev, model)
-    times = phase_lm_times(dev, model, serve, shapes)
+    lm_paths = _timed(phase_lm_paths, dev, model)
+    times = _timed(phase_lm_times, dev, model, serve, shapes)
     kernels += attention_kernel_rows(attn_errs, serve, times, lm_paths,
                                      graph_runs)
     del model, shapes
     _free()
-    scan_errs = phase_scan_kernel(dev)
-    fm = _build_full(MAMBA_ARCH, dev)
-    fm_serve = phase_mamba_serve(fm)
+    scan_errs = _timed(phase_scan_kernel, dev)
+    fm = _timed(_build_full, MAMBA_ARCH, dev)
+    fm_serve = _timed(phase_mamba_serve, fm)
     fm_prompts, fm_reqs = _lm_workload(fm.cfg.vocab_size)
-    fm_serve["graph_vs_eager"] = phase_graph_vs_eager(
-        MAMBA_ARCH, fm.cfg, fm, fm_prompts, NEW, fm_reqs)
-    fm_paths = phase_paths(dev, MAMBA_ARCH, fm, NEW, MAMBA_BF16_LOGIT_BOUND,
-                           10)
-    fm_times = phase_mamba_times(dev, fm)
+    fm_serve["graph_vs_eager"] = _timed(
+        phase_graph_vs_eager, MAMBA_ARCH, fm.cfg, fm, fm_prompts, NEW,
+        fm_reqs)
+    fm_paths = _timed(phase_paths, dev, MAMBA_ARCH, fm, NEW,
+                      MAMBA_BF16_LOGIT_BOUND, 10)
+    fm_times = _timed(phase_mamba_times, dev, fm)
     del fm
     _free()
-    qm = _build_full(MOE_ARCH, dev)
-    moe = phase_moe(dev, qm)
+    qm = _timed(_build_full, MOE_ARCH, dev)
+    moe = _timed(phase_moe, dev, qm)
     del qm
     _free()
-    hybrid = phase_hybrid(dev)
+    hybrid = _timed(phase_hybrid, dev)
     kernels.append(scan_kernel_row(scan_errs, fm_serve, fm_paths, fm_times,
                                    moe, hybrid))
-    conv_errs = phase_conv_kernel(dev)
-    qs = phase_quickstart()
-    faults = phase_fault_serve(dev)
-    analyze = phase_analyze()
-    conv_times = phase_conv_times(dev)
+    families = {arch: _timed(phase_family, dev, arch)
+                for arch in (VLM_ARCH, ENCDEC_ARCH)}
+    family_kernel_cells(kernels, families,
+                        _timed(_family_kernel_times, dev))
+    conv_errs = _timed(phase_conv_kernel, dev)
+    qs = _timed(phase_quickstart)
+    faults = _timed(phase_fault_serve, dev)
+    analyze = _timed(phase_analyze)
+    conv_times = _timed(phase_conv_times, dev)
     kernels.append(conv_kernel_row(conv_errs, qs, conv_times, faults,
                                    analyze))
-    tuned = phase_tuned(dev)
+    tuned = _timed(phase_tuned, dev)
     for row in kernels:              # the crossbar rows: launches by path
         kind = {"crossbar_mxv": "float",
                 "crossbar_mxv_int8": "dac"}.get(row["name"])
@@ -2820,6 +3348,7 @@ def main() -> int:
             row["launches_by_path"] = {
                 f"tuned_{name}": tuned[name][kind]
                 for name in TUNED if kind in tuned[name]}
+    print(f"[wall] every phase: {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)

@@ -2,7 +2,9 @@
 
 Port of ``repro.launch.serve``: batched prefill + decode over the
 ``ServeEngine``, on the card unless ``--device cpu``; prints the reference's
-line.  ``--reduced`` takes the arch's smoke config.
+line.  ``--reduced`` takes the arch's smoke config.  Every arch runs: a
+model with embedding inputs (qwen2-vl, seamless-m4t) gets the reference's
+standard-normal embeddings from ``ServeEngine.throughput_probe``.
 """
 
 from __future__ import annotations

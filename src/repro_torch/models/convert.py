@@ -6,9 +6,14 @@ on the caller's side; nothing here imports JAX): ``"embed"``,
 ``"positions"`` (per period position, leaves stacked over periods as
 (P, ...)), ``"final_norm"`` and, for untied embeddings, ``"lm_head"``.  A
 position holds ``norm1``, ``norm2``, ``attn`` or ``mamba``, and ``mlp`` or
-``moe`` (whose ``shared`` MLP is a nested group).  It returns the port's
-:class:`models.lm.LM` with every leaf copied exactly (bf16 leaves through
-their bits).  ``params_to_reference`` is its inverse.
+``moe`` (whose ``shared`` MLP is a nested group).  An enc-dec's tree
+(``repro.models.encdec.init_encdec``) holds ``"embed"``, ``"encoder"``
+(``norm1``, ``attn``, ``norm2``, ``mlp``, leaves stacked over encoder
+layers), ``"enc_final_norm"``, ``"decoder"`` (``norm1``, ``attn``,
+``norm3``, ``cross``, ``norm2``, ``mlp``, stacked over decoder layers) and
+``"final_norm"``.  It returns the port's :class:`models.lm.LM` or
+:class:`models.encdec.EncDec` with every leaf copied exactly (bf16 leaves
+through their bits).  ``params_to_reference`` is its inverse.
 """
 
 from __future__ import annotations
@@ -19,8 +24,10 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from . import build_model
-from .lm import LM, n_periods, period_structure
+from . import Model, build_model
+from .encdec import EncDec
+from .lm import n_periods, period_structure
+
 
 def _to_torch(arr) -> torch.Tensor:
     arr = np.array(arr)           # a writable copy: JAX's are read-only
@@ -54,11 +61,31 @@ def _same_keys(got, want, what: str) -> None:
                          f"keys {sorted(want)}")
 
 
+def _copy_norm(dst, src, what: str) -> None:
+    _same_keys(src, dst, what)
+    for name, leaf in src.items():
+        _copy(dst[name], leaf, f"{what}.{name}")
+
+
 def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
-                          device="cuda") -> LM:
+                          device="cuda") -> Model:
     """The port's model of ``cfg`` on ``device`` holding ``tree``'s
     weights."""
     model = build_model(cfg, device)
+    if isinstance(model, EncDec):
+        _same_keys(tree, {"embed", "encoder", "enc_final_norm", "decoder",
+                          "final_norm"}, "params")
+        _copy(model.embed, tree["embed"], "embed")
+        for name in ("enc_final_norm", "final_norm"):
+            _copy_norm(getattr(model, name), tree[name], name)
+        for stack in ("encoder", "decoder"):
+            blocks = getattr(model, stack)
+            _same_keys(tree[stack], blocks[0].groups(), stack)
+            for i, block in enumerate(blocks):
+                for group in block.groups():
+                    _copy_group(getattr(block, group), tree[stack][group], i,
+                                f"{stack}.{group}")
+        return model
     struct = period_structure(cfg)
     want = {"embed", "positions", "final_norm"} | (
         set() if cfg.tie_embeddings else {"lm_head"})
@@ -66,9 +93,7 @@ def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
     _copy(model.embed, tree["embed"], "embed")
     if not cfg.tie_embeddings:
         _copy(model.lm_head, tree["lm_head"], "lm_head")
-    _same_keys(tree["final_norm"], model.final_norm, "final_norm")
-    for name, leaf in tree["final_norm"].items():
-        _copy(model.final_norm[name], leaf, f"final_norm.{name}")
+    _copy_norm(model.final_norm, tree["final_norm"], "final_norm")
     if len(tree["positions"]) != len(struct):
         raise ValueError(f"{len(tree['positions'])} period positions, the "
                          f"config has {len(struct)}")
@@ -84,8 +109,8 @@ def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
 
 
 def _copy_group(dst, src: Dict[str, Any], per: int, what: str) -> None:
-    """Period ``per`` of the stacked leaves ``src`` into ``dst``, a
-    (possibly nested) ``ParameterDict``."""
+    """Period (or layer) ``per`` of the stacked leaves ``src`` into ``dst``,
+    a (possibly nested) ``ParameterDict``."""
     _same_keys(src, dst, what)
     for name, leaf in src.items():
         if isinstance(leaf, dict):
@@ -102,8 +127,22 @@ def _stack_group(groups) -> Dict[str, Any]:
             for name in groups[0]}
 
 
-def params_to_reference(model: LM) -> Dict[str, Any]:
+def _norm_tree(norm) -> Dict[str, Any]:
+    return {k: _to_numpy(v) for k, v in norm.items()}
+
+
+def params_to_reference(model: Model) -> Dict[str, Any]:
     """The reference's pytree layout of ``model``'s weights, as numpy."""
+    if isinstance(model, EncDec):
+        tree = {"embed": _to_numpy(model.embed),
+                "enc_final_norm": _norm_tree(model.enc_final_norm),
+                "final_norm": _norm_tree(model.final_norm)}
+        for stack in ("encoder", "decoder"):
+            blocks = getattr(model, stack)
+            tree[stack] = {group: _stack_group([getattr(b, group)
+                                                for b in blocks])
+                           for group in blocks[0].groups()}
+        return tree
     cfg = model.cfg
     struct = period_structure(cfg)
     positions = []
@@ -114,8 +153,7 @@ def params_to_reference(model: LM) -> Dict[str, Any]:
             group: _stack_group([getattr(b, group) for b in blocks])
             for group in blocks[0].groups()})
     tree = {"embed": _to_numpy(model.embed), "positions": positions,
-            "final_norm": {k: _to_numpy(v)
-                           for k, v in model.final_norm.items()}}
+            "final_norm": _norm_tree(model.final_norm)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = _to_numpy(model.lm_head)
     return tree

@@ -1,9 +1,10 @@
-"""Model building blocks for decoders, in PyTorch: norms, RoPE, GQA
+"""Model building blocks, in PyTorch: norms, RoPE and M-RoPE, GQA
 attention through the port's flash kernels, cached decode over a float or
-int8 KV cache, SwiGLU/GeGLU MLPs, capacity-based top-k MoE, and the Mamba-1
-block with its selective scan through the port's scan kernel.
+int8 KV cache, cross-attention over an encoder's K/V, SwiGLU/GeGLU MLPs,
+capacity-based top-k MoE, and the Mamba-1 block with its selective scan
+through the port's scan kernel.
 
-Port of ``repro.models.layers`` for decoder-only models.  Functions keep the
+Port of ``repro.models.layers``.  Functions keep the
 reference's names and ``(cfg, p, x, ...) -> y`` form, with ``p`` a mapping
 of tensors (an ``nn.ParameterDict`` of :class:`models.lm.LM`).  They round
 to the compute dtype where the reference does: norms and RoPE compute in f32
@@ -15,8 +16,7 @@ they never act: the sharding constraints (``_constrain``, ``_rope_hd_pin``,
 ``_attn_constraints``, ``constrain_residual``) and
 ``_seq_parallel_attention``, ``_constrain_moe_groups`` (it pins the MoE
 dispatch groups' sharding only); ``_chunked_attention`` only bounds memory,
-and the kernel computes the whole causal attention in one call.  M-RoPE and
-cross-attention wait for their slice (ROADMAP Queue 1 item 8).
+and the kernel computes the whole causal attention in one call.
 
 **The decode cache is updated in place.**  ``attention_decode`` writes the
 new K/V (or int8 codes and scales) at position ``length`` of the cache
@@ -102,16 +102,52 @@ def apply_rope(x, pos, theta: float):
                      dim=-1).to(x.dtype)
 
 
+def _mrope_bands(sections, n: int):
+    """How many of the ``n`` frequency bands each position stream drives,
+    in order, as the reference's ``jnp.repeat(arange(3), sections,
+    total_repeat_length=n)`` gives them: stream i starts at the sum of the
+    sections before it (cut at ``n``) and runs to the next stream's start,
+    the last one to ``n``."""
+    starts = [0]
+    for c in sections[:-1]:
+        starts.append(starts[-1] + int(c))
+    ends = [min(s, n) for s in starts[1:]] + [n]
+    return [e - min(s, n) for s, e in zip(starts, ends)]
+
+
+def apply_mrope(x, pos3, theta: float, sections):
+    """Qwen2-VL M-RoPE: the rotary frequency bands split across the (t, h,
+    w) position streams.  ``pos3`` is (3, ..., S); ``sections`` gives each
+    stream's number of bands (:func:`_mrope_bands`).  The bands' positions
+    are put together by slices, with no index tensor, so the step copies
+    nothing from the host and can be captured."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # (D/2,)
+    pos3 = pos3.to(torch.float32)
+    pos = torch.cat([pos3[i][..., None].expand(*pos3.shape[1:], c)
+                     for i, c in enumerate(_mrope_bands(sections, hd // 2))
+                     if c], dim=-1)                         # (..., S, D/2)
+    ang = pos * freqs
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
 def positional_rotate(cfg: ArchConfig, x, pos):
-    """RoPE.  pos: (B, S).  M-RoPE (``cfg.mrope_sections``) is not ported."""
+    """RoPE, or M-RoPE where ``cfg.mrope_sections`` is set.  pos: (B, S),
+    or (3, B, S) for M-RoPE; a (B, S) position drives all three streams
+    (text only: t = h = w)."""
     if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue 1 "
-                                  "item 8)")
+        if pos.dim() == 2:
+            pos = pos[None].expand((3,) + tuple(pos.shape))
+        return apply_mrope(x, pos, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, pos, cfg.rope_theta)
 
 
 # ----------------------------------------------------------------- attention
-def init_attention(cfg: ArchConfig, gen: torch.Generator) -> dict:
+def init_attention(cfg: ArchConfig, gen: torch.Generator,
+                   cross: bool = False) -> dict:
     d, hd = cfg.d_model, cfg.hd
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     dt = _dtype(cfg.param_dtype)
@@ -122,7 +158,7 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator) -> dict:
         "wv": dense_init(gen, (d, hkv * hd), 0, dt),
         "wo": dense_init(gen, (hq * hd, d), 0, dt),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:                      # as the reference
         p["bq"] = torch.zeros((hq * hd,), dtype=dt, device=dev)
         p["bk"] = torch.zeros((hkv * hd,), dtype=dt, device=dev)
         p["bv"] = torch.zeros((hkv * hd,), dtype=dt, device=dev)
@@ -169,6 +205,46 @@ def attention(cfg: ArchConfig, p: Params, x, pos, causal: bool = True,
     if kv_out:
         return y, (k, v)
     return y
+
+
+def cross_kv(cfg: ArchConfig, p: Params, enc_out):
+    """The encoder's K/V of a cross-attention block: enc_out (B, S_enc, d)
+    -> (k, v), each (B, S_enc, Hkv, D), no RoPE."""
+    b, se, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    k = (enc_out @ p["wk"]).reshape(b, se, hkv, hd)
+    v = (enc_out @ p["wv"]).reshape(b, se, hkv, hd)
+    if cfg.qk_norm:
+        k = rmsnorm(k, p["k_norm"])
+    return k, v
+
+
+def cross_attention(cfg: ArchConfig, p: Params, x, kv,
+                    use_kernel: bool = True):
+    """Decoder cross-attention over the encoder's K/V ``kv`` (each (B,
+    S_enc, Hkv, D)), every position seen, no RoPE, scale 1/sqrt(D).  x (B,
+    Sq, d) -> (B, Sq, d).  Sq > 1 (prefill) is one non-causal
+    ``ops.attention`` call (flash attention with Sk = S_enc); Sq = 1 (a
+    decode step) is one ``ops.decode_attention`` call with every row's
+    length S_enc (the split-KV decode)."""
+    b, s, _ = x.shape
+    hq, hd = cfg.n_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+    k, v = kv
+    if s == 1:
+        # the lengths made on the device (a fill), not copied from the host
+        length = torch.full((b,), k.shape[1], dtype=torch.int32,
+                            device=x.device)
+        o = ops.decode_attention(q.reshape(b, hq, hd), k.transpose(1, 2),
+                                 v.transpose(1, 2), length,
+                                 use_kernel=use_kernel)
+    else:
+        o = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=False,
+                          use_kernel=use_kernel).transpose(1, 2)
+    return o.reshape(b, s, hq * hd).to(x.dtype) @ p["wo"]
 
 
 # ------------------------------------------------------ int8 KV quantization

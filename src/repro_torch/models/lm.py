@@ -28,10 +28,15 @@ unembedding ``W`` (the tied embedding of llama3.2-3b: 128,256 x 3,072) the
 model keeps one f32 copy (1.58 GB there) instead of converting it at every
 step; :meth:`LM.unembed_f32` rebuilds it when ``W`` changes.
 
+A model with ``cfg.embed_inputs`` (the VLM family, qwen2-vl) prefills from
+embeddings (B, S, d) instead of token ids, cast to the compute dtype, and
+its :func:`decode_step` takes (B,) token ids or (B, d) embeddings, as the
+reference's.  M-RoPE (``cfg.mrope_sections``) rotates through
+``layers.positional_rotate``.
+
 Not ported: training (``lm_loss``, ``chunked_ce_loss``, ROADMAP Queue 1
 item 9) and the sequence-parallel MoE branch of ``_position_block``, which
-needs a model axis above 1 (Queue 1 item 10); enc-dec, embedding inputs and
-M-RoPE are refused by :func:`models.build_model`.
+needs a model axis above 1 (Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -113,7 +118,32 @@ class Block(nn.Module):
                 "moe" if self.spec["ffn"] == "moe" else "mlp")
 
 
-class LM(nn.Module):
+class F32Unembedding:
+    """The f32 unembedding of a model whose :meth:`unembed_weight` (V, d)
+    may be bf16: one f32 copy, kept until the matrix's data or version
+    changes, instead of a conversion at every step."""
+
+    _unembed = None
+    _unembed_key = None
+
+    def unembed_weight(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def unembed_f32(self) -> torch.Tensor:
+        """The unembedding matrix (V, d) in f32: itself when it is f32, else
+        a copy kept until the matrix's data or version changes."""
+        w = self.unembed_weight()
+        if w.dtype == torch.float32:
+            return w
+        key = (w.data_ptr(), w._version)
+        if key != self._unembed_key:
+            self._unembed = None                 # free the old copy first
+            self._unembed = w.detach().to(torch.float32)
+            self._unembed_key = key
+        return self._unembed
+
+
+class LM(F32Unembedding, nn.Module):
     """An LM's parameters on one device, initialised from ``seed`` by a
     ``torch.Generator`` on that device.  The same seed gives other numbers
     than the reference's ``jax.random`` init: carry the reference's weights
@@ -139,25 +169,13 @@ class LM(nn.Module):
             self.lm_head = nn.Parameter(
                 (torch.randn(shape, generator=gen, device=dev) * 0.02
                  ).to(dt), requires_grad=False)
-        self._unembed = None
-        self._unembed_key = None
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
-    def unembed_f32(self) -> torch.Tensor:
-        """The unembedding matrix (V, d) in f32: itself when it is f32, else
-        a copy kept until the matrix's data or version changes."""
-        w = unembed_matrix(self.cfg, self)
-        if w.dtype == torch.float32:
-            return w
-        key = (w.data_ptr(), w._version)
-        if key != self._unembed_key:
-            self._unembed = None                 # free the old copy first
-            self._unembed = w.detach().to(torch.float32)
-            self._unembed_key = key
-        return self._unembed
+    def unembed_weight(self) -> torch.Tensor:
+        return unembed_matrix(self.cfg, self)
 
     def init_cache(self, batch: int, max_len: int) -> Dict:
         return init_cache(self.cfg, batch, max_len, self.device)
@@ -240,6 +258,11 @@ def backbone(cfg: ArchConfig, model: LM, x, pos, collect_cache: bool = False,
 
 
 def embed_tokens(cfg: ArchConfig, model: LM, tokens):
+    """Token ids (B, S) through the embedding table; with
+    ``cfg.embed_inputs`` the input is already (B, S, d) embeddings, cast to
+    the compute dtype."""
+    if cfg.embed_inputs:
+        return tokens.to(L._dtype(cfg.compute_dtype))
     return model.embed[tokens]
 
 
@@ -318,7 +341,8 @@ def _check_cache(cfg: ArchConfig, cache: Dict, batch: int,
 
 def decode_step(cfg: ArchConfig, model: LM, cache: Dict, tokens,
                 use_kernel: bool = True):
-    """One token for every sequence.  tokens (B,) integer.
+    """One token for every sequence.  tokens (B,) integer or, with
+    ``cfg.embed_inputs``, (B, d) embeddings (cast to the compute dtype).
 
     Updates ``cache`` in place, ``cache["length"]`` too (the same tensor,
     advanced by one after the last layer), and returns (logits (B, V) f32,
@@ -330,7 +354,10 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Dict, tokens,
     as the reference does, so its capacity couples the rows."""
     struct = period_structure(cfg)
     length = cache["length"]
-    x = model.embed[tokens][:, None]                    # (B, 1, d)
+    if cfg.embed_inputs and tokens.dim() == 2:
+        x = tokens[:, None].to(L._dtype(cfg.compute_dtype))
+    else:
+        x = model.embed[tokens][:, None]                # (B, 1, d)
     quant = cfg.kv_dtype == "int8"
     # positions outer, periods inner: the reference's loop order
     for pos_i, spec in enumerate(struct):
@@ -367,8 +394,8 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Dict, tokens,
 
 def prefill(cfg: ArchConfig, model: LM, tokens, max_len: int,
             use_kernel: bool = True, cache: Optional[Dict] = None):
-    """Process a full prompt; return (last_logits (B, V) f32, filled
-    cache).
+    """Process a full prompt, tokens (B, S) or, with ``cfg.embed_inputs``,
+    embeddings (B, S, d); return (last_logits (B, V) f32, filled cache).
 
     Given ``cache`` (B rows of ``max_len`` positions, as :func:`init_cache`
     makes them), the prompt's state is written into it, in place, instead

@@ -1,5 +1,6 @@
-"""LM serving: port of ``repro.serve`` (a batched engine and a continuous
-batcher over the dense LMs of ``repro_torch.models``)."""
+"""LM serving: port of ``repro.serve`` (a batched engine over every model
+family of ``repro_torch.models``, and a continuous batcher over the
+token-prompt families)."""
 
 from ..runtime.runtime import Request
 from .engine import ServeEngine

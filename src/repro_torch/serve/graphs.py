@@ -1,4 +1,4 @@
-"""The compiled serving step: ``lm.decode_step`` captured once as a CUDA
+"""The compiled serving step: a model's decode step captured once as a CUDA
 graph and replayed.
 
 Port of the reference's ``jax.jit`` of the serving step:
@@ -17,12 +17,14 @@ eagerly (on an H100 it keeps the card busy on its own: PERF.md).
 
 A graph replays the kernels it recorded on the buffers it recorded, so:
 
-* the graph owns its static buffers: the token buffer (B,) int64, the
-  decode cache (``lm.init_cache``'s, on which the step writes K/V and
-  Mamba states and advances ``length`` in place) and the logits (B, V) f32
-  that every replay overwrites.  Callers fill the cache (``lm.prefill(...,
-  cache=graph.cache)``, a batcher's slot writes) and copy the step's
-  tokens in through :meth:`DecodeGraph.replay`;
+* the graph owns its static buffers: the step's input ((B,) int64 token
+  ids, or (B, d) embeddings for the VLM family: ``models.step_input``),
+  the decode cache (``models.init_cache``'s, on which the step writes K/V
+  and Mamba states and advances ``length`` in place; an enc-dec's holds
+  the cross K/V of S_enc frames, so its graph is made for one S_enc) and
+  the logits (B, V) f32 that every replay overwrites.  Callers fill the
+  cache (``models.prefill(..., cache=graph.cache)``, a batcher's slot
+  writes) and copy the step's input in through :meth:`DecodeGraph.replay`;
 * the warm-up (a few eager steps on a side stream, as PyTorch's recipe for
   CUDA graphs asks: the kernel library is built and loaded, the model's
   f32 unembedding made, cuBLAS's workspace allocated) and the capture run
@@ -61,7 +63,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels import add_launches, launches_apart
-from ..models import LM, lm
+from ..models import (LM, Model, decode_step, init_cache, lm,
+                      reset_cache, step_input)
 
 # eager steps before the capture
 WARMUP_STEPS = 2
@@ -100,7 +103,7 @@ class _CapturedStep:
     :meth:`_step`; :meth:`_capture` warms up, captures (into ``pool``, a
     graph's memory pool, or a private one) and resets the cache."""
 
-    def _capture(self, model: LM, pool: Optional[Any] = None) -> None:
+    def _capture(self, model: Model, pool: Optional[Any] = None) -> None:
         dev = model.device
         self.graph = torch.cuda.CUDAGraph()
         self.launches: Dict[str, int] = {}
@@ -121,7 +124,7 @@ class _CapturedStep:
                 self.logits = self._step()
             for name, n in self.launches.items():
                 self.setup_launches[name] += n
-            lm.reset_cache(self.cache)
+            reset_cache(self.cfg, self.cache)
         torch.cuda.synchronize(dev)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
@@ -137,7 +140,7 @@ class _CapturedStep:
         return self.logits
 
 
-def _check_cuda(model: LM) -> torch.device:
+def _check_cuda(model: Model) -> torch.device:
     if model.device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device, the model is "
                          f"on {model.device}")
@@ -145,27 +148,31 @@ def _check_cuda(model: LM) -> torch.device:
 
 
 class DecodeGraph(_CapturedStep):
-    """``lm.decode_step`` of ``model`` for ``batch`` rows of ``max_len``
-    positions, captured once as a CUDA graph over a cache the graph owns.
+    """``models.decode_step`` of ``model`` for ``batch`` rows of ``max_len``
+    positions (over ``enc_len`` encoder frames for an enc-dec), captured
+    once as a CUDA graph over a cache the graph owns.
 
     Attributes: ``cache`` (the static decode cache, reset after capture),
-    ``tokens`` (B,) and ``logits`` (B, V) (the static input and output),
-    ``launches`` (kernel launches per replay, by name), ``setup_launches``
+    ``tokens`` ((B,) token ids, or (B, d) embeddings in the embedding's
+    dtype for the VLM family) and ``logits`` (B, V) (the static input and
+    output), ``launches`` (kernel launches per replay, by name),
+    ``setup_launches``
     (the warm-up's and the capture's, counted apart from ``LAUNCHES``),
     ``capture_ms`` (host ms of warm-up and capture, synchronised).
     :meth:`replay` runs one step over :attr:`cache`."""
 
-    def __init__(self, cfg: ArchConfig, model: LM, batch: int,
-                 max_len: int, use_kernel: bool = True):
+    def __init__(self, cfg: ArchConfig, model: Model, batch: int,
+                 max_len: int, use_kernel: bool = True, enc_len: int = 0):
         dev = _check_cuda(model)
         self.cfg, self.model, self.use_kernel = cfg, model, use_kernel
-        self.cache = lm.init_cache(cfg, batch, max_len, dev)
-        self.tokens = torch.zeros((batch,), dtype=torch.int64, device=dev)
+        self.cache = init_cache(cfg, model, batch, max_len, enc_len)
+        self.tokens = torch.zeros_like(step_input(
+            cfg, model, torch.zeros((batch,), dtype=torch.int64, device=dev)))
         self._capture(model)
 
     def _step(self) -> torch.Tensor:
-        logits, _ = lm.decode_step(self.cfg, self.model, self.cache,
-                                   self.tokens, self.use_kernel)
+        logits, _ = decode_step(self.cfg, self.model, self.cache,
+                                self.tokens, self.use_kernel)
         return logits
 
 

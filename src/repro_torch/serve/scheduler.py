@@ -24,6 +24,9 @@ As in the reference, decode is seeded with the prompt's last token, so that
 token is processed twice (in prefill and at position ``len(prompt)``); this
 is kept, since changing it changes every token.
 
+As the reference's, the batcher takes token prompts only: a config with
+embedding inputs (the VLM and enc-dec families) is refused.
+
 Determinism invariant (tested for the dense and Mamba models): a request's
 output is identical whether it ran alone or was co-scheduled with arbitrary
 other traffic.  It cannot hold for MoE models, in the reference either:
@@ -65,6 +68,10 @@ class ContinuousBatcher:
                  params: Optional[LM] = None, eos: Optional[int] = None,
                  seed: int = 0, device: Any = "cuda",
                  use_kernel: bool = True, compile: Any = "auto"):
+        if cfg.embed_inputs or cfg.is_encdec:
+            raise ValueError(f"{cfg.name}: the continuous batcher takes token "
+                             f"prompts only, as the reference's; serve "
+                             f"embedding inputs with ServeEngine")
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len

@@ -20,8 +20,8 @@ On the CPU (smoke configs, f32):
 On the card (marked ``cuda``; they import no JAX, so they run on a machine
 without it: ``python -m pytest -q -m cuda tests/test_torch_graphs.py``):
 the captured step against the eager one at small size, for the dense model
-in f32 and bf16, the int8 KV cache, Mamba, MoE and the hybrid: greedy
-tokens equal, logits bit-equal at every step, ``LAUNCHES`` of a graph
+in f32 and bf16, the int8 KV cache, Mamba, MoE, the hybrid, the enc-dec
+and the VLM (head_dim 64, f32 and bf16): greedy tokens equal, logits bit-equal at every step, ``LAUNCHES`` of a graph
 generate equal to the eager one's; the batcher with graphs equal to the
 eager batcher request by request, and a request alone equal to it
 co-scheduled.  JAX is imported inside the helpers that use it.
@@ -231,7 +231,9 @@ class _Emulated:
 
 
 class _EmulatedDecode(_Emulated):
-    def __init__(self, cfg, model, batch, max_len, use_kernel=True):
+    def __init__(self, cfg, model, batch, max_len, use_kernel=True,
+                 enc_len=0):
+        assert enc_len == 0                  # a decoder's
         self._setup(cfg, model, batch, max_len, use_kernel, (batch,))
         pool = object()
         self.graph = types.SimpleNamespace(pool=lambda: pool)
@@ -294,8 +296,10 @@ def test_engine_and_batcher_drive_the_graphs_through_their_buffers(
     monkeypatch.setattr(scheduler_mod, "PREFILL_GRAPH_MAX_BUCKET", 32)
     _Emulated.made.clear()
     eng, got_gen = generate()
-    assert list(eng.graphs) == [3] and _Emulated.made == [eng.graphs[3]]
-    assert eng.graphs[3].replays == 6 + 4
+    # keyed by (batch, encoder frames): 0 frames for a decoder
+    assert list(eng.graphs) == [(3, 0)]
+    assert _Emulated.made == [eng.graphs[3, 0]]
+    assert eng.graphs[3, 0].replays == 6 + 4
     for got, want in zip(got_gen, want_gen):
         np.testing.assert_array_equal(got, want)
     cb, got_serve = serve()
@@ -437,3 +441,66 @@ def test_prefill_graph_equals_eager_prefill_on_the_card(cuda_device):
                 for n in want_e:
                     assert torch.equal(got_e[n], want_e[n]), n
             assert torch.equal(g.cache["length"], cache["length"])
+
+
+# (arch, config overrides): the enc-dec and VLM families at smoke width with
+# head_dim 64 (seamless-m4t's), in f32 and bf16
+FAMILY_CASES = [
+    ("seamless-m4t-large-v2", {"head_dim": 64}),
+    ("seamless-m4t-large-v2", {"head_dim": 64, "param_dtype": "bfloat16",
+                               "compute_dtype": "bfloat16"}),
+    ("qwen2-vl-7b", {"head_dim": 64}),
+    ("qwen2-vl-7b", {"head_dim": 64, "param_dtype": "bfloat16",
+                     "compute_dtype": "bfloat16"}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,over", FAMILY_CASES)
+def test_encdec_and_vlm_graph_equals_eager_on_the_card(cuda_device, name,
+                                                       over):
+    """The captured step of an enc-dec (over 11 encoder frames, a 9-token
+    decoder prompt: cross-attention with Sq != Sk) and of the VLM (fed
+    (B, d) embeddings) against the eager one: logits bit-equal at every
+    step, ``generate``'s tokens and launches equal."""
+    from repro_torch import models
+    model = _card_model(cuda_device, name, "compute", over)
+    cfg = model.cfg
+    rng = np.random.default_rng(5)
+    prompts = _prompts(cfg.vocab_size, b=3)
+    embeds = rng.standard_normal(
+        (3, 11 if cfg.is_encdec else 9, cfg.d_model)).astype(np.float32)
+    batch = {"embeds": torch.as_tensor(embeds, device=cuda_device)}
+    if cfg.is_encdec:
+        batch["tokens"] = torch.as_tensor(prompts, dtype=torch.int64,
+                                          device=cuda_device)
+
+    with torch.no_grad():
+        want, cache = models.prefill(cfg, model, batch, 48)
+        want = [want]
+        for _ in range(6):
+            tok = models.step_input(cfg, model, want[-1].argmax(-1))
+            logits, cache = models.decode_step(cfg, model, cache, tok)
+            want.append(logits)
+        graph = graphs.DecodeGraph(cfg, model, 3, 48,
+                                   enc_len=embeds.shape[1])
+        got = [models.prefill(cfg, model, batch, 48, cache=graph.cache)[0]]
+        for j in range(6):
+            got.append(graph.replay(models.step_input(
+                cfg, model, want[j].argmax(-1))).clone())
+    for j, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), (j, (g - w).abs().max().item())
+    per_step = cfg.n_layers * (2 if cfg.is_encdec else 1)
+    assert graph.launches["flash_decode"] == per_step
+    counts, out = [], []
+    for compile in (True, False):
+        eng = ServeEngine(cfg, max_len=48, params=model, compile=compile)
+        before = kernels.launch_counts()
+        out.append(eng.generate(prompts, 8, embeds=embeds))
+        after = kernels.launch_counts()
+        counts.append({k: after[k] - before[k] for k in after})
+    np.testing.assert_array_equal(out[0], out[1])
+    assert counts[0] == counts[1]
+    assert counts[0]["flash_decode"] == per_step * 8
+    assert counts[0]["flash_attention"] == cfg.n_layers + (
+        cfg.encoder_layers + cfg.n_layers if cfg.is_encdec else 0)
