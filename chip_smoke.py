@@ -260,6 +260,39 @@ result line):
    bound; the flash rows of the ``kernels`` line gain each family
    generate's launches (``launches_by_path``) and these times.
 
+22. training (after 21).  The flash attention backward
+   (``csrc/flash_attn_bwd.cu``: ``attn_bwd_preprocess_kernel``,
+   ``attn_bwd_dkdv_kernel``, ``attn_bwd_dq_kernel``) against
+   ``attention_bwd_ref`` on the forward's own o and lse: llama's training
+   shape (8, 24, 8, 512, 128) bf16 causal, the same in f32 at B = 2,
+   seamless's (8, 16, 16, 512, 64) non-causal, gemma's 8/1 heads at D 256,
+   D 32 in both dtypes, ragged S = 77 in both, and 16 queries over 512 keys
+   non-causal: dq, dk, dv within 2e-3 x max(1, max|g|) in f32 and 2^-6 x
+   max|g| in bf16 (``_bwd_limit``: two bf16 steps, inside the forward's
+   5e-2 x max(1, max|g|)), each limit missed by two planted faults (query
+   head 0 or one tile of 64 queries left out, ``_bwd_faults``), with
+   max|g|, the limit and the errors printed; the forward's lse within 1e-5
+   x max(1, |lse|) of ``attention_lse_ref`` and its output bit-equal to the
+   serving call's (no lse).  Times at llama's shape in bf16 and f32: each
+   backward kernel's device µs, the call's (events and device), the
+   forward with lse, the plain version, SDPA's backward through autograd
+   (``enable_gqa=True``; never called by the port; its device time only
+   from profiles that kept every event) and the bounds.  Then
+   llama3.2-3b at full width and depth trained by ``Trainer`` (B = 8 x
+   512, synthetic data from seed 0, lr 3e-3, f32 moments, remat): the
+   step-0 loss and every parameter's gradient against the plain path on
+   the card (``GRAD_REL_L2_BOUND``, ``LOSS_REL_BOUND``; the gradient bound
+   missed by the step with query head 0 left out of the kernels' dK and
+   dV), one step's flash
+   launches exact (56 forward, 28 backward), then 8 steps with the counts
+   zeroed just before (448 and 224), each step's loss (finite), ms (CUDA
+   events), tokens/s and peak allocated memory.  Last, the smoke width in
+   f32 with head_dim 32: 40 steps at ``peak_lr=1e-2`` whose loss falls as
+   ``tests/test_train.py`` requires, and a run killed at step 12 and
+   resumed from its step-10 checkpoint bit-equal to the uninterrupted run.
+   The ``kernels`` line gains the three backward kernels ("replaces": none,
+   the gradient of ``src/repro/models/layers.py:346``).
+
 20. (run after phases 7, 10, 11, 12 and 21, on each model while it is on the
    card: llama3.2-3b with both caches, falcon-mamba-7b, qwen2-moe-a2.7b,
    the reduced jamba with both caches, qwen2-vl-7b, seamless-m4t-large-v2)
@@ -294,6 +327,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -310,7 +344,7 @@ from repro_torch.core import (NumpyPlane, Simulator,  # noqa: E402
 from repro_torch.core.graph import conv2d_mxv  # noqa: E402
 from repro_torch.faults import (FaultyPlane, RetryPolicy,  # noqa: E402
                                 sample_schedule)
-from repro_torch.configs.base import get_arch  # noqa: E402
+from repro_torch.configs.base import get_arch, smoke_config  # noqa: E402
 from repro_torch.kernels import (_build, add_launches,  # noqa: E402
                                  conv2d, decode_attn, decode_attn_int8,
                                  flash_attn, launch_counts, mamba_scan, mxv)
@@ -327,6 +361,9 @@ from repro_torch.launch.scan_times import (EXP_PER_S, scan_inputs,  # noqa: E402
                                            device_us as scan_device_us)
 from repro_torch import models as port_models  # noqa: E402
 from repro_torch.models import build_model, lm  # noqa: E402
+from repro_torch.train import Trainer  # noqa: E402
+from repro_torch.train.loop import to_device  # noqa: E402
+from repro_torch.data import SyntheticLMData  # noqa: E402
 from repro_torch.models.layers import kv_quantize  # noqa: E402
 from repro_torch.runtime import CmServer, poisson_arrivals  # noqa: E402
 from repro_torch.serve import ContinuousBatcher, Request, ServeEngine  # noqa: E402
@@ -474,7 +511,7 @@ def _device_us(fn, name, reps=50, tries=2):
     return None
 
 
-def _device_total_us(fn, label, reps=50, profiles=3):
+def _device_total_us(fn, label, reps=50, profiles=3, whole=False):
     """Device time of one call of ``fn`` under torch.profiler, over ``reps``
     calls (a library call's kernels carry the library's names): the median
     over ``profiles`` profiles, None where none shows device time.  Each
@@ -484,13 +521,19 @@ def _device_total_us(fn, label, reps=50, profiles=3):
     every name has a multiple of ``reps`` events dropped none, and gives
     its union (kernels that overlap count once); one that dropped events,
     as the profiler does now and then, gives its sum (its union would read
-    short).  Prints both readings under ``label``."""
+    short).  With ``whole``, a profile that dropped events is not read but
+    taken again, up to ``profiles`` more times, and the reading is None
+    where no profile kept every event: for a call whose sum
+    would read short too (cuDNN's attention backward, whose profiles lose
+    its main kernel in some calls).  Prints the readings under ``label``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     unions, sums, used, dropped = [], [], [], []
-    for _ in range(profiles):
+    for _ in range(2 * profiles if whole else profiles):
+        if whole and len(used) == profiles:
+            break
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -509,11 +552,16 @@ def _device_total_us(fn, label, reps=50, profiles=3):
         drop = any(len(d) % reps for d in spans.values())
         if drop:
             dropped.append({n[:40]: len(d) for n, d in spans.items()})
+            if whole:
+                continue
         unions.append(union)
         sums.append(total)
         used.append(total if drop else union)
     if not used:
-        print(f"{label}: device time not measured (no device events)")
+        print(f"{label}: device time not measured (" + (
+            f"{len(dropped)} profile(s), each dropped events; events per "
+            f"kernel in the first: {dropped[0]})" if dropped
+            else "no device events)"))
         return None
     print(f"{label}: device time per call over {reps} calls, median of "
           f"{len(used)} profiles: union {statistics.median(unions):.2f} us, "
@@ -2768,6 +2816,494 @@ def scan_kernel_row(errs, serve, paths, times, moe, hybrid):
 
 
 # ------------------------------------- Listing-1 conv, faults and verifier
+# ------------------------------------------------------------ phase 22: training
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attn_bwd.cu"
+# the backward replaces no pallas_call: it is the gradient of the reference's
+# plain attention, which jax.value_and_grad differentiates
+BWD_REPLACES = "none; gradient of src/repro/models/layers.py:346"
+BWD_KERNELS = ("attn_bwd_preprocess_kernel", "attn_bwd_dkdv_kernel",
+               "attn_bwd_dq_kernel")
+# (B, Hq, Hkv, Sq, Sk, D, causal, dtype): llama's training shape in bf16 and
+# f32, seamless's encoder (D 64, non-causal), gemma's 8/1 heads (D 256), D
+# 32, ragged S, and 16 queries over 512 keys non-causal
+BWD_SHAPES = [(8, 24, 8, 512, 512, 128, True, torch.bfloat16),
+              (2, 24, 8, 512, 512, 128, True, torch.float32),
+              (8, 16, 16, 512, 512, 64, False, torch.bfloat16),
+              (4, 8, 1, 512, 512, 256, True, torch.bfloat16),
+              (4, 8, 2, 256, 256, 32, True, torch.bfloat16),
+              (4, 8, 2, 256, 256, 32, True, torch.float32),
+              (2, 24, 8, 77, 77, 128, True, torch.bfloat16),
+              (2, 24, 8, 77, 77, 128, True, torch.float32),
+              (8, 16, 16, 16, 512, 64, False, torch.bfloat16)]
+TRAIN_STEPS, TRAIN_LR = 8, 3e-3          # the launcher's default --lr
+# the kernel path's step-0 gradients against the plain path's at full
+# width, each parameter's relative L2 difference, and the loss's relative
+# difference: the bounds PERF.md states (the gradient's shown to see a
+# planted fault, ``_head0_left_out``)
+GRAD_REL_L2_BOUND, LOSS_REL_BOUND = 0.1, 1e-3
+
+
+def _bwd_bound(b, hq, hkv, sq, sk, d, elem, causal, products=5,
+               reads=("q", "k", "v", "o", "do"), writes=("dq", "dk", "dv"),
+               f32_rows=2):
+    """The backward's least time: each input read and each gradient written
+    once, ``f32_rows`` f32 values a query row (lse and D), and ``products``
+    products of 2 d operations per unmasked (query, key) pair and head
+    (five for the whole backward: S, dP, dV, dK, dQ), at the peak of the
+    inputs' type."""
+    off = sk - sq
+    pairs = sum(min(sk, max(0, i + 1 + off)) for i in range(sq)) \
+        if causal else sq * sk
+    size = {"q": b * hq * sq * d, "o": b * hq * sq * d, "do": b * hq * sq * d,
+            "dq": b * hq * sq * d, "k": b * hkv * sk * d, "v": b * hkv * sk * d,
+            "dk": b * hkv * sk * d, "dv": b * hkv * sk * d}
+    nbytes = elem * sum(size[n] for n in reads + writes) \
+        + 4 * f32_rows * b * hq * sq
+    ops = products * 2 * d * pairs * b * hq
+    peak = PEAK_OPS["bf16" if elem == 2 else "f32"]
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _bwd_inputs(shape, gen, dev):
+    b, hq, hkv, sq, sk, d, causal, dt = shape
+    q, do = (torch.randn(b, sq, hq, d, generator=gen, device=dev).to(dt)
+             .transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn(b, sk, hkv, d, generator=gen, device=dev).to(dt)
+            .transpose(1, 2) for _ in range(2))
+    return q, k, v, do
+
+
+def _bwd_limit(want, dt):
+    """The bound a backward kernel's gradient is held to, against
+    ``attention_bwd_ref`` on the same inputs: 2e-3 x max(1, max|g|) in f32;
+    in bf16 ``_held_bound``'s rule without its P term, 2^-6 x max|g| (the
+    kernel and the plain version both work in f32 and round once to bf16:
+    two bf16 steps at the largest value), inside the 5e-2 x max(1, max|g|)
+    of the forward's bf16 tolerance."""
+    m = want.float().abs().max().item()
+    return 2e-3 * max(1.0, m) if dt == torch.float32 else 2.0 ** -6 * m
+
+
+def _bwd_faults(q, k, v, o, lse, do, causal):
+    """``attention_bwd_ref`` with two faults a backward kernel could have,
+    planted by zeroing part of dO (which drops those rows' part from every
+    sum and zeroes their dq): query head 0 left out (one of the G heads of
+    KV head 0's dK and dV; all of them where G = 1) and one tile of 64
+    queries left out (queries 64-127, or 0-63 where Sq <= 64)."""
+    from repro_torch.kernels.ref import attention_bwd_ref
+    head = do.clone()
+    head[:, 0] = 0
+    lo = 64 if q.shape[2] > 64 else 0
+    tile = do.clone()
+    tile[:, :, lo:lo + 64] = 0
+    return {"query head 0": attention_bwd_ref(q, k, v, o, lse, head, causal),
+            f"queries {lo}-{lo + 63}": attention_bwd_ref(q, k, v, o, lse,
+                                                         tile, causal)}
+
+
+def phase_attention_bwd(dev):
+    """Phase 22, the kernels: at every shape of ``BWD_SHAPES`` the forward's
+    output with lse bit-equal to serving's (no lse), its lse within 1e-5 x
+    max(1, |lse|) of ``attention_lse_ref``, and dq, dk, dv within
+    ``_bwd_limit`` of ``attention_bwd_ref`` on the same o, lse and dO; each
+    limit shown to see a fault: both of ``_bwd_faults`` must miss it on
+    dq, dk and dv.  Prints each gradient's max|g|, limit, error and fault
+    errors.  Then the times at llama's training shape, in bf16 and (at
+    B = 2) in f32."""
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_lse_ref
+    gen = torch.Generator(device=dev).manual_seed(22)
+    before = _all_counts()
+    err = {"f32": 0.0, "bf16": 0.0}
+    lse_err = 0.0
+    readings = []
+    for shape in BWD_SHAPES:
+        b, hq, hkv, sq, sk, d, causal, dt = shape
+        q, k, v, do = _bwd_inputs(shape, gen, dev)
+        o, lse = flash_attn.flash_attention_fwd(q, k, v, causal)
+        if not torch.equal(o, flash_attn.flash_attention(q, k, v, causal)):
+            raise AssertionError(f"[22] {shape}: the forward with lse is not "
+                                 f"bit-equal to the serving call")
+        _, want_lse = attention_lse_ref(q, k, v, causal)
+        e = (lse - want_lse).abs().max().item()
+        if not e <= 1e-5 * max(1.0, want_lse.abs().max().item()):
+            raise AssertionError(f"[22] {shape}: lse off by {e}")
+        lse_err = max(lse_err, e)
+        got = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        want = attention_bwd_ref(q, k, v, o, lse, do, causal)
+        faults = _bwd_faults(q, k, v, o, lse, do, causal)
+        key = "f32" if dt == torch.float32 else "bf16"
+        row = {"shape": list(shape[:-1]) + [key]}
+        for i, (name, g, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
+            limit = _bwd_limit(w, dt)
+            e = (g.float() - w.float()).abs().max().item()
+            if g.dtype != w.dtype or g.shape != w.shape or \
+                    not torch.isfinite(g).all() or not e <= limit:
+                raise AssertionError(f"[22] {shape} {name}: max err {e} over "
+                                     f"the limit {limit}")
+            miss = {f: (fw[i].float() - w.float()).abs().max().item()
+                    for f, fw in faults.items()}
+            if not all(m > limit for m in miss.values()):
+                raise AssertionError(f"[22] {shape} {name}: the limit {limit} "
+                                     f"would pass a planted fault {miss}")
+            err[key] = max(err[key], e)
+            row[name] = {"max_g": w.float().abs().max().item(),
+                         "limit": limit, "err": e, "fault_err": miss}
+        readings.append(row)
+        print(f"[22] backward {row['shape']}: " + "; ".join(
+            f"{n} max|g| {row[n]['max_g']:.4g}, limit {row[n]['limit']:.4g}, "
+            f"err {row[n]['err']:.4g}, faults " + ", ".join(
+                f"{f} {m:.4g}" for f, m in row[n]["fault_err"].items())
+            for n in ("dq", "dk", "dv")))
+        del got, want, faults
+    torch.cuda.synchronize()
+    print(f"[22] {len(BWD_SHAPES)} backward shapes agree with "
+          f"attention_bwd_ref: max abs err {err['f32']:.3g} (f32), "
+          f"{err['bf16']:.3g} (bf16); lse {lse_err:.3g}; every limit missed "
+          f"by both planted faults")
+    times = {shape[-1]: _bwd_times(shape, gen, dev)
+             for shape in BWD_SHAPES[:2]}
+    _set_counts(before)                # checking launches do not count
+    return {"err": err, "lse_err": lse_err, "readings": readings,
+            "times": times}
+
+
+def _bwd_times(shape, gen, dev):
+    """At ``shape``: the forward with lse's device µs and µs per launch
+    (CUDA events), then the backward call's µs (events), each kernel's
+    device µs and the call's (``_device_total_us``), the plain version's
+    ms, SDPA's backward (autograd of ``scaled_dot_product_attention(...,
+    enable_gqa=True)``: events, and ``_device_total_us`` from profiles that
+    kept every event, else None) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import attention_bwd_ref
+    b, hq, hkv, sq, sk, d, causal, dt = shape
+    q, k, v, do = _bwd_inputs(shape, gen, dev)
+    o, lse = flash_attn.flash_attention_fwd(q, k, v, causal)
+    elem = q.element_size()
+    fwd = lambda: flash_attn.flash_attention_fwd(q, k, v, causal)
+    call = lambda: flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    out = {"shape": [b, hq, hkv, sq, sk, d, "causal" if causal else
+                     "non-causal", str(dt).split(".")[-1]],
+           "fwd_lse_dev_us": _device_us(
+               fwd, WGMMA_FLASH_KERNEL if elem == 2 else F32_FLASH_KERNEL,
+               reps=20, tries=3),
+           "fwd_lse_ms": _events_ms(fwd, reps=20, trials=5, warmup=3),
+           "ms": _events_ms(call, reps=10, trials=5, warmup=2),
+           "dev_us": {n: _device_us(call, n, reps=10, tries=3)
+                      for n in BWD_KERNELS},
+           "call_dev_us": _device_total_us(
+               call, f"[22] backward call at {shape[3:6]} {shape[-1]}",
+               reps=10, whole=True),
+           "plain_ms": _events_ms(lambda: attention_bwd_ref(
+               q, k, v, o, lse, do, causal), reps=3, trials=3, warmup=1)}
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    ref_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                             enable_gqa=True)
+    lib = lambda: torch.autograd.grad(ref_out, leaves, do, retain_graph=True)
+    out["lib_ms"] = _events_ms(lib, reps=10, trials=5, warmup=2)
+    out["lib_dev_us"] = _device_total_us(
+        lib, f"[22] SDPA backward at {shape[3:6]} {shape[-1]}", reps=10,
+        whole=True)
+    bound = _bwd_bound(b, hq, hkv, sq, sk, d, elem, causal)
+    parts = {"attn_bwd_preprocess_kernel": _bwd_bound(
+                 b, hq, hkv, sq, sk, d, elem, causal, 0, ("o", "do"), (), 1),
+             "attn_bwd_dkdv_kernel": _bwd_bound(
+                 b, hq, hkv, sq, sk, d, elem, causal, 4,
+                 ("q", "k", "v", "do"), ("dk", "dv")),
+             "attn_bwd_dq_kernel": _bwd_bound(
+                 b, hq, hkv, sq, sk, d, elem, causal, 3,
+                 ("q", "k", "v", "do"), ("dq",))}
+    out.update(bound_ms=bound[0], bound_by=bound[1], kernel_bounds=parts)
+    print(f"[22] backward at {out['shape']}: {out['ms'] * 1e3:.2f} us per "
+          f"call (events), device {_us(out['call_dev_us'])} ("
+          + ", ".join(f"{n} {_us(u)}" for n, u in out["dev_us"].items())
+          + f"); bound {bound[0] * 1e3:.2f} us ({bound[1]}); plain "
+          f"{out['plain_ms']:.3f} ms; SDPA backward {out['lib_ms'] * 1e3:.2f} "
+          f"us per call, device {_us(out['lib_dev_us'])}; forward with lse "
+          f"{out['fwd_lse_ms'] * 1e3:.2f} us per launch, device "
+          f"{_us(out['fwd_lse_dev_us'])}")
+    return out
+
+
+def _grads(cfg, model, batch, use_kernel):
+    """(loss, {name: gradient}) of one loss and backward."""
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = port_models.loss(cfg, model, batch, use_kernel)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return loss.item(), grads
+
+
+@contextlib.contextmanager
+def _head0_left_out():
+    """While entered, the backward kernels leave query head 0's part out of
+    dK and dV (one of the G heads of KV head 0): a fault the full-width
+    gradient check must see.  dq is the kernels' own; dK and dV come from a
+    second launch on dO with head 0 zeroed."""
+    bwd = flash_attn.flash_attention_bwd
+
+    def faulted(q, k, v, o, lse, do, causal=True):
+        dq, _, _ = bwd(q, k, v, o, lse, do, causal)
+        do0 = do.clone()
+        do0[:, 0] = 0
+        _, dk, dv = bwd(q, k, v, o, lse, do0, causal)
+        return dq, dk, dv
+    flash_attn.flash_attention_bwd = faulted
+    try:
+        yield
+    finally:
+        flash_attn.flash_attention_bwd = bwd
+
+
+def _rel_l2(got, want):
+    """{parameter: relative L2 difference of ``got`` from ``want``}."""
+    return {k: ((got[k].float() - want[k].float()).norm()
+                / want[k].float().norm().clamp_min(1e-30)).item()
+            for k in want}
+
+
+def phase_train_full(dev):
+    """Phase 22, the main path: llama3.2-3b at full width and depth trained
+    by ``Trainer`` (B = 8 x 512, synthetic data from seed 0, ``TRAIN_LR``,
+    no checkpoint).  First the step-0 loss and every parameter's gradient,
+    kernel path against ``use_kernel=False`` on the same batch (relative L2
+    per parameter within ``GRAD_REL_L2_BOUND``, the loss within
+    ``LOSS_REL_BOUND``), with the kernel path's flash launches exact (56
+    forward with remat, 28 backward), and the bound shown to see a fault:
+    with query head 0 left out of the kernels' dK and dV
+    (``_head0_left_out``) the largest relative L2 must miss it; then
+    ``TRAIN_STEPS`` steps of ``Trainer.run``, counts zeroed just before:
+    each step's loss (finite), ms (CUDA events), tokens/s and peak
+    allocated memory, and the launches exactly ``TRAIN_STEPS`` x (56,
+    28)."""
+    cfg = get_arch(LM_ARCH)
+    tr = Trainer(cfg=cfg, batch=BATCH, seq_len=PROMPT, peak_lr=TRAIN_LR,
+                 device=dev)
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"[22] {LM_ARCH}: {n_params} trainable parameters and their f32 "
+          f"moments on the card in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    batch = to_device(SyntheticLMData(cfg.vocab_size, BATCH, PROMPT,
+                                      tr.seed).next(), dev)
+    n = cfg.n_layers
+    before = _all_counts()
+    loss_p, plain = _grads(cfg, state.model, batch, False)
+    plain = {k: g.clone() for k, g in plain.items()}
+    _zero_counts()
+    loss_k, kern = _grads(cfg, state.model, batch, True)
+    step_counts = _nonzero(_all_counts())
+    _expect(_all_counts(), {"flash_attention": 2 * n,
+                            "flash_attention_bwd": n},
+            f"[22] {LM_ARCH} one kernel-path step")
+    rel = _rel_l2(kern, plain)
+    finite = all(torch.isfinite(g).all() for g in kern.values())
+    del kern
+    _free()
+    with _head0_left_out():
+        _, fault = _grads(cfg, state.model, batch, True)
+        fault_rel = _rel_l2(fault, plain)
+    del fault
+    _free()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    fault_worst = sorted(fault_rel.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[22] step 0, kernel path against plain path: loss {loss_k:.6f} "
+          f"against {loss_p:.6f} (relative {loss_rel:.3g}, bound "
+          f"{LOSS_REL_BOUND}); gradients' relative L2 over {len(rel)} "
+          f"parameters: max {worst[0][1]:.4g}, median "
+          f"{statistics.median(rel.values()):.4g}, bound "
+          f"{GRAD_REL_L2_BOUND}; worst "
+          + ", ".join(f"{k} {v:.4g}" for k, v in worst)
+          + f"; launches {step_counts}")
+    print(f"[22] step 0 with query head 0 left out of the kernels' dK and "
+          f"dV: gradients' relative L2 max {fault_worst[0][1]:.4g}, median "
+          f"{statistics.median(fault_rel.values()):.4g}; worst "
+          + ", ".join(f"{k} {v:.4g}" for k, v in fault_worst))
+    if not (loss_rel <= LOSS_REL_BOUND and worst[0][1] <= GRAD_REL_L2_BOUND
+            and finite):
+        raise AssertionError("[22] the kernel path's step-0 loss or "
+                             "gradients are off the plain path's")
+    if not fault_worst[0][1] > GRAD_REL_L2_BOUND:
+        raise AssertionError(f"[22] the bound {GRAD_REL_L2_BOUND} would pass "
+                             f"the planted fault ({fault_worst[0][1]})")
+    del plain
+    _free()
+    _set_counts(before)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    state = tr.run(TRAIN_STEPS, state=state)
+    counts = _nonzero(_all_counts())
+    _expect(_all_counts(), {"flash_attention": 2 * n * TRAIN_STEPS,
+                     "flash_attention_bwd": n * TRAIN_STEPS},
+            f"[22] {LM_ARCH} {TRAIN_STEPS} steps of Trainer.run")
+    if not all(math.isfinite(x) for x in tr.history):
+        raise AssertionError(f"[22] non-finite losses {tr.history}")
+    tokens = BATCH * PROMPT
+    for i, (loss, ms, peak) in enumerate(zip(tr.history, tr.step_ms,
+                                             tr.peak_bytes)):
+        print(f"[22] {LM_ARCH} step {i}: loss {loss:.4f}, {ms:.1f} ms (CUDA "
+              f"events), {tokens / ms * 1e3:.0f} tokens/s, peak allocated "
+              f"{peak / 2**30:.2f} GiB")
+    print(f"[22] {LM_ARCH} {TRAIN_STEPS} steps: launches {counts} (exact)")
+    profiled = _train_step_profile(tr, state)
+    out = {"arch": LM_ARCH, "batch": BATCH, "seq_len": PROMPT,
+           "lr": TRAIN_LR, "params": n_params, "losses": tr.history,
+           "step_ms": tr.step_ms, "peak_gib": [p / 2**30
+                                               for p in tr.peak_bytes],
+           "launches": counts, "profiled_step": profiled, "step0": {
+               "loss_kernel": loss_k, "loss_plain": loss_p,
+               "loss_rel": loss_rel, "grad_rel_l2_max": worst[0][1],
+               "grad_rel_l2_median": statistics.median(rel.values()),
+               "worst": worst, "fault_grad_rel_l2_max": fault_worst[0][1],
+               "fault_worst": fault_worst}}
+    del state, tr
+    _free()
+    return out
+
+
+# where a training step's device time goes, by kernel name (the first part
+# whose key a name holds): the flash backward and forward kernels, cuBLAS's
+# f32 GEMMs (the head and CE in f32, as the reference computes them) and
+# its other GEMMs (the bf16 body), elementwise work, reductions and copies
+# (norms, RoPE, casts, AdamW), and the rest
+STEP_PARTS = (("flash backward", ("attn_bwd_",)),
+              ("flash forward", ("flash_attention",)),
+              ("f32 GEMM", ("f32f32", "sgemm")),
+              ("bf16 GEMM", ("nvjet", "gemm", "xmma", "cutlass")),
+              ("elementwise, reductions, copies",
+               ("elementwise", "reduce", "copy", "memset", "memcpy")))
+
+
+def _train_step_profile(tr, state):
+    """One more ``Trainer`` step under torch.profiler (device activity
+    only): its wall ms, the device's busy ms (the union of every kernel's
+    and copy's interval) and idle share, each part of ``STEP_PARTS``' device
+    ms, and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run(1, state=state)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    if not spans:
+        print("[22] the profiled step shows no device events")
+        return None
+    busy = _union(spans) / 1e3
+    parts = {label: 0.0 for label, _ in STEP_PARTS}
+    parts["other"] = 0.0
+    for name, ms in by_name.items():
+        label = next((lb for lb, keys in STEP_PARTS
+                      if any(k in name.lower() for k in keys)), "other")
+        parts[label] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(f"[22] one profiled step: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {1 - busy / wall:.4f}; device ms by "
+          f"part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + "; top kernels: " + "; ".join(f"{n[:70]} {ms:.1f}"
+                                          for n, ms in top))
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+            "parts_ms": parts, "top_kernels_ms": [[n[:120], ms]
+                                                  for n, ms in top]}
+
+
+def phase_train_smoke(dev):
+    """Phase 22 at the smoke width, f32, head_dim 32 on the card (the smoke
+    config's 16 is not a built head dim): 40 steps at ``peak_lr=1e-2``
+    whose loss falls as ``tests/test_train.py::test_loss_decreases``
+    requires (the mean of the last five below that of the first five less
+    0.2), and a run killed at step 12 and resumed from its step-10
+    checkpoint, whose losses equal the uninterrupted run's bit for bit."""
+    cfg = dataclasses.replace(smoke_config(LM_ARCH), head_dim=32)
+    kw = dict(cfg=cfg, batch=8, seq_len=32, peak_lr=1e-2, device=dev,
+              ckpt_every=5)
+    _zero_counts()
+    tr = Trainer(**kw)
+    tr.run(40)
+    counts = _nonzero(_all_counts())
+    n = cfg.n_layers * 40
+    _expect(_all_counts(), {"flash_attention": 2 * n,
+                            "flash_attention_bwd": n},
+            "[22] smoke-width training")
+    first, last = np.mean(tr.history[:5]), np.mean(tr.history[-5:])
+    if not last < first - 0.2:
+        raise AssertionError(f"[22] smoke-width loss {first} -> {last}")
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        tr_a = Trainer(ckpt_dir=f"{tmp}/a", **kw)
+        tr_a.run(20)
+        tr_b = Trainer(ckpt_dir=f"{tmp}/b", **kw)
+        try:
+            tr_b.run(20, die_at=12)
+            raise AssertionError("[22] die_at=12 did not stop the run")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        tr_c = Trainer(ckpt_dir=f"{tmp}/b", **kw)
+        state = tr_c.resume_or_init()
+        if (state.step, tr_c.data.step) != (10, 10):
+            raise AssertionError(f"[22] resumed at step {state.step}, data "
+                                 f"{tr_c.data.step}")
+        tr_c.run(10, state=state)
+    if tr_c.history != tr_a.history[10:20]:
+        raise AssertionError(f"[22] resumed losses {tr_c.history} differ "
+                             f"from {tr_a.history[10:20]}")
+    print(f"[22] smoke width (d {cfg.d_model}, head_dim 32, f32) on the "
+          f"card: 40 steps, loss {first:.4f} -> {last:.4f} (mean of the "
+          f"first and last five); launches {counts}; killed at 12, resumed "
+          f"from step 10: the 10 losses equal the uninterrupted run's bit "
+          f"for bit")
+    return {"losses": tr.history, "launches": counts,
+            "resumed_equal": True}
+
+
+def train_kernel_rows(bwd, full, smoke):
+    """Phase 22 in the ``kernels`` line: the three backward kernels at
+    llama's training shape in bf16 (and f32 at B = 2), launches from the
+    full-width run, the smoke-width run's beside them; the first row also
+    carries each shape's limits, errors and fault errors."""
+    t, t32 = bwd["times"][torch.bfloat16], bwd["times"][torch.float32]
+    rows = []
+    for name in BWD_KERNELS:
+        rows.append({
+            "name": name, "route": "cuda", "source": BWD_SOURCE,
+            "replaces": BWD_REPLACES,
+            "launches": full["launches"].get("flash_attention_bwd", 0),
+            "launches_smoke": smoke["launches"].get("flash_attention_bwd", 0),
+            "max_abs_err": bwd["err"]["f32"],
+            "max_abs_err_bf16": bwd["err"]["bf16"],
+            "ms": _ms(t["dev_us"][name]), "plain_ms": t["plain_ms"],
+            "bound_ms": t["kernel_bounds"][name][0],
+            "bound_by": t["kernel_bounds"][name][1],
+            "library_ms": t["lib_ms"],
+            "library_device_ms": _ms(t["lib_dev_us"]), "shape": t["shape"],
+            "call": {"ms": t["ms"], "device_ms": _ms(t["call_dev_us"]),
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"]},
+            "f32": {"shape": t32["shape"], "device_ms": _ms(
+                t32["dev_us"][name]), "call_device_ms": _ms(
+                t32["call_dev_us"]), "bound_ms": t32["bound_ms"],
+                "library_ms": t32["lib_ms"],
+                "library_device_ms": _ms(t32["lib_dev_us"])}})
+    rows[0]["checks"] = bwd["readings"]
+    rows[0]["training"] = full
+    rows[0]["training_smoke"] = smoke
+    return rows
+
+
 # (C, H, W, FL, FH, FW, stride, pad)
 CM_CONV = (28, 16, 16, 28, 3, 3, 1, 1)              # the CM main path's
 CONV_SHAPES = [CM_CONV,
@@ -3333,6 +3869,13 @@ def main() -> int:
                 for arch in (VLM_ARCH, ENCDEC_ARCH)}
     family_kernel_cells(kernels, families,
                         _timed(_family_kernel_times, dev))
+    bwd = _timed(phase_attention_bwd, dev)
+    fwd_lse = bwd["times"][torch.bfloat16]
+    next(row for row in kernels if row["name"] == "flash_attention").update(
+        ms_with_lse=fwd_lse["fwd_lse_ms"],
+        device_ms_with_lse=_ms(fwd_lse["fwd_lse_dev_us"]))
+    kernels += train_kernel_rows(bwd, _timed(phase_train_full, dev),
+                                 _timed(phase_train_smoke, dev))
     conv_errs = _timed(phase_conv_kernel, dev)
     qs = _timed(phase_quickstart)
     faults = _timed(phase_fault_serve, dev)

@@ -36,7 +36,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _S = ctypes.POINTER(ctypes.c_longlong)      # an array of element strides
 _PLAN = ctypes.POINTER(ctypes.c_int)        # a launch plan's fields
-_ATTN = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _S, _P)
+# q, k, v, out, lse; B, Hq, Hkv, Sq, Sk, D, causal; scale
+_ATTN = (_P,) * 5 + (_I,) * 7 + (_F, _S, _P)
+# q, k, v, o, dO, lse, delta, dq, dk, dv; as _ATTN
+_ATTN_BWD = (_P,) * 10 + (_I,) * 7 + (_F, _S, _P)
 # q, k, v, out, length, workspace; B, Hq, Hkv, S, D; scale
 _DECODE = (_P,) * 6 + (_I,) * 5 + (_F, _S, _P)
 # q, k8, k scale, v8, v scale, out, length, workspace; as _DECODE
@@ -53,6 +56,8 @@ SIGNATURES = {
     "crossbar_conv2d_f32": _CONV,
     "flash_attention_f32": _ATTN,
     "flash_attention_bf16": _ATTN,
+    "flash_attention_bwd_f32": _ATTN_BWD,
+    "flash_attention_bwd_bf16": _ATTN_BWD,
     "flash_decode_f32": _DECODE,
     "flash_decode_bf16": _DECODE,
     "flash_decode_int8_f32": _DECODE_INT8,

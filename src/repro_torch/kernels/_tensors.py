@@ -5,7 +5,8 @@ contiguous last dimension, in loads of 16 bytes (4 f32, 8 bf16 or 16 int8
 elements: the bf16 flash attention kernel and the decode kernels' k and v)
 or of four elements; these helpers give them such views (copying only what
 does not qualify), the launch stream and the per-row lengths.  The scan
-kernel takes its strides and stream from here too.
+kernel takes its strides and stream from here too.  :func:`check_no_grad`
+is the guard of the kernels that have no backward.
 """
 
 from __future__ import annotations
@@ -28,6 +29,23 @@ def aligned(t: torch.Tensor, n: int) -> torch.Tensor:
           and all(s % n == 0 for s in t.stride()[:-1])
           and t.data_ptr() % (n * t.element_size()) == 0)
     return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def grad_needed(*tensors) -> bool:
+    """Whether autograd would record a call on ``tensors``: grad mode is on
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise where a kernel with no backward would be recorded by autograd:
+    its output would have no ``grad_fn``, and the gradients below it would
+    be silently missing."""
+    if grad_needed(*tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it "
+                           f"under torch.no_grad() or on tensors that do not "
+                           f"require grad")
 
 
 def strides(*tensors_dims) -> ctypes.Array:

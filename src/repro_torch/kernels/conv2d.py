@@ -23,7 +23,7 @@ import dataclasses
 
 import torch
 
-from . import _build
+from . import _build, _tensors
 from .ref import crossbar_conv2d_ref
 
 LAUNCHES = {"crossbar_conv2d": 0}
@@ -146,6 +146,7 @@ def crossbar_conv2d(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
         x, wq, scale, stride, pad, fh, fw)
     if x.device.type == "cpu":
         return crossbar_conv2d_plain(x, wq, scale, stride, pad, fh, fw)
+    _tensors.check_no_grad("crossbar_conv2d", x, wq, scale)
     x = x.contiguous()
     y = torch.empty((fl, oh, ow), dtype=torch.float32, device=x.device)
     if fl == 0:

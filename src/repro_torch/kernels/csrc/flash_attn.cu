@@ -79,6 +79,15 @@
 // Sq <= Sk launches the one attention kernel.  No model path sends
 // Sq > Sk.
 //
+// Training (the backward of csrc/flash_attn_bwd.cu): given an lse pointer,
+// each attention kernel also stores the f32 natural-log log-sum-exp of every
+// row's scaled, masked scores, (B, Hq, Sq) contiguous, from the row max and
+// sum it already holds at the epilogue (the bf16 kernel's are in log2
+// units and are converted at the store).  Serving passes a null pointer:
+// the store is skipped and nothing else changes, bit for bit.  (The f32
+// kernel at D = 128 spills 24 bytes at 127 registers with the store and
+// without it alike.)
+//
 // Plain-C entry points (loaded with ctypes): each launches on the given
 // stream and returns cudaGetLastError().
 
@@ -116,9 +125,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq,
-                       int Sk, int G, int causal, float sm_scale,
-                       AttnStrides st) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int Sq, int Sk, int G,
+                       int causal, float sm_scale, AttnStrides st) {
   constexpr int DP = D + 4;            // padded row of Q and K tiles
   constexpr int PP = BK + 4;           // padded row of the P tile
   constexpr int NC = D / 4;            // float4 chunks per row
@@ -250,6 +259,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + tr + 16 * i;
     if (qi >= Sq) continue;
     const float lv = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tc == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qi] =
+          m[i] + logf(lv);
     T* orow = o + b * st.o.b + h * st.o.h + qi * st.o.s;
 #pragma unroll
     for (int c = 0; c < OC; ++c) {
@@ -307,6 +319,7 @@ using bf16 = __nv_bfloat16;
 constexpr int WG_NT = 128;  // one warpgroup: four warps, 16 query rows each
 constexpr int WG_BQ = 64;   // queries per block
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct WgTile {
@@ -389,8 +402,8 @@ __global__ void __launch_bounds__(WG_NT)
 flash_attention_wgmma_kernel(const bf16* __restrict__ q,
                              const bf16* __restrict__ k,
                              const bf16* __restrict__ v, bf16* __restrict__ o,
-                             int Sq, int Sk, int G, int causal,
-                             float scale_log2, AttnStrides st) {
+                             float* __restrict__ lse, int Sq, int Sk, int G,
+                             int causal, float scale_log2, AttnStrides st) {
   using Tile = WgTile<D>;
   constexpr int BKT = Tile::BK, DP = Tile::DP;
   constexpr int CH = DP / 8;   // 16-byte chunks of a staged row
@@ -539,6 +552,10 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     inv[r] = 1.f / fmaxf(l_r[r], 1e-30f);
+    const int qi = q0 + warp * 16 + g + 8 * r;
+    if (lse != nullptr && t == 0 && qi < Sq)   // log2 units to natural log
+      lse[(static_cast<long long>(b) * gridDim.x + h) * Sq + qi] =
+          (m_r[r] + log2f(fmaxf(l_r[r], 1e-30f))) * LN2;
   }
   // O through a row-padded tile over the K/V stages (no one reads them
   // now), then 16-byte stores
@@ -566,9 +583,9 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int Sq, int Sk, int causal, float sm_scale,
-               const AttnStrides& st, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+               float sm_scale, const AttnStrides& st, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<float, D>,
@@ -577,15 +594,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_attention_kernel<float, D><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, Hq / Hkv,
-      causal, sm_scale, st);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk,
+      Hq / Hkv, causal, sm_scale, st);
   return prefix_mean<float>(v, o, B, Hq, Hkv, Sq, Sk, causal, D, st, stream);
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int Hq, int Hkv, int Sq, int Sk, int causal, float sm_scale,
-                const AttnStrides& st, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+                float sm_scale, const AttnStrides& st, cudaStream_t stream) {
   constexpr size_t smem = WgTile<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_wgmma_kernel<D>,
@@ -594,34 +611,36 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(Hq, B, (Sq + WG_BQ - 1) / WG_BQ);
   flash_attention_wgmma_kernel<D><<<grid, WG_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, Hq / Hkv,
-      causal, sm_scale * LOG2E, st);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Sk,
+      Hq / Hkv, causal, sm_scale * LOG2E, st);
   return prefix_mean<bf16>(v, o, B, Hq, Hkv, Sq, Sk, causal, D, st, stream);
 }
 
 template <int D>
 int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
-           int B, int Hq, int Hkv, int Sq, int Sk, int causal, float sm_scale,
-           const AttnStrides& st, cudaStream_t stream) {
-  return bf16 ? launch_bf16<D>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal,
+           float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+           float sm_scale, const AttnStrides& st, cudaStream_t stream) {
+  return bf16 ? launch_bf16<D>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
                                sm_scale, st, stream)
-              : launch_f32<D>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal,
+              : launch_f32<D>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
                               sm_scale, st, stream);
 }
 
 int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o,
-             int B, int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-             float sm_scale, const long long* strides, void* stream) {
+             void* lse_ptr, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+             int causal, float sm_scale, const long long* strides,
+             void* stream) {
+  float* lse = static_cast<float*>(lse_ptr);
   const AttnStrides st{{strides[0], strides[1], strides[2]},
                        {strides[3], strides[4], strides[5]},
                        {strides[6], strides[7], strides[8]},
                        {strides[9], strides[10], strides[11]}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(bf16, q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
-    case 64: return launch<64>(bf16, q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
-    case 128: return launch<128>(bf16, q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
-    case 256: return launch<256>(bf16, q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
+    case 32: return launch<32>(bf16, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
+    case 64: return launch<64>(bf16, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
+    case 128: return launch<128>(bf16, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
+    case 256: return launch<256>(bf16, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -630,23 +649,24 @@ int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// strides: 12 element strides (b, h, s) of q, k, v and o, in that order
+// strides: 12 element strides (b, h, s) of q, k, v and o, in that order;
+// lse: null, or (B, Hq, Sq) f32 contiguous
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        int B, int Hq, int Hkv, int Sq, int Sk, int D,
-                        int causal, float sm_scale, const long long* strides,
-                        void* stream) {
-  return dispatch(false, q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal, sm_scale,
-                  strides, stream);
+                        void* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                        int D, int causal, float sm_scale,
+                        const long long* strides, void* stream) {
+  return dispatch(false, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, causal,
+                  sm_scale, strides, stream);
 }
 
 // q, k, v, o bf16; the data pointers and the b, h, s strides are multiples
-// of 8 elements (cp.async moves 16 bytes)
+// of 8 elements (cp.async moves 16 bytes); lse as above
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int B, int Hq, int Hkv, int Sq, int Sk, int D,
-                         int causal, float sm_scale, const long long* strides,
-                         void* stream) {
-  return dispatch(true, q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal, sm_scale,
-                  strides, stream);
+                         void* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                         int D, int causal, float sm_scale,
+                         const long long* strides, void* stream) {
+  return dispatch(true, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, causal,
+                  sm_scale, strides, stream);
 }
 
 }  // extern "C"

@@ -130,6 +130,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lengths = _tensors.row_lengths("flash_decode", length, b, q.device)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths)
+    _tensors.check_no_grad("flash_decode", q, k, v)
     out = launch(q, k, v, lengths)
     LAUNCHES["flash_decode"] += 1
     return out

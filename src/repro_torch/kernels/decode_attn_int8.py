@@ -63,6 +63,7 @@ def flash_decode_int8(q: torch.Tensor, k8: torch.Tensor,
     lengths = _tensors.row_lengths(name, length, b, q.device)
     if q.device.type == "cpu":
         return flash_decode_int8_plain(q, k8, k_scale, v8, v_scale, lengths)
+    _tensors.check_no_grad(name, q, k_scale, v_scale)
     out = launch(q, k8, k_scale, v8, v_scale, lengths)
     LAUNCHES[name] += 1
     return out

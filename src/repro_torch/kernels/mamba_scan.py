@@ -150,6 +150,7 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     bsz, l, d, n = _check(u, dt, a, b, c, d_skip)
     if u.device.type == "cpu":
         return selective_scan_ref(u, dt, a, b, c, d_skip, return_state)
+    _tensors.check_no_grad("selective_scan", u, dt, a, b, c, d_skip)
     y = torch.empty((bsz, l, d), dtype=torch.float32, device=u.device)
     if not (bsz and l and d):
         h = torch.zeros((bsz, d, n), dtype=torch.float32, device=u.device)

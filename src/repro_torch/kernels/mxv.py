@@ -278,6 +278,7 @@ def crossbar_mxv(x: torch.Tensor, wq: torch.Tensor,
     _check_resident("crossbar_mxv", [("wq", wq), ("scale", scale)])
     if device.type == "cpu":
         return crossbar_mxv_plain(x, wq, scale)
+    _tensors.check_no_grad("crossbar_mxv", x, wq, scale)
     x = x.contiguous()
     y = x.new_empty((b, m))
     if b == 0 or m == 0:
@@ -305,6 +306,7 @@ def crossbar_mxv_int8(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
     _check_resident("crossbar_mxv_int8", [("wq", wq), ("ws", ws)])
     if device.type == "cpu":
         return crossbar_mxv_int8_plain(xq, xs, wq, ws)
+    _tensors.check_no_grad("crossbar_mxv_int8", xs, ws)
     xq, xs = xq.contiguous(), xs.contiguous()
     y = xs.new_empty((b, m))
     if b == 0 or m == 0:

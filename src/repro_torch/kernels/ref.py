@@ -95,6 +95,71 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         v.to(torch.float32)).to(q.dtype)
 
 
+def _work_dtype(dtype: torch.dtype) -> torch.dtype:
+    """What the backward's plain versions compute in: f32, or f64 for f64
+    inputs (``gradcheck``)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, causal):
+    """The scaled, masked scores (B, Hq, Sq, Sk) of ``attention_ref``, in
+    f32 (f64 for f64 inputs), K repeated over the G query heads of each KV
+    head."""
+    d = q.shape[-1]
+    sq, sk = q.shape[2], k.shape[2]
+    wt = _work_dtype(q.dtype)
+    k = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(wt), k.to(wt)) / (d ** 0.5)
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(diagonal=sk - sq)
+        s = torch.where(mask, s, NEG_INF)
+    return s
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True):
+    """``attention_ref`` and the f32 (B, Hq, Sq) natural-log log-sum-exp of
+    its scaled, masked scores: what the flash kernels' forward stores for
+    the backward.  f64 inputs are computed, and give lse, in f64."""
+    s = _scores(q, k, causal)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    v = v.repeat_interleave(q.shape[1] // v.shape[1], dim=1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.to(s.dtype))
+    return o.to(q.dtype), lse
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      causal: bool = True):
+    """(dq, dk, dv) of ``attention_ref`` by the FlashAttention-2 formulas,
+    in f32, each in its input's dtype: ``D_i = sum dO_i O_i``,
+    ``P = exp(S scale - lse)``, ``dV = sum_g P^T dO``,
+    ``dS = P (dO V^T - D)``, ``dQ = scale dS K``,
+    ``dK = scale sum_g dS^T Q``; the sums over g run over the G query heads
+    of each KV head.  The arithmetic the backward kernels do, written out
+    (not autograd of ``attention_ref``); f64 inputs in f64."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / (d ** 0.5)
+    wt = _work_dtype(q.dtype)
+    q32, k32, v32, do32 = (t.to(wt) for t in (q, k, v, do))
+    delta = (do32 * o.to(wt)).sum(-1)                        # (B, Hq, Sq)
+    p = torch.exp(_scores(q, k, causal) - lse[..., None])    # (B, Hq, Sq, Sk)
+    kr = k32.repeat_interleave(g, dim=1)
+    vr = v32.repeat_interleave(g, dim=1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do32, vr)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q32).reshape(
+        b, hkv, g, sk, d).sum(2) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32).reshape(
+        b, hkv, g, sk, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _row_lengths(length, device) -> torch.Tensor:
     """A scalar or (B,) length as an int64 column, (1, 1) or (B, 1)."""
     return torch.as_tensor(length, device=device).to(torch.int64).reshape(

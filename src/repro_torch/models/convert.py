@@ -14,11 +14,18 @@ layers), ``"enc_final_norm"``, ``"decoder"`` (``norm1``, ``attn``,
 ``"final_norm"``.  It returns the port's :class:`models.lm.LM` or
 :class:`models.encdec.EncDec` with every leaf copied exactly (bf16 leaves
 through their bits).  ``params_to_reference`` is its inverse.
+
+Any other tree of the parameters' shapes (gradients, AdamW's ``mu`` and
+``nu``) crosses with :func:`tree_from_reference` (a reference tree to
+tensors keyed by the port's parameter names) and :func:`tree_to_reference`
+(back); :func:`reference_layout` says where each parameter lies in the
+reference's tree, and :func:`decayed` which ones the reference's AdamW
+decays.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,41 +126,88 @@ def _copy_group(dst, src: Dict[str, Any], per: int, what: str) -> None:
             _copy(dst[name], np.asarray(leaf)[per], f"{what}.{name}[{per}]")
 
 
-def _stack_group(groups) -> Dict[str, Any]:
-    """One group of every period's block, stacked over periods as numpy."""
-    return {name: _stack_group([g[name] for g in groups])
-            if isinstance(groups[0][name], torch.nn.ParameterDict)
-            else np.stack([_to_numpy(g[name]) for g in groups])
-            for name in groups[0]}
+def reference_layout(model: Model
+                     ) -> Dict[str, Tuple[Tuple[Any, ...], Optional[int]]]:
+    """For each parameter name of ``model`` (``named_parameters`` order):
+    the path of its reference leaf (dict keys and list indices, e.g.
+    ``("positions", 0, "attn", "wq")``) and its index on that leaf's stacked
+    first axis (period or layer), or None for a leaf of its own (``embed``,
+    the final norms, ``lm_head``)."""
+    plen = len(period_structure(model.cfg)) if not isinstance(
+        model, EncDec) else 1
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":                  # an LM block: (period, pos)
+            i = int(parts[1])
+            out[name] = (("positions", i % plen, *parts[2:]), i // plen)
+        elif parts[0] in ("encoder", "decoder"):
+            out[name] = ((parts[0], *parts[2:]), int(parts[1]))
+        else:
+            out[name] = (tuple(parts), None)
+    return out
 
 
-def _norm_tree(norm) -> Dict[str, Any]:
-    return {k: _to_numpy(v) for k, v in norm.items()}
+def decayed(model: Model) -> Dict[str, bool]:
+    """Which parameters the reference's AdamW decays: those whose reference
+    leaf has two axes or more (``p.ndim >= 2`` on leaves stacked over
+    periods), so every per-layer tensor, norm scales and biases included,
+    and of the rest the matrices; not the final norms."""
+    params = dict(model.named_parameters())
+    return {name: params[name].dim() + (per is not None) >= 2
+            for name, (_, per) in reference_layout(model).items()}
+
+
+def tree_to_reference(model: Model, tensors: Mapping[str, torch.Tensor],
+                      to_numpy: Callable = None) -> Dict[str, Any]:
+    """The reference's tree of ``tensors`` (keyed by ``model``'s parameter
+    names, of their shapes: parameters, gradients, moments), per-layer
+    tensors stacked over periods, as numpy (``to_numpy``, default: bf16 as
+    ``ml_dtypes.bfloat16``)."""
+    to_numpy = to_numpy or _to_numpy
+    leaves: Dict[Tuple, Dict] = {}
+    for name, (path, per) in reference_layout(model).items():
+        leaves.setdefault(path, {})[per] = tensors[name]
+    tree: Dict[Any, Any] = {}
+    for path, by_per in leaves.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = to_numpy(by_per[None]) if None in by_per else \
+            np.stack([to_numpy(by_per[i]) for i in range(len(by_per))])
+    return _lists(tree)
+
+
+def _lists(node):
+    """Dicts keyed 0..n-1 as lists (the reference's ``positions``)."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return [out[i] for i in range(len(out))]
+    return out
+
+
+def tree_from_reference(model: Model, tree: Dict[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """A reference tree of ``model``'s parameter shapes (numpy leaves, bf16
+    as ``ml_dtypes.bfloat16``) as tensors keyed by the parameter names, on
+    the model's device, each in its leaf's dtype."""
+    params = dict(model.named_parameters())
+    out = {}
+    for name, (path, per) in reference_layout(model).items():
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        arr = np.asarray(leaf) if per is None else np.asarray(leaf)[per]
+        t = _to_torch(arr)
+        if tuple(t.shape) != tuple(params[name].shape):
+            raise ValueError(f"{name}: reference leaf {tuple(t.shape)} does "
+                             f"not fit {tuple(params[name].shape)}")
+        out[name] = t.to(params[name].device)
+    return out
 
 
 def params_to_reference(model: Model) -> Dict[str, Any]:
     """The reference's pytree layout of ``model``'s weights, as numpy."""
-    if isinstance(model, EncDec):
-        tree = {"embed": _to_numpy(model.embed),
-                "enc_final_norm": _norm_tree(model.enc_final_norm),
-                "final_norm": _norm_tree(model.final_norm)}
-        for stack in ("encoder", "decoder"):
-            blocks = getattr(model, stack)
-            tree[stack] = {group: _stack_group([getattr(b, group)
-                                                for b in blocks])
-                           for group in blocks[0].groups()}
-        return tree
-    cfg = model.cfg
-    struct = period_structure(cfg)
-    positions = []
-    for pos_i in range(len(struct)):
-        blocks = [model.layers[per * len(struct) + pos_i]
-                  for per in range(n_periods(cfg))]
-        positions.append({
-            group: _stack_group([getattr(b, group) for b in blocks])
-            for group in blocks[0].groups()})
-    tree = {"embed": _to_numpy(model.embed), "positions": positions,
-            "final_norm": _norm_tree(model.final_norm)}
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = _to_numpy(model.lm_head)
-    return tree
+    return tree_to_reference(model, dict(model.named_parameters()))

@@ -30,7 +30,7 @@ graph (``serve.graphs.DecodeGraph``) advances it at every replay;
 caller owns; :func:`reset_cache` sets a cache back to zeros.
 
 Not ported: training (``decode_train``, ``encdec_loss``; ROADMAP Queue 1
-item 9).
+item 9b: cross-attention's backward at Sq != Sk).
 """
 
 from __future__ import annotations

@@ -34,9 +34,22 @@ its :func:`decode_step` takes (B,) token ids or (B, d) embeddings, as the
 reference's.  M-RoPE (``cfg.mrope_sections``) rotates through
 ``layers.positional_rotate``.
 
-Not ported: training (``lm_loss``, ``chunked_ce_loss``, ROADMAP Queue 1
-item 9) and the sequence-parallel MoE branch of ``_position_block``, which
-needs a model axis above 1 (Queue 1 item 10).
+Training: :func:`lm_loss` (CE through :func:`chunked_ce_loss` plus 0.01 x
+the MoE aux loss), differentiated by autograd, with the flash kernel's
+backward on the card.  Its logits are ``h.f32 @ W.f32^T`` per chunk of 512
+positions with ``W`` converted once per loss under autograd (not
+:meth:`LM.unembed_f32`, which detaches), so a tied embedding gets both its
+gradients.  With ``cfg.remat`` each period runs under
+``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
+period in ``jax.checkpoint``: the backward recomputes the period, so a
+training step launches the forward kernel twice per attention layer.  The
+parameters are built frozen (``requires_grad=False``) for serving; a
+trainer turns them on.  Which families train is ``models.loss``'s to say.
+
+Not ported: the sequence-parallel MoE branch of ``_position_block``, which
+needs a model axis above 1 (ROADMAP Queue 1 item 10), and
+``remat_policy="dots"`` (no config sets it; every period is recomputed
+whole).
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ArchConfig
@@ -240,19 +254,34 @@ def backbone(cfg: ArchConfig, model: LM, x, pos, collect_cache: bool = False,
 
     ``collect_cache``: also return, per period position, the list over
     periods of the layer's (k, v), each (B, S, Hkv, hd), or (conv_state,
-    ssm_state), for prefill."""
+    ssm_state), for prefill.  Without it, where autograd records the call
+    and ``cfg.remat``, each period runs under ``torch.utils.checkpoint``
+    (training)."""
     struct = period_structure(cfg)
     caches: List[List] = [[] for _ in struct]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for per in range(n_periods(cfg)):
+
+    def period_run(x, per):
+        a_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for pos_i in range(len(struct)):
             p = _layer(model, per, pos_i, len(struct))
             x, a, extra = _position_block(cfg, p, x, pos,
                                           kv_out=collect_cache,
                                           use_kernel=use_kernel)
             if a is not None:
-                aux = aux + a
-            caches[pos_i].append(extra)
+                a_total = a_total + a
+            if collect_cache:
+                caches[pos_i].append(extra)
+        return x, a_total
+
+    for per in range(n_periods(cfg)):
+        if cfg.remat and not collect_cache and torch.is_grad_enabled():
+            x, a = torch.utils.checkpoint.checkpoint(
+                period_run, x, per, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, a = period_run(x, per)
+        aux = aux + a
     h = L.apply_norm(cfg, model.final_norm, x)
     return h, aux, (caches if collect_cache else None)
 
@@ -272,6 +301,43 @@ def unembed_matrix(cfg: ArchConfig, model: LM):
 
 def _logits(model: LM, h):
     return h.to(torch.float32) @ model.unembed_f32().T
+
+
+# ------------------------------------------------------------------- training
+def chunked_ce_loss(cfg: ArchConfig, model: LM, h, labels, chunk: int = 512):
+    """Mean CE over the B x S tokens, the (B, c, V) f32 logits made one
+    chunk of ``chunk`` positions at a time (the whole S where it does not
+    divide), as the reference's.  The unembedding is converted to f32 once,
+    under autograd."""
+    b, s, _ = h.shape
+    w = unembed_matrix(cfg, model).to(torch.float32)       # (V, d)
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s
+    labels = labels.to(torch.int64)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        logits = h[:, c0:c0 + chunk].to(torch.float32) @ w.T
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, c0:c0 + chunk, None])[..., 0]
+        tot = tot + torch.sum(lse - gold)
+    return tot / (b * s)
+
+
+def lm_loss(cfg: ArchConfig, model: LM, batch: Dict,
+            use_kernel: bool = True) -> Tuple[torch.Tensor, Dict]:
+    """batch: {'tokens' (B, S) or 'embeds' (B, S, d), 'labels' (B, S),
+    optional 'positions'} as tensors on the model's device ->
+    (CE + 0.01 x aux, {"ce", "aux"})."""
+    tokens = batch.get("embeds", batch.get("tokens"))
+    b, s = tokens.shape[:2]
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    x = embed_tokens(cfg, model, tokens)
+    h, aux, _ = backbone(cfg, model, x, pos, use_kernel=use_kernel)
+    ce = chunked_ce_loss(cfg, model, h, batch["labels"])
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # --------------------------------------------------------------------- decode

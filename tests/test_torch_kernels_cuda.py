@@ -20,7 +20,11 @@ unit).
 The bf16 flash attention kernel runs on the tensor cores (wgmma) and rounds
 P to bf16 before the P.V product; it is held to the same 5e-2.
 Listing-1 conv: rtol 1e-4 and atol 1e-4 x max(1, max|y|), the bound of
-``tests/test_kernels.py`` for its Pallas twin scaled the same way.
+``tests/test_kernels.py`` for its Pallas twin scaled the same way.  Flash
+attention's backward kernels: dq, dk, dv within the forward's 2e-3 (f32) or
+5e-2 (bf16) x max(1, max|g|) of ``ref.attention_bwd_ref`` (the gradients
+sum over keys and query heads, so the rounding error scales with their
+magnitude), and the forward's lse within 1e-5 x max(1, |lse|).
 """
 
 from __future__ import annotations
@@ -415,6 +419,134 @@ def test_attention_kernels_refuse_unbuilt_head_dims(cuda_device):
         flash_attn.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="head dims"):
         decode_attn.flash_decode(q[:, :, 0], q, q, 1)
+
+
+def _grad_close(got, want, dtype, same_o=True):
+    """The backward's bound: 2e-3 x max(1, max|g|) in f32.  In bf16, where
+    the plain version had the kernel's own o and lse (``same_o``), two bf16
+    steps at the largest value, 2^-6 x max|g|: both work in f32 and round
+    once.  Against autograd of the plain attention, whose o lacks the
+    forward kernel's P rounded to bf16, the forward's 5e-2 x max(1,
+    max|g|)."""
+    m = want.float().abs().max().item()
+    if dtype == torch.float32:
+        tol = 2e-3 * max(1.0, m)
+    else:
+        tol = 2.0 ** -6 * m if same_o else 5e-2 * max(1.0, m)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,causal", [
+    (1, 4, 2, 77, 77, True),       # G = 2, ragged over the 64 (32) tiles
+    (2, 8, 8, 64, 64, True),       # G = 1, one tile (two at D = 256)
+    (1, 3, 1, 70, 130, True),      # G = 3, Sq < Sk: the last 70 positions
+    (1, 6, 2, 16, 200, False),     # non-causal, Sq < Sk
+    (1, 4, 4, 100, 33, False)])    # non-causal, Sq > Sk
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_matches_plain(cuda_device, d, b, hq, hkv, sq,
+                                           sk, causal, dtype):
+    """The forward's lse against ``attention_lse_ref`` (1e-5 x max(1,
+    |lse|)), its output bit-equal to the serving call's (no lse), and the
+    three backward kernels against ``attention_bwd_ref`` on the same o, lse
+    and dO, twice, bit-equal (no atomics)."""
+    from repro_torch.kernels import flash_attn, ref
+    rng = np.random.default_rng(d * 1000 + sq + sk)
+    q = _bshd(rng, b, sq, hq, d, cuda_device, dtype)
+    k = _bshd(rng, b, sk, hkv, d, cuda_device, dtype)
+    v = _bshd(rng, b, sk, hkv, d, cuda_device, dtype)
+    do = _bshd(rng, b, sq, hq, d, cuda_device, dtype)
+    o, lse = flash_attn.flash_attention_fwd(q, k, v, causal)
+    assert torch.equal(o, flash_attn.flash_attention(q, k, v, causal=causal))
+    _, want_lse = ref.attention_lse_ref(q, k, v, causal)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5 * max(
+        1.0, want_lse.abs().max().item()))
+    before = flash_attn.LAUNCHES["flash_attention_bwd"]
+    got = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    assert flash_attn.LAUNCHES["flash_attention_bwd"] == before + 2
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for g, a, w, x in zip(got, again, want, (q, k, v)):
+        assert torch.equal(g, a)
+        assert g.stride() == torch.empty_like(x).stride()
+        _grad_close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_on_the_card(cuda_device, dtype):
+    """Under autograd ``flash_attention`` launches the forward kernel (with
+    lse) and, in the backward, the three backward kernels once; the
+    gradients reach the model's (B, S, H, D) projections, as autograd of the
+    plain version gives them."""
+    from repro_torch.kernels import flash_attn, ref
+    rng = np.random.default_rng(4)
+    leaves = [_randn(rng, (2, 90, h, 64), cuda_device, dtype)
+              .requires_grad_(True) for h in (8, 2, 2)]
+    do = _bshd(rng, 2, 90, 8, 64, cuda_device, dtype)
+    before = dict(flash_attn.LAUNCHES)
+    out = flash_attn.flash_attention(*(t.transpose(1, 2) for t in leaves))
+    assert out.grad_fn is not None
+    out.backward(do)
+    assert flash_attn.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert flash_attn.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    plain = [t.detach().clone().requires_grad_(True) for t in leaves]
+    ref.attention_ref(*(t.transpose(1, 2) for t in plain)).backward(do)
+    for got, want in zip(leaves, plain):
+        _grad_close(got.grad, want.grad, dtype, same_o=False)
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_raise_under_autograd(cuda_device):
+    """A kernel with no backward on CUDA tensors that autograd would record
+    raises, instead of returning a tensor without ``grad_fn``; under
+    ``torch.no_grad()`` it launches."""
+    from repro_torch.kernels import (conv2d, decode_attn, flash_attn,
+                                     mamba_scan, mxv, ref)
+    dev = cuda_device
+    q = torch.randn(2, 4, 32, device=dev, requires_grad=True)
+    kv = torch.randn(2, 2, 16, 32, device=dev)
+    x = torch.randn(3, 8, device=dev, requires_grad=True)
+    wq, sc = ref.quantize_crossbar(torch.randn(5, 8, device=dev))
+    img = torch.randn(2, 6, 6, device=dev, requires_grad=True)
+    cw, csc = ref.quantize_crossbar(torch.randn(3, 18, device=dev))
+    u = torch.randn(1, 8, 16, device=dev, requires_grad=True)
+    a = -torch.rand(16, 4, device=dev)
+    bc = torch.randn(1, 8, 4, device=dev)
+    calls = [lambda: decode_attn.flash_decode(q, kv, kv, 8),
+             lambda: mxv.crossbar_mxv(x, wq, sc),
+             lambda: conv2d.crossbar_conv2d(img, cw, csc, pad=1),
+             lambda: mamba_scan.selective_scan(u, u.abs(), a, bc, bc,
+                                               torch.ones(16, device=dev)),
+             lambda: flash_attn.flash_attention(
+                 torch.randn(1, 2, 9, 32, device=dev, requires_grad=True),
+                 kv[:1, :, :4], kv[:1, :, :4], causal=True)]
+    for call in calls[:-1]:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    with pytest.raises(ValueError, match="no backward"):
+        calls[-1]()
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_kernels_do_not_spill(cuda_device):
+    """ptxas's report: the three backward kernels at every head dim and
+    dtype, with no spills."""
+    from repro_torch.kernels import _build
+    _build.load()
+    usage = {n: u for n, u in _build.resource_usage().items()
+             if "attn_bwd_" in n}
+    # the preprocess per dtype; dK/dV and dQ per dtype and head dim
+    assert len(usage) == 2 + 2 * 2 * 4, usage
+    for name, (regs, spill_st, spill_ld) in usage.items():
+        assert regs <= 255 and spill_st == 0 and spill_ld == 0, (name, regs)
 
 
 # ---------------------------------------------------------- selective scan
