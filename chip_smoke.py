@@ -9,7 +9,10 @@ result line):
    first use) and load them; print ptxas's registers and spill bytes for
    every kernel and the tensor-core instructions (HMMA, HGMMA, IMMA) of
    each kernel from ``cuobjdump -sass``: the bf16 flash attention kernel
-   must have HGMMA (wgmma) at every head dim, the int8 crossbar kernel
+   must have HGMMA (wgmma) at every head dim, and so must the bf16
+   backward's tensor-core kernels (``attn_bwd_dkdv_wgmma_kernel``,
+   ``attn_bwd_dq_wgmma_kernel``) at D 32, 64 and 128, which, like every
+   backward kernel, may not spill; the int8 crossbar kernel
    (``crossbar_mxv_int8_kernel``) IMMA (mma.sync s8), the decode kernels
    (``decode_split_kernel``, ``decode_merge_kernel``) must be built, and
    the crossbar kernels and the scan kernel (``scan_lanes_kernel``, at
@@ -261,8 +264,10 @@ result line):
    generate's launches (``launches_by_path``) and these times.
 
 22. training (after 21).  The flash attention backward
-   (``csrc/flash_attn_bwd.cu``: ``attn_bwd_preprocess_kernel``,
-   ``attn_bwd_dkdv_kernel``, ``attn_bwd_dq_kernel``) against
+   (``csrc/flash_attn_bwd.cu``: ``attn_bwd_preprocess_kernel``, then
+   ``attn_bwd_dkdv_wgmma_kernel`` and ``attn_bwd_dq_wgmma_kernel`` on the
+   tensor cores for bf16 at D <= 128, ``attn_bwd_dkdv_kernel`` and
+   ``attn_bwd_dq_kernel`` on the CUDA cores for f32 and bf16 at D 256) against
    ``attention_bwd_ref`` on the forward's own o and lse: llama's training
    shape (8, 24, 8, 512, 128) bf16 causal, the same in f32 at B = 2,
    seamless's (8, 16, 16, 512, 64) non-causal, gemma's 8/1 heads at D 256,
@@ -323,7 +328,6 @@ import itertools
 import json
 import math
 import pathlib
-import re
 import statistics
 import subprocess
 import sys
@@ -638,24 +642,6 @@ def _demangle(names):
     return {n: d.split("(")[0] for n, d in zip(names, short)}
 
 
-def _sass_counts(opcodes):
-    """{mangled kernel name: {opcode: number of its instructions}} in the
-    built library's SASS (``cuobjdump -sass``), for each of ``opcodes``."""
-    res = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
-                          str(_build.library_path())], capture_output=True,
-                         text=True, check=True, timeout=300)
-    counts, fn = {}, None
-    for line in res.stdout.splitlines():
-        if "Function : " in line:
-            fn = line.split("Function : ")[1].strip()
-            counts[fn] = dict.fromkeys(opcodes, 0)
-        elif fn is not None:
-            ops = re.findall(r"\b[A-Z0-9]+(?=[. ])", line)
-            for op in opcodes:
-                counts[fn][op] += op in ops
-    return counts
-
-
 # ------------------------------------------------------------------- phases
 def phase_build():
     """Build and load the kernels; print ptxas's registers and spills for
@@ -668,7 +654,7 @@ def phase_build():
     print(f"[1] kernels built and loaded in {secs:.2f} s: "
           f"{_build.library_path()}")
     usage = _build.resource_usage()
-    tc = _sass_counts(("HMMA", "HGMMA", "IMMA"))
+    tc = _build.sass_counts(("HMMA", "HGMMA", "IMMA"))
     names = _demangle(sorted(set(usage) | set(tc)))
     print("[1] ptxas registers / spill stores / spill loads (bytes) per "
           "kernel: " + "; ".join(f"{names[n]} {r}/{st}/{ld}" for n, (r, st, ld)
@@ -710,6 +696,18 @@ def phase_build():
     if len(wg) != len(HEAD_DIMS) or not all(wg.values()):
         raise AssertionError(f"[1] the bf16 flash attention kernel is not on "
                              f"the tensor cores: HGMMA counts {wg}")
+    bwd = {names[n]: u for n, u in usage.items() if "attn_bwd_" in n}
+    bwd_wg = {names[n]: tc.get(n, {}).get("HGMMA", 0) for n in usage
+              if "attn_bwd_" in n and "wgmma" in n}
+    if any(st or ld for _, st, ld in bwd.values()) or \
+            len(bwd_wg) != 2 * (len(HEAD_DIMS) - 1) or \
+            not all(bwd_wg.values()):
+        raise AssertionError(f"[1] the backward kernels spill, or its bf16 "
+                             f"kernels at D <= 128 are not on the tensor "
+                             f"cores: {bwd}; HGMMA counts {bwd_wg}")
+    print("[1] flash backward kernels, registers (no spills): " +
+          "; ".join(f"{n} {r}" for n, (r, _, _) in sorted(bwd.items()))
+          + f"; HGMMA in the tensor-core ones: {bwd_wg}")
     return lib
 
 
@@ -2821,8 +2819,14 @@ BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attn_bwd.cu"
 # the backward replaces no pallas_call: it is the gradient of the reference's
 # plain attention, which jax.value_and_grad differentiates
 BWD_REPLACES = "none; gradient of src/repro/models/layers.py:346"
-BWD_KERNELS = ("attn_bwd_preprocess_kernel", "attn_bwd_dkdv_kernel",
-               "attn_bwd_dq_kernel")
+# every backward kernel, and the calls it serves (``flash_attn.bwd_kernels``)
+BWD_KERNELS = {"attn_bwd_preprocess_kernel": "every call",
+               "attn_bwd_dkdv_wgmma_kernel": "bf16 at D 32, 64, 128",
+               "attn_bwd_dq_wgmma_kernel": "bf16 at D 32, 64, 128",
+               "attn_bwd_dkdv_kernel": "f32 at D 32, 64, 128, 256; "
+                                       "bf16 at D 256",
+               "attn_bwd_dq_kernel": "f32 at D 32, 64, 128, 256; "
+                                     "bf16 at D 256"}
 # (B, Hq, Hkv, Sq, Sk, D, causal, dtype): llama's training shape in bf16 and
 # f32, seamless's encoder (D 64, non-causal), gemma's 8/1 heads (D 256), D
 # 32, ragged S, and 16 queries over 512 keys non-causal
@@ -2970,8 +2974,9 @@ def phase_attention_bwd(dev):
 
 def _bwd_times(shape, gen, dev):
     """At ``shape``: the forward with lse's device µs and µs per launch
-    (CUDA events), then the backward call's µs (events), each kernel's
-    device µs and the call's (``_device_total_us``), the plain version's
+    (CUDA events), then the backward call's µs (events), the device µs of
+    each kernel the call launches (``flash_attn.bwd_kernels``) and the
+    call's (``_device_total_us``), the plain version's
     ms, SDPA's backward (autograd of ``scaled_dot_product_attention(...,
     enable_gqa=True)``: events, and ``_device_total_us`` from profiles that
     kept every event, else None) and the bound."""
@@ -2981,6 +2986,7 @@ def _bwd_times(shape, gen, dev):
     q, k, v, do = _bwd_inputs(shape, gen, dev)
     o, lse = flash_attn.flash_attention_fwd(q, k, v, causal)
     elem = q.element_size()
+    dkdv, dq, _ = flash_attn.bwd_kernels(dt, d)
     fwd = lambda: flash_attn.flash_attention_fwd(q, k, v, causal)
     call = lambda: flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal)
     out = {"shape": [b, hq, hkv, sq, sk, d, "causal" if causal else
@@ -2991,7 +2997,7 @@ def _bwd_times(shape, gen, dev):
            "fwd_lse_ms": _events_ms(fwd, reps=20, trials=5, warmup=3),
            "ms": _events_ms(call, reps=10, trials=5, warmup=2),
            "dev_us": {n: _device_us(call, n, reps=10, tries=3)
-                      for n in BWD_KERNELS},
+                      for n in ("attn_bwd_preprocess_kernel", dkdv, dq)},
            "call_dev_us": _device_total_us(
                call, f"[22] backward call at {shape[3:6]} {shape[-1]}",
                reps=10, whole=True),
@@ -3008,10 +3014,10 @@ def _bwd_times(shape, gen, dev):
     bound = _bwd_bound(b, hq, hkv, sq, sk, d, elem, causal)
     parts = {"attn_bwd_preprocess_kernel": _bwd_bound(
                  b, hq, hkv, sq, sk, d, elem, causal, 0, ("o", "do"), (), 1),
-             "attn_bwd_dkdv_kernel": _bwd_bound(
+             dkdv: _bwd_bound(
                  b, hq, hkv, sq, sk, d, elem, causal, 4,
                  ("q", "k", "v", "do"), ("dk", "dv")),
-             "attn_bwd_dq_kernel": _bwd_bound(
+             dq: _bwd_bound(
                  b, hq, hkv, sq, sk, d, elem, causal, 3,
                  ("q", "k", "v", "do"), ("dq",))}
     out.update(bound_ms=bound[0], bound_by=bound[1], kernel_bounds=parts)
@@ -3146,6 +3152,8 @@ def phase_train_full(dev):
     if not all(math.isfinite(x) for x in tr.history):
         raise AssertionError(f"[22] non-finite losses {tr.history}")
     tokens = BATCH * PROMPT
+    route = flash_attn.bwd_kernels(getattr(torch, cfg.compute_dtype),
+                                   cfg.hd)[:2]
     for i, (loss, ms, peak) in enumerate(zip(tr.history, tr.step_ms,
                                              tr.peak_bytes)):
         print(f"[22] {LM_ARCH} step {i}: loss {loss:.4f}, {ms:.1f} ms (CUDA "
@@ -3153,7 +3161,12 @@ def phase_train_full(dev):
               f"{peak / 2**30:.2f} GiB")
     print(f"[22] {LM_ARCH} {TRAIN_STEPS} steps: launches {counts} (exact)")
     profiled = _train_step_profile(tr, state)
+    seen = set(profiled["bwd_kernels"]) if profiled else set(route)
+    if seen != set(route):
+        raise AssertionError(f"[22] the profiled step ran the backward "
+                             f"kernels {sorted(seen)}, not {route}")
     out = {"arch": LM_ARCH, "batch": BATCH, "seq_len": PROMPT,
+           "bwd_kernels": route,
            "lr": TRAIN_LR, "params": n_params, "losses": tr.history,
            "step_ms": tr.step_ms, "peak_gib": [p / 2**30
                                                for p in tr.peak_bytes],
@@ -3210,6 +3223,8 @@ def _train_step_profile(tr, state):
                       if any(k in name.lower() for k in keys)), "other")
         parts[label] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    bwd = sorted({n for n in BWD_KERNELS if n != "attn_bwd_preprocess_kernel"
+                  and any(n in name for name in by_name)})
     print(f"[22] one profiled step: wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {1 - busy / wall:.4f}; device ms by "
           f"part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
@@ -3217,7 +3232,8 @@ def _train_step_profile(tr, state):
                                           for n, ms in top))
     return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
             "parts_ms": parts, "top_kernels_ms": [[n[:120], ms]
-                                                  for n, ms in top]}
+                                                  for n, ms in top],
+            "bwd_kernels": bwd}
 
 
 def phase_train_smoke(dev):
@@ -3268,22 +3284,39 @@ def phase_train_smoke(dev):
           f"from step 10: the 10 losses equal the uninterrupted run's bit "
           f"for bit")
     return {"losses": tr.history, "launches": counts,
+            "bwd_kernels": flash_attn.bwd_kernels(
+                getattr(torch, cfg.compute_dtype), cfg.hd)[:2],
             "resumed_equal": True}
 
 
 def train_kernel_rows(bwd, full, smoke):
-    """Phase 22 in the ``kernels`` line: the three backward kernels at
-    llama's training shape in bf16 (and f32 at B = 2), launches from the
-    full-width run, the smoke-width run's beside them; the first row also
-    carries each shape's limits, errors and fault errors."""
-    t, t32 = bwd["times"][torch.bfloat16], bwd["times"][torch.float32]
+    """Phase 22 in the ``kernels`` line: every backward kernel, each with
+    the calls it serves, timed at llama's training shape in the dtype that
+    routes to it (bf16 for the preprocess and the tensor-core pair, f32 at
+    B = 2 for the CUDA-core pair), and its launches on the path that runs
+    it: the full-width run (bf16, D 128) for the preprocess and the
+    tensor-core pair, the smoke-width run (f32, head_dim 32) for the
+    CUDA-core pair; both paths' counts beside.  Fails if a kernel was
+    launched on neither.  The first row also carries each shape's limits,
+    errors and fault errors."""
+    t16, t32 = bwd["times"][torch.bfloat16], bwd["times"][torch.float32]
+    n_full = full["launches"].get("flash_attention_bwd", 0)
+    n_smoke = smoke["launches"].get("flash_attention_bwd", 0)
     rows = []
-    for name in BWD_KERNELS:
+    for name, serves in BWD_KERNELS.items():
+        t = t16 if name in t16["dev_us"] else t32
+        by_path = {
+            "full_width": n_full if name in full["bwd_kernels"] or
+            name == "attn_bwd_preprocess_kernel" else 0,
+            "smoke_width": n_smoke if name in smoke["bwd_kernels"] or
+            name == "attn_bwd_preprocess_kernel" else 0}
+        if not any(by_path.values()):
+            raise AssertionError(f"[22] {name} was launched on no path")
         rows.append({
             "name": name, "route": "cuda", "source": BWD_SOURCE,
-            "replaces": BWD_REPLACES,
-            "launches": full["launches"].get("flash_attention_bwd", 0),
-            "launches_smoke": smoke["launches"].get("flash_attention_bwd", 0),
+            "replaces": BWD_REPLACES, "serves": serves,
+            "launches": by_path["full_width"] or by_path["smoke_width"],
+            "launches_by_path": by_path,
             "max_abs_err": bwd["err"]["f32"],
             "max_abs_err_bf16": bwd["err"]["bf16"],
             "ms": _ms(t["dev_us"][name]), "plain_ms": t["plain_ms"],
@@ -3292,12 +3325,12 @@ def train_kernel_rows(bwd, full, smoke):
             "library_ms": t["lib_ms"],
             "library_device_ms": _ms(t["lib_dev_us"]), "shape": t["shape"],
             "call": {"ms": t["ms"], "device_ms": _ms(t["call_dev_us"]),
-                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"]},
-            "f32": {"shape": t32["shape"], "device_ms": _ms(
-                t32["dev_us"][name]), "call_device_ms": _ms(
-                t32["call_dev_us"]), "bound_ms": t32["bound_ms"],
-                "library_ms": t32["lib_ms"],
-                "library_device_ms": _ms(t32["lib_dev_us"])}})
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"]}})
+    rows[0]["f32"] = {"shape": t32["shape"], "device_ms": _ms(
+        t32["dev_us"]["attn_bwd_preprocess_kernel"]), "call_device_ms": _ms(
+        t32["call_dev_us"]), "bound_ms": t32["bound_ms"],
+        "library_ms": t32["lib_ms"], "library_device_ms": _ms(
+            t32["lib_dev_us"])}
     rows[0]["checks"] = bwd["readings"]
     rows[0]["training"] = full
     rows[0]["training_smoke"] = smoke

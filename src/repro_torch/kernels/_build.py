@@ -8,7 +8,8 @@ first use, from this package's sources only, into
 sources, the headers (``csrc/*.cuh``) and the compiler flags: an edited
 kernel gets a new directory and a stale library is never loaded.  ptxas's
 report of each kernel's registers and spills is kept beside the library
-(:func:`resource_usage`).  Nothing is built or imported from CUDA when this
+(:func:`resource_usage`), and :func:`sass_counts` reads the library's
+tensor-core instructions.  Nothing is built or imported from CUDA when this
 module is imported.
 """
 
@@ -157,6 +158,24 @@ def resource_usage() -> dict:
             out[name] = (int(m.group(1)), *spills)
             name = None
     return out
+
+
+def sass_counts(opcodes) -> dict:
+    """{mangled kernel name: {opcode: number of its instructions}} in the
+    built library's SASS (``cuobjdump -sass``), for each of ``opcodes``."""
+    res = subprocess.run([cuda_tool("cuobjdump"), "-sass",
+                          str(library_path())], capture_output=True,
+                         text=True, check=True, timeout=300)
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = dict.fromkeys(opcodes, 0)
+        elif fn is not None:
+            ops = re.findall(r"\b[A-Z0-9]+(?=[. ])", line)
+            for op in opcodes:
+                counts[fn][op] += op in ops
+    return counts
 
 
 @functools.lru_cache(maxsize=None)

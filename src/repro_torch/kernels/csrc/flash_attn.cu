@@ -101,7 +101,15 @@ namespace {
 using repro_torch::NEG;
 using repro_torch::cp_async16;
 using repro_torch::cp_async_commit;
+using repro_torch::fence_async_smem;
+using repro_torch::fence_regs;
+using repro_torch::pack_bf16;
 using repro_torch::smem_addr;
+using repro_torch::smem_desc;
+using repro_torch::swizzled;
+using repro_torch::wgmma_commit;
+using repro_torch::wgmma_fence;
+using repro_torch::wgmma_wait_all;
 
 struct Strides3 {
   long long b, h, s;  // element strides; the d stride is 1
@@ -330,50 +338,6 @@ struct WgTile {
   // Q, two stages of K and of V, and room to align the tiles to 1024 bytes
   static constexpr size_t SMEM = 1024 + Q_BYTES + 4 * KV_BYTES;
 };
-
-// this thread's writes to shared memory become visible to wgmma's reads
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving registers across an asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Byte offset of 16-byte chunk c of row r in a tile of R rows stored in
-// wgmma's 128-byte-swizzled layout: rows of 64 elements (128 bytes) per
-// swizzle atom, atoms of R rows one after another along the row, chunk c of
-// an atom's row r at position c ^ (r % 8).  No two of the eight rows of a
-// group share a bank.
-__device__ __forceinline__ int swizzled(int r, int c, int R) {
-  return (c >> 3) * R * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-// wgmma's shared-memory matrix descriptor for a 128-byte-swizzled operand:
-// start address, leading and stride byte offsets (in 16-byte units)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// two f32 as one register of bf16 pairs, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // S (64 x BK) (+)= Q.K^T over 16 of D, and O (64 x DP) += P.V over 16 keys
 template <int BK>

@@ -1,15 +1,66 @@
 // Hopper warpgroup matrix multiplies (wgmma.mma_async) for the bf16 flash
-// attention kernel: S = Q.K^T with both operands in shared memory, and
-// O += P.V with P in registers.  One wrapper per width N the kernel uses;
-// each lists its f32 accumulator registers one by one, as the instruction
-// takes them (the four warps of the warpgroup hold a 64 x N tile, 16 rows a
-// warp, in the layout of mma.sync's m16n8 accumulators side by side).  The
-// caller fences (wgmma.fence), commits and waits.
+// attention kernels, forward (csrc/flash_attn.cu) and backward
+// (csrc/flash_attn_bwd.cu): products with both operands in shared memory
+// (S = Q.K^T), and with A in registers (O += P.V).  One wrapper per width N
+// the kernels use; each lists its f32 accumulator registers one by one, as
+// the instruction takes them (the four warps of the warpgroup hold a 64 x N
+// tile, 16 rows a warp, in the layout of mma.sync's m16n8 accumulators side
+// by side).  The caller fences (wgmma.fence), commits and waits.  Beside
+// them, the fences, the 128-byte-swizzled tile layout and the shared-memory
+// descriptor the kernels stage their operands with.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace repro_torch {
+
+// this thread's writes to shared memory become visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of the warpgroup's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
+// keep the compiler from moving registers across an asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of R rows stored in
+// wgmma's 128-byte-swizzled layout: rows of 64 elements (128 bytes) per
+// swizzle atom, atoms of R rows one after another along the row, chunk c of
+// an atom's row r at position c ^ (r % 8).  No two of the eight rows of a
+// group share a bank.
+__device__ __forceinline__ int swizzled(int r, int c, int R) {
+  return (c >> 3) * R * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// wgmma's shared-memory matrix descriptor for a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (in 16-byte units)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// two f32 as one register of bf16 pairs, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 // d (64 x 32) = A . B, or d += A . B with accumulate: A (64 x 16) and B
 // (16 x 32) bf16 in shared memory, both K-major, d f32 in registers

@@ -25,10 +25,13 @@ the model's views are never copied.
 **Training.**  Where autograd records the call (grad mode on and an input
 requires grad), :func:`flash_attention` goes through :class:`FlashAttention`:
 its forward is the same kernel, which then also stores each row's f32
-log-sum-exp (lse), and its backward (:func:`flash_attention_bwd`) the three
+log-sum-exp (lse), and its backward (:func:`flash_attention_bwd`) three
 kernels of ``csrc/flash_attn_bwd.cu`` (FlashAttention-2: a row-sum
 preprocess, dK/dV by KV tile, dQ by query tile; no atomics, so a backward
-is bit-equal from run to run).  The JAX package has no such kernel: it
+is bit-equal from run to run).  bf16 at D <= 128 runs its products on the
+tensor cores (wgmma, P and dS rounded to bf16 before their products, as
+the forward rounds P); f32, and bf16 at D = 256, on the CUDA cores in f32
+(:func:`bwd_kernels`).  The JAX package has no such kernel: it
 differentiates its plain chunked attention.  On CPU tensors the Function
 runs the plain versions ``ref.attention_lse_ref`` / ``ref.attention_bwd_ref``
 with the same saved tensors and formulas.  Causal attention with Sq > Sk
@@ -59,6 +62,18 @@ BQ_BF16 = 64          # queries per block of the tensor-core kernel
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def bwd_kernels(dtype: torch.dtype, d: int):
+    """(dK/dV kernel, dQ kernel, tile) that :func:`flash_attention_bwd`
+    launches on CUDA tensors of ``dtype`` at head dim ``d``, after
+    ``attn_bwd_preprocess_kernel``: the tensor-core pair for bf16 at
+    D <= 128, with 64-row tiles; else the CUDA-core pair, with tiles of 64
+    (32 at D = 256).  A call never takes the other pair."""
+    if dtype == torch.bfloat16 and d <= 128:
+        return "attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel", 64
+    return "attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel", 32 if d == 256 \
+        else 64
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -166,8 +181,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, causal: bool = True):
     """(dq, dk, dv) of :func:`flash_attention` at ``do`` (the gradient of its
-    output ``o``), from the forward's ``lse``: the three backward kernels on
-    CUDA tensors, ``ref.attention_bwd_ref`` on CPU tensors.  Each gradient
+    output ``o``), from the forward's ``lse``: three backward kernels on
+    CUDA tensors (:func:`bwd_kernels` says which), ``ref.attention_bwd_ref``
+    on CPU tensors.  Each gradient
     has its input's dtype and shape (and, on the card, its layout)."""
     b, hq, hkv, sq, sk, d = _check(q, k, v, causal, train=True)
     _check_trainable(q, k, causal)
@@ -183,7 +199,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal)
     _tensors.check_cuda_head_dim("flash_attention_bwd", d)
-    bt = 32 if d == 256 else 64           # the backward kernels' tiles
+    bt = bwd_kernels(q.dtype, d)[2]       # grid z: tiles of keys, queries
     if b > _GRID_MAX or -(-max(sq, sk) // bt) > _GRID_MAX:
         raise ValueError(f"flash_attention_bwd: B={b}, Sq={sq} or Sk={sk} "
                          f"exceeds the kernels' grid")

@@ -12,7 +12,11 @@ against ``jax.nn.logsumexp`` of the same scaled, masked scores.  On CPU
 tensors ``FlashAttention`` runs these plain versions with the saved tensors
 the card's kernels get; ``gradcheck`` holds its gradients in f64.  The card's
 kernels are held against the same plain versions by the ``cuda`` tests of
-``tests/test_torch_kernels_cuda.py`` and by ``chip_smoke.py``.
+``tests/test_torch_kernels_cuda.py`` and by ``chip_smoke.py``.  The bf16
+tensor-core kernels' arithmetic (P and dS rounded to bf16 before their
+products) is emulated in plain torch and held to ``jax.vjp`` within the
+bf16 bound the card's kernels are held to, 2^-6 x max|g|, which two planted
+faults miss.
 """
 
 from __future__ import annotations
@@ -171,3 +175,81 @@ def test_guard_of_the_kernels_without_backward():
     kv = torch.randn(2, 2, 6, 8)
     decode_attn.flash_decode(q, kv, kv, 4).sum().backward()
     assert q.grad is not None
+
+
+def _attention_bwd_bf16(q, k, v, o, lse, do, causal, bt=64):
+    """(dq, dk, dv) of bf16 q, k, v, o, dO as the tensor-core backward
+    kernels compute them: f32 products of the bf16 inputs; P and dS rounded
+    to bf16 before the dV, dK and dQ products; f32 sums in the kernels'
+    tile order (dK and dV by tile of ``bt`` keys, over the G query heads,
+    then the query tiles from the causal diagonal on; dQ by tile of ``bt``
+    queries, over the key tiles up to the diagonal); each gradient rounded
+    once to bf16."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g, off, scale = hq // hkv, sk - sq, d ** -0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    delta = (dof * o.float()).sum(-1, keepdim=True)          # preprocess
+    kr, vr = (t.repeat_interleave(g, 1) for t in (kf, vf))
+    p = torch.exp(qf @ kr.transpose(-1, -2) * scale - lse[..., None])
+    if causal:
+        ik = torch.arange(sk)[None]
+        p = torch.where(ik <= torch.arange(sq)[:, None] + off, p, 0.0)
+    ds = p * (dof @ vr.transpose(-1, -2) - delta)
+    # (B, Hkv, G, ...) views: query head h is KV head h // G's h % G
+    pb, dsb = (x.bfloat16().float().view(b, hkv, g, sq, sk) for x in (p, ds))
+    qg, dog = (x.view(b, hkv, g, sq, d) for x in (qf, dof))
+    dk, dv = torch.zeros(b, hkv, sk, d), torch.zeros(b, hkv, sk, d)
+    for k0 in range(0, sk, bt):
+        ks = slice(k0, k0 + bt)
+        t_first = max(0, k0 - off) // bt if causal else 0
+        for gi in range(g):
+            for q0 in range(t_first * bt, sq, bt):
+                qs = slice(q0, q0 + bt)
+                dv[:, :, ks] += pb[:, :, gi, qs, ks].transpose(-1, -2) \
+                    @ dog[:, :, gi, qs]
+                dk[:, :, ks] += dsb[:, :, gi, qs, ks].transpose(-1, -2) \
+                    @ qg[:, :, gi, qs]
+    dsq = dsb.view(b, hq, sq, sk)
+    dq = torch.zeros(b, hq, sq, d)
+    for q0 in range(0, sq, bt):
+        qs = slice(q0, q0 + bt)
+        kv_end = min(sk, min(q0 + bt, sq) + off) if causal else sk
+        for k0 in range(0, kv_end, bt):
+            dq[:, :, qs] += dsq[:, :, qs, k0:k0 + bt] @ kr[:, :, k0:k0 + bt]
+    return ((dq * scale).bfloat16(), (dk * scale).bfloat16(),
+            dv.bfloat16())
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", [
+    (1, 24, 8, 128, 128, True),       # llama3.2-3b's heads
+    (1, 24, 8, 512, 128, True),
+    (1, 16, 16, 128, 64, False),      # seamless-m4t's encoder heads
+])
+def test_bf16_backward_arithmetic_stays_within_the_cards_bound(
+        b, hq, hkv, s, d, causal):
+    """The tensor-core backward's arithmetic, emulated in plain torch on
+    the CPU, against ``jax.vjp`` of the JAX package's attention oracle on
+    the same bf16-rounded inputs: dq, dk and dv within 2^-6 x max|g|, the
+    bound the card's bf16 backward is held to (``chip_smoke._bwd_limit``);
+    both of ``chip_smoke._bwd_faults``' planted faults (query head 0 left
+    out, queries 64-127 left out: dO zeroed there) miss it."""
+    q, k, v, do = (torch.from_numpy(x).bfloat16()
+                   for x in _inputs(b, hq, hkv, s, s, d))
+    _, vjp = jax.vjp(lambda a, b_, c: jref.attention_ref(a, b_, c, causal),
+                     *(x.float().numpy() for x in (q, k, v)))
+    want = vjp(jnp.asarray(do.float().numpy()))
+    o, lse = ref.attention_lse_ref(q, k, v, causal)
+    got = _attention_bwd_bf16(q, k, v, o, lse, do, causal)
+    head, tile = do.clone(), do.clone()
+    head[:, 0] = 0
+    tile[:, :, 64:128] = 0
+    faults = [ref.attention_bwd_ref(q, k, v, o, lse, x, causal)
+              for x in (head, tile)]
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = torch.from_numpy(np.array(w))
+        limit = 2.0 ** -6 * w.abs().max().item()
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert (g.float() - w).abs().max().item() <= limit
+        for f in faults:
+            assert (f[i].float() - w).abs().max().item() > limit

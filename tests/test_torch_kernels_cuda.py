@@ -21,10 +21,12 @@ The bf16 flash attention kernel runs on the tensor cores (wgmma) and rounds
 P to bf16 before the P.V product; it is held to the same 5e-2.
 Listing-1 conv: rtol 1e-4 and atol 1e-4 x max(1, max|y|), the bound of
 ``tests/test_kernels.py`` for its Pallas twin scaled the same way.  Flash
-attention's backward kernels: dq, dk, dv within the forward's 2e-3 (f32) or
-5e-2 (bf16) x max(1, max|g|) of ``ref.attention_bwd_ref`` (the gradients
-sum over keys and query heads, so the rounding error scales with their
-magnitude), and the forward's lse within 1e-5 x max(1, |lse|).
+attention's backward kernels: dq, dk, dv within 2e-3 x max(1, max|g|) of
+``ref.attention_bwd_ref`` in f32 (the gradients sum over keys and query
+heads, so the rounding error scales with their magnitude) and 2^-6 x
+max|g| in bf16 (two bf16 steps at the largest value: the tensor-core
+kernels round P and dS to bf16 before their products, and the output once;
+``_grad_close``), and the forward's lse within 1e-5 x max(1, |lse|).
 """
 
 from __future__ import annotations
@@ -537,16 +539,34 @@ def test_kernels_without_backward_raise_under_autograd(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_attention_bwd_kernels_do_not_spill(cuda_device):
-    """ptxas's report: the three backward kernels at every head dim and
-    dtype, with no spills."""
+    """ptxas's report: every backward kernel at every head dim and dtype it
+    is built for, with no spills."""
     from repro_torch.kernels import _build
     _build.load()
     usage = {n: u for n, u in _build.resource_usage().items()
              if "attn_bwd_" in n}
-    # the preprocess per dtype; dK/dV and dQ per dtype and head dim
-    assert len(usage) == 2 + 2 * 2 * 4, usage
+    # the preprocess per dtype; the CUDA-core dK/dV and dQ in f32 at four
+    # head dims and in bf16 at D 256; the tensor-core pair in bf16 at D 32,
+    # 64 and 128
+    assert len(usage) == 2 + 2 * (4 + 1) + 2 * 3, usage
     for name, (regs, spill_st, spill_ld) in usage.items():
         assert regs <= 255 and spill_st == 0 and spill_ld == 0, (name, regs)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_bf16_kernels_run_on_wgmma(cuda_device):
+    """``cuobjdump -sass`` of the built library: the bf16 backward's dK/dV
+    and dQ kernels at D 32, 64 and 128 hold warpgroup tensor-core
+    instructions (HGMMA), and a bf16 call at those head dims routes to
+    them."""
+    from repro_torch.kernels import _build, flash_attn
+    _build.load()
+    hgmma = {n: c["HGMMA"] for n, c in _build.sass_counts(("HGMMA",)).items()}
+    for name in ("attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel"):
+        for d in (32, 64, 128):
+            assert name in flash_attn.bwd_kernels(torch.bfloat16, d)
+            found = [n for n in hgmma if name in n and f"ILi{d}E" in n]
+            assert len(found) == 1 and hgmma[found[0]] > 0, (name, d, found)
 
 
 # ---------------------------------------------------------- selective scan
