@@ -15,8 +15,9 @@ result line):
    backward kernel, may not spill; the int8 crossbar kernel
    (``crossbar_mxv_int8_kernel``) IMMA (mma.sync s8), the decode kernels
    (``decode_split_kernel``, ``decode_merge_kernel``) must be built, and
-   the crossbar kernels and the scan kernel (``scan_lanes_kernel``, at
-   every instantiation) built without spills;
+   the crossbar kernels, the scan kernel (``scan_lanes_kernel``, at
+   every instantiation) and the scan backward's three kernels in both
+   dtypes built without spills;
 2. hold each kernel against its plain PyTorch version on CUDA tensors: the
    main path's shapes, lenet-28's shapes and edge shapes (N in {1, 3, 130},
    M = 1, a full 256x256 crossbar at B = 1024, batch sizes either side of
@@ -298,6 +299,38 @@ result line):
    The ``kernels`` line gains the three backward kernels ("replaces": none,
    the gradient of ``src/repro/models/layers.py:346``).
 
+23. every other family trains (after 22).  The selective scan's backward
+   (``csrc/mamba_scan_bwd.cu``: ``scan_bwd_bounds_kernel``, the states at
+   the chunks' starts; ``scan_bwd_kernel``, the reverse walk;
+   ``scan_bwd_reduce_kernel``, the partial sums in a fixed order) against
+   ``selective_scan_bwd_ref`` at ``SCAN_BWD_SHAPES`` (falcon-mamba's
+   training shape (8, 512, 8192, 16) in bf16 and in f32 at B = 2, N 4, 17
+   and 64, L 1, 77 and 1000, B = 1 at Din 1024, Din 1001, u/dt rows off
+   alignment, strided B/C, jamba's smoke width in f32): du, ddt, dA, dB,
+   dC, dD within 2e-3 x max|g| in f32 and 2^-6 x max|g| in bf16
+   (``_scan_bwd_limit``), each limit missed by the planted faults that
+   reach the gradient (g's carry dropped at a chunk's start, ddt without
+   its ``A a h`` term: ``_scan_bwd_fault``), two calls bit-equal; times at
+   the training shape (each kernel's device µs, the call's, events, the
+   plain version, the bound and the exponentials' estimate).  Then
+   falcon-mamba-7b at full width (step 0's gradients at depth 4 and
+   B = 2 x 512 against the plain chunked scan, the bound missed by the
+   kernel with g's carry dropped, ``_scan_carry_dropped``; ``Trainer`` at
+   32 of 64 layers on B = 8 x 512, 4 steps, scan launches 64 forward and 32
+   backward a step), qwen2-moe-a2.7b at full width and 6 of 24 layers
+   (step 0 against the plain attention routed as the kernel path routed,
+   held; routing by its own top-k and the flips printed, not held, with
+   the margins at the flips that no earlier layer's flip carries,
+   ``_flip_readings``; the backward's recomputed forward routing as the
+   first forward, held on both paths; two backward passes bit-equal;
+   flash 12 forward and 6 backward a step),
+   seamless-m4t-large-v2 at full width and depth (step 0 against the plain
+   attention; flash 144 forward and 72 backward a step), each step's loss,
+   ms, tokens/s and peak memory; and jamba at its smoke width (f32,
+   head_dim 32: 40 steps falling, killed at 12 and resumed bit-equal).
+   The ``kernels`` line gains ``selective_scan_bwd`` ("replaces": none, the
+   gradient of ``src/repro/models/layers.py:680``).
+
 20. (run after phases 7, 10, 11, 12 and 21, on each model while it is on the
    card: llama3.2-3b with both caches, falcon-mamba-7b, qwen2-moe-a2.7b,
    the reduced jamba with both caches, qwen2-vl-7b, seamless-m4t-large-v2)
@@ -355,6 +388,7 @@ from repro_torch.kernels import (_build, add_launches,  # noqa: E402
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels._tensors import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.ref import (quantize_crossbar, quantize_vec,  # noqa: E402
+                                     selective_scan_bwd_ref,
                                      selective_scan_ref)
 from repro_torch.launch import quickstart  # noqa: E402
 from repro_torch.launch.decode_host_cost import host_us_per_call  # noqa: E402
@@ -647,7 +681,8 @@ def phase_build():
     """Build and load the kernels; print ptxas's registers and spills for
     every kernel, and the tensor-core instructions (HMMA, HGMMA, IMMA) of
     each; the bf16 flash attention kernel must have HGMMA at every head
-    dim, the int8 crossbar kernel IMMA, and no crossbar kernel spills."""
+    dim, the int8 crossbar kernel IMMA, and no crossbar, scan, flash
+    backward or scan backward kernel spills."""
     t0 = time.perf_counter()
     lib = _build.load()
     secs = time.perf_counter() - t0
@@ -708,6 +743,13 @@ def phase_build():
     print("[1] flash backward kernels, registers (no spills): " +
           "; ".join(f"{n} {r}" for n, (r, _, _) in sorted(bwd.items()))
           + f"; HGMMA in the tensor-core ones: {bwd_wg}")
+    sbwd = {names[n]: u for n, u in usage.items() if "scan_bwd_" in n}
+    if len(sbwd) != 2 * len(SCAN_BWD_KERNELS) or any(
+            st or ld for _, st, ld in sbwd.values()):
+        raise AssertionError(f"[1] the scan backward kernels are missing or "
+                             f"spill: {sbwd}")
+    print("[1] scan backward kernels, registers (no spills): " +
+          "; ".join(f"{n} {r}" for n, (r, _, _) in sorted(sbwd.items())))
     return lib
 
 
@@ -3236,6 +3278,33 @@ def _train_step_profile(tr, state):
             "bwd_kernels": bwd}
 
 
+def _kill_and_resume(tag, kw):
+    """``Trainer(**kw)`` run 20 steps, checkpointing every 5; another
+    killed at step 12 and resumed from its step-10 checkpoint: the
+    resumed 10 losses must equal the uninterrupted run's bit for bit."""
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        tr_a = Trainer(ckpt_dir=f"{tmp}/a", **kw)
+        tr_a.run(20)
+        tr_b = Trainer(ckpt_dir=f"{tmp}/b", **kw)
+        try:
+            tr_b.run(20, die_at=12)
+            raise AssertionError(f"{tag}: die_at=12 did not stop the run")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        tr_c = Trainer(ckpt_dir=f"{tmp}/b", **kw)
+        state = tr_c.resume_or_init()
+        if (state.step, tr_c.data.step) != (10, 10):
+            raise AssertionError(f"{tag}: resumed at step {state.step}, "
+                                 f"data {tr_c.data.step}")
+        tr_c.run(10, state=state)
+    if tr_c.history != tr_a.history[10:20]:
+        raise AssertionError(f"{tag}: resumed losses {tr_c.history} differ "
+                             f"from {tr_a.history[10:20]}")
+
+
 def phase_train_smoke(dev):
     """Phase 22 at the smoke width, f32, head_dim 32 on the card (the smoke
     config's 16 is not a built head dim): 40 steps at ``peak_lr=1e-2``
@@ -3257,27 +3326,7 @@ def phase_train_smoke(dev):
     first, last = np.mean(tr.history[:5]), np.mean(tr.history[-5:])
     if not last < first - 0.2:
         raise AssertionError(f"[22] smoke-width loss {first} -> {last}")
-    root = pathlib.Path(__file__).resolve().parent / "build"
-    root.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=root) as tmp:
-        tr_a = Trainer(ckpt_dir=f"{tmp}/a", **kw)
-        tr_a.run(20)
-        tr_b = Trainer(ckpt_dir=f"{tmp}/b", **kw)
-        try:
-            tr_b.run(20, die_at=12)
-            raise AssertionError("[22] die_at=12 did not stop the run")
-        except RuntimeError as e:
-            if "injected failure" not in str(e):
-                raise
-        tr_c = Trainer(ckpt_dir=f"{tmp}/b", **kw)
-        state = tr_c.resume_or_init()
-        if (state.step, tr_c.data.step) != (10, 10):
-            raise AssertionError(f"[22] resumed at step {state.step}, data "
-                                 f"{tr_c.data.step}")
-        tr_c.run(10, state=state)
-    if tr_c.history != tr_a.history[10:20]:
-        raise AssertionError(f"[22] resumed losses {tr_c.history} differ "
-                             f"from {tr_a.history[10:20]}")
+    _kill_and_resume("[22] smoke width", kw)
     print(f"[22] smoke width (d {cfg.d_model}, head_dim 32, f32) on the "
           f"card: 40 steps, loss {first:.4f} -> {last:.4f} (mean of the "
           f"first and last five); launches {counts}; killed at 12, resumed "
@@ -3335,6 +3384,674 @@ def train_kernel_rows(bwd, full, smoke):
     rows[0]["training"] = full
     rows[0]["training_smoke"] = smoke
     return rows
+
+
+# ------------------------------------------- phase 23: every family trains
+SCAN_BWD_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu"
+# the scan's backward replaces no pallas_call: it is the gradient of the
+# reference's plain chunked scan, which jax.value_and_grad differentiates
+SCAN_BWD_REPLACES = "none; gradient of src/repro/models/layers.py:680"
+SCAN_BWD_KERNELS = ("scan_bwd_bounds_kernel", "scan_bwd_kernel",
+                    "scan_bwd_reduce_kernel")
+# (B, L, Din, N, dtype, B/C strided, u/dt rows off 16-byte alignment):
+# falcon-mamba's training shape in bf16 and f32, N of 4, 17 and 64, L = 1,
+# 77 and 1000, B = 1 at Din 1024, a Din no block's width divides, u/dt rows
+# of 301 elements, and jamba's smoke width in f32
+SCAN_BWD_SHAPES = [(8, 512, 8192, 16, torch.bfloat16, True, False),
+                   (2, 512, 8192, 16, torch.float32, True, False),
+                   (2, 300, 1024, 4, torch.bfloat16, True, False),
+                   (2, 200, 2000, 17, torch.bfloat16, True, False),
+                   (1, 700, 520, 64, torch.float32, False, False),
+                   (2, 1, 8192, 16, torch.bfloat16, True, False),
+                   (2, 77, 1024, 16, torch.float32, True, False),
+                   (1, 1000, 1024, 16, torch.bfloat16, True, False),
+                   (4, 129, 1001, 16, torch.bfloat16, True, False),
+                   (2, 64, 300, 16, torch.bfloat16, True, True),
+                   (8, 32, 128, 4, torch.float32, True, False)]
+SCAN_GRADS = ("du", "ddt", "dA", "dB", "dC", "dD")
+# the gradients each planted fault reaches (dC = sum dy h and dD = sum dy u
+# take no g and no ddt term)
+SCAN_FAULT_REACH = {"carry": ("du", "ddt", "dA", "dB"), "A a h": ("ddt",)}
+# the trained depths of the full-width runs (what fits one card, PERF.md),
+# the depth and batch of falcon-mamba's step-0 check against the plain
+# chunked scan (its autograd holds ~64 GB a layer at B = 8), steps a run
+MAMBA_TRAIN_LAYERS, MOE_TRAIN_LAYERS = 32, 6
+MAMBA_GRAD_LAYERS, MAMBA_GRAD_BATCH = 4, 2
+FAMILY_STEPS = 4
+# each family's step-0 gradients are held to phase 22's GRAD_REL_L2_BOUND
+# and LOSS_REL_BOUND.  Measured on an H100 80GB HBM3 at 700 W (PERF.md):
+# falcon-mamba 0.0182 (the scan with a chunk's carry dropped: 0.2236),
+# qwen2-moe routed alike 0.0258 (by its own top-k: 0.4223, tokens
+# flipped), seamless-m4t 0.0502
+
+
+def _scan_fault_step(l):
+    """The step whose g is not carried into the chunk before it by the
+    planted fault: the start of the middle chunk of the kernel's, None
+    where L is one chunk."""
+    chunks = -(-l // mamba_scan.BWD_CHUNK)
+    return mamba_scan.BWD_CHUNK * (chunks // 2) if chunks > 1 else None
+
+
+def _scan_bwd_fault(u, dt, a, b, c, d_skip, dy, drop_at=None, no_ah=False):
+    """``selective_scan_bwd_ref``'s recurrence with a planted fault: g not
+    carried from step ``drop_at`` into the step before it, or ddt without
+    its ``A a_t h_{t-1}`` term.  Returns (du, ddt, dA, dB, dC, dD) in f32."""
+    f = torch.float32
+    a = a.to(f)
+    u, dt, b, c, dy = (t.to(f) for t in (u, dt, b, c, dy))
+    h = torch.zeros((u.shape[0], u.shape[2], a.shape[1]), dtype=f,
+                    device=u.device)
+    hs = [h]
+    for t in range(u.shape[1]):
+        h = torch.exp(dt[:, t, :, None] * a) * h \
+            + (dt[:, t] * u[:, t])[:, :, None] * b[:, t, None, :]
+        hs.append(h)
+    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da, g, a_next = torch.zeros_like(a), torch.zeros_like(h), None
+    for t in reversed(range(u.shape[1])):
+        at = torch.exp(dt[:, t, :, None] * a)
+        if t + 1 == drop_at:
+            g = torch.zeros_like(g)
+        g = dy[:, t, :, None] * c[:, t, None, :] + (
+            0 if a_next is None else a_next * g)
+        ah = at * hs[t]
+        du[:, t] = dt[:, t] * (g * b[:, t, None, :]).sum(2) \
+            + d_skip[None] * dy[:, t]
+        ub = u[:, t, :, None] * b[:, t, None, :]
+        ddt[:, t] = (g * (ub if no_ah else ub + a * ah)).sum(2)
+        da += (g * dt[:, t, :, None] * ah).sum(0)
+        db[:, t] = (g * (dt[:, t] * u[:, t])[:, :, None]).sum(1)
+        dc[:, t] = (dy[:, t, :, None] * hs[t + 1]).sum(1)
+        a_next = at
+    return du, ddt, da, db, dc, (dy * u).sum((0, 1))
+
+
+def _scan_bwd_inputs(shape, gen, dev):
+    """u, dt, a, B, C, d_skip of ``scan_inputs`` and dy (f32); u and dt as
+    slices of (B, L, Din + 1) rows where the shape asks for rows off
+    16-byte alignment."""
+    b, l, d, n, dt, strided, misaligned = shape
+    args = list(scan_inputs(gen, b, l, d, n, dev, dt, strided))
+    if misaligned:
+        for i in (0, 1):
+            wide = torch.zeros((b, l, d + 1), dtype=dt, device=dev)
+            wide[..., 1:] = args[i]
+            args[i] = wide[..., 1:]
+    dy = torch.randn((b, l, d), generator=gen, device=dev)
+    return args, dy
+
+
+def _scan_bwd_limit(want, dt):
+    """2e-3 x max|g| in f32, 2^-6 x max|g| in bf16 (two bf16 steps at the
+    largest value: the kernels and the plain version both sum in f32 and
+    round once), scaled by max|g| itself: scan gradients can be far below
+    1."""
+    m = want.float().abs().max().item()
+    return (2e-3 if dt == torch.float32 else 2.0 ** -6) * m
+
+
+def phase_scan_bwd(dev):
+    """Phase 23, the kernels: at every shape of ``SCAN_BWD_SHAPES`` the
+    backward's six gradients against ``selective_scan_bwd_ref`` within
+    ``_scan_bwd_limit``, in the input's dtype and shape, and two calls
+    bit-equal; each limit shown to see a fault: the plain version with g's
+    carry dropped at ``_scan_fault_step`` and with ddt's ``A a h`` term left
+    out must miss it on every gradient the fault reaches
+    (``SCAN_FAULT_REACH``).  Prints max|g|, the limits and errors.  Then the
+    times at falcon-mamba's training shape."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    before = _all_counts()
+    err = {"f32": 0.0, "bf16": 0.0}
+    readings = []
+    for shape in SCAN_BWD_SHAPES:
+        b, l, d, n, dt, _, _ = shape
+        args, dy = _scan_bwd_inputs(shape, gen, dev)
+        got = mamba_scan.selective_scan_bwd(*args, dy)
+        again = mamba_scan.selective_scan_bwd(*args, dy)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"[23] scan backward {shape[:5]}: two calls "
+                                 f"differ")
+        want = selective_scan_bwd_ref(*args, dy)
+        t0 = _scan_fault_step(l)
+        faults = {}                  # at L = 1 h_{-1} = 0: no A a h term
+        if l > 1:
+            faults["A a h"] = _scan_bwd_fault(*args, dy, no_ah=True)
+        if t0 is not None:
+            faults["carry"] = _scan_bwd_fault(*args, dy, drop_at=t0)
+        key = "f32" if dt == torch.float32 else "bf16"
+        row = {"shape": [b, l, d, n, key], "fault_step": t0}
+        for i, (name, g, w) in enumerate(zip(SCAN_GRADS, got, want)):
+            limit = _scan_bwd_limit(w, dt)
+            e = (g.float() - w.float()).abs().max().item()
+            if g.dtype != w.dtype or g.shape != w.shape or \
+                    not torch.isfinite(g).all() or not e <= limit:
+                raise AssertionError(f"[23] scan backward {shape[:5]} {name}: "
+                                     f"{g.dtype} {tuple(g.shape)}, max err "
+                                     f"{e} over the limit {limit}")
+            miss = {f: (fw[i] - w.float()).abs().max().item()
+                    for f, fw in faults.items()}
+            for f, m in miss.items():
+                if name in SCAN_FAULT_REACH[f] and not m > limit:
+                    raise AssertionError(f"[23] scan backward {shape[:5]} "
+                                         f"{name}: the limit {limit} would "
+                                         f"pass the planted fault {f} ({m})")
+            err[key] = max(err[key], e)
+            row[name] = {"max_g": w.float().abs().max().item(),
+                         "limit": limit, "err": e, "fault_err": miss}
+        readings.append(row)
+        print(f"[23] scan backward {row['shape']}: " + "; ".join(
+            f"{k} max|g| {row[k]['max_g']:.4g}, limit {row[k]['limit']:.4g}, "
+            f"err {row[k]['err']:.4g}" + "".join(
+                f", {f} {m:.4g}" for f, m in row[k]["fault_err"].items()
+                if k in SCAN_FAULT_REACH[f]) for k in SCAN_GRADS))
+        del got, again, want, faults, args, dy
+    torch.cuda.synchronize()
+    print(f"[23] {len(SCAN_BWD_SHAPES)} scan backward shapes agree with "
+          f"selective_scan_bwd_ref: max abs err {err['f32']:.3g} (f32), "
+          f"{err['bf16']:.3g} (bf16); two calls bit-equal at every shape; "
+          f"every limit missed by each planted fault it reaches")
+    times = _scan_bwd_times(gen, dev)
+    _set_counts(before)                # checking launches do not count
+    return {"err": err, "readings": readings, "times": times}
+
+
+def _scan_bwd_bound(b, l, d, n, elem):
+    """The backward's least time: u, dt, B, C, A, D and dy read once, du,
+    ddt, dA, dB, dC, dD written once; 14 f32 operations a (b, t, d, n) (the
+    state's recompute 3, g 2, du's and ddt's terms 5, dA's 2, dB's and dC's
+    2); the exponentials' time on the special-function units, once each, as
+    an estimate beside it."""
+    nbytes = (4 * b * l * d * elem + 4 * b * l * n * elem + 2 * d * n * 4
+              + 2 * d * 4 + b * l * d * 4)
+    ops = 14 * b * l * d * n
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["f32"] * 1e3
+    exp_ms = b * l * d * n / EXP_PER_S * 1e3
+    return ((t_b, "bytes") if t_b >= t_o else (t_o, "operations")), exp_ms
+
+
+def _scan_bwd_times(gen, dev):
+    """At falcon-mamba's training shape in bf16 (B and C strided): the
+    backward call's µs (events), each kernel's device µs and the call's
+    (``_device_total_us``), the forward kernel's µs, the plain version's
+    ms, the bound and the exponentials' estimate."""
+    shape = SCAN_BWD_SHAPES[0]
+    b, l, d, n, dt = shape[:5]
+    args, dy = _scan_bwd_inputs(shape, gen, dev)
+    call = lambda: mamba_scan.selective_scan_bwd(*args, dy)
+    fwd = lambda: mamba_scan.selective_scan(*args)
+    out = {"shape": [b, l, d, n, "bfloat16"],
+           "ms": _events_ms(call, reps=10, trials=5, warmup=2),
+           "dev_us": {k: _device_us(call, k, reps=10, tries=3)
+                      for k in SCAN_BWD_KERNELS},
+           "call_dev_us": _device_total_us(
+               call, f"[23] scan backward call at {shape[:4]}", reps=10,
+               whole=True),
+           "fwd_ms": _events_ms(fwd, reps=10, trials=5, warmup=2),
+           "plain_ms": _events_ms(lambda: selective_scan_bwd_ref(*args, dy),
+                                  reps=1, trials=3, warmup=1)}
+    (bound, by), exp_ms = _scan_bwd_bound(b, l, d, n, 2)
+    out.update(bound_ms=bound, bound_by=by, exp_ms=exp_ms)
+    print(f"[23] scan backward at {out['shape']}: {out['ms'] * 1e3:.2f} us "
+          f"per call (events), device {_us(out['call_dev_us'])} (" + ", ".join(
+              f"{k} {_us(v)}" for k, v in out["dev_us"].items())
+          + f"); bound {bound * 1e3:.2f} us ({by}); exponentials once each "
+          f"at 16 per clock per SM: {exp_ms * 1e3:.1f} us (the kernels take "
+          f"them three times); plain {out['plain_ms']:.1f} ms; the forward "
+          f"kernel {out['fwd_ms'] * 1e3:.2f} us per call")
+    return out
+
+
+@contextlib.contextmanager
+def _scan_carry_dropped():
+    """While entered, the scan's backward drops g's carry at
+    ``_scan_fault_step``: du, ddt and dB of the steps before it come from a
+    second launch on dy zeroed from that step on (dA keeps the full
+    launch's sum; dC and dD take no g).  A fault the full-width gradient
+    check must see."""
+    bwd = mamba_scan.selective_scan_bwd
+
+    def faulted(u, dt, a, b, c, d_skip, dy):
+        du, ddt, da, db, dc, dd = bwd(u, dt, a, b, c, d_skip, dy)
+        t0 = _scan_fault_step(u.shape[1])
+        if t0 is not None:
+            lo = dy.clone()
+            lo[:, t0:] = 0
+            du2, ddt2, _, db2, _, _ = bwd(u, dt, a, b, c, d_skip, lo)
+            du[:, :t0], ddt[:, :t0], db[:, :t0] = (
+                du2[:, :t0], ddt2[:, :t0], db2[:, :t0])
+        return du, ddt, da, db, dc, dd
+    mamba_scan.selective_scan_bwd = faulted
+    try:
+        yield
+    finally:
+        mamba_scan.selective_scan_bwd = bwd
+
+
+def _family_batch(cfg, b, s, seed=0):
+    return SyntheticLMData(cfg.vocab_size, b, s, seed,
+                           embed_dim=cfg.d_model if cfg.embed_inputs else 0,
+                           encdec=cfg.is_encdec).next()
+
+
+def _host_grads(cfg, model, batch, use_kernel, record=None, replay=None,
+                margins=None):
+    """(loss, {name: gradient on the host}) of one loss and backward.  With
+    ``record`` (a list) every router top-k call's indices, the loss's
+    forward and the backward's recompute, are appended to it, in call
+    order; with ``margins`` (a list) each call's router probabilities and
+    its k-th minus (k+1)-th probability; with ``replay`` (such a list from
+    another pass) call i routes by ``replay[i]`` instead of its own top-k,
+    its weights gathered from its own probabilities, so that both passes
+    route every token alike."""
+    calls = []
+    real = torch.topk
+
+    def spy(x, k, *a, **kw):
+        out = real(x, k, *a, **kw)
+        if replay is not None:
+            idx = replay[len(calls)].to(x.device)
+            out = torch.return_types.topk((torch.gather(x, -1, idx), idx))
+        calls.append(out.indices)
+        if margins is not None:
+            top = real(x.detach(), k + 1, dim=-1).values
+            margins.append((x.detach().cpu(),
+                            (top[..., k - 1] - top[..., k]).cpu()))
+        return out
+    if record is not None or replay is not None or margins is not None:
+        torch.topk = spy
+    try:
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = port_models.loss(cfg, model, batch, use_kernel)
+        loss.backward()
+    finally:
+        torch.topk = real
+    if record is not None:
+        record += [i.cpu() for i in calls]
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    for p in model.parameters():
+        p.grad = None
+    return loss.item(), grads
+
+
+def _host_rel_l2(got, want, dev):
+    """``_rel_l2`` of host gradients, each pair moved to ``dev`` in turn."""
+    return {k: _rel_l2({k: got[k].to(dev)}, {k: want[k].to(dev)})[k]
+            for k in want}
+
+
+def _recompute_order_undone(cfg, calls):
+    """A forward's and its remat's router calls (``calls``: the forward's
+    MoE layers in order, then the backward's recompute, which takes the
+    periods last first and each period's layers in order) as (the
+    forward's, the recompute's put back in forward order)."""
+    layers = len(calls) // 2
+    if len(calls) != 2 * layers or layers % lm.n_periods(cfg):
+        raise AssertionError(f"{len(calls)} router calls for "
+                             f"{lm.n_periods(cfg)} remat periods")
+    per = layers // lm.n_periods(cfg)
+    rec = calls[layers:]
+    chunks = [rec[i:i + per] for i in range(0, layers, per)]
+    return calls[:layers], [c for chunk in chunks[::-1] for c in chunk]
+
+
+def _flip_readings(k_routes, p_routes, k_marg, p_marg):
+    """The kernel path's routing (``k_routes``; ``k_marg``: its router
+    probabilities and k-th minus (k+1)-th margins, (G, T) a layer) against
+    the plain path's by its own top-k, for each MoE layer of one forward:
+    the tokens whose top-k sets differ (``flips``, and the larger of the
+    two paths' margins there, median); those of them with no
+    flip at an earlier layer at this or an earlier position of their row
+    (``fresh``: causal attention carries a flipped token's change to the
+    later tokens of its row, so only at a fresh flip do the router's inputs
+    differ by the paths' rounding alone); both paths' margins at the fresh
+    flips (median, max) against the kernel path's margins over every token
+    (median, 1st percentile); and the fresh flips at which both paths'
+    margins are below the median largest |router probability difference|
+    over the tokens that neither flip nor are carried (``near_tie``,
+    phase 11's rule)."""
+    out = []
+    carried = None
+    for a, b, (kp, km), (pp, pm) in zip(k_routes, p_routes, k_marg, p_marg):
+        flip = (a.sort(-1).values != b.sort(-1).values).any(-1)   # (G, T)
+        clean = ~flip if carried is None else ~(flip | carried)
+        fresh = flip if carried is None else flip & ~carried
+        gap = (kp - pp).abs().amax(-1)
+        noise = gap[clean].median().item() if clean.any() else None
+        both = torch.maximum(km[fresh], pm[fresh])
+        every = torch.maximum(km[flip], pm[flip])
+        out.append({
+            "flips": int(flip.sum()), "fresh": int(fresh.sum()),
+            "flip_margin_median": (every.median().item() if every.numel()
+                                   else None),
+            "fresh_margin_median": (both.median().item() if both.numel()
+                                    else None),
+            "fresh_margin_max": both.max().item() if both.numel() else None,
+            "margin_median": km.median().item(),
+            "margin_p01": km.flatten().quantile(0.01).item(),
+            "clean_diff_median": noise,
+            "near_tie": (int((both < noise).sum()) if noise is not None
+                         else None)})
+        seen = flip if carried is None else flip | carried
+        carried = torch.cummax(seen.to(torch.int8), dim=1).values.bool()
+    return out
+
+
+def _grad_check(tag, cfg, model, batch, want_counts, fault=None,
+                twice=False):
+    """Step 0's loss and every parameter's gradient, kernel path against
+    ``use_kernel=False`` on the same batch: the loss within
+    ``LOSS_REL_BOUND``, each gradient's relative L2 within
+    ``GRAD_REL_L2_BOUND``, the kernel path's launches ``want_counts``
+    exactly, and, with
+    ``fault`` (a context), the largest relative L2 with the fault planted
+    over the bound; with ``twice``, a second kernel-path backward bit-equal
+    to the first.  A MoE model is held with the plain path routed as the
+    kernel path routed (``_host_grads``' replay): the attention's rounding
+    flips the router's top-k of some tokens, and a flipped token's
+    gradients go to other experts.  The free-routing comparison and the
+    flips by layer are printed, not held, as phase 11 prints them, with
+    ``_flip_readings``' margins; held are the recomputed forward's routes,
+    equal to the first forward's on both paths."""
+    bound = GRAD_REL_L2_BOUND
+    dev = batch["labels"].device
+    moe = cfg.moe is not None
+    routes = [] if moe else None
+    k_marg = [] if moe else None
+    before = _all_counts()
+    _zero_counts()
+    loss_k, kern = _host_grads(cfg, model, batch, True, record=routes,
+                               margins=k_marg)
+    counts = _nonzero(_all_counts())
+    _expect(_all_counts(), want_counts, f"[23] {tag} one kernel-path step")
+    loss_p, plain = _host_grads(cfg, model, batch, False, replay=routes)
+    out = {"loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+           "launches": counts}
+    rel = _host_rel_l2(kern, plain, dev)
+    finite = all(torch.isfinite(g).all() for g in kern.values())
+    if set(kern) != set(plain) or len(kern) != len(list(
+            model.parameters())):
+        raise AssertionError(f"[23] {tag}: a parameter has no gradient")
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    out.update(grad_rel_l2_max=worst[0][1],
+               grad_rel_l2_median=statistics.median(rel.values()),
+               worst=worst, bound=bound, routing_matched=moe)
+    if moe:
+        free, p_marg = [], []
+        loss_f, plain_f = _host_grads(cfg, model, batch, False, record=free,
+                                      margins=p_marg)
+        k_fwd, k_rec = _recompute_order_undone(cfg, routes)
+        p_fwd, p_rec = _recompute_order_undone(cfg, free)
+        out["recompute_routes_equal"] = {
+            "kernel": all(map(torch.equal, k_fwd, k_rec)),
+            "plain": all(map(torch.equal, p_fwd, p_rec))}
+        layers = len(k_fwd)
+        rel_f = _host_rel_l2(kern, plain_f, dev)
+        flips = _flip_readings(k_fwd, p_fwd, k_marg[:layers],
+                               p_marg[:layers])
+        out["free_routing"] = {
+            "loss_rel": abs(loss_k - loss_f) / abs(loss_f),
+            "grad_rel_l2_max": max(rel_f.values()),
+            "grad_rel_l2_median": statistics.median(rel_f.values()),
+            "flips_by_layer": [f["flips"] for f in flips],
+            "by_layer": flips}
+        del plain_f, k_marg, p_marg
+    if twice:
+        _, again = _host_grads(cfg, model, batch, True)
+        out["bit_equal"] = all(torch.equal(again[k], kern[k]) for k in kern)
+        del again
+    del kern
+    if fault is not None:
+        with fault():
+            _, bad = _host_grads(cfg, model, batch, True)
+        fault_rel = _host_rel_l2(bad, plain, dev)
+        fw = sorted(fault_rel.items(), key=lambda kv: -kv[1])[:5]
+        out.update(fault_grad_rel_l2_max=fw[0][1], fault_worst=fw)
+        del bad
+    _set_counts(before)
+    print(f"[23] {tag} step 0, kernel path against plain path"
+          + (" (routed as the kernel path)" if moe else "") + f": loss "
+          f"{loss_k:.6f} against {loss_p:.6f} (relative "
+          f"{out['loss_rel']:.3g}, bound {LOSS_REL_BOUND}); gradients' "
+          f"relative L2 over {len(rel)} parameters: max {worst[0][1]:.4g}, "
+          f"median {out['grad_rel_l2_median']:.4g}, bound {bound}; worst "
+          + ", ".join(f"{k} {v:.4g}" for k, v in worst)
+          + f"; launches {counts}"
+          + (f"; a second backward bit-equal: {out['bit_equal']}"
+             if twice else ""))
+    if moe:
+        f = out["free_routing"]
+        print(f"[23] {tag} step 0 against the plain path routing by its own "
+              f"top-k (printed, not held): loss relative {f['loss_rel']:.3g}"
+              f"; gradients' relative L2 max {f['grad_rel_l2_max']:.4g}, "
+              f"median {f['grad_rel_l2_median']:.4g}; routing flips by layer "
+              f"(tokens whose top-k set differs, of "
+              f"{batch['labels'].numel()}) {f['flips_by_layer']}")
+        for i, r in enumerate(f["by_layer"]):
+            print(f"[23] {tag} MoE layer {i}: {r['flips']} flips (the "
+                  f"larger margin there: median {r['flip_margin_median']}), "
+                  f"{r['fresh']} fresh (no flip at an earlier layer at or "
+                  f"before the token in its row); the larger of the two "
+                  f"paths' k-th minus (k+1)-th probability at the fresh "
+                  f"flips: median {r['fresh_margin_median']}, max "
+                  f"{r['fresh_margin_max']}; the kernel path's over every "
+                  f"token: median {r['margin_median']}, 1st percentile "
+                  f"{r['margin_p01']}; median probability difference over "
+                  f"the tokens neither flipped nor carried "
+                  f"{r['clean_diff_median']}; fresh flips with both margins "
+                  f"below it (near ties): {r['near_tie']} of {r['fresh']}")
+        print(f"[23] {tag} the backward's recomputed forward routes every "
+              f"token as the first forward did: "
+              f"{out['recompute_routes_equal']}")
+    if fault is not None:
+        print(f"[23] {tag} step 0 with the planted fault: gradients' "
+              f"relative L2 max {out['fault_grad_rel_l2_max']:.4g}; worst "
+              + ", ".join(f"{k} {v:.4g}" for k, v in out["fault_worst"]))
+    if not (out["loss_rel"] <= LOSS_REL_BOUND and worst[0][1] <= bound
+            and finite):
+        raise AssertionError(f"[23] {tag}: the kernel path's step-0 loss or "
+                             f"gradients are off the plain path's")
+    if moe and not all(out["recompute_routes_equal"].values()):
+        raise AssertionError(f"[23] {tag}: the recomputed forward routed "
+                             f"otherwise than the first "
+                             f"{out['recompute_routes_equal']}")
+    if twice and not out["bit_equal"]:
+        raise AssertionError(f"[23] {tag}: two backward passes on the same "
+                             f"inputs differ")
+    if fault is not None and not out["fault_grad_rel_l2_max"] > bound:
+        raise AssertionError(f"[23] {tag}: the bound {bound} would pass the "
+                             f"planted fault "
+                             f"({out['fault_grad_rel_l2_max']})")
+    return out
+
+
+def _train_steps(tag, tr, state, per_step):
+    """``FAMILY_STEPS`` steps of ``tr.run``, the counts zeroed just before
+    and exactly ``FAMILY_STEPS`` x ``per_step`` after: each step's loss
+    (finite), ms (CUDA events), tokens/s and peak allocated memory."""
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    tr.run(FAMILY_STEPS, state=state)
+    counts = _nonzero(_all_counts())
+    _expect(_all_counts(), {k: v * FAMILY_STEPS for k, v in per_step.items()},
+            f"[23] {tag} {FAMILY_STEPS} steps of Trainer.run")
+    if not all(math.isfinite(x) for x in tr.history):
+        raise AssertionError(f"[23] {tag}: non-finite losses {tr.history}")
+    tokens = tr.batch * tr.seq_len
+    for i, (loss, ms, peak) in enumerate(zip(tr.history, tr.step_ms,
+                                             tr.peak_bytes)):
+        print(f"[23] {tag} step {i}: loss {loss:.4f}, {ms:.1f} ms (CUDA "
+              f"events), {tokens / ms * 1e3:.0f} tokens/s, peak allocated "
+              f"{peak / 2**30:.2f} GiB")
+    print(f"[23] {tag} {FAMILY_STEPS} steps: launches {counts} (exact)")
+    return {"batch": tr.batch, "seq_len": tr.seq_len, "losses": tr.history,
+            "step_ms": tr.step_ms,
+            "peak_gib": [p / 2**30 for p in tr.peak_bytes],
+            "launches": counts}
+
+
+def _trainer_state(tag, cfg, dev):
+    tr = Trainer(cfg=cfg, batch=BATCH, seq_len=PROMPT, peak_lr=TRAIN_LR,
+                 device=dev)
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"[23] {tag}: {n_params} trainable parameters and their "
+          f"{cfg.adam_dtype} moments on the card in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    return tr, state, n_params
+
+
+def phase_train_mamba(dev):
+    """Phase 23, falcon-mamba-7b at full width: first step 0's gradients
+    against the plain chunked scan (depth ``MAMBA_GRAD_LAYERS``, batch
+    ``MAMBA_GRAD_BATCH`` x 512), the bound shown to see the kernel with g's
+    carry dropped (``_scan_carry_dropped``); then ``Trainer`` at depth
+    ``MAMBA_TRAIN_LAYERS`` on B = 8 x 512 with f32 moments and remat: the
+    scan's forward launches twice a layer a step, its backward once, flash
+    attention never."""
+    full = get_arch(MAMBA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MAMBA_GRAD_LAYERS)
+    model = build_model(cfg, dev, seed=0).requires_grad_(True)
+    batch = to_device(_family_batch(cfg, MAMBA_GRAD_BATCH, PROMPT), dev)
+    print(f"[23] {MAMBA_ARCH} step-0 check at depth {MAMBA_GRAD_LAYERS} of "
+          f"{full.n_layers}, batch cut to {MAMBA_GRAD_BATCH} of {BATCH} x "
+          f"{PROMPT}: the plain chunked scan's autograd holds ~64 GB a layer "
+          f"at B = {BATCH}")
+    n = cfg.n_layers
+    check = _grad_check(MAMBA_ARCH, cfg, model, batch,
+                        {"selective_scan": 2 * n, "selective_scan_bwd": n,
+                         "flash_attention": 0, "flash_attention_bwd": 0},
+                        fault=_scan_carry_dropped)
+    del model, batch
+    _free()
+    cfg = dataclasses.replace(full, n_layers=MAMBA_TRAIN_LAYERS)
+    tag = f"{MAMBA_ARCH} ({MAMBA_TRAIN_LAYERS} of {full.n_layers} layers)"
+    tr, state, n_params = _trainer_state(tag, cfg, dev)
+    n = cfg.n_layers
+    out = _train_steps(tag, tr, state, {"selective_scan": 2 * n,
+                                        "selective_scan_bwd": n,
+                                        "flash_attention": 0,
+                                        "flash_attention_bwd": 0})
+    out.update(arch=MAMBA_ARCH, layers=n, params=n_params, step0=check)
+    del state, tr
+    _free()
+    return out
+
+
+def phase_train_moe(dev):
+    """Phase 23, qwen2-moe-a2.7b at full width, depth ``MOE_TRAIN_LAYERS``
+    (60 experts top-4, 4 shared, bf16), ``Trainer`` on B = 8 x 512: step 0's
+    gradients against the plain attention (routed as the kernel path;
+    routing flips printed), two kernel-path backward passes bit-equal (the
+    dispatch's determinism on the card); flash attention 2 forward
+    launches a layer a step and 1 backward."""
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    tag = f"{MOE_ARCH} ({MOE_TRAIN_LAYERS} of {full.n_layers} layers)"
+    tr, state, n_params = _trainer_state(tag, cfg, dev)
+    n = cfg.n_layers
+    per_step = {"flash_attention": 2 * n, "flash_attention_bwd": n,
+                "selective_scan": 0, "selective_scan_bwd": 0}
+    batch = to_device(_family_batch(cfg, BATCH, PROMPT, tr.seed), dev)
+    check = _grad_check(tag, cfg, state.model, batch, per_step, twice=True)
+    del batch
+    _free()
+    out = _train_steps(tag, tr, state, per_step)
+    out.update(arch=MOE_ARCH, layers=n, params=n_params, step0=check)
+    del state, tr
+    _free()
+    return out
+
+
+def phase_train_encdec(dev):
+    """Phase 23, seamless-m4t-large-v2 at full width and depth (24 + 24
+    layers), ``Trainer`` on ``SyntheticLMData(encdec=True)`` batches of
+    B = 8 x 512: step 0's gradients against the plain attention; flash
+    attention forward twice and backward once for each of its 72 calls a
+    step (encoder self, decoder self and cross) under remat."""
+    cfg = get_arch(ENCDEC_ARCH)
+    tr, state, n_params = _trainer_state(ENCDEC_ARCH, cfg, dev)
+    calls = cfg.encoder_layers + 2 * cfg.n_layers
+    per_step = {"flash_attention": 2 * calls, "flash_attention_bwd": calls}
+    batch = to_device(_family_batch(cfg, BATCH, PROMPT, tr.seed), dev)
+    check = _grad_check(ENCDEC_ARCH, cfg, state.model, batch, per_step)
+    del batch
+    _free()
+    out = _train_steps(ENCDEC_ARCH, tr, state, per_step)
+    out.update(arch=ENCDEC_ARCH, params=n_params, step0=check)
+    del state, tr
+    _free()
+    return out
+
+
+def phase_train_hybrid(dev):
+    """Phase 23, jamba-1.5-large-398b at its smoke width in f32 with
+    head_dim 32 (Mamba, attention and MoE layers; the f32 scan backward and
+    the CUDA-core attention backward): 40 steps at ``peak_lr=1e-2`` whose
+    loss falls as ``tests/test_train.py`` requires, launches exact, and a
+    run killed at step 12 and resumed from its step-10 checkpoint bit-equal
+    to the uninterrupted run."""
+    cfg = dataclasses.replace(smoke_config(HYBRID_ARCH), head_dim=32)
+    kinds = lm.period_structure(cfg)
+    n_m = sum(k["mixer"] == "mamba" for k in kinds) * lm.n_periods(cfg)
+    n_a = cfg.n_layers - n_m
+    kw = dict(cfg=cfg, batch=8, seq_len=32, peak_lr=1e-2, device=dev,
+              ckpt_every=5)
+    steps = 40
+    _zero_counts()
+    tr = Trainer(**kw)
+    tr.run(steps)
+    counts = _nonzero(_all_counts())
+    _expect(_all_counts(), {"selective_scan": 2 * n_m * steps,
+                            "selective_scan_bwd": n_m * steps,
+                            "flash_attention": 2 * n_a * steps,
+                            "flash_attention_bwd": n_a * steps},
+            "[23] jamba smoke-width training")
+    first, last = np.mean(tr.history[:5]), np.mean(tr.history[-5:])
+    if not last < first - 0.2:
+        raise AssertionError(f"[23] jamba smoke-width loss {first} -> {last}")
+    _kill_and_resume("[23] jamba smoke width", kw)
+    print(f"[23] jamba smoke width (d {cfg.d_model}, head_dim 32, f32, "
+          f"{cfg.adam_dtype} moments) on the card: {steps} steps, loss "
+          f"{first:.4f} -> {last:.4f} (mean of the first and last five); "
+          f"launches {counts}; killed at 12, resumed from step 10: the 10 "
+          f"losses equal the uninterrupted run's bit for bit")
+    return {"losses": tr.history, "launches": counts, "resumed_equal": True}
+
+
+def scan_bwd_kernel_row(kern, mamba, hybrid):
+    """Phase 23 in the ``kernels`` line: the scan backward (three kernels a
+    call), timed at falcon-mamba's training shape, its launches on the
+    full-width falcon-mamba run and on jamba's smoke-width run."""
+    t = kern["times"]
+    by_path = {"falcon_mamba_full_width":
+               mamba["launches"].get("selective_scan_bwd", 0),
+               "jamba_smoke_width":
+               hybrid["launches"].get("selective_scan_bwd", 0)}
+    if not all(by_path.values()):
+        raise AssertionError(f"[23] selective_scan_bwd launches {by_path}")
+    dev_ms = _ms(t["call_dev_us"])
+    return {"name": "selective_scan_bwd", "route": "cuda",
+            "source": SCAN_BWD_SOURCE, "replaces": SCAN_BWD_REPLACES,
+            "launches": by_path["falcon_mamba_full_width"],
+            "launches_by_path": by_path,
+            "max_abs_err": kern["err"]["f32"],
+            "max_abs_err_bf16": kern["err"]["bf16"],
+            "ms": t["ms"] if dev_ms is None else dev_ms,
+            "ms_is": "events" if dev_ms is None else "device",
+            "events_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "kernels_device_ms": {k: _ms(v) for k, v in t["dev_us"].items()},
+            "forward_ms": t["fwd_ms"], "shape": t["shape"],
+            "checks": kern["readings"]}
 
 
 # (C, H, W, FL, FH, FW, stride, pad)
@@ -3909,6 +4626,17 @@ def main() -> int:
         device_ms_with_lse=_ms(fwd_lse["fwd_lse_dev_us"]))
     kernels += train_kernel_rows(bwd, _timed(phase_train_full, dev),
                                  _timed(phase_train_smoke, dev))
+    t23 = time.perf_counter()
+    scan_bwd = _timed(phase_scan_bwd, dev)
+    trained = {"falcon_mamba": _timed(phase_train_mamba, dev),
+               "qwen2_moe": _timed(phase_train_moe, dev),
+               "seamless": _timed(phase_train_encdec, dev),
+               "jamba_smoke": _timed(phase_train_hybrid, dev)}
+    row = scan_bwd_kernel_row(scan_bwd, trained["falcon_mamba"],
+                              trained["jamba_smoke"])
+    row["training"] = trained
+    kernels.append(row)
+    print(f"[wall] phase 23: {time.perf_counter() - t23:.1f} s")
     conv_errs = _timed(phase_conv_kernel, dev)
     qs = _timed(phase_quickstart)
     faults = _timed(phase_fault_serve, dev)

@@ -47,6 +47,9 @@ _DECODE = (_P,) * 6 + (_I,) * 5 + (_F, _S, _P)
 _DECODE_INT8 = (_P,) * 8 + (_I,) * 5 + (_F, _S, _P)
 # u, dt, a, B, C, D, y, hT; B, L, Din, N; S, G, tile, vec (the plan)
 _SCAN = (_P,) * 8 + (_I,) * 8 + (_S, _P)
+# u, dt, a, B, C, D, dy; du, ddt, dA, dB, dC, dD; bounds, acc, pbc, pa, pd
+# (the workspaces); B, L, Din, N
+_SCAN_BWD = (_P,) * 18 + (_I,) * 4 + (_S, _P)
 _CONV = (_P, _P, _P, _P) + (_I,) * 12 + (_P,)
 # name -> argtypes; every entry returns the launch's cudaError_t as an int
 SIGNATURES = {
@@ -65,6 +68,8 @@ SIGNATURES = {
     "flash_decode_int8_bf16": _DECODE_INT8,
     "selective_scan_f32": _SCAN,
     "selective_scan_bf16": _SCAN,
+    "selective_scan_bwd_f32": _SCAN_BWD,
+    "selective_scan_bwd_bf16": _SCAN_BWD,
 }
 
 

@@ -6,8 +6,8 @@ wrapper, which launches the CUDA kernel on CUDA tensors and runs the plain
 PyTorch version on CPU tensors; ``use_kernel=False`` calls the plain version
 (the oracle of :mod:`.ref`) on any device.  That is an explicit choice of
 the caller, never a fallback.  ``mamba_scan`` returns what the model needs,
-the f32 output and the final state, where the reference's returns the
-output alone.
+the f32 output and, for prefill, the final state, where the reference's
+returns the output alone.
 """
 
 from __future__ import annotations
@@ -56,11 +56,16 @@ def decode_attention(q, k, v, length, use_kernel: bool = True):
     return ref.decode_ref(q, k, v, length)
 
 
-def mamba_scan(u, dt, a, b, c, d_skip, use_kernel: bool = True):
-    """y (B, L, D) f32 (scan + ``d_skip * u``), hT (B, D, N) f32."""
+def mamba_scan(u, dt, a, b, c, d_skip, use_kernel: bool = True,
+               return_state: bool = True):
+    """y (B, L, D) f32 (scan + ``d_skip * u``) and, with ``return_state``,
+    hT (B, D, N) f32.  Without it the kernel's call is differentiable
+    (training asks for y alone)."""
     if use_kernel:
-        return selective_scan(u, dt, a, b, c, d_skip, return_state=True)
-    return ref.selective_scan_ref(u, dt, a, b, c, d_skip, return_state=True)
+        return selective_scan(u, dt, a, b, c, d_skip,
+                              return_state=return_state)
+    return ref.selective_scan_ref(u, dt, a, b, c, d_skip,
+                                  return_state=return_state)
 
 
 def decode_attention_int8(q, k8, k_scale, v8, v_scale, length,

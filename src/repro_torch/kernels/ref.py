@@ -212,17 +212,69 @@ def selective_scan_ref(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     u/dt (B, L, D); a (D, N); b/c (B, L, N); d_skip (D,) -> y (B, L, D) f32
     [, final state hT (B, D, N) f32].  It returns what the kernel returns:
     the reference's oracle casts y to u's dtype, which its callers here do
-    themselves where they need it."""
+    themselves where they need it.  f64 inputs are computed, and give y
+    and hT, in f64 (``gradcheck``)."""
     bsz, l, d = u.shape
     n = a.shape[1]
-    a = a.to(torch.float32)
-    u32, dt32 = u.to(torch.float32), dt.to(torch.float32)
-    b32, c32 = b.to(torch.float32), c.to(torch.float32)
-    h = torch.zeros((bsz, d, n), dtype=torch.float32, device=u.device)
-    y = torch.empty((bsz, l, d), dtype=torch.float32, device=u.device)
+    wt = _work_dtype(u.dtype)
+    a = a.to(wt)
+    u32, dt32 = u.to(wt), dt.to(wt)
+    b32, c32 = b.to(wt), c.to(wt)
+    h = torch.zeros((bsz, d, n), dtype=wt, device=u.device)
+    y = torch.empty((bsz, l, d), dtype=wt, device=u.device)
     for t in range(l):
         da = torch.exp(dt32[:, t, :, None] * a[None])           # (B, D, N)
         h = h * da + (dt32[:, t] * u32[:, t])[:, :, None] * b32[:, t, None, :]
         y[:, t] = torch.sum(h * c32[:, t, None, :], dim=2)
-    y = y + d_skip.to(torch.float32)[None, None, :] * u32
+    y = y + d_skip.to(wt)[None, None, :] * u32
     return (y, h) if return_state else y
+
+
+def selective_scan_bwd_ref(u: torch.Tensor, dt: torch.Tensor,
+                           a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                           d_skip: torch.Tensor, dy: torch.Tensor):
+    """(du, ddt, da, db, dc, dd): the gradients of ``selective_scan_ref``'s
+    y at ``dy`` (B, L, D), by the reverse-time recurrence written out (not
+    autograd), in f32 (f64 for f64 inputs).  With ``a_t = exp(dt_t A)`` and
+    the states ``h_t`` of the forward (``h_{-1} = 0``):
+
+    ``g_t = dy_t C_t + a_{t+1} g_{t+1}`` (``g_L = 0``), per (b, d, n);
+    ``du_t = dt_t sum_n g_t B_t + d_skip dy_t``;
+    ``ddt_t = sum_n g_t (u_t B_t + A a_t h_{t-1})``;
+    ``da = sum_{b,t} g_t dt_t a_t h_{t-1}``;
+    ``db_t = sum_d g_t dt_t u_t``; ``dc_t = sum_d dy_t h_t``;
+    ``dd = sum_{b,t} dy_t u_t``.
+
+    du, ddt, db, dc come in u's dtype (rounded once), da and dd in f32 (f64
+    for f64 inputs): what the backward kernels of ``csrc/mamba_scan_bwd.cu``
+    compute.  Keeps every state, (B, L, D, N) in the work dtype."""
+    bsz, l, d = u.shape
+    wt = _work_dtype(u.dtype)
+    a = a.to(wt)
+    u32, dt32, b32, c32, dy32 = (t.to(wt) for t in (u, dt, b, c, dy))
+    h = torch.zeros((bsz, d, a.shape[1]), dtype=wt, device=u.device)
+    hs = [h]                                  # hs[t] = h_{t-1}
+    for t in range(l):
+        at = torch.exp(dt32[:, t, :, None] * a[None])
+        h = at * h + (dt32[:, t] * u32[:, t])[:, :, None] * b32[:, t, None, :]
+        hs.append(h)
+    du, ddt = torch.empty_like(u32), torch.empty_like(u32)
+    db, dc = torch.empty_like(b32), torch.empty_like(c32)
+    da = torch.zeros_like(a)
+    g = torch.zeros_like(h)
+    a_next = torch.zeros_like(h)
+    for t in reversed(range(l)):
+        at = torch.exp(dt32[:, t, :, None] * a[None])        # (B, D, N)
+        g = dy32[:, t, :, None] * c32[:, t, None, :] + a_next * g
+        ah = at * hs[t]
+        du[:, t] = dt32[:, t] * torch.sum(g * b32[:, t, None, :], dim=2) \
+            + d_skip.to(wt)[None] * dy32[:, t]
+        ddt[:, t] = torch.sum(g * (u32[:, t, :, None] * b32[:, t, None, :]
+                                   + a[None] * ah), dim=2)
+        da += torch.sum(g * dt32[:, t, :, None] * ah, dim=0)
+        db[:, t] = torch.sum(g * (dt32[:, t] * u32[:, t])[:, :, None], dim=1)
+        dc[:, t] = torch.sum(dy32[:, t, :, None] * hs[t + 1], dim=1)
+        a_next = at
+    dd = torch.sum(dy32 * u32, dim=(0, 1))
+    return (du.to(u.dtype), ddt.to(dt.dtype), da, db.to(b.dtype),
+            dc.to(c.dtype), dd)

@@ -3,8 +3,8 @@
 
 Port of ``repro.launch.train``, with its flags: the fault-tolerant
 ``Trainer`` on the card unless ``--device cpu``, on the arch's config or,
-with ``--reduced``, its smoke config.  The dense and VLM families train;
-the others raise (ROADMAP Queue 1 item 9b).
+with ``--reduced``, its smoke config.  Every ``--arch`` trains: dense,
+MoE, Mamba, hybrid, VLM and enc-dec.
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@ interface for every family; here :func:`prefill`, :func:`decode_step`,
 the reference's ``batch`` dicts, and :func:`step_input` and
 :func:`encoder_frames` say what a family's decode step takes and over how
 many encoder frames.  :func:`loss` is the reference's ``Model.loss``
-for the families the port trains (dense and VLM).  Entry points run on
+for every family: ``lm.lm_loss`` for the decoders (dense, MoE, Mamba,
+hybrid, VLM), ``encdec.encdec_loss`` for the enc-dec.  Entry points run on
 ``"cuda"`` unless given ``device="cpu"``.
 """
 
@@ -67,32 +68,14 @@ def decode_step(cfg: ArchConfig, model: Model, cache: Dict, tokens,
     return lm.decode_step(cfg, model, cache, tokens, use_kernel)
 
 
-def untrainable(cfg: ArchConfig) -> Optional[str]:
-    """Why the port cannot train ``cfg`` yet (ROADMAP Queue 1 item 9b), or
-    None: the dense and VLM families train."""
-    if cfg.is_encdec:
-        return ("the enc-dec family (encdec_loss and decode_train need "
-                "cross-attention's backward at Sq != Sk)")
-    kinds = lm.period_structure(cfg)
-    if any(k["mixer"] == "mamba" for k in kinds):
-        return "Mamba layers (the selective scan has no backward kernel yet)"
-    if any(k["ffn"] == "moe" for k in kinds):
-        return ("MoE layers (autograd through the top-k / index_add_ routing "
-                "is not yet held against the reference's)")
-    return None
-
-
 def loss(cfg: ArchConfig, model: Model, batch: Dict,
          use_kernel: bool = True):
     """The reference's ``Model.loss``: (scalar loss, {"ce", "aux"}) of
-    ``batch`` (tensors on the model's device: ``"tokens"`` or ``"embeds"``,
-    ``"labels"``, optional ``"positions"``), differentiable.  The families
-    the port cannot train yet raise ``NotImplementedError``, never a loss
-    with wrong gradients."""
-    why = untrainable(cfg)
-    if why is not None:
-        raise NotImplementedError(f"{cfg.name}: training {why} is not ported "
-                                  f"(ROADMAP Queue 1 item 9b)")
+    ``batch`` (tensors on the model's device: a decoder's ``"tokens"`` or
+    ``"embeds"``, ``"labels"``, optional ``"positions"``; an enc-dec's
+    ``"embeds"``, ``"tokens"``, ``"labels"``), differentiable."""
+    if cfg.is_encdec:
+        return encdec.encdec_loss(cfg, model, batch, use_kernel)
     return lm.lm_loss(cfg, model, batch, use_kernel)
 
 
@@ -130,4 +113,4 @@ def reset_cache(cfg: ArchConfig, cache: Dict) -> None:
 
 __all__ = ["EncDec", "LM", "Model", "build_model", "decode_step", "encdec",
            "encoder_frames", "init_cache", "layers", "lm", "loss", "prefill",
-           "reset_cache", "step_input", "untrainable"]
+           "reset_cache", "step_input"]

@@ -29,20 +29,28 @@ graph (``serve.graphs.DecodeGraph``) advances it at every replay;
 :func:`encdec_prefill` fills a new cache or, given ``cache=``, one the
 caller owns; :func:`reset_cache` sets a cache back to zeros.
 
-Not ported: training (``decode_train``, ``encdec_loss``; ROADMAP Queue 1
-item 9b: cross-attention's backward at Sq != Sk).
+Training: :func:`encdec_loss` (the encoder, :func:`decode_train`'s
+teacher-forced decoder, then ``lm.chunked_ce_loss`` over the tied
+embedding), differentiated by autograd, with the flash kernels' backward
+on the card: the encoder's attention non-causal, the decoder's causal, and
+the cross-attention non-causal with Sq = S_dec over Sk = S_enc.  With
+``cfg.remat`` each encoder and decoder layer runs under
+``torch.utils.checkpoint`` where autograd records it, as the reference
+wraps each in ``jax.checkpoint``: the backward recomputes the layer, so a
+step launches the forward kernel twice per attention call.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ArchConfig
 from . import layers as L
-from .lm import F32Unembedding, _frozen, resolve_device
+from .lm import F32Unembedding, _frozen, chunked_ce_loss, resolve_device
 
 
 def check_config(cfg: ArchConfig) -> None:
@@ -137,6 +145,20 @@ def _logits(model: EncDec, h):
     return h.to(torch.float32) @ model.unembed_f32().T
 
 
+def _layers(cfg: ArchConfig, run, x, blocks):
+    """``x`` through ``run(x, block)`` for each block in turn, each under
+    ``torch.utils.checkpoint`` where autograd records it and ``cfg.remat``
+    (the reference's ``jax.checkpoint`` of each layer)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p in blocks:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                run, x, p, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = run(x, p)
+    return x
+
+
 def encode(cfg: ArchConfig, model: EncDec, embeds,
            use_kernel: bool = True):
     """embeds (B, S_enc, d) -> the encoder's hidden states (B, S_enc, d),
@@ -144,13 +166,52 @@ def encode(cfg: ArchConfig, model: EncDec, embeds,
     b, s, _ = embeds.shape
     pos = _positions(b, s, model.device)
     x = embeds.to(device=model.device, dtype=L._dtype(cfg.compute_dtype))
-    for p in model.encoder:
+
+    def run(x, p):
         h = L.apply_norm(cfg, p.norm1, x)
         x = x + L.attention(cfg, p.attn, h, pos, causal=False,
                             use_kernel=use_kernel)
         h = L.apply_norm(cfg, p.norm2, x)
-        x = x + L.mlp(cfg, p.mlp, h)
+        return x + L.mlp(cfg, p.mlp, h)
+
+    x = _layers(cfg, run, x, model.encoder)
     return L.apply_norm(cfg, model.enc_final_norm, x)
+
+
+# ------------------------------------------------------------------- training
+def decode_train(cfg: ArchConfig, model: EncDec, tokens, enc_out,
+                 use_kernel: bool = True):
+    """The teacher-forced decoder: tokens (B, S_dec) over ``enc_out`` (B,
+    S_enc, d) -> h (B, S_dec, d) after the final norm.  Mirrors
+    ``repro.models.encdec.decode_train``."""
+    b, s = tokens.shape
+    pos = _positions(b, s, model.device)
+    x = model.embed[tokens]
+
+    def run(x, p):
+        h = L.apply_norm(cfg, p.norm1, x)
+        x = x + L.attention(cfg, p.attn, h, pos, causal=True,
+                            use_kernel=use_kernel)
+        h = L.apply_norm(cfg, p.norm3, x)
+        kv = L.cross_kv(cfg, p.cross, enc_out)
+        x = x + L.cross_attention(cfg, p.cross, h, kv, use_kernel=use_kernel)
+        h = L.apply_norm(cfg, p.norm2, x)
+        return x + L.mlp(cfg, p.mlp, h)
+
+    x = _layers(cfg, run, x, model.decoder)
+    return L.apply_norm(cfg, model.final_norm, x)
+
+
+def encdec_loss(cfg: ArchConfig, model: EncDec, batch: Dict,
+                use_kernel: bool = True) -> Tuple[torch.Tensor, Dict]:
+    """batch: {'embeds' (B, S_enc, d), 'tokens' (B, S_dec), 'labels' (B,
+    S_dec)} as tensors on the model's device -> (CE, {"ce", "aux": 0}), as
+    ``repro.models.encdec.encdec_loss``."""
+    enc_out = encode(cfg, model, batch["embeds"], use_kernel)
+    h = decode_train(cfg, model, batch["tokens"], enc_out, use_kernel)
+    ce = chunked_ce_loss(cfg, model, h, batch["labels"])
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                             device=ce.device)}
 
 
 # --------------------------------------------------------------------- decode

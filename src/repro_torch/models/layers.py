@@ -371,6 +371,15 @@ def moe(cfg: ArchConfig, p: Params, x, *, capacity: Optional[int] = None):
     fills, so its result does not depend on the order of the adds.  Ties
     among the router's probabilities may be broken otherwise than by
     ``jax.lax.top_k``; with float logits they do not occur.
+
+    Differentiable, and bit-stable from run to run on the card: the k
+    copies of a token are an expanded copy, whose backward sums the k
+    copies by a reduction (no atomics);
+    the dispatch's backward gathers (``index_select``); the combine's
+    backward (``index_put_`` with accumulate) adds one row into each filled
+    slot, and into the sentinel only rows the mask has zeroed.  The aux
+    loss's gradient flows through ``probs``, not the one-hot, as in the
+    reference.
     """
     m = cfg.moe
     g_, t, d = x.shape
@@ -392,7 +401,11 @@ def moe(cfg: ArchConfig, p: Params, x, *, capacity: Optional[int] = None):
     slot = torch.where(keep, e_tk * c + pos_tk,
                        torch.full_like(e_tk, e * c))    # sentinel row
 
-    x_rep = torch.repeat_interleave(x, k, dim=1)        # (G, T*K, d)
+    # each token's k copies, (G, T*K, d): an expanded copy, whose backward
+    # sums the k copies by a reduction, no atomics (repeat_interleave's
+    # would index_add_ them with float atomics on the card, in an order
+    # that changes run to run)
+    x_rep = x[:, :, None].expand(g_, t, k, d).reshape(g_, t * k, d)
     rows = e * c + 1
     base = torch.arange(g_, device=x.device)[:, None] * rows
     buf = torch.zeros((g_ * rows, d), dtype=x.dtype, device=x.device)
@@ -524,7 +537,9 @@ def mamba(cfg: ArchConfig, p: Params, x, return_state: bool = False,
     """Mamba-1 block.  x (B, S, d) -> (B, S, d).
 
     ``use_kernel`` runs the scan through ``ops.mamba_scan`` (the scan kernel
-    on the card), else through the plain chunked scan.  With
+    on the card; where autograd records it, ``SelectiveScan`` with its
+    backward kernels), else through the plain chunked scan (under autograd
+    in training).  With
     ``return_state`` also returns (conv_state (B, K-1, Din), ssm_state
     (B, Din, N) f32) for decode handoff.  The conv state is the last K-1
     inputs of the conv, zeros before the first token (where the reference
@@ -538,7 +553,9 @@ def mamba(cfg: ArchConfig, p: Params, x, return_state: bool = False,
     xa = F.silu(xc)
     dt, bm, cm, a = _mamba_proj(cfg, p, xa, x.dtype)
     if use_kernel:
-        y, hT = ops.mamba_scan(xa, dt, a, bm, cm, p["D"])
+        out = ops.mamba_scan(xa, dt, a, bm, cm, p["D"],
+                             return_state=return_state)
+        y, hT = out if return_state else (out, None)
     else:
         y, hT = _ssm_scan_chunked(xa, dt, a, bm, cm, cfg.ssm_chunk)
         y = y + p["D"][None, None] * xa.to(torch.float32)

@@ -39,12 +39,18 @@ the MoE aux loss), differentiated by autograd, with the flash kernel's
 backward on the card.  Its logits are ``h.f32 @ W.f32^T`` per chunk of 512
 positions with ``W`` converted once per loss under autograd (not
 :meth:`LM.unembed_f32`, which detaches), so a tied embedding gets both its
-gradients.  With ``cfg.remat`` each period runs under
-``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
-period in ``jax.checkpoint``: the backward recomputes the period, so a
-training step launches the forward kernel twice per attention layer.  The
-parameters are built frozen (``requires_grad=False``) for serving; a
-trainer turns them on.  Which families train is ``models.loss``'s to say.
+gradients.  Every family trains: attention through the flash kernels'
+backward on the card, a Mamba layer's scan through ``SelectiveScan``'s
+backward kernels (``use_kernel=False``: autograd of the plain chunked
+scan), a MoE layer's routing and dispatch through autograd (bit-stable
+from run to run: ``layers.moe``).  With ``cfg.remat`` each period runs
+under ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps
+its period in ``jax.checkpoint``: the backward recomputes the period, so a
+training step launches the forward kernels twice per attention or Mamba
+layer, and a recomputed MoE layer routes every token as the first forward
+did (the same inputs, the same deterministic kernels).  The parameters are
+built frozen (``requires_grad=False``) for serving; a trainer turns them
+on.
 
 Not ported: the sequence-parallel MoE branch of ``_position_block``, which
 needs a model axis above 1 (ROADMAP Queue 1 item 10), and

@@ -2,8 +2,9 @@
 
 Port of ``repro.train.loop``.  The step runs eagerly on an explicit device
 (``"cuda"`` unless the caller passes ``device="cpu"``): the family's loss
-(``models.loss``), autograd (the flash kernels' backward on the card),
-then AdamW in place.  A CUDA graph of the step is later work.
+(``models.loss``: every family the reference builds), autograd (on the
+card the flash kernels' backward and the selective scan's), then AdamW in
+place.  A CUDA graph of the step is later work.
 
 As in the reference: ``AsyncCheckpointer`` every ``ckpt_every`` steps with
 the data cursor, ``resume_or_init`` restores parameters, moments, step and

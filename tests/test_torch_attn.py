@@ -319,9 +319,10 @@ def test_flash_decode_int8_tracks_the_float_decode():
 def test_unported_kernels_name_their_roadmap_item():
     """Every function of the JAX package that reaches ``pl.pallas_call`` has
     a counterpart in the port (a ``LAUNCHES`` counter of the same name), or
-    else ROADMAP.md names it as still to port; the port's only kernel that
-    replaces none is flash attention's backward (the reference
-    differentiates its plain attention).  Since ``ops.conv2d``, the
+    else ROADMAP.md names it as still to port; the port's only kernels that
+    replace none are the backwards of flash attention and of the selective
+    scan (the reference differentiates its plain attention and its plain
+    chunked scan).  Since ``ops.conv2d``, the
     last to be ported, no longer raises, it is held here against the Pallas
     ``crossbar_conv2d`` (interpret mode) at its 1e-4 bound."""
     kdir = REPO / "src" / "repro" / "kernels"
@@ -339,7 +340,8 @@ def test_unported_kernels_name_their_roadmap_item():
     roadmap = (REPO / "ROADMAP.md").read_text()
     for name in sorted(pallas - ported):
         assert f"`{name}`" in roadmap, f"{name}: unported, not in ROADMAP"
-    assert ported - pallas == {"flash_attention_bwd"}, ported - pallas
+    assert ported - pallas == {"flash_attention_bwd",
+                               "selective_scan_bwd"}, ported - pallas
 
     c, h, w, fl = 2, 5, 5, 3
     x = RNG.normal(size=(c, h, w)).astype(np.float32)

@@ -26,7 +26,11 @@ attention's backward kernels: dq, dk, dv within 2e-3 x max(1, max|g|) of
 heads, so the rounding error scales with their magnitude) and 2^-6 x
 max|g| in bf16 (two bf16 steps at the largest value: the tensor-core
 kernels round P and dS to bf16 before their products, and the output once;
-``_grad_close``), and the forward's lse within 1e-5 x max(1, |lse|).
+``_grad_close``), and the forward's lse within 1e-5 x max(1, |lse|).  The
+selective scan's backward kernels: du, ddt, dA, dB, dC, dD within 2e-3 x
+max|g| of ``ref.selective_scan_bwd_ref`` in f32 and 2^-6 x max|g| in bf16
+(``_scan_grad_close``: both sum in f32 and round once; scaled by max|g|
+itself, since scan gradients can be far below 1).
 """
 
 from __future__ import annotations
@@ -507,7 +511,9 @@ def test_flash_attention_autograd_on_the_card(cuda_device, dtype):
 def test_kernels_without_backward_raise_under_autograd(cuda_device):
     """A kernel with no backward on CUDA tensors that autograd would record
     raises, instead of returning a tensor without ``grad_fn``; under
-    ``torch.no_grad()`` it launches."""
+    ``torch.no_grad()`` it launches.  The selective scan has a backward
+    now: recorded, it returns a tensor with ``grad_fn``, and only
+    ``return_state=True`` (no gradient into hT) raises."""
     from repro_torch.kernels import (conv2d, decode_attn, flash_attn,
                                      mamba_scan, mxv, ref)
     dev = cuda_device
@@ -523,8 +529,6 @@ def test_kernels_without_backward_raise_under_autograd(cuda_device):
     calls = [lambda: decode_attn.flash_decode(q, kv, kv, 8),
              lambda: mxv.crossbar_mxv(x, wq, sc),
              lambda: conv2d.crossbar_conv2d(img, cw, csc, pad=1),
-             lambda: mamba_scan.selective_scan(u, u.abs(), a, bc, bc,
-                                               torch.ones(16, device=dev)),
              lambda: flash_attn.flash_attention(
                  torch.randn(1, 2, 9, 32, device=dev, requires_grad=True),
                  kv[:1, :, :4], kv[:1, :, :4], causal=True)]
@@ -535,6 +539,12 @@ def test_kernels_without_backward_raise_under_autograd(cuda_device):
             call()
     with pytest.raises(ValueError, match="no backward"):
         calls[-1]()
+    scan = [u, u.abs(), a, bc, bc, torch.ones(16, device=dev)]
+    assert mamba_scan.selective_scan(*scan).grad_fn is not None
+    with pytest.raises(ValueError, match="return_state"):
+        mamba_scan.selective_scan(*scan, return_state=True)
+    with torch.no_grad():
+        mamba_scan.selective_scan(*scan, return_state=True)
 
 
 @pytest.mark.cuda
@@ -648,6 +658,92 @@ def test_selective_scan_is_deterministic_and_never_synchronises(
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def _scan_grad_close(got, want, dtype):
+    """The scan backward's bound: 2e-3 x max|g| in f32, 2^-6 x max|g| in
+    bf16 (two bf16 steps at the largest value: kernels and plain version sum
+    in f32 and round once), scaled by max|g| itself."""
+    tol = (2e-3 if dtype == torch.float32 else 2.0 ** -6) * \
+        want.float().abs().max().item()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d,n,strided", [
+    (2, 512, 8192, 16, True), (2, 300, 1024, 4, True), (2, 200, 2000, 17, True),
+    (1, 700, 520, 64, False), (2, 1, 100, 16, False), (2, 77, 1024, 16, True),
+    (1, 1000, 1024, 16, True), (4, 129, 1001, 16, True), (8, 32, 128, 4, True),
+    (1, 16, 33, 1, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_bwd_matches_plain(cuda_device, b, l, d, n, strided,
+                                          dtype):
+    """The three backward kernels against ``ref.selective_scan_bwd_ref``,
+    twice, bit-equal (no atomics), one launch counted a call."""
+    from repro_torch.kernels import mamba_scan
+    rng = np.random.default_rng(l * 7 + d)
+    args = _scan_args(rng, b, l, d, n, cuda_device, dtype, strided)
+    dy = _randn(rng, (b, l, d), cuda_device)
+    before = mamba_scan.LAUNCHES["selective_scan_bwd"]
+    got = mamba_scan.selective_scan_bwd(*args, dy)
+    again = mamba_scan.selective_scan_bwd(*args, dy)
+    assert mamba_scan.LAUNCHES["selective_scan_bwd"] == before + 2
+    want = ref.selective_scan_bwd_ref(*args, dy)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        _scan_grad_close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_autograd_on_the_card(cuda_device, dtype):
+    """Under autograd ``selective_scan`` launches the forward kernel once
+    and, in the backward, the backward kernels once; B and C as column
+    slices of one projection get their gradients through the slices, as
+    autograd of the plain version gives them."""
+    from repro_torch.kernels import mamba_scan
+    rng = np.random.default_rng(9)
+    b, l, d, n = 2, 150, 256, 16
+    leaves = [_randn(rng, (b, l, d), cuda_device, dtype),
+              torch.nn.functional.softplus(
+                  _randn(rng, (b, l, d), cuda_device) - 2).to(dtype),
+              -torch.exp(_randn(rng, (d, n), cuda_device)),
+              _randn(rng, (b, l, 8 + 2 * n), cuda_device, dtype),
+              _randn(rng, (d,), cuda_device)]
+    leaves = [t.requires_grad_(True) for t in leaves]
+    dy = _randn(rng, (b, l, d), cuda_device)
+
+    def run(fn, u, dt, a, proj, dsk):
+        return fn(u, dt, a, proj[..., 8:8 + n], proj[..., 8 + n:], dsk)
+    before = dict(mamba_scan.LAUNCHES)
+    y = run(mamba_scan.selective_scan, *leaves)
+    assert y.grad_fn is not None
+    y.backward(dy)
+    assert mamba_scan.LAUNCHES["selective_scan"] == \
+        before["selective_scan"] + 1
+    assert mamba_scan.LAUNCHES["selective_scan_bwd"] == \
+        before["selective_scan_bwd"] + 1
+    plain = [t.detach().clone().requires_grad_(True) for t in leaves]
+    run(ref.selective_scan_ref, *plain).backward(dy)
+    torch.cuda.synchronize()
+    for got, want in zip(leaves, plain):
+        _scan_grad_close(got.grad, want.grad, dtype)
+
+
+@pytest.mark.cuda
+def test_selective_scan_bwd_kernels_do_not_spill(cuda_device):
+    """ptxas's report: the three backward kernels in both dtypes, no
+    spills."""
+    from repro_torch.kernels import _build
+    _build.load()
+    usage = {n: u for n, u in _build.resource_usage().items()
+             if "scan_bwd_" in n}
+    assert len(usage) == 6, usage
+    for name, (regs, spill_st, spill_ld) in usage.items():
+        assert regs <= 255 and spill_st == 0 and spill_ld == 0, (name, regs)
 
 
 # (C, H, W, FL, FH, FW, stride, pad): the CM zoo's convs, the Pallas

@@ -4,24 +4,34 @@ Weights come from the reference's own init (``jax.random.key(0)``), carried
 across by ``repro_torch.models.convert``; data from the same seed through
 both packages' ``SyntheticLMData`` (byte-equal).  Held here:
 
-- ``lm_loss`` and every gradient against ``jax.value_and_grad`` of the
-  reference's on the smoke llama3.2-3b and qwen2-vl-7b (f32), at 1e-5 x
+- ``models.loss`` and every gradient against ``jax.value_and_grad`` of the
+  reference's ``Model.loss`` on the smoke configs (f32) of every family:
+  llama3.2-3b, qwen2-vl-7b, falcon-mamba-7b, qwen2-moe-a2.7b (aux loss
+  included), jamba-1.5-large-398b and seamless-m4t-large-v2, at 1e-5 x
   max(1, max|g|): the two sum the same f32 products in other orders.  The
   port's attention goes through ``FlashAttention`` (its CPU forward and
   backward are the plain ``attention_lse_ref`` / ``attention_bwd_ref``),
-  and through autograd of ``attention_ref`` with ``use_kernel=False``;
+  its scan through ``SelectiveScan`` (``selective_scan_ref`` /
+  ``selective_scan_bwd_ref``), and, with ``use_kernel=False``, through
+  autograd of ``attention_ref`` and of the plain chunked scan;
+- a MoE layer's forward recomputed under ``torch.utils.checkpoint`` routing
+  every token as the first forward did;
 - ``adamw_update`` and ``cosine_schedule`` against the reference's, the
   decay of per-layer norms and biases (stacked leaves of rank >= 2 in the
-  reference) and not of the final norm;
+  reference) and not of the final norm, leaf by leaf for the Mamba, MoE,
+  hybrid and enc-dec families too;
 - a 20-step ``Trainer`` history (batch 8, seq 32, ``peak_lr=1e-2``) within
   rtol 1e-4 of the reference ``Trainer``'s; a kill at step 12 resumed from
-  the step-10 checkpoint bit-identical to the uninterrupted run;
+  the step-10 checkpoint bit-identical to the uninterrupted run (llama3.2-3b
+  and jamba-1.5-large-398b, whose smoke config keeps bf16 moments);
   checkpoints kept K and written atomically; a reference checkpoint
   resumed by the port, and a port checkpoint resumed by the reference, each
-  continuing the other's loss curve; a bf16 leaf through the ``|V2`` bytes;
-- the families the port does not train yet refused by ``models.loss``;
+  continuing the other's loss curve; a bf16 leaf through the ``|V2``
+  bytes (the other families' histories and checkpoints:
+  ``tests/test_torch_train_families.py``);
 - ``python -m repro_torch.launch.train --reduced --device cpu`` with
-  ``jax``, ``repro`` and ``ml_dtypes`` blocked.
+  ``jax``, ``repro`` and ``ml_dtypes`` blocked, on a dense, the hybrid and
+  the enc-dec config.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from repro_torch.checkpoint import (latest_checkpoint, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.configs.base import smoke_config as tsmoke
 from repro_torch.data import SyntheticLMData
+from repro_torch.models import convert
 from repro_torch.models.convert import (decayed, params_from_reference,
                                         tree_from_reference,
                                         tree_to_reference)
@@ -63,6 +74,18 @@ from repro_torch.train.loop import to_device
 REPO = pathlib.Path(__file__).resolve().parents[1]
 ARCH = "llama3.2-3b"
 _CACHE = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests' tensors are far below torch's parallel grain size.
+    With several test workers sharing a few cores, torch's idle OpenMP
+    threads spinning between ops slowed them tens of times, and the other
+    workers with them; one thread runs them faster even alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _ref_params(name, **over):
@@ -80,7 +103,8 @@ def _ref_params(name, **over):
 
 def _batch(cfg, b=2, s=32, seed=3):
     data = SyntheticLMData(cfg.vocab_size, b, s, seed,
-                           embed_dim=cfg.d_model if cfg.embed_inputs else 0)
+                           embed_dim=cfg.d_model if cfg.embed_inputs else 0,
+                           encdec=cfg.is_encdec)
     return data.next()
 
 
@@ -92,8 +116,11 @@ def _close_tree(got, want, tol=1e-5):
                                    atol=tol * max(1.0, np.abs(b).max()))
 
 
-@pytest.mark.parametrize("name,use_kernel", [(ARCH, True), (ARCH, False),
-                                             ("qwen2-vl-7b", True)])
+@pytest.mark.parametrize("name,use_kernel", [
+    (ARCH, True), (ARCH, False), ("qwen2-vl-7b", True),
+    ("falcon-mamba-7b", True), ("falcon-mamba-7b", False),
+    ("qwen2-moe-a2.7b", True), ("jamba-1.5-large-398b", True),
+    ("seamless-m4t-large-v2", True)])
 def test_lm_loss_and_grads_match_reference(name, use_kernel):
     tree, model = _ref_params(name)
     cfg = model.cfg
@@ -107,8 +134,11 @@ def test_lm_loss_and_grads_match_reference(name, use_kernel):
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(met["ce"].item(), float(jmet["ce"]),
                                rtol=1e-5)
+    np.testing.assert_allclose(met["aux"].item(), float(jmet["aux"]),
+                               rtol=1e-5, atol=1e-7)
     grads = {n: p.grad for n, p in model.named_parameters()}
-    if cfg.embed_inputs:           # the input embedding is not reached
+    assert all(g is not None for n, g in grads.items() if n != "embed")
+    if cfg.embed_inputs and not cfg.is_encdec:  # the embedding is not reached
         assert grads["embed"] is None
         grads["embed"] = torch.zeros_like(model.embed)
     _close_tree(tree_to_reference(model, grads), jgrads)
@@ -135,6 +165,34 @@ def test_flash_attention_runs_the_function_under_autograd():
     finally:
         flash_attn.flash_attention_bwd = real
     assert len(seen) == model.cfg.n_layers
+
+
+def test_moe_recomputed_under_checkpoint_routes_as_the_first_forward():
+    """qwen2-moe's smoke model under remat: each period's forward runs once
+    in the loss and once more in the backward (the last period first);
+    every MoE layer's top-k experts are the same both times."""
+    _, model = _ref_params("qwen2-moe-a2.7b")
+    cfg = model.cfg
+    assert cfg.remat
+    batch = to_device(_batch(cfg), "cpu")
+    seen = []
+    real = torch.topk
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        seen.append(out.indices.clone())
+        return out
+    torch.topk = spy
+    try:
+        loss, _ = models.loss(cfg, model, batch)
+        first = len(seen)
+        loss.backward()
+    finally:
+        torch.topk = real
+    assert first == cfg.n_layers and len(seen) == 2 * cfg.n_layers
+    recomputed = seen[first:][::-1]          # one MoE layer a period
+    for a, b in zip(seen[:first], recomputed):
+        assert torch.equal(a, b)
 
 
 def test_adamw_and_schedule_match_reference():
@@ -181,6 +239,27 @@ def test_adamw_and_schedule_match_reference():
             float(jcosine(jnp.int32(step), peak_lr=3e-4)), rel=1e-6)
 
 
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "qwen2-moe-a2.7b",
+                                  "jamba-1.5-large-398b",
+                                  "seamless-m4t-large-v2"])
+def test_decay_follows_the_reference_leaves(name):
+    """AdamW decays exactly the leaves the reference's decays: ``p.ndim >=
+    2`` on its stacked leaves, so every per-layer Mamba, MoE, encoder and
+    decoder leaf (``A_log``, ``D``, ``dt_b``, ``conv_b``, the router, the
+    experts, norms) and not the final norms."""
+    tree, model = _ref_params(name)
+    dec = decayed(model)
+    layout = convert.reference_layout(model)
+    for pname in dec:
+        leaf = tree
+        for key in layout[pname][0]:
+            leaf = leaf[key]
+        assert dec[pname] == (np.ndim(leaf) >= 2), pname
+    assert not dec["final_norm.scale"]
+    assert all(dec[n] for n in dec if n.startswith(("layers.", "encoder.",
+                                                     "decoder.")))
+
+
 @pytest.mark.parametrize("embed_dim,encdec", [(0, False), (64, False),
                                               (64, True)])
 def test_synthetic_data_is_byte_equal(embed_dim, encdec):
@@ -196,21 +275,25 @@ def test_synthetic_data_is_byte_equal(embed_dim, encdec):
     assert a.state_dict() == b.state_dict()
 
 
-def _trainer(tmp=None, cls=Trainer, **kw):
+def _trainer(tmp=None, cls=Trainer, name=ARCH, over=(), **kw):
+    """A smoke-config trainer of the port (on the CPU) or, with ``cls``, of
+    the reference; ``over`` replaces config fields on both."""
     if cls is Trainer:
         kw["device"] = "cpu"
-        cfg = tsmoke(ARCH)
+        cfg = tsmoke(name)
     else:
-        cfg = jsmoke(ARCH)
+        cfg = jsmoke(name)
+    cfg = dataclasses.replace(cfg, **dict(over))
     return cls(cfg=cfg, batch=8, seq_len=32,
                ckpt_dir=str(tmp) if tmp else None, ckpt_every=5,
                peak_lr=1e-2, **kw)
 
 
-def _from_reference_init(tr):
+def _from_reference_init(tr, name=ARCH, over=()):
     """The port trainer's state on the reference's init (seed 0)."""
-    _, model = _ref_params(ARCH)
-    return TrainState(model, adamw_init(dict(model.named_parameters())), 0)
+    _, model = _ref_params(name, **dict(over))
+    return TrainState(model, adamw_init(dict(model.named_parameters()),
+                                        model.cfg.adam_dtype), 0)
 
 
 @pytest.fixture(scope="module")
@@ -227,13 +310,16 @@ def test_trainer_history_matches_reference(reference_history):
     assert tr.history[-1] < tr.history[0]
 
 
-def test_kill_and_resume_is_bit_identical(tmp_path):
-    tr_a = _trainer(tmp_path / "a")
+@pytest.mark.parametrize("name", [ARCH, "jamba-1.5-large-398b"])
+def test_kill_and_resume_is_bit_identical(tmp_path, name):
+    """jamba's smoke config keeps bf16 moments: they cross the checkpoint
+    as bits."""
+    tr_a = _trainer(tmp_path / "a", name=name)
     tr_a.run(20)
-    tr_b = _trainer(tmp_path / "b")
+    tr_b = _trainer(tmp_path / "b", name=name)
     with pytest.raises(RuntimeError, match="injected failure"):
         tr_b.run(20, die_at=12)
-    tr_b2 = _trainer(tmp_path / "b")
+    tr_b2 = _trainer(tmp_path / "b", name=name)
     state = tr_b2.resume_or_init()
     assert int(state.step) == 10 and tr_b2.data.step == 10
     tr_b2.run(10, state=state)
@@ -324,18 +410,6 @@ def test_bf16_leaves_cross_as_v2_bytes(tmp_path):
         assert p.dtype == torch.bfloat16 and torch.equal(p, want_params[n])
 
 
-@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "falcon-mamba-7b",
-                                  "jamba-1.5-large-398b",
-                                  "seamless-m4t-large-v2"])
-def test_untrained_families_are_refused(name):
-    cfg = tsmoke(name)
-    assert models.untrainable(cfg)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        models.loss(cfg, None, {})
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        Trainer(cfg=cfg, batch=2, seq_len=8, device="cpu").run(1)
-
-
 _BLOCKED = """
 import sys
 sys.modules["jax"] = None
@@ -351,14 +425,16 @@ finally:
 """
 
 
-def test_launch_train_runs_with_jax_and_repro_blocked(tmp_path):
+@pytest.mark.parametrize("name", [ARCH, "jamba-1.5-large-398b",
+                                  "seamless-m4t-large-v2"])
+def test_launch_train_runs_with_jax_and_repro_blocked(tmp_path, name):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     res = subprocess.run(
-        [sys.executable, "-c", _BLOCKED, "--arch", ARCH, "--reduced",
+        [sys.executable, "-c", _BLOCKED, "--arch", name, "--reduced",
          "--device", "cpu", "--steps", "6", "--batch", "2", "--seq-len",
          "16", "--ckpt-dir", str(tmp_path), "--ckpt-every", "3"],
         env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert res.stdout.startswith(f"training {ARCH} (")
+    assert res.stdout.startswith(f"training {name} (")
     assert "steps=6 loss " in res.stdout
     assert sorted(os.listdir(tmp_path)) == ["step_3.npz", "step_6.npz"]
