@@ -301,7 +301,8 @@ result line):
 
 23. every other family trains (after 22).  The selective scan's backward
    (``csrc/mamba_scan_bwd.cu``: ``scan_bwd_bounds_kernel``, the states at
-   the chunks' starts; ``scan_bwd_kernel``, the reverse walk;
+   the chunks' starts; ``scan_bwd_kernel``, the reverse walk, whose
+   resident warps an SM phase 1 holds to ``SCAN_BWD_MIN_WARPS``;
    ``scan_bwd_reduce_kernel``, the partial sums in a fixed order) against
    ``selective_scan_bwd_ref`` at ``SCAN_BWD_SHAPES`` (falcon-mamba's
    training shape (8, 512, 8192, 16) in bf16 and in f32 at B = 2, N 4, 17
@@ -323,7 +324,10 @@ result line):
    the margins at the flips that no earlier layer's flip carries,
    ``_flip_readings``; the backward's recomputed forward routing as the
    first forward, held on both paths; two backward passes bit-equal;
-   flash 12 forward and 6 backward a step),
+   flash 12 forward and 6 backward a step), qwen2-moe-a2.7b again at 4
+   layers in f32, one forward a path, each routing by its own top-k, the
+   flips by layer printed and held to f32 rounding
+   (``phase_moe_f32_routing``, ``_f32_routing_faults``), then
    seamless-m4t-large-v2 at full width and depth (step 0 against the plain
    attention; flash 144 forward and 72 backward a step), each step's loss,
    ms, tokens/s and peak memory; and jamba at its smoke width (f32,
@@ -744,12 +748,22 @@ def phase_build():
           "; ".join(f"{n} {r}" for n, (r, _, _) in sorted(bwd.items()))
           + f"; HGMMA in the tensor-core ones: {bwd_wg}")
     sbwd = {names[n]: u for n, u in usage.items() if "scan_bwd_" in n}
-    if len(sbwd) != 2 * len(SCAN_BWD_KERNELS) or any(
+    if len(sbwd) != 2 * len(mamba_scan.BWD_KERNELS) or any(
             st or ld for _, st, ld in sbwd.values()):
         raise AssertionError(f"[1] the scan backward kernels are missing or "
                              f"spill: {sbwd}")
+    occ = {str(dt).split(".")[1]: mamba_scan.bwd_occupancy(dt)
+           for dt in (torch.float32, torch.bfloat16)}
+    if any(o["warps"] < SCAN_BWD_MIN_WARPS for o in occ.values()):
+        raise AssertionError(f"[1] the scan backward's reverse walk keeps "
+                             f"fewer than {SCAN_BWD_MIN_WARPS} warps an SM "
+                             f"resident: {occ}")
     print("[1] scan backward kernels, registers (no spills): " +
-          "; ".join(f"{n} {r}" for n, (r, _, _) in sorted(sbwd.items())))
+          "; ".join(f"{n} {r}" for n, (r, _, _) in sorted(sbwd.items()))
+          + "; scan_bwd_kernel resident an SM (cudaOccupancyMaxActive"
+          "BlocksPerMultiprocessor): " + "; ".join(
+              f"{k} {o['blocks']} blocks, {o['warps']} warps, {o['smem']} "
+              f"bytes of shared memory a block" for k, o in occ.items()))
     return lib
 
 
@@ -3391,8 +3405,8 @@ SCAN_BWD_SOURCE = "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu"
 # the scan's backward replaces no pallas_call: it is the gradient of the
 # reference's plain chunked scan, which jax.value_and_grad differentiates
 SCAN_BWD_REPLACES = "none; gradient of src/repro/models/layers.py:680"
-SCAN_BWD_KERNELS = ("scan_bwd_bounds_kernel", "scan_bwd_kernel",
-                    "scan_bwd_reduce_kernel")
+# the reverse walk's resident warps an SM, at least (phase 1)
+SCAN_BWD_MIN_WARPS = 16
 # (B, L, Din, N, dtype, B/C strided, u/dt rows off 16-byte alignment):
 # falcon-mamba's training shape in bf16 and f32, N of 4, 17 and 64, L = 1,
 # 77 and 1000, B = 1 at Din 1024, a Din no block's width divides, u/dt rows
@@ -3417,6 +3431,13 @@ SCAN_FAULT_REACH = {"carry": ("du", "ddt", "dA", "dB"), "A a h": ("ddt",)}
 # chunked scan (its autograd holds ~64 GB a layer at B = 8), steps a run
 MAMBA_TRAIN_LAYERS, MOE_TRAIN_LAYERS = 32, 6
 MAMBA_GRAD_LAYERS, MAMBA_GRAD_BATCH = 4, 2
+# qwen2-moe's depth in f32, for its routing flips without bf16, and what
+# is held there as f32 rounding: a flip that no earlier layer carries with
+# both paths' margins within MOE_F32_TIE, losses within MOE_F32_LOSS_REL.
+# Measured on an H100 80GB HBM3 at 700 W (PERF.md): no flip, the losses
+# equal in the six decimals printed, the router probabilities 1e-7 to 2e-7
+# apart (median a layer)
+MOE_F32_LAYERS, MOE_F32_TIE, MOE_F32_LOSS_REL = 4, 1e-5, 1e-5
 FAMILY_STEPS = 4
 # each family's step-0 gradients are held to phase 22's GRAD_REL_L2_BOUND
 # and LOSS_REL_BOUND.  Measured on an H100 80GB HBM3 at 700 W (PERF.md):
@@ -3584,7 +3605,7 @@ def _scan_bwd_times(gen, dev):
     out = {"shape": [b, l, d, n, "bfloat16"],
            "ms": _events_ms(call, reps=10, trials=5, warmup=2),
            "dev_us": {k: _device_us(call, k, reps=10, tries=3)
-                      for k in SCAN_BWD_KERNELS},
+                      for k in mamba_scan.BWD_KERNELS},
            "call_dev_us": _device_total_us(
                call, f"[23] scan backward call at {shape[:4]}", reps=10,
                whole=True),
@@ -3597,9 +3618,10 @@ def _scan_bwd_times(gen, dev):
           f"per call (events), device {_us(out['call_dev_us'])} (" + ", ".join(
               f"{k} {_us(v)}" for k, v in out["dev_us"].items())
           + f"); bound {bound * 1e3:.2f} us ({by}); exponentials once each "
-          f"at 16 per clock per SM: {exp_ms * 1e3:.1f} us (the kernels take "
-          f"them three times); plain {out['plain_ms']:.1f} ms; the forward "
-          f"kernel {out['fwd_ms'] * 1e3:.2f} us per call")
+          f"at 16 per clock per SM: {exp_ms * 1e3:.1f} us (the bounds walk "
+          f"takes them once, the reverse walk's recompute 1.75 times); plain "
+          f"{out['plain_ms']:.1f} ms; the forward kernel "
+          f"{out['fwd_ms'] * 1e3:.2f} us per call")
     return out
 
 
@@ -3635,13 +3657,12 @@ def _family_batch(cfg, b, s, seed=0):
                            encdec=cfg.is_encdec).next()
 
 
-def _host_grads(cfg, model, batch, use_kernel, record=None, replay=None,
-                margins=None):
-    """(loss, {name: gradient on the host}) of one loss and backward.  With
-    ``record`` (a list) every router top-k call's indices, the loss's
-    forward and the backward's recompute, are appended to it, in call
-    order; with ``margins`` (a list) each call's router probabilities and
-    its k-th minus (k+1)-th probability; with ``replay`` (such a list from
+@contextlib.contextmanager
+def _routes_spied(record=None, replay=None, margins=None):
+    """While entered, every router top-k call (``torch.topk``): with
+    ``record`` (a list) its indices are appended to it on the host, in
+    call order; with ``margins`` (a list) its router probabilities and its
+    k-th minus (k+1)-th probability; with ``replay`` (such a list from
     another pass) call i routes by ``replay[i]`` instead of its own top-k,
     its weights gathered from its own probabilities, so that both passes
     route every token alike."""
@@ -3662,14 +3683,23 @@ def _host_grads(cfg, model, batch, use_kernel, record=None, replay=None,
     if record is not None or replay is not None or margins is not None:
         torch.topk = spy
     try:
-        for p in model.parameters():
-            p.grad = None
-        loss, _ = port_models.loss(cfg, model, batch, use_kernel)
-        loss.backward()
+        yield
     finally:
         torch.topk = real
     if record is not None:
         record += [i.cpu() for i in calls]
+
+
+def _host_grads(cfg, model, batch, use_kernel, record=None, replay=None,
+                margins=None):
+    """(loss, {name: gradient on the host}) of one loss and backward, its
+    router calls, the loss's forward and the backward's recompute, spied
+    on as ``_routes_spied`` says."""
+    with _routes_spied(record, replay, margins):
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = port_models.loss(cfg, model, batch, use_kernel)
+        loss.backward()
     grads = {n: p.grad.cpu() for n, p in model.named_parameters()
              if p.grad is not None}
     for p in model.parameters():
@@ -3738,6 +3768,23 @@ def _flip_readings(k_routes, p_routes, k_marg, p_marg):
         seen = flip if carried is None else flip | carried
         carried = torch.cummax(seen.to(torch.int8), dim=1).values.bool()
     return out
+
+
+def _print_flips(tag, by_layer):
+    """``_flip_readings``' readings, a line a MoE layer."""
+    for i, r in enumerate(by_layer):
+        print(f"[23] {tag} MoE layer {i}: {r['flips']} flips (the "
+              f"larger margin there: median {r['flip_margin_median']}), "
+              f"{r['fresh']} fresh (no flip at an earlier layer at or "
+              f"before the token in its row); the larger of the two "
+              f"paths' k-th minus (k+1)-th probability at the fresh "
+              f"flips: median {r['fresh_margin_median']}, max "
+              f"{r['fresh_margin_max']}; the kernel path's over every "
+              f"token: median {r['margin_median']}, 1st percentile "
+              f"{r['margin_p01']}; median probability difference over "
+              f"the tokens neither flipped nor carried "
+              f"{r['clean_diff_median']}; fresh flips with both margins "
+              f"below it (near ties): {r['near_tie']} of {r['fresh']}")
 
 
 def _grad_check(tag, cfg, model, batch, want_counts, fault=None,
@@ -3831,19 +3878,7 @@ def _grad_check(tag, cfg, model, batch, want_counts, fault=None,
               f"median {f['grad_rel_l2_median']:.4g}; routing flips by layer "
               f"(tokens whose top-k set differs, of "
               f"{batch['labels'].numel()}) {f['flips_by_layer']}")
-        for i, r in enumerate(f["by_layer"]):
-            print(f"[23] {tag} MoE layer {i}: {r['flips']} flips (the "
-                  f"larger margin there: median {r['flip_margin_median']}), "
-                  f"{r['fresh']} fresh (no flip at an earlier layer at or "
-                  f"before the token in its row); the larger of the two "
-                  f"paths' k-th minus (k+1)-th probability at the fresh "
-                  f"flips: median {r['fresh_margin_median']}, max "
-                  f"{r['fresh_margin_max']}; the kernel path's over every "
-                  f"token: median {r['margin_median']}, 1st percentile "
-                  f"{r['margin_p01']}; median probability difference over "
-                  f"the tokens neither flipped nor carried "
-                  f"{r['clean_diff_median']}; fresh flips with both margins "
-                  f"below it (near ties): {r['near_tie']} of {r['fresh']}")
+        _print_flips(tag, f["by_layer"])
         print(f"[23] {tag} the backward's recomputed forward routes every "
               f"token as the first forward did: "
               f"{out['recompute_routes_equal']}")
@@ -3968,6 +4003,63 @@ def phase_train_moe(dev):
     del state, tr
     _free()
     return out
+
+
+def _forward_routes(cfg, model, batch, use_kernel):
+    """One forward of the loss, without autograd: (loss, each router top-k
+    call's indices, each call's (router probabilities, k-th minus (k+1)-th
+    probability)), in call order, on the host."""
+    routes, margins = [], []
+    with _routes_spied(routes, margins=margins), torch.no_grad():
+        loss, _ = port_models.loss(cfg, model, batch, use_kernel)
+    return loss.item(), routes, margins
+
+
+def _f32_routing_faults(loss_k, loss_p, by_layer):
+    """What of an f32 forward's routing readings (``_flip_readings``) is not
+    f32 rounding: each MoE layer with a fresh flip at which either path's
+    margin passes ``MOE_F32_TIE`` (the other path then chose apart from a
+    tie), and losses apart by more than ``MOE_F32_LOSS_REL``."""
+    out = [f"MoE layer {i}: {f['fresh']} fresh flips, margins up to "
+           f"{f['fresh_margin_max']}" for i, f in enumerate(by_layer)
+           if f["fresh"] and f["fresh_margin_max"] > MOE_F32_TIE]
+    if abs(loss_k - loss_p) > MOE_F32_LOSS_REL * abs(loss_p):
+        out.append(f"loss {loss_k} against {loss_p}")
+    return out
+
+
+def phase_moe_f32_routing(dev):
+    """Phase 23, qwen2-moe-a2.7b at full width and ``MOE_F32_LAYERS``
+    layers in f32 (weights from seed 0): one forward of the loss on B = 8 x
+    512 tokens from seed 0 on each path, each routing by its own top-k; the
+    flips by layer and their margins (``_flip_readings``), printed and held
+    by ``_f32_routing_faults``.  In f32 the two paths' attention differs by
+    f32 rounding alone: a flip far from a tie is a fault of a path."""
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_F32_LAYERS,
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    model = build_model(cfg, dev, seed=0)
+    batch = to_device(_family_batch(cfg, BATCH, PROMPT), dev)
+    before = _all_counts()
+    loss_k, k_routes, k_marg = _forward_routes(cfg, model, batch, True)
+    loss_p, p_routes, p_marg = _forward_routes(cfg, model, batch, False)
+    _set_counts(before)
+    flips = _flip_readings(k_routes, p_routes, k_marg, p_marg)
+    tag = f"{MOE_ARCH} f32 ({MOE_F32_LAYERS} of {full.n_layers} layers)"
+    print(f"[23] {tag}, one forward a path, each routing by its own top-k "
+          f"(held to f32 rounding): loss {loss_k:.6f} against {loss_p:.6f}; "
+          f"routing flips by layer (tokens whose top-k set differs, of "
+          f"{batch['labels'].numel()}) {[f['flips'] for f in flips]}")
+    _print_flips(tag, flips)
+    del model, batch, k_marg, p_marg
+    _free()
+    bad = _f32_routing_faults(loss_k, loss_p, flips)
+    if bad:
+        raise AssertionError(f"[23] {tag}: the paths part by more than f32 "
+                             f"rounding: {bad}")
+    return {"layers": MOE_F32_LAYERS, "loss_kernel": loss_k,
+            "loss_plain": loss_p, "by_layer": flips}
 
 
 def phase_train_encdec(dev):
@@ -4630,6 +4722,7 @@ def main() -> int:
     scan_bwd = _timed(phase_scan_bwd, dev)
     trained = {"falcon_mamba": _timed(phase_train_mamba, dev),
                "qwen2_moe": _timed(phase_train_moe, dev),
+               "qwen2_moe_f32_routing": _timed(phase_moe_f32_routing, dev),
                "seamless": _timed(phase_train_encdec, dev),
                "jamba_smoke": _timed(phase_train_hybrid, dev)}
     row = scan_bwd_kernel_row(scan_bwd, trained["falcon_mamba"],

@@ -70,6 +70,8 @@ SIGNATURES = {
     "selective_scan_bf16": _SCAN,
     "selective_scan_bwd_f32": _SCAN_BWD,
     "selective_scan_bwd_bf16": _SCAN_BWD,
+    # bf16 or not; out: blocks an SM, warps an SM, shared bytes a block
+    "selective_scan_bwd_occupancy": (_I, _PLAN),
 }
 
 

@@ -30,10 +30,12 @@ its forward is the same kernel, and its backward
 (:func:`selective_scan_bwd`) three kernels of ``csrc/mamba_scan_bwd.cu``:
 a forward walk that stores the state at the start of every chunk of
 ``BWD_CHUNK`` steps, the reverse walk (each chunk's states recomputed from
-its start into shared memory, then ``g_t = dy_t C_t + a_{t+1} g_{t+1}``
-walked back, du and ddt summed over the state, dA per sequence, dB and dC
-per block of ``BWD_CHANNELS`` channels), and a reduction of the partial
-sums in a fixed order.  No atomics, so a backward is bit-equal from run to
+its start into registers, then ``g_t = dy_t C_t + a_{t+1} g_{t+1}`` walked
+back, du and ddt summed over the state and dB and dC over a warp's
+channels by shuffles, dA per sequence, dB and dC per block of
+``BWD_CHANNELS`` channels), and a reduction of the partial sums in a fixed
+order.  :func:`bwd_occupancy` reads the reverse walk's resident warps an
+SM.  No atomics, so a backward is bit-equal from run to
 run.  The JAX package has no such kernel: it differentiates its plain
 chunked scan.  On CPU tensors the Function runs the plain versions
 ``ref.selective_scan_ref`` / ``ref.selective_scan_bwd_ref`` (f64 for f64
@@ -50,6 +52,7 @@ backward's three kernels (plain-version calls are not counted);
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -68,6 +71,9 @@ _GRID_MAX = 65535
 # csrc/mamba_scan_bwd.cu: steps a chunk (a state stored at each chunk's
 # start) and channels a block (a partial sum of dB and dC per block)
 BWD_CHUNK, BWD_CHANNELS = 16, 32
+# its kernels, in launch order
+BWD_KERNELS = ("scan_bwd_bounds_kernel", "scan_bwd_kernel",
+               "scan_bwd_reduce_kernel")
 
 
 def reset_launches() -> None:
@@ -276,6 +282,18 @@ def selective_scan_bwd(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     _build.check(lib, "selective_scan_bwd", err)
     LAUNCHES["selective_scan_bwd"] += 1
     return du, ddt, da, db, dc, dd
+
+
+def bwd_occupancy(dtype: torch.dtype) -> dict:
+    """The reverse walk's (``scan_bwd_kernel``'s) residency on the current
+    card for u's ``dtype``, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    gives it: ``blocks`` and ``warps`` an SM, ``smem`` bytes a block."""
+    lib = _build.load()
+    out = (ctypes.c_int * 3)()
+    _build.check(lib, "selective_scan_bwd_occupancy",
+                 lib.selective_scan_bwd_occupancy(
+                     int(dtype == torch.bfloat16), out))
+    return {"blocks": out[0], "warps": out[1], "smem": out[2]}
 
 
 class SelectiveScan(torch.autograd.Function):

@@ -734,6 +734,17 @@ def test_selective_scan_autograd_on_the_card(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_bwd_reverse_walk_keeps_16_warps(cuda_device, dtype):
+    """The reverse walk (``scan_bwd_kernel``: 256 threads, its shared
+    memory and registers) keeps at least 16 warps an SM resident, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` counts them."""
+    from repro_torch.kernels import mamba_scan
+    occ = mamba_scan.bwd_occupancy(dtype)
+    assert occ["warps"] >= 16 and occ["blocks"] * 8 == occ["warps"], occ
+
+
+@pytest.mark.cuda
 def test_selective_scan_bwd_kernels_do_not_spill(cuda_device):
     """ptxas's report: the three backward kernels in both dtypes, no
     spills."""

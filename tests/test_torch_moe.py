@@ -174,3 +174,46 @@ def test_converter_round_trip_is_bit_equal(name, dtype):
     del bad["positions"][0]["moe"]["w_up"]
     with pytest.raises(ValueError, match="keys"):
         params_from_reference(bad, tm.cfg, "cpu")
+
+
+def _f32_readings(flips):
+    """Two MoE layers' routing readings (``chip_smoke._flip_readings``) on 2
+    rows of 4 tokens, top-2 of 4 experts: the plain path routes every token
+    to experts 0 and 1, the kernel path to 0 and 2 at ``flips`` ({(layer,
+    row, token): both paths' margin there}); margins elsewhere 0.1, the
+    router probabilities 1e-7 apart."""
+    import chip_smoke
+    routes = {"k": [], "p": []}
+    marg = {"k": [], "p": []}
+    for layer in range(2):
+        plain = torch.tensor([0, 1]).expand(2, 4, 2)
+        kern, m = plain.clone(), torch.full((2, 4), 0.1)
+        for (at, g, t), margin in flips.items():
+            if at == layer:
+                kern[g, t, 1], m[g, t] = 2, margin
+        probs = torch.full((2, 4, 4), 0.25)
+        routes["k"].append(kern)
+        routes["p"].append(plain)
+        marg["k"].append((probs + 1e-7, m))
+        marg["p"].append((probs, m.clone()))
+    return chip_smoke._flip_readings(routes["k"], routes["p"], marg["k"],
+                                     marg["p"])
+
+
+@pytest.mark.parametrize("flips,loss_k,want", [
+    ({}, 12.0, []),
+    ({(0, 0, 1): 1e-7}, 12.0, []),                        # a near tie
+    ({(0, 1, 2): 0.2}, 12.0, ["MoE layer 0"]),            # far from a tie
+    ({(0, 0, 1): 1e-7, (1, 0, 3): 0.2}, 12.0, []),        # carried by row 0
+    ({(1, 1, 0): 0.2}, 12.0, ["MoE layer 1"]),
+    ({}, 12.01, ["loss"]),
+], ids=["agree", "near-tie", "far", "carried", "far-layer-1", "loss-apart"])
+def test_f32_routing_faults_are_what_f32_rounding_is_not(flips, loss_k, want):
+    """``chip_smoke.py``'s hold on qwen2-moe's f32 routing: a fresh flip
+    with a margin past ``MOE_F32_TIE``, or losses past
+    ``MOE_F32_LOSS_REL``, fails; a near tie, and what an earlier flip of the
+    row carries, pass."""
+    import chip_smoke
+    got = chip_smoke._f32_routing_faults(loss_k, 12.0, _f32_readings(flips))
+    assert len(got) == len(want)
+    assert all(g.startswith(w) for g, w in zip(got, want)), got

@@ -75,6 +75,146 @@ def test_bwd_ref_matches_reference_vjp(b, l, d, n, chunk):
         _close(g, w)
 
 
+LOG2E = 1.4426950408889634
+# csrc/mamba_scan_bwd.cu's reverse walk: state columns a group, lanes a
+# channel (2 columns each), warps a block, groups of RG lanes a warp
+GW, RG, WARPS, GROUPS = 16, 8, 8, 4
+
+
+def _tree(x, dim):
+    """``x`` summed over ``dim`` (a power of two) as a reduce-scatter of
+    shuffles sums it: halves first, (i, i + n/2) pairs, then the halves'
+    halves."""
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _kernel_emulation(u, dt, a, bb, cc, dsk, dy, drop_at=None):
+    """The arithmetic of ``csrc/mamba_scan_bwd.cu`` in f32 torch: the states
+    at the chunks' starts by a forward walk (kernel 1); each chunk's states
+    recomputed from its stored start, g walked back and carried across
+    chunks (kernel 2); du's and ddt's shares summed over a lane's 2
+    columns, then over the channel's 8 lanes in the reduce-scatter's order,
+    then over the groups in order; dB's and dC's terms over a lane's
+    channels in order, then over the warp's 4 groups of lanes in the
+    reduce-scatter's order, then over the block's 8 warps in order, then
+    over the blocks of ``BWD_CHANNELS`` channels in order (kernel 3); dA
+    and dD per sequence, then over the sequences.  Channels, columns and steps past Din, N and L run as zeros.
+    ``drop_at``: g not carried from that step (a chunk's start) into the
+    step before it, the planted fault."""
+    tc, ch = mamba_scan.BWD_CHUNK, mamba_scan.BWD_CHANNELS
+    per_warp = ch // WARPS
+    bsz, l, d = u.shape
+    n = a.shape[1]
+    lp, dp, npad = -(-l // tc) * tc, -(-d // ch) * ch, -(-n // GW) * GW
+
+    def pad(x, *shape):
+        out = torch.zeros(shape, dtype=torch.float32)
+        out[tuple(slice(0, s) for s in x.shape)] = torch.from_numpy(x)
+        return out
+    u, dt, dy = (pad(x, bsz, lp, dp) for x in (u, dt, dy))
+    bb, cc = (pad(x, bsz, lp, npad) for x in (bb, cc))
+    af, dsk = pad(a, dp, npad), pad(dsk, dp)
+    a2 = af * LOG2E
+    at = torch.exp2(dt[..., None] * a2)                   # (B, L, D, N)
+    dtu = dt * u
+    chunks = lp // tc
+    start = [torch.zeros((bsz, dp, npad))]
+    h = start[0]
+    for t in range(lp - tc):
+        h = h * at[:, t] + dtu[:, t, :, None] * bb[:, t, None, :]
+        if (t + 1) % tc == 0:
+            start.append(h)
+    g = torch.zeros((bsz, dp, npad))
+    an = torch.zeros((bsz, dp, npad))
+    da = torch.zeros((bsz, dp, npad))
+    du, ddt = torch.zeros((bsz, lp, dp)), torch.zeros((bsz, lp, dp))
+    db, dc = torch.zeros((bsz, lp, npad)), torch.zeros((bsz, lp, npad))
+    skip = torch.zeros((dp, npad // GW, RG))
+    skip[:, 0, 0] = dsk                   # lane 0 of group 0 adds D dy
+    lanes = (bsz, dp, npad // GW, RG, 2)
+    for k in reversed(range(chunks)):
+        hs = [start[k]]
+        for t in range(k * tc, (k + 1) * tc):
+            hs.append(hs[-1] * at[:, t] + dtu[:, t, :, None] * bb[:, t, None, :])
+        if drop_at is not None and (k + 1) * tc == drop_at:
+            g = torch.zeros_like(g)
+        for j in reversed(range(tc)):
+            t = k * tc + j
+            g = an * g + dy[:, t, :, None] * cc[:, t, None, :]
+            q = g * (at[:, t] * hs[j])
+            gb = (g * bb[:, t, None, :]).reshape(lanes)
+            sdu = gb[..., 0] + gb[..., 1]
+            qa = (af * q).reshape(lanes)
+            sq = qa[..., 0] + qa[..., 1]
+            dtv, uv, dyv = (x[:, t, :, None, None] for x in (dt, u, dy))
+            x_du = dtv * sdu + skip * dyv
+            x_dt = uv * sdu + sq
+            for out, x in ((du, x_du), (ddt, x_dt)):
+                per_group = _tree(x, 3)                   # (B, D, groups)
+                acc = per_group[..., 0]
+                for grp in range(1, per_group.shape[-1]):
+                    acc = acc + per_group[..., grp]
+                out[:, t] = acc
+            da = da + dt[:, t, :, None] * q
+            for out, term in ((db, g * dtu[:, t, :, None]),
+                              (dc, dy[:, t, :, None] * hs[j + 1])):
+                by_lane = term.reshape(bsz, dp // per_warp, GROUPS,
+                                       per_warp // GROUPS, npad)
+                lane = by_lane[:, :, :, 0]        # a lane's channels, in order
+                for kk in range(1, by_lane.shape[3]):
+                    lane = lane + by_lane[:, :, :, kk]
+                warps = _tree(lane, 2)
+                blocks = warps.reshape(bsz, dp // ch, WARPS, npad)
+                per_block = torch.zeros((bsz, dp // ch, npad))
+                for w in range(WARPS):
+                    per_block = per_block + blocks[:, :, w]
+                acc = torch.zeros((bsz, npad))
+                for blk in range(dp // ch):
+                    acc = acc + per_block[:, blk]
+                out[:, t] = acc
+            an = at[:, t]
+    dd_seq = (dy * u).flip(1).sum(1)                    # reverse order
+    da_all, dd_all = torch.zeros((dp, npad)), torch.zeros(dp)
+    for b in range(bsz):
+        da_all, dd_all = da_all + da[b], dd_all + dd_seq[b]
+    return (du[:, :l, :d], ddt[:, :l, :d], da_all[:d, :n], db[:, :l, :n],
+            dc[:, :l, :n], dd_all[:d])
+
+
+@pytest.mark.parametrize("b,l,d,n,chunk", [
+    (2, 16, 8, 4, 4), (1, 13, 6, 3, 4), (2, 1, 5, 4, 8), (1, 20, 7, 1, 8),
+    (2, 24, 5, 17, 8), (1, 40, 9, 16, 8),
+    (2, 40, 70, 16, 8)])     # three of the kernel's blocks of 32 channels
+def test_kernel_arithmetic_matches_reference_vjp(b, l, d, n, chunk):
+    """The backward kernels' arithmetic (chunks recomputed from their
+    stored starts, g carried, the sums in the kernels' order) emulated in
+    f32 torch against ``jax.vjp`` of the reference's chunked scan."""
+    args = _inputs(b, l, d, n)
+    want = _reference_vjp(*args, chunk)
+    for g, w in zip(_kernel_emulation(*args), want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("b,l,d,n", [(1, 40, 9, 16), (2, 40, 70, 16)])
+def test_kernel_arithmetic_with_carry_dropped_misses(b, l, d, n):
+    """The tolerance sees the kernel with g not carried across the chunk
+    boundary ``chip_smoke.py``'s planted fault drops it at."""
+    args = _inputs(b, l, d, n)
+    want = _reference_vjp(*args, 8)
+    tc = mamba_scan.BWD_CHUNK
+    bad = _kernel_emulation(*args, drop_at=tc * (-(-l // tc) // 2))
+    missed = []
+    for g, w in zip(bad, want):
+        w = np.asarray(w)
+        err = np.abs(g.numpy() - w).max()
+        missed.append(err > 1e-5 * max(1.0, np.abs(w).max()))
+    assert missed[:4] == [True] * 4      # du, ddt, dA, dB take g's carry
+
+
 def test_bwd_wrapper_on_cpu_is_the_plain_version():
     """The wrapper runs the plain version on CPU tensors, launches nothing,
     and checks dy's shape."""
