@@ -16,8 +16,10 @@ result line):
    (``crossbar_mxv_int8_kernel``) IMMA (mma.sync s8), the decode kernels
    (``decode_split_kernel``, ``decode_merge_kernel``) must be built, and
    the crossbar kernels, the scan kernel (``scan_lanes_kernel``, at
-   every instantiation) and the scan backward's three kernels in both
-   dtypes built without spills;
+   every instantiation), the scan backward's three kernels in both
+   dtypes and AdamW's four kernels (``csrc/adamw.cu``: the table fill,
+   the norm, its finalize, the update; each chunk's types picked at run
+   time) built without spills;
 2. hold each kernel against its plain PyTorch version on CUDA tensors: the
    main path's shapes, lenet-28's shapes and edge shapes (N in {1, 3, 130},
    M = 1, a full 256x256 crossbar at B = 1024, batch sizes either side of
@@ -290,14 +292,30 @@ result line):
    the card (``GRAD_REL_L2_BOUND``, ``LOSS_REL_BOUND``; the gradient bound
    missed by the step with query head 0 left out of the kernels' dK and
    dV), one step's flash
-   launches exact (56 forward, 28 backward), then 8 steps with the counts
-   zeroed just before (448 and 224), each step's loss (finite), ms (CUDA
-   events), tokens/s and peak allocated memory.  Last, the smoke width in
-   f32 with head_dim 32: 40 steps at ``peak_lr=1e-2`` whose loss falls as
+   launches exact (56 forward, 28 backward), then 8 eager steps
+   (``compile=False``) with the counts zeroed just before (448, 224 and
+   8 AdamW calls), each step's loss (finite), grad norm, ms (CUDA
+   events), tokens/s and peak allocated memory, one more step profiled;
+   on that state and one more batch's gradients the AdamW kernels
+   (``csrc/adamw.cu``, one wrapper call a step over all 254 tensors)
+   against their plain version (``_adamw_check``: the norm within 1e-6
+   relative, moments within 1e-6 x max(1, max|m|), parameters within one
+   bf16 ulp at each tensor's operands, a bound the plain version with bc2
+   left out must miss), with the call's time (events, device time of its
+   kernels), the plain version's and the bytes bound.  Then the main
+   path: a new ``Trainer`` from the same init replaying its captured step
+   (``train.graphs.TrainGraph``, the default on the card: 2 eager steps
+   on the capture stream, a capture, 6 replays), the counts zeroed just
+   before and exact after; its 8 losses, grad norms and final parameters
+   bit-equal to the eager run's and a checksum of its moments' bits the
+   same; the capture's ms and peak; one replay profiled (its idle share).
+   Last, the smoke width in
+   f32 with head_dim 32, captured: 40 steps at ``peak_lr=1e-2`` whose loss falls as
    ``tests/test_train.py`` requires, and a run killed at step 12 and
    resumed from its step-10 checkpoint bit-equal to the uninterrupted run.
    The ``kernels`` line gains the three backward kernels ("replaces": none,
-   the gradient of ``src/repro/models/layers.py:346``).
+   the gradient of ``src/repro/models/layers.py:346``) and ``adamw``
+   ("replaces": none, the reference's ``adamw_update``, fused by XLA).
 
 23. every other family trains (after 22).  The selective scan's backward
    (``csrc/mamba_scan_bwd.cu``: ``scan_bwd_bounds_kernel``, the states at
@@ -329,9 +347,12 @@ result line):
    flips by layer printed and held to f32 rounding
    (``phase_moe_f32_routing``, ``_f32_routing_faults``), then
    seamless-m4t-large-v2 at full width and depth (step 0 against the plain
-   attention; flash 144 forward and 72 backward a step), each step's loss,
-   ms, tokens/s and peak memory; and jamba at its smoke width (f32,
-   head_dim 32: 40 steps falling, killed at 12 and resumed bit-equal).
+   attention; flash 144 forward and 72 backward a step), each trained
+   captured (2 eager steps, a capture, replays) with one AdamW call a
+   step: each step's loss, ms, tokens/s and peak memory, the eager
+   steps' peak against the capture's; and jamba at its smoke width (f32,
+   head_dim 32, bf16 moments: 40 steps falling, killed at 12 and resumed
+   bit-equal).
    The ``kernels`` line gains ``selective_scan_bwd`` ("replaces": none, the
    gradient of ``src/repro/models/layers.py:680``).
 
@@ -386,9 +407,10 @@ from repro_torch.core.graph import conv2d_mxv  # noqa: E402
 from repro_torch.faults import (FaultyPlane, RetryPolicy,  # noqa: E402
                                 sample_schedule)
 from repro_torch.configs.base import get_arch, smoke_config  # noqa: E402
-from repro_torch.kernels import (_build, add_launches,  # noqa: E402
-                                 conv2d, decode_attn, decode_attn_int8,
-                                 flash_attn, launch_counts, mamba_scan, mxv)
+from repro_torch.kernels import (_build, adamw as kadamw,  # noqa: E402
+                                 add_launches, conv2d, decode_attn,
+                                 decode_attn_int8, flash_attn, launch_counts,
+                                 launches_apart, mamba_scan, mxv)
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels._tensors import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.ref import (quantize_crossbar, quantize_vec,  # noqa: E402
@@ -403,6 +425,8 @@ from repro_torch.launch.scan_times import (EXP_PER_S, scan_inputs,  # noqa: E402
                                            device_us as scan_device_us)
 from repro_torch import models as port_models  # noqa: E402
 from repro_torch.models import build_model, lm  # noqa: E402
+from repro_torch.models.convert import decayed  # noqa: E402
+from repro_torch.optim.adamw import hyper_values  # noqa: E402
 from repro_torch.train import Trainer  # noqa: E402
 from repro_torch.train.loop import to_device  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
@@ -686,7 +710,8 @@ def phase_build():
     every kernel, and the tensor-core instructions (HMMA, HGMMA, IMMA) of
     each; the bf16 flash attention kernel must have HGMMA at every head
     dim, the int8 crossbar kernel IMMA, and no crossbar, scan, flash
-    backward or scan backward kernel spills."""
+    backward, scan backward or AdamW kernel spills (AdamW's four:
+    ``kadamw.KERNELS``)."""
     t0 = time.perf_counter()
     lib = _build.load()
     secs = time.perf_counter() - t0
@@ -758,6 +783,13 @@ def phase_build():
         raise AssertionError(f"[1] the scan backward's reverse walk keeps "
                              f"fewer than {SCAN_BWD_MIN_WARPS} warps an SM "
                              f"resident: {occ}")
+    aw = {names[n]: u for n, u in usage.items() if "adamw_" in n}
+    if len(aw) != len(kadamw.KERNELS) or any(st or ld
+                                            for _, st, ld in aw.values()):
+        raise AssertionError(f"[1] the AdamW kernels are missing or spill: "
+                             f"{aw}")
+    print("[1] AdamW kernels, registers (no spills): " +
+          "; ".join(f"{n} {r}" for n, (r, _, _) in sorted(aw.items())))
     print("[1] scan backward kernels, registers (no spills): " +
           "; ".join(f"{n} {r}" for n, (r, _, _) in sorted(sbwd.items()))
           + "; scan_bwd_kernel resident an SM (cudaOccupancyMaxActive"
@@ -2872,6 +2904,15 @@ def scan_kernel_row(errs, serve, paths, times, moe, hybrid):
 # ------------------------------------- Listing-1 conv, faults and verifier
 # ------------------------------------------------------------ phase 22: training
 BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attn_bwd.cu"
+ADAMW_SOURCE = "src/repro_torch/kernels/csrc/adamw.cu"
+# the lr of the AdamW check: the schedule's at step 9 (2.7e-4, in its
+# warm-up) moves most bf16 parameters by less than a bf16 ulp, where a
+# fault in the update (bc2 left out) would hide in the rounding
+ADAMW_CHECK_LR = 1e-2
+# AdamW replaces no pallas_call: the reference's update is plain jnp, which
+# XLA fuses under the train step's jax.jit
+ADAMW_REPLACES = ("none; src/repro/optim/adamw.py:30 adamw_update, plain "
+                  "jnp fused by XLA under the step's jax.jit")
 # the backward replaces no pallas_call: it is the gradient of the reference's
 # plain attention, which jax.value_and_grad differentiates
 BWD_REPLACES = "none; gradient of src/repro/models/layers.py:346"
@@ -3138,13 +3179,20 @@ def phase_train_full(dev):
     forward with remat, 28 backward), and the bound shown to see a fault:
     with query head 0 left out of the kernels' dK and dV
     (``_head0_left_out``) the largest relative L2 must miss it; then
-    ``TRAIN_STEPS`` steps of ``Trainer.run``, counts zeroed just before:
-    each step's loss (finite), ms (CUDA events), tokens/s and peak
-    allocated memory, and the launches exactly ``TRAIN_STEPS`` x (56,
-    28)."""
+    ``TRAIN_STEPS`` eager steps of ``Trainer.run`` (``compile=False``),
+    counts zeroed just before: each step's loss (finite), grad norm, ms
+    (CUDA events), tokens/s and peak allocated memory, the launches exactly
+    ``TRAIN_STEPS`` x (56, 28, 1 AdamW), one more step profiled; the AdamW
+    kernels against their plain version on that state (``_adamw_check``).
+    Then the main path: a new ``Trainer`` from the same init, captured by
+    default (``WARMUP_STEPS`` eager steps, a capture, replays), counts
+    zeroed just before and exact after, its losses, grad norms and final
+    parameters bit-equal to the eager run's and its moments' bits
+    (``_bits_checksum``) the same; its capture ms and peak, and one
+    replay profiled."""
     cfg = get_arch(LM_ARCH)
     tr = Trainer(cfg=cfg, batch=BATCH, seq_len=PROMPT, peak_lr=TRAIN_LR,
-                 device=dev)
+                 device=dev, compile=False)
     t0 = time.perf_counter()
     state = tr.init_state()
     torch.cuda.synchronize()
@@ -3198,35 +3246,48 @@ def phase_train_full(dev):
     del plain
     _free()
     _set_counts(before)
-    torch.cuda.reset_peak_memory_stats(dev)
-    _zero_counts()
-    state = tr.run(TRAIN_STEPS, state=state)
-    counts = _nonzero(_all_counts())
-    _expect(_all_counts(), {"flash_attention": 2 * n * TRAIN_STEPS,
-                     "flash_attention_bwd": n * TRAIN_STEPS},
-            f"[22] {LM_ARCH} {TRAIN_STEPS} steps of Trainer.run")
-    if not all(math.isfinite(x) for x in tr.history):
-        raise AssertionError(f"[22] non-finite losses {tr.history}")
-    tokens = BATCH * PROMPT
+    per_step = {"flash_attention": 2 * n, "flash_attention_bwd": n,
+                "adamw": 1}
     route = flash_attn.bwd_kernels(getattr(torch, cfg.compute_dtype),
                                    cfg.hd)[:2]
-    for i, (loss, ms, peak) in enumerate(zip(tr.history, tr.step_ms,
-                                             tr.peak_bytes)):
-        print(f"[22] {LM_ARCH} step {i}: loss {loss:.4f}, {ms:.1f} ms (CUDA "
-              f"events), {tokens / ms * 1e3:.0f} tokens/s, peak allocated "
-              f"{peak / 2**30:.2f} GiB")
-    print(f"[22] {LM_ARCH} {TRAIN_STEPS} steps: launches {counts} (exact)")
-    profiled = _train_step_profile(tr, state)
-    seen = set(profiled["bwd_kernels"]) if profiled else set(route)
-    if seen != set(route):
-        raise AssertionError(f"[22] the profiled step ran the backward "
-                             f"kernels {sorted(seen)}, not {route}")
+    eager = _train_run("eager", tr, state, per_step)
+    eager["profiled_step"] = _profiled_route(tr, eager["state"], route)
+    adamw = _adamw_check(tr, eager.pop("state"))
+    final = eager.pop("final")
+    del state, tr
+    _free()
+    tr = Trainer(cfg=cfg, batch=BATCH, seq_len=PROMPT, peak_lr=TRAIN_LR,
+                 device=dev)
+    state = tr.init_state()
+    captured = _train_run("captured", tr, state, per_step)
+    if captured["replayed"] != [False] * 2 + [True] * (TRAIN_STEPS - 2):
+        raise AssertionError(f"[22] the captured run replayed "
+                             f"{captured['replayed']}")
+    same = {k: captured[k] == eager[k] for k in ("losses", "grad_norms")}
+    got = captured.pop("final")
+    same["params"] = all(torch.equal(got["params"][k], v)
+                         for k, v in final["params"].items())
+    same["moments_checksum"] = got["moments"] == final["moments"]
+    print(f"[22] {LM_ARCH} {TRAIN_STEPS} captured steps against "
+          f"{TRAIN_STEPS} eager steps from one init: bit-equal {same} "
+          f"(moments: checksum of their bits {got['moments']}); capture "
+          f"{tr.graph.capture_ms:.0f} ms, its peak "
+          f"{tr.graph.peak_bytes / 2**30:.2f} GiB")
+    if not all(same.values()):
+        raise AssertionError(f"[22] captured and eager steps differ: {same}"
+                             f"; losses {captured['losses']} against "
+                             f"{eager['losses']}, grad norms "
+                             f"{captured['grad_norms']} against "
+                             f"{eager['grad_norms']}")
+    captured["capture_ms"] = tr.graph.capture_ms
+    captured["profiled_step"] = _profiled_route(tr, captured.pop("state"),
+                                                route)
+    del final, got
     out = {"arch": LM_ARCH, "batch": BATCH, "seq_len": PROMPT,
-           "bwd_kernels": route,
-           "lr": TRAIN_LR, "params": n_params, "losses": tr.history,
-           "step_ms": tr.step_ms, "peak_gib": [p / 2**30
-                                               for p in tr.peak_bytes],
-           "launches": counts, "profiled_step": profiled, "step0": {
+           "bwd_kernels": route, "lr": TRAIN_LR, "params": n_params,
+           "launches": captured["launches"], "eager": eager,
+           "captured": captured, "bit_equal": same, "adamw": adamw,
+           "step0": {
                "loss_kernel": loss_k, "loss_plain": loss_p,
                "loss_rel": loss_rel, "grad_rel_l2_max": worst[0][1],
                "grad_rel_l2_median": statistics.median(rel.values()),
@@ -3237,12 +3298,205 @@ def phase_train_full(dev):
     return out
 
 
+def _bits_checksum(tensors):
+    """(sum, sum of squares) of every tensor's bits as int64, wrapping: a
+    checksum of the bits."""
+    s1 = s2 = 0
+    for t in tensors:
+        b = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+        for part in b.reshape(-1).split(1 << 26):
+            w = part.to(torch.int64)
+            s1 += int(w.sum())
+            s2 += int((w * w).sum())
+    return [s1 % 2**64, s2 % 2**64]
+
+
+def _train_run(kind, tr, state, per_step):
+    """Phase 22: ``TRAIN_STEPS`` steps of ``tr.run`` on llama3.2-3b (the
+    captured step by default, ``compile=False`` eager), the counts zeroed
+    just before and exactly ``TRAIN_STEPS`` x ``per_step`` after: each
+    step's loss (finite), grad norm, ms (CUDA events), tokens/s, peak
+    allocated memory and whether it was a replay; the final parameters
+    (copies on the host, out of the next run's device memory) and a
+    checksum of the moments' bits, for the comparison."""
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    state = tr.run(TRAIN_STEPS, state=state)
+    counts = _nonzero(_all_counts())
+    _expect(_all_counts(), {k: v * TRAIN_STEPS for k, v in per_step.items()},
+            f"[22] {LM_ARCH} {TRAIN_STEPS} {kind} steps of Trainer.run")
+    if not all(math.isfinite(x) for x in tr.history):
+        raise AssertionError(f"[22] non-finite losses {tr.history}")
+    tokens = BATCH * PROMPT
+    for i, (loss, ms, peak, rep) in enumerate(zip(
+            tr.history, tr.step_ms, tr.peak_bytes, tr.replayed)):
+        print(f"[22] {LM_ARCH} {kind} step {i}{' (replay)' if rep else ''}: "
+              f"loss {loss:.4f}, grad norm {tr.grad_norms[i]:.4f}, "
+              f"{ms:.1f} ms (CUDA events), {tokens / ms * 1e3:.0f} "
+              f"tokens/s, peak allocated {peak / 2**30:.2f} GiB")
+    print(f"[22] {LM_ARCH} {TRAIN_STEPS} {kind} steps: launches {counts} "
+          f"(exact)")
+    final = {"params": {n: p.detach().to("cpu", copy=True)
+                        for n, p in state.model.named_parameters()},
+             "moments": _bits_checksum(list(state.opt.mu.values())
+                                       + list(state.opt.nu.values()))}
+    return {"losses": list(tr.history), "grad_norms": list(tr.grad_norms),
+            "step_ms": list(tr.step_ms),
+            "peak_gib": [p / 2**30 for p in tr.peak_bytes],
+            "replayed": list(tr.replayed), "launches": counts,
+            "state": state, "final": final}
+
+
+def _profiled_route(tr, state, route):
+    """One more step profiled (``_train_step_profile``); the backward
+    kernels it shows must be the route's."""
+    profiled = _train_step_profile(tr, state)
+    seen = set(profiled["bwd_kernels"]) if profiled else set(route)
+    if seen != set(route):
+        raise AssertionError(f"[22] the profiled step ran the backward "
+                             f"kernels {sorted(seen)}, not {route}")
+    return profiled
+
+
+def _ulp(x, dtype):
+    """One ulp of ``dtype`` (f32 or bf16) at |x|."""
+    a = max(abs(float(x)), 2.0**-126)
+    return 2.0 ** (math.floor(math.log2(a)) - (23 if dtype == torch.float32
+                                                else 7))
+
+
+def _adamw_bound_ms(ps, gs, ms):
+    """The AdamW call's bytes bound: the update reads g, p, m, v and writes
+    p, m, v; the norm reads g once more."""
+    total = sum(p.numel() * (2 * p.element_size() + 4 * m.element_size()
+                             + (2 * g.element_size() if g is not None else 0))
+                for p, g, m in zip(ps, gs, ms))
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def _adamw_check(tr, state):
+    """Phase 22: the AdamW kernels against their plain version over
+    llama3.2-3b's whole tree (254 tensors, bf16 parameters and gradients,
+    f32 moments), on the eager run's trained parameters and moments and
+    the gradients of one more batch, with the next step's bias corrections
+    and lr ``ADAMW_CHECK_LR``.  Held, as ``tests/test_torch_train_graph.py`` holds the
+    plain version to the reference: the norm within 1e-6 relative, the
+    moments within 1e-6 x max(1, max|m|), the parameters within one bf16
+    ulp at max(max|p|, max|p - p'|) over each tensor; the plain version
+    with bc2 left out must miss the parameters' bound.  Then the call's
+    time (events and device time of its kernels, the update and the norm
+    apart), the plain version's, and the bytes bound.  Launches made here
+    are not counted."""
+    dev = tr.device
+    model, cfg = state.model, state.model.cfg
+    params = dict(model.named_parameters())
+    names = list(params)
+    dec = decayed(model)
+    with launches_apart({}):
+        batch = to_device(tr.data.next(), dev)
+        for p in params.values():
+            p.grad = None
+        loss, _ = port_models.loss(cfg, model, batch)
+        loss.backward()
+    gs = [params[n].grad for n in names]
+    for p in params.values():
+        p.grad = None
+    del loss, batch
+    ps = [params[n].detach() for n in names]
+    mus = [state.opt.mu[n] for n in names]
+    nus = [state.opt.nu[n] for n in names]
+    decs = [dec[n] for n in names]
+    hyper = torch.tensor(hyper_values(state.opt.count + 1, ADAMW_CHECK_LR),
+                         device=dev)
+    t0 = time.perf_counter()
+    host = [tuple(t.to("cpu", copy=True) for t in ts)
+            for ts in zip(ps, mus, nus)]
+    copy_s = time.perf_counter() - t0
+    with launches_apart({}):
+        gnorm = kadamw.adamw_step(ps, gs, mus, nus, decs, hyper).item()
+    gnorm_plain = kadamw.global_norm_ref(gs)
+    scale = kadamw.clip_scale_ref(gnorm_plain, 1.0)
+    lr, bc1, bc2 = hyper[0], hyper[1], hyper[2]
+    one = torch.ones_like(bc2)
+    worst = {"p": 0.0, "m": 0.0, "v": 0.0}
+    faults_missed = 0.0
+    max_abs, equal, total = 0.0, 0, 0
+    for i, (p, g, m, v) in enumerate(zip(ps, gs, mus, nus)):
+        p0, m0, v0 = (t.to(dev) for t in host[i])
+        kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1 if decs[i] else 0.0)
+        p32, m32, v32 = kadamw.update_ref(p0, g, m0, v0, scale, lr, bc1, bc2,
+                                          **kw)
+        want = (p32.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype))
+        tol_p = _ulp(max(p0.float().abs().max().item(),
+                         (p0.float() - want[0].float()).abs().max().item()),
+                     p.dtype)
+        for key, got, w, tol in (
+                ("p", p, want[0], tol_p),
+                ("m", m, want[1], 1e-6 * max(1.0, want[1].abs().max().item())),
+                ("v", v, want[2], 1e-6 * max(1.0, want[2].abs().max().item()))):
+            err = (got.float() - w.float()).abs().max().item()
+            max_abs = max(max_abs, err)
+            worst[key] = max(worst[key], err / tol)
+            equal += int((got == w).sum())
+            total += got.numel()
+        fp = kadamw.update_ref(p0, g, m0, v0, scale, lr, bc1, one, **kw)[0]
+        faults_missed = max(faults_missed, (
+            p.float() - fp.to(p.dtype).float()).abs().max().item() / tol_p)
+        del p0, m0, v0, p32, m32, v32, want, fp
+    norm_rel = abs(gnorm - gnorm_plain.item()) / gnorm_plain.item()
+    print(f"[22] AdamW kernels against the plain version over {LM_ARCH}'s "
+          f"{len(ps)} tensors ({sum(p.numel() for p in ps)} parameters, "
+          f"{ps[0].dtype} with {mus[0].dtype} moments): norm {gnorm:.6f} "
+          f"against {gnorm_plain.item():.6f} (relative {norm_rel:.3g}, bound "
+          f"1e-6); worst error over its bound p {worst['p']:.3g}, m "
+          f"{worst['m']:.3g}, v {worst['v']:.3g} (bound 1); {equal} of "
+          f"{total} elements bit-equal, max |difference| {max_abs:.3g}; "
+          f"the plain version with bc2 left out: its parameters off by up "
+          f"to {faults_missed:.3g} x the bound; host copy {copy_s:.1f} s")
+    if not (norm_rel <= 1e-6 and max(worst["p"], worst["m"],
+                                     worst["v"]) <= 1.0):
+        raise AssertionError(f"[22] the AdamW kernels are off their plain "
+                             f"version: norm {norm_rel}, {worst}")
+    if not faults_missed > 1.0:
+        raise AssertionError(f"[22] the AdamW bound would pass bc2 left out "
+                             f"({faults_missed})")
+    del host
+    _free()
+
+    def call():
+        kadamw.adamw_step(ps, gs, mus, nus, decs, hyper)
+
+    with launches_apart({}):
+        ms = _events_ms(call, reps=5, trials=3, warmup=1)
+        dev_us = {k: scan_device_us(call, reps=5, match=k) for k in (
+            "adamw_", "adamw_update_kernel", "adamw_norm_kernel")}
+        plain_ms = _events_ms(lambda: kadamw.adamw_step_ref(
+            ps, gs, mus, nus, decs, hyper), reps=1, trials=2, warmup=1)
+    bound_ms = _adamw_bound_ms(ps, gs, mus)
+    print(f"[22] AdamW over {LM_ARCH}'s tree: {ms:.3f} ms a call (CUDA "
+          f"events), device {_ms(dev_us['adamw_']):.3f} ms (update "
+          f"{_ms(dev_us['adamw_update_kernel']):.3f}, norm "
+          f"{_ms(dev_us['adamw_norm_kernel']):.3f}); plain version "
+          f"{plain_ms:.1f} ms; bound {bound_ms:.3f} ms (bytes); library: "
+          f"none (torch.optim.AdamW keeps its moments in the parameter's "
+          f"dtype and has no global-norm clip)")
+    del gs
+    return {"tensors": len(ps), "parameters": sum(p.numel() for p in ps),
+            "norm": gnorm, "norm_plain": gnorm_plain.item(),
+            "norm_rel": norm_rel, "worst_over_bound": worst,
+            "bit_equal_elements": equal, "elements": total,
+            "max_abs_err": max_abs, "fault_bc2_over_bound": faults_missed,
+            "ms": ms, "device_us": dev_us, "plain_ms": plain_ms,
+            "bound_ms": bound_ms}
+
+
 # where a training step's device time goes, by kernel name (the first part
-# whose key a name holds): the flash backward and forward kernels, cuBLAS's
-# f32 GEMMs (the head and CE in f32, as the reference computes them) and
-# its other GEMMs (the bf16 body), elementwise work, reductions and copies
-# (norms, RoPE, casts, AdamW), and the rest
-STEP_PARTS = (("flash backward", ("attn_bwd_",)),
+# whose key a name holds): AdamW's kernels, the flash backward and forward
+# kernels, cuBLAS's f32 GEMMs (the head and CE in f32, as the reference
+# computes them) and its other GEMMs (the bf16 body), elementwise work,
+# reductions and copies (norms, RoPE, casts), and the rest
+STEP_PARTS = (("adamw", ("adamw_",)),
+              ("flash backward", ("attn_bwd_",)),
               ("flash forward", ("flash_attention",)),
               ("f32 GEMM", ("f32f32", "sgemm")),
               ("bf16 GEMM", ("nvjet", "gemm", "xmma", "cutlass")),
@@ -3281,12 +3535,14 @@ def _train_step_profile(tr, state):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     bwd = sorted({n for n in BWD_KERNELS if n != "attn_bwd_preprocess_kernel"
                   and any(n in name for name in by_name)})
-    print(f"[22] one profiled step: wall {wall:.1f} ms, device busy "
+    kind = "replayed" if tr.replayed[-1] else "eager"
+    print(f"[22] one profiled {kind} step: wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {1 - busy / wall:.4f}; device ms by "
           f"part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
           + "; top kernels: " + "; ".join(f"{n[:70]} {ms:.1f}"
                                           for n, ms in top))
     return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+            "replayed": tr.replayed[-1],
             "parts_ms": parts, "top_kernels_ms": [[n[:120], ms]
                                                   for n, ms in top],
             "bwd_kernels": bwd}
@@ -3321,11 +3577,13 @@ def _kill_and_resume(tag, kw):
 
 def phase_train_smoke(dev):
     """Phase 22 at the smoke width, f32, head_dim 32 on the card (the smoke
-    config's 16 is not a built head dim): 40 steps at ``peak_lr=1e-2``
+    config's 16 is not a built head dim), the captured step (the
+    default): 40 steps at ``peak_lr=1e-2``
     whose loss falls as ``tests/test_train.py::test_loss_decreases``
     requires (the mean of the last five below that of the first five less
     0.2), and a run killed at step 12 and resumed from its step-10
-    checkpoint, whose losses equal the uninterrupted run's bit for bit."""
+    checkpoint, whose losses equal the uninterrupted run's bit for bit
+    (the resumed model captured anew)."""
     cfg = dataclasses.replace(smoke_config(LM_ARCH), head_dim=32)
     kw = dict(cfg=cfg, batch=8, seq_len=32, peak_lr=1e-2, device=dev,
               ckpt_every=5)
@@ -3335,14 +3593,17 @@ def phase_train_smoke(dev):
     counts = _nonzero(_all_counts())
     n = cfg.n_layers * 40
     _expect(_all_counts(), {"flash_attention": 2 * n,
-                            "flash_attention_bwd": n},
+                            "flash_attention_bwd": n, "adamw": 40},
             "[22] smoke-width training")
+    if tr.replayed != [False] * 2 + [True] * 38:
+        raise AssertionError(f"[22] smoke width replayed {tr.replayed}")
     first, last = np.mean(tr.history[:5]), np.mean(tr.history[-5:])
     if not last < first - 0.2:
         raise AssertionError(f"[22] smoke-width loss {first} -> {last}")
     _kill_and_resume("[22] smoke width", kw)
     print(f"[22] smoke width (d {cfg.d_model}, head_dim 32, f32) on the "
-          f"card: 40 steps, loss {first:.4f} -> {last:.4f} (mean of the "
+          f"card: 40 steps (2 eager, then replays of one capture), loss "
+          f"{first:.4f} -> {last:.4f} (mean of the "
           f"first and last five); launches {counts}; killed at 12, resumed "
           f"from step 10: the 10 losses equal the uninterrupted run's bit "
           f"for bit")
@@ -3398,6 +3659,33 @@ def train_kernel_rows(bwd, full, smoke):
     rows[0]["training"] = full
     rows[0]["training_smoke"] = smoke
     return rows
+
+
+def adamw_kernel_row(full, smoke):
+    """Phase 22's AdamW in the ``kernels`` line: one wrapper call a step
+    (``kadamw.KERNELS``), timed over llama3.2-3b's tree; its launches on the
+    main path (the captured full-width run), beside the eager run's and the
+    smoke width's."""
+    a = full["adamw"]
+    by_path = {"full_width_captured": full["captured"]["launches"].get(
+        "adamw", 0), "full_width_eager": full["eager"]["launches"].get(
+        "adamw", 0), "smoke_width": smoke["launches"].get("adamw", 0)}
+    if not all(by_path.values()):
+        raise AssertionError(f"[22] adamw launches {by_path}")
+    dev_ms = _ms(a["device_us"]["adamw_"])
+    return {"name": "adamw", "route": "cuda", "source": ADAMW_SOURCE,
+            "replaces": ADAMW_REPLACES, "launches": by_path[
+                "full_width_captured"], "launches_by_path": by_path,
+            "max_abs_err": a["max_abs_err"],
+            "ms": a["ms"] if dev_ms is None else dev_ms,
+            "ms_is": "events" if dev_ms is None else "device",
+            "events_ms": a["ms"], "plain_ms": a["plain_ms"],
+            "bound_ms": a["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "kernels_device_ms": {k: _ms(v) for k, v in
+                                  a["device_us"].items()},
+            "checks": {k: v for k, v in a.items()
+                       if k not in ("device_us", "ms", "plain_ms")}}
 
 
 # ------------------------------------------- phase 23: every family trains
@@ -3905,28 +4193,43 @@ def _grad_check(tag, cfg, model, batch, want_counts, fault=None,
 
 
 def _train_steps(tag, tr, state, per_step):
-    """``FAMILY_STEPS`` steps of ``tr.run``, the counts zeroed just before
-    and exactly ``FAMILY_STEPS`` x ``per_step`` after: each step's loss
-    (finite), ms (CUDA events), tokens/s and peak allocated memory."""
+    """``FAMILY_STEPS`` steps of ``tr.run`` (the captured step, the
+    default: ``WARMUP_STEPS`` eager steps, a capture, replays), the counts
+    zeroed just before and exactly ``FAMILY_STEPS`` x ``per_step`` and one
+    AdamW call a step after: each step's loss (finite), ms (CUDA events),
+    tokens/s and peak allocated memory (a replay's: its capture's peak),
+    the eager steps' peak against the capture's, and the capture's ms."""
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     tr.run(FAMILY_STEPS, state=state)
     counts = _nonzero(_all_counts())
+    per_step = {**per_step, "adamw": 1}
     _expect(_all_counts(), {k: v * FAMILY_STEPS for k, v in per_step.items()},
             f"[23] {tag} {FAMILY_STEPS} steps of Trainer.run")
+    want = [False] * 2 + [True] * (FAMILY_STEPS - 2)
+    if tr.replayed != want:
+        raise AssertionError(f"[23] {tag}: replayed {tr.replayed}")
     if not all(math.isfinite(x) for x in tr.history):
         raise AssertionError(f"[23] {tag}: non-finite losses {tr.history}")
     tokens = tr.batch * tr.seq_len
-    for i, (loss, ms, peak) in enumerate(zip(tr.history, tr.step_ms,
-                                             tr.peak_bytes)):
-        print(f"[23] {tag} step {i}: loss {loss:.4f}, {ms:.1f} ms (CUDA "
+    for i, (loss, ms, peak, rep) in enumerate(zip(
+            tr.history, tr.step_ms, tr.peak_bytes, tr.replayed)):
+        print(f"[23] {tag} step {i}{' (replay)' if rep else ''}: loss "
+              f"{loss:.4f}, {ms:.1f} ms (CUDA "
               f"events), {tokens / ms * 1e3:.0f} tokens/s, peak allocated "
               f"{peak / 2**30:.2f} GiB")
-    print(f"[23] {tag} {FAMILY_STEPS} steps: launches {counts} (exact)")
+    eager_peak = max(p for p, r in zip(tr.peak_bytes, tr.replayed) if not r)
+    print(f"[23] {tag} {FAMILY_STEPS} steps: launches {counts} (exact); "
+          f"peak allocated eager {eager_peak / 2**30:.2f} GiB, captured "
+          f"{tr.graph.peak_bytes / 2**30:.2f} GiB (the capture's); capture "
+          f"{tr.graph.capture_ms:.0f} ms; reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
     return {"batch": tr.batch, "seq_len": tr.seq_len, "losses": tr.history,
-            "step_ms": tr.step_ms,
+            "step_ms": tr.step_ms, "replayed": tr.replayed,
             "peak_gib": [p / 2**30 for p in tr.peak_bytes],
-            "launches": counts}
+            "eager_peak_gib": eager_peak / 2**30,
+            "captured_peak_gib": tr.graph.peak_bytes / 2**30,
+            "capture_ms": tr.graph.capture_ms, "launches": counts}
 
 
 def _trainer_state(tag, cfg, dev):
@@ -4104,7 +4407,8 @@ def phase_train_hybrid(dev):
     _expect(_all_counts(), {"selective_scan": 2 * n_m * steps,
                             "selective_scan_bwd": n_m * steps,
                             "flash_attention": 2 * n_a * steps,
-                            "flash_attention_bwd": n_a * steps},
+                            "flash_attention_bwd": n_a * steps,
+                            "adamw": steps},
             "[23] jamba smoke-width training")
     first, last = np.mean(tr.history[:5]), np.mean(tr.history[-5:])
     if not last < first - 0.2:
@@ -4716,8 +5020,10 @@ def main() -> int:
     next(row for row in kernels if row["name"] == "flash_attention").update(
         ms_with_lse=fwd_lse["fwd_lse_ms"],
         device_ms_with_lse=_ms(fwd_lse["fwd_lse_dev_us"]))
-    kernels += train_kernel_rows(bwd, _timed(phase_train_full, dev),
-                                 _timed(phase_train_smoke, dev))
+    full = _timed(phase_train_full, dev)
+    smoke = _timed(phase_train_smoke, dev)
+    kernels += train_kernel_rows(bwd, full, smoke)
+    kernels.append(adamw_kernel_row(full, smoke))
     t23 = time.perf_counter()
     scan_bwd = _timed(phase_scan_bwd, dev)
     trained = {"falcon_mamba": _timed(phase_train_mamba, dev),

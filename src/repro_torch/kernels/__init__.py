@@ -10,13 +10,13 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, Iterator
 
-from . import (conv2d, decode_attn, decode_attn_int8, flash_attn,
+from . import (adamw, conv2d, decode_attn, decode_attn_int8, flash_attn,
                mamba_scan, mxv)
 
 # the kernels' launch counters; their keys are unique across the modules
 _COUNTERS = (mxv.LAUNCHES, conv2d.LAUNCHES, flash_attn.LAUNCHES,
              decode_attn.LAUNCHES, decode_attn_int8.LAUNCHES,
-             mamba_scan.LAUNCHES)
+             mamba_scan.LAUNCHES, adamw.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

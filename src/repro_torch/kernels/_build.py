@@ -51,6 +51,9 @@ _SCAN = (_P,) * 8 + (_I,) * 8 + (_S, _P)
 # (the workspaces); B, L, Din, N
 _SCAN_BWD = (_P,) * 18 + (_I,) * 4 + (_S, _P)
 _CONV = (_P, _P, _P, _P) + (_I,) * 12 + (_P,)
+# entries (n rows of g, p, m, v, numel, flags), n, workspace, stats, hyper;
+# b1, 1 - b1, b2, 1 - b2, eps, weight decay, clip
+_ADAMW = (_P, _I, _P, _P, _P) + (_F,) * 7 + (_P,)
 # name -> argtypes; every entry returns the launch's cudaError_t as an int
 SIGNATURES = {
     "crossbar_mxv_f32": (_P, _P, _P, _P, _I, _I, _I, _PLAN, _P),
@@ -72,6 +75,9 @@ SIGNATURES = {
     "selective_scan_bwd_bf16": _SCAN_BWD,
     # bf16 or not; out: blocks an SM, warps an SM, shared bytes a block
     "selective_scan_bwd_occupancy": (_I, _PLAN),
+    "adamw_step": _ADAMW,
+    # n tensors -> workspace bytes (not an error code)
+    "adamw_workspace_bytes": (_I,),
 }
 
 

@@ -1,10 +1,13 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>
-[--reduced] [--device cuda|cpu] [...]``.
+[--reduced] [--device cuda|cpu] [--compile auto|on|off] [...]``.
 
 Port of ``repro.launch.train``, with its flags: the fault-tolerant
 ``Trainer`` on the card unless ``--device cpu``, on the arch's config or,
 with ``--reduced``, its smoke config.  Every ``--arch`` trains: dense,
-MoE, Mamba, hybrid, VLM and enc-dec.
+MoE, Mamba, hybrid, VLM and enc-dec.  ``--compile`` is ``Trainer``'s
+``compile``: ``auto`` (the default) replays the step as a CUDA graph on
+the card and runs it eagerly on the CPU, ``on`` insists (refused on the
+CPU), ``off`` keeps the eager step.
 """
 
 from __future__ import annotations
@@ -31,12 +34,16 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--compile", default="auto", choices=("auto", "on", "off"),
+                    help="replay the step as a CUDA graph (auto: on the card)")
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.reduced else get_arch(args.arch)
     tr = Trainer(cfg=cfg, batch=args.batch, seq_len=args.seq_len,
                  ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                 peak_lr=args.lr, seed=args.seed, device=args.device)
+                 peak_lr=args.lr, seed=args.seed, device=args.device,
+                 compile={"auto": "auto", "on": True,
+                          "off": False}[args.compile])
     state = tr.resume_or_init() if args.resume else tr.init_state()
     print(f"training {cfg.name} ({cfg.param_count()/1e6:.1f}M params) "
           f"from step {int(state.step)}")

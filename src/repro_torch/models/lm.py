@@ -48,19 +48,22 @@ under ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps
 its period in ``jax.checkpoint``: the backward recomputes the period, so a
 training step launches the forward kernels twice per attention or Mamba
 layer, and a recomputed MoE layer routes every token as the first forward
-did (the same inputs, the same deterministic kernels).  The parameters are
-built frozen (``requires_grad=False``) for serving; a trainer turns them
-on.
+did (the same inputs, the same deterministic kernels).  With
+``cfg.remat_policy == "dots"`` the checkpoint saves the outputs of the
+matrix products without batch dimensions and recomputes the rest, as the
+reference's ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+(:func:`remat_context`); any other policy recomputes the period whole, as
+the reference's.  The parameters are built frozen
+(``requires_grad=False``) for serving; a trainer turns them on.
 
 Not ported: the sequence-parallel MoE branch of ``_position_block``, which
-needs a model axis above 1 (ROADMAP Queue 1 item 10), and
-``remat_policy="dots"`` (no config sets it; every period is recomputed
-whole).
+needs a model axis above 1 (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -87,6 +90,33 @@ def _frozen(params: dict) -> nn.ParameterDict:
     return nn.ParameterDict({
         k: _frozen(t) if isinstance(t, dict) else
         nn.Parameter(t, requires_grad=False) for k, t in params.items()})
+
+
+# --------------------------------------------------------------------- remat
+# the products "dots" saves: a matmul without batch dimensions reaches the
+# dispatcher as mm or addmm (an (B, S, d) @ (d, f) product is folded to 2-D
+# first); batched products (bmm, the einsums of attention and of the MoE
+# experts) and the kernels' autograd Functions are recomputed
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_context(cfg: ArchConfig) -> Callable:
+    """``torch.utils.checkpoint``'s ``context_fn`` for ``cfg.remat_policy``:
+    for "dots" a selective checkpoint that saves :data:`_DOTS_SAVED`'s
+    outputs (the reference's ``dots_with_no_batch_dims_saveable``), else
+    the default, which saves nothing inside the period."""
+    if cfg.remat_policy == "dots":
+        from torch.utils.checkpoint import (
+            create_selective_checkpoint_contexts)
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    return torch.utils.checkpoint.noop_context_fn
 
 
 # ------------------------------------------------------------------ structure
@@ -284,7 +314,7 @@ def backbone(cfg: ArchConfig, model: LM, x, pos, collect_cache: bool = False,
         if cfg.remat and not collect_cache and torch.is_grad_enabled():
             x, a = torch.utils.checkpoint.checkpoint(
                 period_run, x, per, use_reentrant=False,
-                preserve_rng_state=False)
+                preserve_rng_state=False, context_fn=remat_context(cfg))
         else:
             x, a = period_run(x, per)
         aux = aux + a

@@ -1,16 +1,23 @@
 """AdamW with a configurable moment dtype (f32 by default, bf16 for the
 >= 100 B archs) and decoupled weight decay, plus a cosine LR schedule.
 
-Port of ``repro.optim.adamw``, in plain PyTorch operations (the reference's
-is no Pallas kernel either).  It is not ``torch.optim.AdamW``, which keeps
-its moments in the parameter's dtype and has no global-norm clip.  The
-trees are dicts keyed by parameter name (``model.named_parameters()``).
+Port of ``repro.optim.adamw``.  The update runs as the hand-written
+kernels of ``kernels/adamw.py`` (``csrc/adamw.cu``: one pass a parameter
+over the whole tree; their plain PyTorch version on the CPU), where the
+reference leaves its ``jnp`` update to XLA's fusion under ``jax.jit``.  It
+is not ``torch.optim.AdamW``, which keeps its moments in the parameter's
+dtype and has no global-norm clip.  The trees are dicts keyed by parameter
+name (``model.named_parameters()``).
 
 As in the reference: the gradients are clipped to a global norm of
-``grad_clip`` (the norm summed over every gradient in f32), the update is
-computed in f32 and cast back to each parameter's and moment's dtype, and
-the bias corrections use ``count`` after the step.  Unlike the reference's
-pure transform, :func:`adamw_update` writes the parameters and the moments
+``grad_clip`` (the norm over every gradient, here summed in f64 and
+rounded to f32), the update is computed in f32 and cast back to each
+parameter's and moment's dtype, and the bias corrections use ``count``
+after the step, computed on the host in f32 as the reference's
+(:func:`hyper_values`).  lr and the bias corrections reach the kernels
+through a (3,) f32 device buffer (:func:`adamw_apply`), so that a step
+captured as a CUDA graph (``train.graphs``) reads each step's values.  Unlike the reference's pure
+transform, :func:`adamw_update` writes the parameters and the moments
 **in place** (at full width the f32 moments are 25.7 GB), and returns the
 state with the new count.
 
@@ -25,11 +32,12 @@ leaf's rank.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, NamedTuple
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..kernels import adamw as adamw_kernels
 from ..models.layers import _dtype
 
 Tree = Dict[str, torch.Tensor]
@@ -54,8 +62,39 @@ def _f32(x: np.floating) -> float:
     return float(np.float32(x))
 
 
+def hyper_values(count: int, lr: float, b1: float = 0.9,
+                 b2: float = 0.95) -> list:
+    """[lr, bc1, bc2] of the step that makes the count ``count``: what
+    :func:`adamw_apply` reads from its device buffer.  The bias corrections
+    ``1 - b ** count`` in f32, as the reference's (``b **
+    count.astype(f32)``)."""
+    f = np.float32
+    return [lr, _f32(f(1) - f(b1) ** f(count)),
+            _f32(f(1) - f(b2) ** f(count))]
+
+
 @torch.no_grad()
-def adamw_update(grads: Mapping[str, torch.Tensor], opt: OptState,
+def adamw_apply(grads: Mapping[str, Optional[torch.Tensor]], opt: OptState,
+                params: Mapping[str, torch.Tensor], hyper: torch.Tensor,
+                b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                weight_decay: float = 0.1, grad_clip: float = 1.0, *,
+                decayed: Mapping[str, bool]) -> torch.Tensor:
+    """One step over every parameter, in place, with lr and the bias
+    corrections read from ``hyper`` ((3,) f32 on the parameters' device:
+    :func:`hyper_values`): ``kernels.adamw.adamw_step`` over the tree in
+    ``params``' order (the kernels on the card, the plain version on the
+    CPU).  A missing or None gradient is a zero gradient.  Returns the f32
+    global norm before clipping, a 0-d tensor."""
+    names = list(params)
+    return adamw_kernels.adamw_step(
+        [params[n] for n in names], [grads.get(n) for n in names],
+        [opt.mu[n] for n in names], [opt.nu[n] for n in names],
+        [decayed[n] for n in names], hyper, b1=b1, b2=b2, eps=eps,
+        weight_decay=weight_decay, grad_clip=grad_clip)
+
+
+@torch.no_grad()
+def adamw_update(grads: Mapping[str, Optional[torch.Tensor]], opt: OptState,
                  params: Mapping[str, torch.Tensor], lr: float,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1, grad_clip: float = 1.0, *,
@@ -64,33 +103,11 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt: OptState,
     whether it decays.  Returns (the state with the new count,
     {"grad_norm": the f32 global norm before clipping, a 0-d tensor})."""
     count = opt.count + 1
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                           for g in grads.values()))
-    scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-    # 1 - b ** count in f32, as the reference's (b ** count.astype(f32))
-    bc1 = _f32(np.float32(1) - np.float32(b1) ** np.float32(count))
-    bc2 = _f32(np.float32(1) - np.float32(b2) ** np.float32(count))
-    for name, p in params.items():
-        m, v = opt.mu[name], opt.nu[name]
-        g32 = grads[name].to(torch.float32, copy=True).mul_(scale)
-        m32 = m.to(torch.float32).mul_(b1).add_(g32, alpha=1 - b1)
-        v32 = v.to(torch.float32).mul_(b2).add_(
-            g32.mul_(g32), alpha=1 - b2)
-        del g32
-        upd = torch.div(m32, bc1).div_(
-            torch.div(v32, bc2).sqrt_().add_(eps))
-        wd = weight_decay if decayed[name] else 0.0
-        p32 = p.to(torch.float32)
-        if wd:
-            upd.add_(p32, alpha=wd)
-        if p32 is p:
-            p.sub_(upd, alpha=lr)
-        else:
-            p.copy_(p32.sub_(upd, alpha=lr))
-        if m32 is not m:
-            m.copy_(m32)
-        if v32 is not v:
-            v.copy_(v32)
+    dev = next(iter(params.values())).device
+    hyper = torch.tensor(hyper_values(count, lr, b1, b2), dtype=torch.float32,
+                         device=dev)
+    gnorm = adamw_apply(grads, opt, params, hyper, b1, b2, eps, weight_decay,
+                        grad_clip, decayed=decayed)
     return OptState(opt.mu, opt.nu, count), {"grad_norm": gnorm}
 
 

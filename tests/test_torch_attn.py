@@ -29,7 +29,7 @@ from repro.kernels.decode_attn import flash_decode as pallas_decode
 from repro.kernels.decode_attn_int8 import flash_decode_int8 as pallas_int8
 from repro.kernels.flash_attn import flash_attention as pallas_flash
 from repro_torch.configs.base import smoke_config
-from repro_torch.kernels import (_tensors, conv2d, decode_attn,
+from repro_torch.kernels import (_tensors, adamw, conv2d, decode_attn,
                                  decode_attn_int8, flash_attn, mamba_scan,
                                  mxv, ops)
 from repro_torch.models import layers
@@ -322,7 +322,9 @@ def test_unported_kernels_name_their_roadmap_item():
     else ROADMAP.md names it as still to port; the port's only kernels that
     replace none are the backwards of flash attention and of the selective
     scan (the reference differentiates its plain attention and its plain
-    chunked scan).  Since ``ops.conv2d``, the
+    chunked scan) and AdamW's (``kernels/adamw.py``: the reference's
+    ``adamw_update`` is plain ``jnp``, fused by XLA under its step's
+    ``jax.jit``).  Since ``ops.conv2d``, the
     last to be ported, no longer raises, it is held here against the Pallas
     ``crossbar_conv2d`` (interpret mode) at its 1e-4 bound."""
     kdir = REPO / "src" / "repro" / "kernels"
@@ -334,14 +336,14 @@ def test_unported_kernels_name_their_roadmap_item():
                 pallas.add(node.name)
     assert len(pallas) == 7, pallas
     ported = set()
-    for mod in (conv2d, decode_attn, decode_attn_int8, flash_attn,
+    for mod in (adamw, conv2d, decode_attn, decode_attn_int8, flash_attn,
                 mamba_scan, mxv):
         ported |= set(mod.LAUNCHES)
     roadmap = (REPO / "ROADMAP.md").read_text()
     for name in sorted(pallas - ported):
         assert f"`{name}`" in roadmap, f"{name}: unported, not in ROADMAP"
-    assert ported - pallas == {"flash_attention_bwd",
-                               "selective_scan_bwd"}, ported - pallas
+    assert ported - pallas == {"flash_attention_bwd", "selective_scan_bwd",
+                               "adamw"}, ported - pallas
 
     c, h, w, fl = 2, 5, 5, 3
     x = RNG.normal(size=(c, h, w)).astype(np.float32)
