@@ -62,16 +62,19 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def _union(spans) -> float:
-    total, end = 0.0, None
-    for a, b in sorted(spans):
-        if end is None or a > end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total
+def union(spans) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    spans = sorted(spans)
+    if not spans:
+        return 0.0
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return busy + hi - lo
 
 
 def _self_device_us(avg) -> float:
@@ -84,8 +87,10 @@ def _self_device_us(avg) -> float:
 def profile_ms(fn, cpu: bool = True) -> dict:
     """``fn()`` once under torch.profiler: wall ms (synchronised), device
     busy ms (the union of the device intervals) and idle share, device ms
-    by part (:data:`PARTS`) and, with ``cpu``, by aten operation (its own
-    kernels) with its calls."""
+    by part (:data:`PARTS`), the kernels with the most device time, every
+    kernel's name and, with ``cpu``, device ms by aten operation (its own
+    kernels) with its calls.  ``chip_smoke.py`` phase 22 profiles its
+    steps with it too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
@@ -100,7 +105,7 @@ def profile_ms(fn, cpu: bool = True) -> dict:
         if e.device_type == DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
             by_kernel[e.name] += (e.time_range.end - e.time_range.start) / 1e3
-    busy = _union(spans) / 1e3
+    busy = union(spans) / 1e3
     parts = dict.fromkeys([p for p, _ in PARTS] + ["other"], 0.0)
     for name, ms in by_kernel.items():
         part = next((p for p, keys in PARTS
@@ -112,7 +117,8 @@ def profile_ms(fn, cpu: bool = True) -> dict:
            "device_events": len(spans), "parts_ms": parts,
            "top_kernels_ms": sorted(
                ([n[:120], ms] for n, ms in by_kernel.items()),
-               key=lambda kv: -kv[1])[:15]}
+               key=lambda kv: -kv[1])[:15],
+           "kernel_names": sorted(by_kernel)}
     if cpu:
         ops = [(a.key, _self_device_us(a) / 1e3, a.count)
                for a in prof.key_averages()

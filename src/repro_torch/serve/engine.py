@@ -28,10 +28,11 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..capture import resolve_compile
 from ..configs.base import ArchConfig
 from ..models import (Model, build_model, decode_step, encoder_frames,
                       prefill, reset_cache, step_input)
-from .graphs import DecodeGraph, resolve_compile
+from .graphs import DecodeGraph
 
 
 def check_params(cfg: ArchConfig, params: Model) -> None:

@@ -10,7 +10,7 @@ records one decode step of a model for one (B, max_len) as a
 ``torch.cuda.CUDAGraph`` and replays it: one launch from the host instead
 of one per operation of every layer.  ``ServeEngine`` and
 ``ContinuousBatcher`` take it on a CUDA device by default
-(:func:`resolve_compile`); ``compile=False`` keeps the eager step, for
+(``capture.resolve_compile``); ``compile=False`` keeps the eager step, for
 comparison.  :class:`PrefillGraph` does the same for the batcher's
 single-prompt prefill of one bucket; the engine's batched prefill runs
 eagerly (on an H100 it keeps the card busy on its own: PERF.md).
@@ -55,12 +55,12 @@ eagerly (``compile="auto"``) or refuse (``compile=True``).
 
 from __future__ import annotations
 
-import functools
 import time
 from typing import Any, Dict, Optional
 
 import torch
 
+from ..capture import side_stream
 from ..configs.base import ArchConfig
 from ..kernels import add_launches, launches_apart
 from ..models import (LM, Model, decode_step, init_cache, lm,
@@ -68,32 +68,6 @@ from ..models import (LM, Model, decode_step, init_cache, lm,
 
 # eager steps before the capture
 WARMUP_STEPS = 2
-
-
-def resolve_compile(compile: Any, device: torch.device) -> bool:
-    """Whether an engine on ``device`` replays a captured step: ``"auto"``
-    on a CUDA device, ``True`` (a CUDA device or ValueError), ``False``
-    never."""
-    if compile == "auto":
-        return device.type == "cuda"
-    if compile is True:
-        if device.type != "cuda":
-            raise ValueError(f"compile=True needs a CUDA device (the step is "
-                             f"captured as a CUDA graph), got {device}")
-        return True
-    if compile is False:
-        return False
-    raise ValueError(f"compile must be 'auto', True or False, got "
-                     f"{compile!r}")
-
-
-@functools.lru_cache(maxsize=None)
-def _side_stream(index: int) -> torch.cuda.Stream:
-    """The one stream of device ``index`` on which every graph warms up and
-    is captured: the allocator hands a freed block again only on the
-    stream it was allocated on, so graphs that share a memory pool reuse
-    each other's blocks only if they were captured on one stream."""
-    return torch.cuda.Stream(torch.device("cuda", index))
 
 
 class _CapturedStep:
@@ -109,8 +83,8 @@ class _CapturedStep:
         self.launches: Dict[str, int] = {}
         self.setup_launches: Dict[str, int] = {}
         t0 = time.perf_counter()
-        stream = _side_stream(dev.index if dev.index is not None
-                              else torch.cuda.current_device())
+        stream = side_stream(dev.index if dev.index is not None
+                             else torch.cuda.current_device())
         with torch.no_grad():
             model.unembed_f32()           # made before capture, kept after
             stream.wait_stream(torch.cuda.current_stream(dev))

@@ -41,11 +41,12 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..capture import resolve_compile
 from ..configs.base import ArchConfig
 from ..models import LM, build_model, lm
 from ..runtime.runtime import Request
 from .engine import check_params
-from .graphs import DecodeGraph, PrefillGraph, resolve_compile
+from .graphs import DecodeGraph, PrefillGraph
 
 # the largest prompt bucket whose prefill is captured: an eager B = 1
 # bucket prefill left the card idle for more than half its wall time up to

@@ -10,7 +10,7 @@ flash and scan kernels' backwards, AdamW's kernels over the whole tree:
 ``kernels/adamw.py``) as a ``torch.cuda.CUDAGraph`` and replays it: one
 launch from the host for the ~5,000 of an eager llama3.2-3b step.
 ``Trainer`` (``train.loop``) takes it on a CUDA device by default
-(``compile="auto"``, the rule of ``serve.graphs.resolve_compile``);
+(``compile="auto"``, the rule of ``capture.resolve_compile``);
 ``compile=False`` keeps the eager step, for comparison.
 
 A graph replays the kernels it recorded on the buffers it recorded, so:
@@ -53,8 +53,8 @@ from typing import Callable, Dict, Iterator
 
 import torch
 
+from ..capture import side_stream
 from ..kernels import add_launches, launches_apart
-from ..serve.graphs import _side_stream
 
 # the trainer's eager steps on the capture stream before it captures
 WARMUP_STEPS = 2
@@ -63,8 +63,8 @@ WARMUP_STEPS = 2
 def capture_stream(device: torch.device) -> torch.cuda.Stream:
     """The stream on which a trainer's warm-up steps run and its step is
     captured (the serving graphs' side stream of the same device)."""
-    return _side_stream(device.index if device.index is not None
-                        else torch.cuda.current_device())
+    return side_stream(device.index if device.index is not None
+                       else torch.cuda.current_device())
 
 
 @contextlib.contextmanager

@@ -35,6 +35,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..capture import resolve_compile
 from ..checkpoint import (AsyncCheckpointer, latest_checkpoint,
                           restore_checkpoint)
 from ..configs.base import ArchConfig
@@ -44,7 +45,6 @@ from ..models.convert import decayed
 from ..models.lm import resolve_device
 from ..optim import OptState, adamw_init, cosine_schedule
 from ..optim.adamw import adamw_apply, hyper_values
-from ..serve.graphs import resolve_compile
 from . import graphs
 
 
@@ -98,19 +98,35 @@ def step_body(model: Model, opt: OptState, *,
     return body
 
 
+def step_hyper(state: TrainState, *, peak_lr: float,
+               total_steps: int = 10_000) -> tuple:
+    """(lr, count, hyper) of the step after ``state``: the schedule's lr
+    (``cosine_schedule``, host f32 as the reference's), the moments' new
+    count, and ``[lr, bc1, bc2]`` (``optim.adamw.hyper_values``), what the
+    step's device buffer holds."""
+    lr = cosine_schedule(state.step, peak_lr=peak_lr, total=total_steps)
+    count = state.opt.count + 1
+    return lr, count, hyper_values(count, lr)
+
+
 def make_train_step(model: Model, *, peak_lr: float = 3e-4,
                     total_steps: int = 10_000,
                     weight_decay: float = 0.1) -> Callable:
-    """(state, batch) -> (state, metrics), eagerly: :func:`step_body` with
-    this step's lr (``cosine_schedule``) and bias corrections written to a
-    new device buffer."""
+    """(state, batch) -> (state, metrics), eagerly: :func:`step_body`
+    (built once for the moments it is given first, and again only for
+    others) with this step's :func:`step_hyper` written to a new device
+    buffer."""
+    built: list = [None, None]          # the moments, the body built on them
+
     def train_step(state: TrainState, batch) -> tuple:
-        lr = cosine_schedule(state.step, peak_lr=peak_lr, total=total_steps)
-        count = state.opt.count + 1
-        hyper = torch.tensor(hyper_values(count, lr), dtype=torch.float32,
-                             device=next(model.parameters()).device)
-        metrics = step_body(model, state.opt,
-                            weight_decay=weight_decay)(batch, hyper)
+        if built[0] is not state.opt.mu:
+            built[:] = [state.opt.mu, step_body(
+                model, state.opt, weight_decay=weight_decay)]
+        lr, count, hyper = step_hyper(state, peak_lr=peak_lr,
+                                      total_steps=total_steps)
+        metrics = built[1](batch, torch.tensor(
+            hyper, dtype=torch.float32,
+            device=next(model.parameters()).device))
         out = {"loss": metrics.pop("loss"), "lr": lr, **metrics}
         opt = OptState(state.opt.mu, state.opt.nu, count)
         return TrainState(model, opt, state.step + 1), out
@@ -122,7 +138,7 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
 class Trainer:
     """End-to-end loop around the train step, on ``device``; on a CUDA
     device the step is replayed from a CUDA graph unless ``compile`` is
-    False (``serve.graphs.resolve_compile``'s rule)."""
+    False (``capture.resolve_compile``'s rule)."""
 
     cfg: ArchConfig
     batch: int
@@ -233,11 +249,10 @@ class Trainer:
                         events[0].record()
                     t0 = time.monotonic()
                     if graph is not None:
-                        lr = cosine_schedule(gstep, peak_lr=self.peak_lr)
-                        count = state.opt.count + 1
-                        metrics = graph.replay(
-                            to_device(batch, "cpu"),
-                            hyper_values(count, lr))
+                        _, count, hyper = step_hyper(state,
+                                                     peak_lr=self.peak_lr)
+                        metrics = graph.replay(to_device(batch, "cpu"),
+                                               hyper)
                         state = TrainState(state.model, OptState(
                             state.opt.mu, state.opt.nu, count), gstep + 1)
                     else:

@@ -33,7 +33,10 @@ On the CPU (smoke configs; the reference's init carried across by
   resume (the graph captured again for the resumed model);
 * ``remat_policy="dots"``: the step-0 loss and every gradient against the
   reference's with ``dots``, at ``test_lm_loss_and_grads_match_reference``'s
-  1e-5 x max(1, max|g|), and bit-equal to the port's full remat.
+  1e-5 x max(1, max|g|), and bit-equal to the port's full remat; its
+  backward runs the aten ``mm``/``addmm`` calls of the step without remat
+  (the periods' weight products saved, not recomputed), fewer than full
+  remat's, and full remat's other operations (the rest recomputed).
 
 On the card (marked ``cuda``; JAX is imported only inside the CPU tests'
 helpers, so they run on a machine without it: ``python -m pytest -q -m cuda
@@ -46,16 +49,19 @@ the dense, MoE, Mamba, hybrid and enc-dec families.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import models
 from repro_torch.configs.base import smoke_config as tsmoke
 from repro_torch.kernels import adamw as kadamw
+from repro_torch.models import lm
 from repro_torch.optim import adamw_init
 from repro_torch.optim.adamw import hyper_values
 from repro_torch.train import Trainer
@@ -361,6 +367,18 @@ def test_graph_path_kill_and_resume_is_bit_identical(emulated_graphs,
 
 
 # ---------------------------------------------------------- remat "dots"
+class _OpCounter(TorchDispatchMode):
+    """The aten operations run inside the block, counted by overload."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[func] += 1
+        return func(*args, **(kwargs or {}))
+
+
 @pytest.mark.parametrize("name", [ARCH, "qwen2-moe-a2.7b",
                                   "jamba-1.5-large-398b"])
 def test_dots_remat_matches_reference_and_full_remat(name):
@@ -377,16 +395,25 @@ def test_dots_remat_matches_reference_and_full_remat(name):
     (jloss, _), jgrads = jax.value_and_grad(
         lambda p: jm.loss(p, {k: jnp.asarray(v) for k, v in batch.items()}),
         has_aux=True)(jax.tree.map(jnp.asarray, tree))
-    got = {}
-    for policy in ("dots", "full"):
+    got, mm, other = {}, {}, {}
+    for policy, remat in (("dots", True), ("full", True), ("none", False)):
         _, model = _ref_params(name)
-        model.cfg = dataclasses.replace(model.cfg, remat_policy=policy)
+        model.cfg = dataclasses.replace(model.cfg, remat_policy=policy,
+                                        remat=remat)
         for p in model.parameters():
             p.grad = None
         loss, _ = models.loss(model.cfg, model, to_device(batch, "cpu"))
-        loss.backward()
+        with _OpCounter() as ops:
+            loss.backward()
+        mm[policy] = sum(ops.counts[op] for op in lm._DOTS_SAVED)
+        other[policy] = sum(ops.counts.values()) - mm[policy]
         got[policy] = (loss.item(), {n: p.grad.clone() for n, p in
                                      model.named_parameters()})
+    # "dots" saved the periods' weight products (the backward runs only
+    # their gradients' products, as without remat) and recomputed the rest
+    # (as full remat)
+    assert mm["dots"] == mm["none"] < mm["full"], mm
+    assert other["dots"] == other["full"] > other["none"], other
     assert got["dots"][0] == got["full"][0]
     for n, g in got["dots"][1].items():
         assert torch.equal(g, got["full"][1][n]), n
