@@ -17,9 +17,11 @@ result line):
    (``decode_split_kernel``, ``decode_merge_kernel``) must be built, and
    the crossbar kernels, the scan kernel (``scan_lanes_kernel``, at
    every instantiation), the scan backward's three kernels in both
-   dtypes and AdamW's four kernels (``csrc/adamw.cu``: the table fill,
+   dtypes, AdamW's four kernels (``csrc/adamw.cu``: the table fill,
    the norm, its finalize, the update; each chunk's types picked at run
-   time) built without spills;
+   time) and the compression pass's (``csrc/compress.cu``: the table
+   fill, the pass at every (VEC, PER) of ``kcompress.INSTANCES``) built
+   without spills;
 2. hold each kernel against its plain PyTorch version on CUDA tensors: the
    main path's shapes, lenet-28's shapes and edge shapes (N in {1, 3, 130},
    M = 1, a full 256x256 crossbar at B = 1024, batch sizes either side of
@@ -356,6 +358,34 @@ result line):
    The ``kernels`` line gains ``selective_scan_bwd`` ("replaces": none, the
    gradient of ``src/repro/models/layers.py:680``).
 
+24. the distributed layer (after 23): llama3.2-3b at full width and depth,
+   bf16, with ``ACCUM`` (``grad_accum=4``, ``grad_compression="int8"``:
+   the overrides route of the reference's ``launch/specs.py::make_cell``),
+   B = 8 x 512 as 4 micro-batches of 2 x 512 (``phase_distributed``).  The
+   accumulated step against the plain step on one init and batch: the
+   loss within ``LOSS_REL_BOUND``, the uncompressed f32 accumulator's
+   relative L2 per parameter against the plain step's gradient within
+   ``GRAD_REL_L2_BOUND``, missed with one micro-batch left out; one real
+   step, launches exact (4 x (56 forward, 28 backward) flash, 1 AdamW, 1
+   ``compress``).  The compression pass (``csrc/compress.cu``) against
+   its plain version over that step's accumulator (3,212,749,824
+   elements): every element bit-equal, each within ``absmax_block / 254``
+   of its input, ``t (1/s)`` for ``t / s`` seen; AdamW with those f32
+   gradients beside bf16 parameters bit-equal given its norm, both planted
+   faults seen; both timed (events, device time) beside their plain
+   versions and bytes bounds (7.67 and 26.85 ms).  Then 8 captured
+   accumulated steps (``Trainer``'s default) against 8 eager ones from one
+   init: losses, grad norms, final parameters and the moments' bits
+   equal; step ms, tokens/s, peak, capture ms, a replay profiled (its
+   idle share, its device ms by part with the accumulation and
+   ``compress_`` apart).  Last a world-size-1 ``nccl`` group (a
+   ``FileStore`` under ``build/``) over a (1, 1) ``("pod", "data")`` mesh:
+   ``ring_all_reduce`` returns its input, ``hierarchical_psum`` with int8
+   equals the kernel's round trip bit for bit; the group is destroyed.
+   The ``kernels`` line gains ``compress`` ("replaces": none, the
+   reference's plain ``jnp`` round trip) and AdamW's row its f32-gradient
+   figures (``f32_gradients``).
+
 20. (run after phases 7, 10, 11, 12 and 21, on each model while it is on the
    card: llama3.2-3b with both caches, falcon-mamba-7b, qwen2-moe-a2.7b,
    the reduced jamba with both caches, qwen2-vl-7b, seamless-m4t-large-v2)
@@ -411,6 +441,7 @@ from repro_torch.kernels import (_build, adamw as kadamw,  # noqa: E402
                                  add_launches, conv2d, decode_attn,
                                  decode_attn_int8, flash_attn, launch_counts,
                                  launches_apart, mamba_scan, mxv)
+from repro_torch.kernels import compress as kcompress  # noqa: E402
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels._tensors import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.ref import (quantize_crossbar, quantize_vec,  # noqa: E402
@@ -431,6 +462,8 @@ from repro_torch.optim.adamw import hyper_values  # noqa: E402
 from repro_torch.train import Trainer  # noqa: E402
 from repro_torch.train.loop import to_device  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.distributed import compression as compress_mod  # noqa: E402
+from repro_torch.distributed import overlap  # noqa: E402
 from repro_torch.models.layers import kv_quantize  # noqa: E402
 from repro_torch.runtime import CmServer, poisson_arrivals  # noqa: E402
 from repro_torch.serve import ContinuousBatcher, Request, ServeEngine  # noqa: E402
@@ -698,8 +731,9 @@ def phase_build():
     every kernel, and the tensor-core instructions (HMMA, HGMMA, IMMA) of
     each; the bf16 flash attention kernel must have HGMMA at every head
     dim, the int8 crossbar kernel IMMA, and no crossbar, scan, flash
-    backward, scan backward or AdamW kernel spills (AdamW's four:
-    ``kadamw.KERNELS``)."""
+    backward, scan backward, AdamW or compression kernel spills (AdamW's
+    four: ``kadamw.KERNELS``; the compression pass's fill and its
+    instantiations, ``kcompress.INSTANCES``)."""
     t0 = time.perf_counter()
     lib = _build.load()
     secs = time.perf_counter() - t0
@@ -778,6 +812,14 @@ def phase_build():
                              f"{aw}")
     print("[1] AdamW kernels, registers (no spills): " +
           "; ".join(f"{n} {r}" for n, (r, _, _) in sorted(aw.items())))
+    cp = {names[n]: u for n, u in usage.items() if "compress_" in n}
+    # the fill and every instantiation of the pass
+    if len(cp) != 1 + len(kcompress.INSTANCES) or any(
+            st or ld for _, st, ld in cp.values()):
+        raise AssertionError(f"[1] the compression kernels are missing or "
+                             f"spill: {cp}")
+    print("[1] compression kernels, registers (no spills): " +
+          "; ".join(f"{n} {r}" for n, (r, _, _) in sorted(cp.items())))
     print("[1] scan backward kernels, registers (no spills): " +
           "; ".join(f"{n} {r}" for n, (r, _, _) in sorted(sbwd.items()))
           + "; scan_bwd_kernel resident an SM (cudaOccupancyMaxActive"
@@ -3299,7 +3341,7 @@ def _bits_checksum(tensors):
     return [s1 % 2**64, s2 % 2**64]
 
 
-def _train_run(kind, tr, state, per_step):
+def _train_run(kind, tr, state, per_step, tag="[22]"):
     """Phase 22: ``TRAIN_STEPS`` steps of ``tr.run`` on llama3.2-3b (the
     captured step by default, ``compile=False`` eager), the counts zeroed
     just before and exactly ``TRAIN_STEPS`` x ``per_step`` after: each
@@ -3312,17 +3354,17 @@ def _train_run(kind, tr, state, per_step):
     state = tr.run(TRAIN_STEPS, state=state)
     counts = _nonzero(_all_counts())
     _expect(_all_counts(), {k: v * TRAIN_STEPS for k, v in per_step.items()},
-            f"[22] {LM_ARCH} {TRAIN_STEPS} {kind} steps of Trainer.run")
+            f"{tag} {LM_ARCH} {TRAIN_STEPS} {kind} steps of Trainer.run")
     if not all(math.isfinite(x) for x in tr.history):
-        raise AssertionError(f"[22] non-finite losses {tr.history}")
+        raise AssertionError(f"{tag} non-finite losses {tr.history}")
     tokens = BATCH * PROMPT
     for i, (loss, ms, peak, rep) in enumerate(zip(
             tr.history, tr.step_ms, tr.peak_bytes, tr.replayed)):
-        print(f"[22] {LM_ARCH} {kind} step {i}{' (replay)' if rep else ''}: "
+        print(f"{tag} {LM_ARCH} {kind} step {i}{' (replay)' if rep else ''}: "
               f"loss {loss:.4f}, grad norm {tr.grad_norms[i]:.4f}, "
               f"{ms:.1f} ms (CUDA events), {tokens / ms * 1e3:.0f} "
               f"tokens/s, peak allocated {peak / 2**30:.2f} GiB")
-    print(f"[22] {LM_ARCH} {TRAIN_STEPS} {kind} steps: launches {counts} "
+    print(f"{tag} {LM_ARCH} {TRAIN_STEPS} {kind} steps: launches {counts} "
           f"(exact)")
     final = {"params": {n: p.detach().to("cpu", copy=True)
                         for n, p in state.model.named_parameters()},
@@ -3335,13 +3377,13 @@ def _train_run(kind, tr, state, per_step):
             "state": state, "final": final}
 
 
-def _profiled_route(tr, state, route):
+def _profiled_route(tr, state, route, tag="[22]"):
     """One more step profiled (``_train_step_profile``); the backward
     kernels it shows must be the route's."""
-    profiled = _train_step_profile(tr, state)
+    profiled = _train_step_profile(tr, state, tag)
     seen = set(profiled["bwd_kernels"]) if profiled else set(route)
     if seen != set(route):
-        raise AssertionError(f"[22] the profiled step ran the backward "
+        raise AssertionError(f"{tag} the profiled step ran the backward "
                              f"kernels {sorted(seen)}, not {route}")
     return profiled
 
@@ -3353,6 +3395,61 @@ def _adamw_bound_ms(ps, gs, ms):
                              + (2 * g.element_size() if g is not None else 0))
                 for p, g, m in zip(ps, gs, ms))
     return total / HBM_BYTES_PER_S * 1e3
+
+
+def _adamw_bits(ps, gs, mus, nus, decs, hyper, host, gnorm_t):
+    """The AdamW kernels' p, m and v (after their call) against the plain
+    version's per tensor from the host copies ``host`` of (p, m, v) before
+    it, given the kernels' norm ``gnorm_t``: (elements bit-equal, elements,
+    max |difference|, {planted fault: elements of p it moves off the
+    kernels'})."""
+    dev = ps[0].device
+    scale = kadamw.clip_scale_ref(gnorm_t, 1.0)
+    lr, bc1, bc2 = hyper[0], hyper[1], hyper[2]
+    one = torch.ones_like(bc2)
+    # a fault planted in the plain version, and the elements of p it moves
+    faults = {"bc2 left out": 0, "weight decay left out": 0}
+    max_abs, equal, total = 0.0, 0, 0
+    for i, (p, g, m, v) in enumerate(zip(ps, gs, mus, nus)):
+        p0, m0, v0 = (t.to(dev) for t in host[i])
+        kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1 if decs[i] else 0.0)
+        p32, m32, v32 = kadamw.update_ref(p0, g, m0, v0, scale, lr, bc1, bc2,
+                                          **kw)
+        for got, want in ((p, p32), (m, m32), (v, v32)):
+            want = want.to(got.dtype)
+            max_abs = max(max_abs, (got.float() - want.float()).abs().max()
+                          .item())
+            equal += int((got == want).sum())
+            total += got.numel()
+        for fault, args, fkw in (
+                ("bc2 left out", (scale, lr, bc1, one), kw),
+                ("weight decay left out", (scale, lr, bc1, bc2),
+                 {**kw, "wd": 0.0})):
+            fp = kadamw.update_ref(p0, g, m0, v0, *args, **fkw)[0]
+            faults[fault] += int((p != fp.to(p.dtype)).sum())
+        del p0, m0, v0, p32, m32, v32, fp
+    return equal, total, max_abs, faults
+
+
+def _adamw_times(ps, gs, mus, nus, decs, hyper):
+    """The AdamW call over the tree: ms a call (CUDA events), device us of
+    its kernels (all, the update, the norm) and the plain version's ms;
+    launches made here are not counted."""
+    def call():
+        kadamw.adamw_step(ps, gs, mus, nus, decs, hyper)
+
+    with launches_apart({}):
+        ms = _events_ms(call, reps=5, trials=3, warmup=1)
+        dev_us = {}
+        for k in ("adamw_", "adamw_update_kernel", "adamw_norm_kernel"):
+            # a profile now and then records no kernel: up to 3 profiles
+            for _ in range(3):
+                dev_us[k] = scan_device_us(call, reps=5, match=k)
+                if dev_us[k] is not None:
+                    break
+        plain_ms = _events_ms(lambda: kadamw.adamw_step_ref(
+            ps, gs, mus, nus, decs, hyper), reps=1, trials=2, warmup=1)
+    return ms, dev_us, plain_ms
 
 
 def _adamw_check(tr, state):
@@ -3399,30 +3496,8 @@ def _adamw_check(tr, state):
     gnorm = gnorm_t.item()
     gnorm_plain = kadamw.global_norm_ref(gs)
     # the elements are held given the kernels' own norm, the norm apart
-    scale = kadamw.clip_scale_ref(gnorm_t, 1.0)
-    lr, bc1, bc2 = hyper[0], hyper[1], hyper[2]
-    one = torch.ones_like(bc2)
-    # a fault planted in the plain version, and the elements of p it moves
-    faults = {"bc2 left out": 0, "weight decay left out": 0}
-    max_abs, equal, total = 0.0, 0, 0
-    for i, (p, g, m, v) in enumerate(zip(ps, gs, mus, nus)):
-        p0, m0, v0 = (t.to(dev) for t in host[i])
-        kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1 if decs[i] else 0.0)
-        p32, m32, v32 = kadamw.update_ref(p0, g, m0, v0, scale, lr, bc1, bc2,
-                                          **kw)
-        for got, want in ((p, p32), (m, m32), (v, v32)):
-            want = want.to(got.dtype)
-            max_abs = max(max_abs, (got.float() - want.float()).abs().max()
-                          .item())
-            equal += int((got == want).sum())
-            total += got.numel()
-        for fault, args, fkw in (
-                ("bc2 left out", (scale, lr, bc1, one), kw),
-                ("weight decay left out", (scale, lr, bc1, bc2),
-                 {**kw, "wd": 0.0})):
-            fp = kadamw.update_ref(p0, g, m0, v0, *args, **fkw)[0]
-            faults[fault] += int((p != fp.to(p.dtype)).sum())
-        del p0, m0, v0, p32, m32, v32, fp
+    equal, total, max_abs, faults = _adamw_bits(ps, gs, mus, nus, decs,
+                                                hyper, host, gnorm_t)
     norm_rel = abs(gnorm - gnorm_plain.item()) / gnorm_plain.item()
     print(f"[22] AdamW kernels against the plain version over {LM_ARCH}'s "
           f"{len(ps)} tensors ({sum(p.numel() for p in ps)} parameters, "
@@ -3444,20 +3519,7 @@ def _adamw_check(tr, state):
     del host
     _free()
 
-    def call():
-        kadamw.adamw_step(ps, gs, mus, nus, decs, hyper)
-
-    with launches_apart({}):
-        ms = _events_ms(call, reps=5, trials=3, warmup=1)
-        dev_us = {}
-        for k in ("adamw_", "adamw_update_kernel", "adamw_norm_kernel"):
-            # a profile now and then records no kernel: up to 3 profiles
-            for _ in range(3):
-                dev_us[k] = scan_device_us(call, reps=5, match=k)
-                if dev_us[k] is not None:
-                    break
-        plain_ms = _events_ms(lambda: kadamw.adamw_step_ref(
-            ps, gs, mus, nus, decs, hyper), reps=1, trials=2, warmup=1)
+    ms, dev_us, plain_ms = _adamw_times(ps, gs, mus, nus, decs, hyper)
     bound_ms = _adamw_bound_ms(ps, gs, mus)
     dev_text = {k: "not measured" if us is None else f"{us / 1e3:.3f} ms"
                 for k, us in dev_us.items()}
@@ -3478,7 +3540,7 @@ def _adamw_check(tr, state):
             "bound_ms": bound_ms}
 
 
-def _train_step_profile(tr, state):
+def _train_step_profile(tr, state, tag="[22]"):
     """One more ``Trainer`` step under torch.profiler, device activity only
     (``launch.train_step_times.profile_ms``: its wall ms, the device's busy
     ms and idle share, each part of the step's device ms, the kernels with
@@ -3486,12 +3548,12 @@ def _train_step_profile(tr, state):
     prof = profile_ms(lambda: tr.run(1, state=state), cpu=False)
     names = prof.pop("kernel_names")
     if not prof["device_events"]:
-        print("[22] the profiled step shows no device events")
+        print(f"{tag} the profiled step shows no device events")
         return None
     bwd = sorted({n for n in BWD_KERNELS if n != "attn_bwd_preprocess_kernel"
                   and any(n in name for name in names)})
     kind = "replayed" if tr.replayed[-1] else "eager"
-    print(f"[22] one profiled {kind} step: wall {prof['wall_ms']:.1f} ms, "
+    print(f"{tag} one profiled {kind} step: wall {prof['wall_ms']:.1f} ms, "
           f"device busy {prof['busy_ms']:.1f} ms, idle share "
           f"{prof['idle_share']:.4f}; device ms by part: "
           + ", ".join(f"{k} {v:.1f}" for k, v in prof["parts_ms"].items())
@@ -4402,6 +4464,469 @@ def scan_bwd_kernel_row(kern, mamba, hybrid):
             "checks": kern["readings"]}
 
 
+# ------------------------------------ phase 24: the distributed layer
+COMPRESS_SOURCE = "src/repro_torch/kernels/csrc/compress.cu"
+# the pass replaces no pallas_call: the reference's round trip is plain jnp
+COMPRESS_REPLACES = ("none; src/repro/distributed/compression.py:51-76 "
+                     "quantize_blockwise + dequantize_blockwise through "
+                     "compress_with_feedback (overlap.py:173-176), plain jnp "
+                     "fused by XLA under the accumulated step's jax.jit")
+# the accumulated, int8-compressed train cell: launch/specs.py::make_cell's
+# overrides route, dataclasses.replace(cfg, grad_accum=4,
+# grad_compression="int8")
+ACCUM = {"grad_accum": 4, "grad_compression": "int8"}
+
+
+def _accum_cfg():
+    return dataclasses.replace(get_arch(LM_ARCH), **ACCUM)
+
+
+def _accum_per_step(cfg):
+    """Launches of one accumulated step: each micro-batch's forward with
+    remat (2 a layer) and backward, one AdamW and one compression call."""
+    n, k = cfg.n_layers, cfg.grad_accum
+    return {"flash_attention": 2 * n * k, "flash_attention_bwd": n * k,
+            "adamw": 1, "compress": 1}
+
+
+@contextlib.contextmanager
+def _spied(**wrappers):
+    """While entered, each ``overlap.<name>`` is ``wrapper(original)``."""
+    orig = {k: getattr(overlap, k) for k in wrappers}
+    for k, wrap in wrappers.items():
+        setattr(overlap, k, wrap(orig[k]))
+    try:
+        yield
+    finally:
+        for k, f in orig.items():
+            setattr(overlap, k, f)
+
+
+def _compress_fault(x, block):
+    """The round trip with ``t (1/s)`` in place of ``t / s``: a planted
+    fault the bit comparison must see."""
+    n = x.numel()
+    nb = -(-n // block)
+    blocks = torch.nn.functional.pad(x.reshape(-1), (0, nb * block - n)
+                                     ).view(nb, block)
+    _, s = compress_mod.quantize_blockwise(x, block)
+    q = torch.clamp(torch.round(blocks * (1 / s)[:, None]), -127, 127)
+    return (q.to(torch.int8).float() * s[:, None]).reshape(-1)[:n]
+
+
+def _compress_check(acc_in, comp, block):
+    """Phase 24 (a): the compression kernel's output ``comp`` (the real
+    step's accumulator after the pass) against the plain version on the
+    accumulator before it (``acc_in``, a copy on the card), every element
+    bit-equal (as int32 bits); each within ``absmax_block / 254`` of its
+    input (the reference's bound, ``tests/test_distributed.py``); the plain
+    version with ``t (1/s)`` for ``t / s`` must differ in some elements."""
+    equal = total = moved = 0
+    max_abs = worst = 0.0
+    for k in list(acc_in):
+        x = acc_in.pop(k)
+        want = x.clone()
+        kcompress.compress_int8_ref_([want], None, block)
+        got = comp[k]
+        equal += int((got.view(torch.int32) == want.view(torch.int32)).sum())
+        total += got.numel()
+        max_abs = max(max_abs, (got - want).abs().max().item())
+        _, s = compress_mod.quantize_blockwise(x, block)
+        absmax = torch.repeat_interleave(s * 127, block)[:x.numel()].view(
+            x.shape)
+        err = (got - x).abs()
+        worst = max(worst, (err / (absmax / 254 + 1e-7 + 1e-6 * x.abs())
+                            ).max().item())
+        moved += int((_compress_fault(x, block).view(x.shape) != want).sum())
+        del x, want, s, absmax, err
+    return {"bit_equal_elements": equal, "elements": total,
+            "max_abs_err": max_abs, "bound_ratio_max": worst,
+            "fault_elements_moved": moved}
+
+
+def _compress_times(comp, block):
+    """The pass over the tree (in place; a compressed tree compresses to
+    itself in the same work): ms a call (CUDA events), device µs of its
+    kernels (all, the pass alone), the plain version's ms and the bytes
+    bound (read and written once: 8 bytes an element).  Launches made here
+    are not counted."""
+    ts = list(comp.values())
+
+    def call():
+        kcompress.compress_int8_(ts, block=block)
+
+    with launches_apart({}):
+        ms = _events_ms(call, reps=5, trials=3, warmup=1)
+        dev_us = {}
+        for k in ("compress_", "compress_int8_kernel"):
+            for _ in range(3):
+                dev_us[k] = scan_device_us(call, reps=5, match=k)
+                if dev_us[k] is not None:
+                    break
+        plain_ms = _events_ms(lambda: kcompress.compress_int8_ref_(
+            ts, None, block), reps=1, trials=2, warmup=1)
+    n = sum(t.numel() for t in ts)
+    return {"ms": ms, "device_us": dev_us, "plain_ms": plain_ms,
+            "bound_ms": 8 * n / HBM_BYTES_PER_S * 1e3, "elements": n}
+
+
+def _accum_grads_check(cfg, state, batch, plain):
+    """Phase 24 (c), first half: the accumulated step's loss and its
+    uncompressed accumulator against the plain step's loss and gradients
+    (``plain``), with one micro-batch left out (its loss times 0) as the
+    planted fault; the step is the real body with AdamW and the pass kept
+    out (``_spied``).  Returns (relative L2 by parameter, the fault's, the
+    accumulated loss)."""
+    n_micro = cfg.grad_accum
+    out = {}
+
+    def grads_of(rel_into):
+        def wrap(_):
+            def read(acc, spec):
+                rel_into.update(_rel_l2(acc, plain))
+            return read
+        return wrap
+
+    def no_update(_):
+        def skip(grads, opt, params, hyper, **kw):
+            return torch.zeros((), device=hyper.device)
+        return skip
+
+    def drop_last(orig):
+        calls = [0]
+
+        def loss(cfg_, model, micro, use_kernel=True):
+            calls[0] += 1
+            value, met = orig(cfg_, model, micro, use_kernel)
+            return (value * 0 if calls[0] == n_micro else value), met
+        return loss
+
+    hyper = torch.tensor(hyper_values(1, ADAMW_CHECK_LR), device=batch[
+        "tokens"].device)
+    for tag, extra in (("clean", {}), ("fault", {"model_loss": drop_last})):
+        rel = out.setdefault(tag, {})
+        with launches_apart({}), _spied(compress_in_place=grads_of(rel),
+                                        adamw_apply=no_update, **extra):
+            met = overlap.accum_step_body(state.model, state.opt, n_micro,
+                                          compress_mod.CompressionSpec(
+                                              kind="int8"))(batch, hyper)
+        out[tag + "_loss"] = met["loss"].item()
+        _free()
+    return out["clean"], out["fault"], out["clean_loss"]
+
+
+def _accum_real_step(cfg, state, batch):
+    """Phase 24 (c), second half: one real accumulated int8 step of the
+    body, counts zeroed just before and exact after; the accumulator is
+    copied on the card before the pass, and p, m, v to the host before
+    AdamW; the compressed accumulator, the kernels' norm and AdamW's
+    operands are kept for (a) and (b)."""
+    kept: dict = {}
+    params = dict(state.model.named_parameters())
+    names = list(params)
+
+    def before_pass(orig):
+        def run(acc, spec):
+            kept["acc_in"] = {k: v.clone() for k, v in acc.items()}
+            orig(acc, spec)
+        return run
+
+    def before_adamw(orig):
+        def run(grads, opt, params_, hyper, **kw):
+            kept["host"] = [tuple(t.to("cpu", copy=True) for t in ts)
+                            for ts in zip([params[n].detach() for n in names],
+                                          [opt.mu[n] for n in names],
+                                          [opt.nu[n] for n in names])]
+            kept["comp"] = grads
+            kept["gnorm"] = orig(grads, opt, params_, hyper, **kw).clone()
+            return kept["gnorm"]
+        return run
+
+    hyper = torch.tensor(hyper_values(1, ADAMW_CHECK_LR),
+                         device=batch["tokens"].device)
+    kept["hyper"] = hyper
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _spied(compress_in_place=before_pass, adamw_apply=before_adamw):
+        met = overlap.accum_step_body(state.model, state.opt,
+                                      cfg.grad_accum,
+                                      compress_mod.CompressionSpec(
+                                          kind="int8"))(batch, hyper)
+    torch.cuda.synchronize()
+    kept["step_s"] = time.perf_counter() - t0
+    kept["launches"] = _nonzero(_all_counts())
+    _expect(_all_counts(), _accum_per_step(cfg),
+            f"[24] {LM_ARCH} one accumulated int8 step")
+    kept["loss"] = met["loss"].item()
+    return kept
+
+
+def phase_distributed(dev):
+    """Phase 24, the distributed layer on the card: llama3.2-3b at full width
+    and depth, bf16, with ``ACCUM`` (4 micro-batches of 2 x 512, int8
+    compression of the f32 accumulator), B = 8 x 512 from seed 0.
+
+    (c) The accumulated step against the plain step on the same init and
+    batch: the loss within ``LOSS_REL_BOUND``, the uncompressed
+    accumulator's relative L2 per parameter against the plain step's
+    gradient within ``GRAD_REL_L2_BOUND`` (one micro-batch left out must
+    miss it); one real step, launches exact (4 x (56, 28) flash, 1 AdamW, 1
+    compress).  (a) The compression kernel's output on that step's
+    accumulator against its plain version: every element bit-equal, within
+    ``absmax_block / 254``, the planted fault seen; its device time against
+    the bytes bound.  (b) AdamW with the f32 accumulated gradients beside
+    bf16 parameters: the norm within 1e-6, every element of p, m, v
+    bit-equal given it, the planted faults seen; device ms against the
+    bound.  (d) ``TRAIN_STEPS`` captured accumulated steps (``Trainer``,
+    the default) against ``TRAIN_STEPS`` eager ones from the same init:
+    losses, grad norms, final parameters and the moments' bits equal;
+    step ms, tokens/s, peak memory, capture ms, and a replay profiled
+    (idle share; device ms by part, the accumulation and ``compress_``
+    among them).  (e) A world-size-1 ``nccl`` group (``FileStore``) over a
+    (1, 1) ``("pod", "data")`` mesh: ``ring_all_reduce`` returns x,
+    ``hierarchical_psum`` with int8 equals the kernel's round trip bit for
+    bit; the group is destroyed."""
+    cfg = _accum_cfg()
+    block = compress_mod.CompressionSpec().block
+    tr = Trainer(cfg=cfg, batch=BATCH, seq_len=PROMPT, peak_lr=TRAIN_LR,
+                 device=dev, compile=False)
+    state = tr.init_state()
+    batch = to_device(SyntheticLMData(cfg.vocab_size, BATCH, PROMPT,
+                                      tr.seed).next(), dev)
+    n = cfg.n_layers
+    with launches_apart({}):
+        loss_p, plain = _grads(cfg, state.model, batch, True)
+    plain = {k: g.clone() for k, g in plain.items()}
+    rel, fault_rel, loss_a = _accum_grads_check(cfg, state, batch, plain)
+    del plain
+    _free()
+    loss_rel = abs(loss_a - loss_p) / abs(loss_p)
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    fault_worst = sorted(fault_rel.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[24] {LM_ARCH} accumulated step ({cfg.grad_accum} micro-batches "
+          f"of {BATCH // cfg.grad_accum} x {PROMPT}) against the plain step "
+          f"on one batch: loss {loss_a:.6f} against {loss_p:.6f} (relative "
+          f"{loss_rel:.3g}, bound {LOSS_REL_BOUND}); the uncompressed "
+          f"accumulator's relative L2 over {len(rel)} parameters: max "
+          f"{worst[0][1]:.4g}, median {statistics.median(rel.values()):.4g}"
+          f", bound {GRAD_REL_L2_BOUND}; worst "
+          + ", ".join(f"{k} {v:.4g}" for k, v in worst)
+          + f"; micro-batch {cfg.grad_accum - 1} left out: max "
+          f"{fault_worst[0][1]:.4g}, median "
+          f"{statistics.median(fault_rel.values()):.4g}")
+    if not (loss_rel <= LOSS_REL_BOUND and worst[0][1] <= GRAD_REL_L2_BOUND):
+        raise AssertionError("[24] the accumulated step is off the plain "
+                             "step")
+    if not fault_worst[0][1] > GRAD_REL_L2_BOUND:
+        raise AssertionError(f"[24] the bound would pass a micro-batch left "
+                             f"out ({fault_worst[0][1]})")
+    kept = _accum_real_step(cfg, state, batch)
+    real_launches = kept["launches"]
+    print(f"[24] one accumulated int8 step: loss {kept['loss']:.6f}, "
+          f"{kept['step_s']:.2f} s with the host copies; launches "
+          f"{real_launches} (exact)")
+    # (a) the compression kernel
+    comp = kept.pop("comp")
+    a = _compress_check(kept.pop("acc_in"), comp, block)
+    _free()
+    print(f"[24] compression kernel against its plain version over "
+          f"{LM_ARCH}'s f32 accumulator ({len(comp)} tensors, "
+          f"{a['elements']} elements, block {block}): {a['bit_equal_elements']}"
+          f" of {a['elements']} bit-equal (required: all), max |difference| "
+          f"{a['max_abs_err']:.3g}; |c - x| at most {a['bound_ratio_max']:.4f}"
+          f" of absmax_block / 254 (required: <= 1); t (1/s) for t / s moves "
+          f"{a['fault_elements_moved']} elements (required: some)")
+    if not (a["bit_equal_elements"] == a["elements"]
+            and a["bound_ratio_max"] <= 1.0):
+        raise AssertionError(f"[24] the compression kernel is off its plain "
+                             f"version or the bound: {a}")
+    if not a["fault_elements_moved"]:
+        raise AssertionError("[24] the compression check would pass t (1/s)")
+    # (b) AdamW with f32 gradients, given the kernels' norm
+    params = dict(state.model.named_parameters())
+    names = list(params)
+    dec = decayed(state.model)
+    ps = [params[k].detach() for k in names]
+    gs = [comp[k] for k in names]
+    mus = [state.opt.mu[k] for k in names]
+    nus = [state.opt.nu[k] for k in names]
+    decs = [dec[k] for k in names]
+    hyper = kept["hyper"]
+    gnorm_plain = kadamw.global_norm_ref(gs).item()
+    gnorm = kept["gnorm"].item()
+    norm_rel = abs(gnorm - gnorm_plain) / gnorm_plain
+    equal, total, max_abs, faults = _adamw_bits(
+        ps, gs, mus, nus, decs, hyper, kept.pop("host"), kept["gnorm"])
+    print(f"[24] AdamW kernels with f32 gradients ({gs[0].dtype} beside "
+          f"{ps[0].dtype} parameters, {mus[0].dtype} moments) against the "
+          f"plain version: norm {gnorm:.6f} against {gnorm_plain:.6f} "
+          f"(relative {norm_rel:.3g}, bound 1e-6); {equal} of {total} "
+          f"elements of p, m and v bit-equal (required: all), max "
+          f"|difference| {max_abs:.3g}; planted faults move "
+          + ", ".join(f"{k} {v}" for k, v in faults.items())
+          + " elements of p (required: some)")
+    if not (norm_rel <= 1e-6 and equal == total):
+        raise AssertionError(f"[24] AdamW with f32 gradients is off its "
+                             f"plain version: norm {norm_rel}, "
+                             f"{total - equal} elements differ")
+    if not all(faults.values()):
+        raise AssertionError(f"[24] the AdamW comparison would pass a "
+                             f"planted fault: {faults}")
+    _free()
+    a["times"] = _compress_times(comp, block)
+    aw_ms, aw_dev, aw_plain = _adamw_times(ps, gs, mus, nus, decs, hyper)
+    aw = {"ms": aw_ms, "device_us": aw_dev, "plain_ms": aw_plain,
+          "bound_ms": _adamw_bound_ms(ps, gs, mus), "norm_rel": norm_rel,
+          "bit_equal_elements": equal, "elements": total,
+          "max_abs_err": max_abs, "fault_elements_moved": faults}
+    t = a["times"]
+    text = lambda us: "not measured" if us is None else f"{us / 1e3:.3f} ms"
+    print(f"[24] compression over the tree: {t['ms']:.3f} ms a call (CUDA "
+          f"events), device {text(t['device_us']['compress_'])} (the pass "
+          f"{text(t['device_us']['compress_int8_kernel'])}); plain version "
+          f"{t['plain_ms']:.1f} ms; bound {t['bound_ms']:.3f} ms (bytes: "
+          f"8 a element); library: none")
+    print(f"[24] AdamW with f32 gradients: {aw_ms:.3f} ms a call (CUDA "
+          f"events), device {text(aw_dev['adamw_'])} (update "
+          f"{text(aw_dev['adamw_update_kernel'])}, norm "
+          f"{text(aw_dev['adamw_norm_kernel'])}); plain version "
+          f"{aw_plain:.1f} ms; bound {aw['bound_ms']:.3f} ms (bytes)")
+    del comp, gs, ps, mus, nus, state, tr, kept
+    _free()
+    # (d) captured against eager, from one init
+    per_step = _accum_per_step(cfg)
+    route = flash_attn.bwd_kernels(getattr(torch, cfg.compute_dtype),
+                                   cfg.hd)[:2]
+    tr = Trainer(cfg=cfg, batch=BATCH, seq_len=PROMPT, peak_lr=TRAIN_LR,
+                 device=dev, compile=False)
+    eager = _train_run("eager accumulated int8", tr, tr.init_state(),
+                       per_step, "[24]")
+    eager.pop("state")
+    final = eager.pop("final")
+    del tr
+    _free()
+    tr = Trainer(cfg=cfg, batch=BATCH, seq_len=PROMPT, peak_lr=TRAIN_LR,
+                 device=dev)
+    captured = _train_run("captured accumulated int8", tr, tr.init_state(),
+                          per_step, "[24]")
+    if captured["replayed"] != [False] * 2 + [True] * (TRAIN_STEPS - 2):
+        raise AssertionError(f"[24] the captured run replayed "
+                             f"{captured['replayed']}")
+    got = captured.pop("final")
+    same = {k: captured[k] == eager[k] for k in ("losses", "grad_norms")}
+    same["params"] = all(torch.equal(got["params"][k], v)
+                         for k, v in final["params"].items())
+    same["moments_checksum"] = got["moments"] == final["moments"]
+    captured["capture_ms"] = tr.graph.capture_ms
+    print(f"[24] {TRAIN_STEPS} captured accumulated int8 steps against "
+          f"{TRAIN_STEPS} eager ones from one init: bit-equal {same}; "
+          f"capture {tr.graph.capture_ms:.0f} ms, its peak "
+          f"{tr.graph.peak_bytes / 2**30:.2f} GiB")
+    if not all(same.values()):
+        raise AssertionError(f"[24] captured and eager accumulated steps "
+                             f"differ: {same}; losses {captured['losses']} "
+                             f"against {eager['losses']}")
+    captured["profiled_step"] = _profiled_route(tr, captured.pop("state"),
+                                                route, "[24]")
+    del final, got, tr
+    _free()
+    nccl = _nccl_world_of_one(dev, block)
+    return {"arch": LM_ARCH, "overrides": ACCUM, "batch": BATCH,
+            "seq_len": PROMPT, "micro_batch": BATCH // cfg.grad_accum,
+            "step0": {"loss_accum": loss_a, "loss_plain": loss_p,
+                      "loss_rel": loss_rel, "grad_rel_l2_max": worst[0][1],
+                      "grad_rel_l2_median": statistics.median(rel.values()),
+                      "worst": worst,
+                      "fault_grad_rel_l2_max": fault_worst[0][1]},
+            "real_step_launches": real_launches,
+            "compress": a, "adamw_f32": aw, "eager": eager,
+            "captured": captured, "bit_equal": same, "nccl": nccl}
+
+
+def _nccl_world_of_one(dev, block):
+    """Phase 24 (e): a world-size-1 ``nccl`` process group (a ``FileStore``
+    under ``build/``, no network) over a (1, 1) ``("pod", "data")`` mesh:
+    ``ring_all_reduce`` returns its input, ``hierarchical_psum`` with int8
+    equals the kernel's round trip bit for bit.  Destroyed after; launches
+    made here are not counted."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    root = pathlib.Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn((3, 1000), generator=gen, device=dev)
+    with tempfile.TemporaryDirectory(dir=root) as tmp, launches_apart({}):
+        store = dist.FileStore(f"{tmp}/store", 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                device_id=dev)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("pod", "data"))
+            ring = overlap.ring_all_reduce(x, mesh.get_group("data"))
+            spec = compress_mod.CompressionSpec(kind="int8", block=block)
+            hier = compress_mod.hierarchical_psum(x, mesh, spec=spec)
+            want = x.clone()
+            kcompress.compress_int8_([want], block=block)
+            torch.cuda.synchronize()
+            out = {"backend": dist.get_backend(), "mesh": list(mesh.shape),
+                   "ring_equal": bool(torch.equal(ring, x)),
+                   "hier_equal_kernel": bool(torch.equal(hier, want))}
+        finally:
+            dist.destroy_process_group()
+    print(f"[24] world-size-1 {out['backend']} group over a {out['mesh']} "
+          f"('pod', 'data') mesh: ring_all_reduce returns x "
+          f"{out['ring_equal']}, hierarchical_psum int8 equals the kernel's "
+          f"round trip {out['hier_equal_kernel']}; group destroyed")
+    if not (out["ring_equal"] and out["hier_equal_kernel"]):
+        raise AssertionError(f"[24] the world of one disagrees: {out}")
+    return out
+
+
+def compress_kernel_row(dist24):
+    """Phase 24's compression pass in the ``kernels`` line: one wrapper
+    call a step, timed over llama3.2-3b's accumulator; its launches on the
+    main path (the captured accumulated run), beside the eager run's."""
+    a, t = dist24["compress"], dist24["compress"]["times"]
+    by_path = {"accum_int8_captured": dist24["captured"]["launches"].get(
+        "compress", 0), "accum_int8_eager": dist24["eager"]["launches"].get(
+        "compress", 0)}
+    if not all(by_path.values()):
+        raise AssertionError(f"[24] compress launches {by_path}")
+    dev_ms = _ms(t["device_us"]["compress_"])
+    return {"name": "compress", "route": "cuda", "source": COMPRESS_SOURCE,
+            "replaces": COMPRESS_REPLACES,
+            "launches": by_path["accum_int8_captured"],
+            "launches_by_path": by_path, "max_abs_err": a["max_abs_err"],
+            "ms": t["ms"] if dev_ms is None else dev_ms,
+            "ms_is": "events" if dev_ms is None else "device",
+            "events_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "kernels_device_ms": {k: _ms(v) for k, v in
+                                  t["device_us"].items()},
+            "checks": {k: v for k, v in a.items() if k != "times"},
+            "distributed": {k: v for k, v in dist24.items()
+                            if k not in ("compress", "adamw_f32")}}
+
+
+def adamw_f32_cells(row, dist24):
+    """AdamW's ``kernels`` row gains phase 24's f32-gradient figures and its
+    launches on the accumulated path."""
+    aw = dist24["adamw_f32"]
+    dev_ms = _ms(aw["device_us"]["adamw_"])
+    row["launches_by_path"]["accum_int8_captured"] = \
+        dist24["captured"]["launches"].get("adamw", 0)
+    row["f32_gradients"] = {
+        "ms": aw["ms"] if dev_ms is None else dev_ms,
+        "ms_is": "events" if dev_ms is None else "device",
+        "events_ms": aw["ms"], "plain_ms": aw["plain_ms"],
+        "bound_ms": aw["bound_ms"], "bound_by": "bytes",
+        "max_abs_err": aw["max_abs_err"],
+        "kernels_device_ms": {k: _ms(v) for k, v in aw["device_us"].items()},
+        "checks": {k: v for k, v in aw.items()
+                   if k not in ("device_us", "ms", "plain_ms")}}
+
+
 # (C, H, W, FL, FH, FW, stride, pad)
 CM_CONV = (28, 16, 16, 28, 3, 3, 1, 1)              # the CM main path's
 CONV_SHAPES = [CM_CONV,
@@ -4988,6 +5513,9 @@ def main() -> int:
     row["training"] = trained
     kernels.append(row)
     print(f"[wall] phase 23: {time.perf_counter() - t23:.1f} s")
+    dist24 = _timed(phase_distributed, dev)
+    kernels.append(compress_kernel_row(dist24))
+    adamw_f32_cells(next(r for r in kernels if r["name"] == "adamw"), dist24)
     conv_errs = _timed(phase_conv_kernel, dev)
     qs = _timed(phase_quickstart)
     faults = _timed(phase_fault_serve, dev)

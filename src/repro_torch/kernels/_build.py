@@ -54,6 +54,8 @@ _CONV = (_P, _P, _P, _P) + (_I,) * 12 + (_P,)
 # entries (n rows of g, p, m, v, numel, flags), n, workspace, stats, hyper;
 # b1, 1 - b1, b2, 1 - b2, eps, weight decay, clip
 _ADAMW = (_P, _I, _P, _P, _P) + (_F,) * 7 + (_P,)
+# entries (n rows of g, e, numel), n, block, vec, workspace, SMs
+_COMPRESS = (_P, _I, _I, _I, _P, _I, _P)
 # name -> argtypes; every entry returns the launch's cudaError_t as an int
 SIGNATURES = {
     "crossbar_mxv_f32": (_P, _P, _P, _P, _I, _I, _I, _PLAN, _P),
@@ -78,6 +80,9 @@ SIGNATURES = {
     "adamw_step": _ADAMW,
     # n tensors -> workspace bytes (not an error code)
     "adamw_workspace_bytes": (_I,),
+    "compress_int8": _COMPRESS,
+    # n tensors -> workspace bytes (not an error code)
+    "compress_workspace_bytes": (_I,),
 }
 
 

@@ -34,7 +34,9 @@ their norms agree.
 (parameter, moment) dtypes, tensor by tensor (a tree may mix them, as
 falcon-mamba's f32 ``A_log`` and ``D`` beside its bf16 weights): (f32,
 f32), (f32, bf16), (bf16, f32) and (bf16, bf16); a gradient has its
-parameter's dtype and shape.  On the card
+parameter's shape and its dtype or f32 (the accumulated step's f32 sum,
+``distributed/overlap.py``; the reference casts every gradient to f32
+before the update, so the arithmetic is the same).  On the card
 every tensor is contiguous and 16-byte aligned (a gradient that is not is
 copied first; a parameter or moment that is not is refused, as the update
 writes it in place).
@@ -61,7 +63,7 @@ KERNELS = ("adamw_fill_kernel", "adamw_norm_kernel", "adamw_finalize_kernel",
 PAIRS = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
          (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16))
 # csrc/adamw.cu's entry flags
-_DECAY, _P_BF16, _M_BF16 = 1, 2, 4
+_DECAY, _P_BF16, _M_BF16, _G_F32 = 1, 2, 4, 8
 
 
 def global_norm_ref(grads: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
@@ -139,7 +141,8 @@ def _check(params, grads, mus, nus, decayed, hyper):
                             f"dtypes must be one of {list(PAIRS)}, got "
                             f"{p.dtype}, {m.dtype}, {v.dtype}")
         if m.shape != p.shape or v.shape != p.shape or (
-                g is not None and (g.shape != p.shape or g.dtype != p.dtype)):
+                g is not None and (g.shape != p.shape or g.dtype not in (
+                    p.dtype, torch.float32))):
             raise ValueError(f"{name}: tensor {i}: shapes or gradient dtype "
                              f"disagree: p {tuple(p.shape)} {p.dtype}, m "
                              f"{tuple(m.shape)}, v {tuple(v.shape)}, g "
@@ -183,7 +186,8 @@ def adamw_step(params: Sequence[torch.Tensor],
             g = g.clone(memory_format=torch.contiguous_format)
             grads[i] = g                    # alive until the launch is queued
         flags = (_DECAY * dec + _P_BF16 * (p.dtype == torch.bfloat16)
-                 + _M_BF16 * (m.dtype == torch.bfloat16))
+                 + _M_BF16 * (m.dtype == torch.bfloat16)
+                 + _G_F32 * (g is not None and g.dtype != p.dtype))
         rows.append((g.data_ptr() if g is not None else 0, p.data_ptr(),
                      m.data_ptr(), v.data_ptr(), p.numel(), flags))
     if not rows:

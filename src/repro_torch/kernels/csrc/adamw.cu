@@ -15,7 +15,10 @@
 // before each step or graph replay; scale from the norm's own output
 // (`stats`: gnorm, scale), so no host float is baked into a capture.  A
 // tensor without a gradient (the loss does not reach it) reads as a zero
-// gradient.  Each operation is written with a round-to-nearest intrinsic,
+// gradient.  A gradient is of its parameter's type or f32 (the accumulated
+// step's f32 sum beside bf16 parameters, distributed/overlap.py): the
+// reference casts every gradient to f32 first, so the arithmetic is the
+// same.  Each operation is written with a round-to-nearest intrinsic,
 // in the reference's order, so that nvcc contracts nothing into an FMA and
 // the plain version's separate operations (kernels/adamw.py) give the same
 // bits.
@@ -23,7 +26,8 @@
 // What bounds it on this card: bytes.  The update reads g, p, m, v and
 // writes p, m, v: 22 bytes a parameter for bf16 parameters and f32
 // moments, 70.7 GB over llama3.2-3b's 3,212,749,824 parameters, 21.1 ms at
-// 3.35 TB/s; the norm reads g once more (2 bytes, 1.9 ms).  The arithmetic
+// 3.35 TB/s; the norm reads g once more (2 bytes, 1.9 ms).  With f32
+// gradients: 24 bytes (23.0 ms) and 4 (3.8 ms).  The arithmetic
 // is some 15 operations an element, far below the card's f32 rate.
 //
 // The design.  The tree is cut into chunks of CHUNK elements of one tensor
@@ -33,7 +37,8 @@
 // so a capture records it with no host copy; gradient addresses may change
 // from step to step.  A tree may mix types (falcon-mamba keeps A_log and D
 // in f32 beside bf16 weights): each chunk's body is picked by its tensor's
-// (parameter, moment) types, f32 or bf16 each, one branch a block.  Then:
+// (parameter, gradient, moment) types, f32 or bf16 each, one branch a
+// block.  Then:
 //   1. adamw_norm_kernel: NORM_BLOCKS blocks walk the chunks, block b the
 //      chunks b, b + NORM_BLOCKS, ...; each thread sums its squares in f64
 //      (the sum of 3.2 G squares keeps f32's rounding out of the norm), the
@@ -64,8 +69,11 @@ constexpr int FILL = 80;               // table entries a fill launch (3,840
 
 // flags of an entry
 constexpr int DECAY = 1;               // weight decay applies
-constexpr int P_BF16 = 2;              // the parameter and gradient are bf16
+constexpr int P_BF16 = 2;              // the parameter (and, without G_F32,
+                                       // the gradient) is bf16
 constexpr int M_BF16 = 4;              // the moments are bf16
+constexpr int G_F32 = 8;               // the gradient is f32 beside a bf16
+                                       // parameter
 
 struct Entry {
   const void* g;                       // nullptr: a zero gradient
@@ -74,7 +82,7 @@ struct Entry {
   void* v;
   long long numel;
   int chunk0;                          // the tensor's first chunk
-  int flags;                           // DECAY | P_BF16 | M_BF16
+  int flags;                           // DECAY | P_BF16 | M_BF16 | G_F32
 };
 
 struct Fill {
@@ -182,7 +190,7 @@ adamw_norm_kernel(const Entry* __restrict__ table, int n, long long chunks,
     const long long start = (c - e.chunk0) * CHUNK;
     const long long rem = e.numel - start;
     const int count = (int)(rem < CHUNK ? rem : CHUNK);
-    if (e.flags & P_BF16)
+    if ((e.flags & (P_BF16 | G_F32)) == P_BF16)
       acc = chunk_squares(static_cast<const __nv_bfloat16*>(e.g) + start,
                           count, acc);
     else
@@ -229,11 +237,11 @@ __device__ __forceinline__ void update(float& p, float g, float& m, float& v,
 }
 
 // one chunk of one tensor: count elements from start, in place
-template <typename P, typename M>
+template <typename P, typename G, typename M>
 __device__ __forceinline__ void update_chunk(const Entry& e, long long start,
                                              int count, const Hyper& h,
                                              const Consts& k) {
-  const P* g = e.g ? static_cast<const P*>(e.g) + start : nullptr;
+  const G* g = e.g ? static_cast<const G*>(e.g) + start : nullptr;
   P* p = static_cast<P*>(e.p) + start;
   M* m = static_cast<M*>(e.m) + start;
   M* v = static_cast<M*>(e.v) + start;
@@ -266,7 +274,7 @@ __device__ __forceinline__ void update_chunk(const Entry& e, long long start,
 }
 
 // a block a chunk; the chunk's tensor's types pick the body (one branch a
-// block, so no divergence)
+// block, so no divergence): the gradient is the parameter's type, or f32
 __global__ void __launch_bounds__(THREADS)
 adamw_update_kernel(const Entry* __restrict__ table, int n,
                     const float* __restrict__ stats,
@@ -279,18 +287,25 @@ adamw_update_kernel(const Entry* __restrict__ table, int n,
   const long long start = ((long long)blockIdx.x - e.chunk0) * CHUNK;
   const long long rem = e.numel - start;
   const int count = (int)(rem < CHUNK ? rem : CHUNK);
-  switch (e.flags & (P_BF16 | M_BF16)) {
+  using bf16 = __nv_bfloat16;
+  switch (e.flags & (P_BF16 | M_BF16 | G_F32)) {
     case 0:
-      update_chunk<float, float>(e, start, count, h, k);
+      update_chunk<float, float, float>(e, start, count, h, k);
       break;
     case M_BF16:
-      update_chunk<float, __nv_bfloat16>(e, start, count, h, k);
+      update_chunk<float, float, bf16>(e, start, count, h, k);
       break;
     case P_BF16:
-      update_chunk<__nv_bfloat16, float>(e, start, count, h, k);
+      update_chunk<bf16, bf16, float>(e, start, count, h, k);
       break;
-    default:
-      update_chunk<__nv_bfloat16, __nv_bfloat16>(e, start, count, h, k);
+    case P_BF16 | M_BF16:
+      update_chunk<bf16, bf16, bf16>(e, start, count, h, k);
+      break;
+    case P_BF16 | G_F32:
+      update_chunk<bf16, float, float>(e, start, count, h, k);
+      break;
+    default:                           // P_BF16 | M_BF16 | G_F32
+      update_chunk<bf16, float, bf16>(e, start, count, h, k);
   }
 }
 
@@ -305,7 +320,7 @@ int adamw_workspace_bytes(int n) {
 }
 
 // entries: n rows of (g, p, m, v, numel, flags) as the wrapper's int64
-// array (flags: DECAY | P_BF16 | M_BF16); workspace: the table (n Entry),
+// array (flags: DECAY | P_BF16 | M_BF16 | G_F32); workspace: the table (n Entry),
 // then NORM_BLOCKS doubles; stats: gnorm, scale (out); hyper: lr, bc1, bc2
 int adamw_step(const long long* entries, int n, void* workspace, void* stats,
                const void* hyper, float b1, float omb1, float b2, float omb2,

@@ -46,10 +46,13 @@ from ._checkout import load_other
 ARCH, BATCH, SEQ, LR = "llama3.2-3b", 8, 512, 3e-3
 # a kernel's part of the step: the first whose keys its name holds
 PARTS = (("adamw kernels", ("adamw_",)),
+         ("compress kernels", ("compress_",)),
          ("flash backward", ("attn_bwd_",)),
          ("flash forward", ("flash_attention",)),
          ("f32 GEMM", ("f32f32", "sgemm")),
          ("bf16 GEMM", ("nvjet", "gemm", "xmma", "cutlass")),
+         # the accumulated step's acc + g / n (distributed/overlap.py)
+         ("gradient accumulation", ("addcdiv",)),
          ("elementwise, reductions, copies",
           ("elementwise", "reduce", "copy", "memset", "memcpy")))
 

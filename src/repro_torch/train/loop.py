@@ -10,7 +10,11 @@ place over the whole tree (``optim.adamw``: on the card the kernels of
 CUDA device replays it as a CUDA graph (``train.graphs.TrainGraph``,
 ``compile="auto"``): its first ``graphs.WARMUP_STEPS`` steps on a model
 run eagerly, then it captures one step and replays it.  ``compile=False``
-keeps the eager step; ``compile=True`` on the CPU raises.
+keeps the eager step; ``compile=True`` on the CPU raises.  A config that
+asks for ``grad_accum > 1`` or ``grad_compression != "none"`` trains with
+the accumulated step (``distributed.overlap.accum_step_body``: the rule of
+the reference's ``launch/specs.py::make_cell``), eager or captured by the
+same rule; every other config with :func:`step_body`.
 
 As in the reference: ``AsyncCheckpointer`` every ``ckpt_every`` steps with
 the data cursor, ``resume_or_init`` restores parameters, moments, step and
@@ -40,6 +44,8 @@ from ..checkpoint import (AsyncCheckpointer, latest_checkpoint,
                           restore_checkpoint)
 from ..configs.base import ArchConfig
 from ..data import PrefetchLoader, SyntheticLMData
+from ..distributed.overlap import (accum_step_body, compression_of,
+                                   wants_accum)
 from ..models import Model, build_model, loss as model_loss
 from ..models.convert import decayed
 from ..models.lm import resolve_device
@@ -98,6 +104,19 @@ def step_body(model: Model, opt: OptState, *,
     return body
 
 
+def train_body(model: Model, opt: OptState, *,
+               weight_decay: float = 0.1) -> Callable:
+    """The step body ``model``'s config trains with: the accumulated one
+    (``grad_accum`` micro-batches, ``grad_compression``) where the config
+    asks for it, else :func:`step_body`."""
+    cfg = model.cfg
+    if wants_accum(cfg):
+        return accum_step_body(model, opt, max(cfg.grad_accum, 1),
+                               compression_of(cfg),
+                               weight_decay=weight_decay)
+    return step_body(model, opt, weight_decay=weight_decay)
+
+
 def step_hyper(state: TrainState, *, peak_lr: float,
                total_steps: int = 10_000) -> tuple:
     """(lr, count, hyper) of the step after ``state``: the schedule's lr
@@ -111,16 +130,19 @@ def step_hyper(state: TrainState, *, peak_lr: float,
 
 def make_train_step(model: Model, *, peak_lr: float = 3e-4,
                     total_steps: int = 10_000,
-                    weight_decay: float = 0.1) -> Callable:
-    """(state, batch) -> (state, metrics), eagerly: :func:`step_body`
-    (built once for the moments it is given first, and again only for
-    others) with this step's :func:`step_hyper` written to a new device
-    buffer."""
+                    weight_decay: float = 0.1,
+                    body: Callable = train_body) -> Callable:
+    """(state, batch) -> (state, metrics), eagerly: the step body that
+    ``body(model, opt, weight_decay=...)`` builds (by default
+    :func:`train_body`: :func:`step_body`, or the accumulated step where
+    the config asks for it; built once for the moments it is given first,
+    and again only for others) with this step's :func:`step_hyper` written
+    to a new device buffer."""
     built: list = [None, None]          # the moments, the body built on them
 
     def train_step(state: TrainState, batch) -> tuple:
         if built[0] is not state.opt.mu:
-            built[:] = [state.opt.mu, step_body(
+            built[:] = [state.opt.mu, body(
                 model, state.opt, weight_decay=weight_decay)]
         lr, count, hyper = step_hyper(state, peak_lr=peak_lr,
                                       total_steps=total_steps)
@@ -215,8 +237,8 @@ class Trainer:
             return None
         self._warm = (None, None, 0)
         self.graph = graphs.TrainGraph(
-            model, mu, step_body(model, state.opt), to_device(batch,
-                                                              self.device))
+            model, mu, train_body(model, state.opt), to_device(batch,
+                                                               self.device))
         return self.graph
 
     def run(self, n_steps: int, state: Optional[TrainState] = None,
