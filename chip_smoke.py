@@ -386,6 +386,39 @@ result line):
    reference's plain ``jnp`` round trip) and AdamW's row its f32-gradient
    figures (``f32_gradients``).
 
+25. the pipeline across ranks (after 24, ``phase_pipeline``): four ranks
+   spawned on the card (``python3 chip_smoke.py --pipeline-rank ...``) in a
+   ``gloo`` group on a ``FileStore`` under ``build/`` (NCCL refuses two
+   ranks on one card; an activation hops through a host copy), each
+   holding only its stage's layers of the seed-0 model
+   (``lm.init_stage``).  (a) llama3.2-3b at full width and depth, bf16,
+   B = 8 x 512 as 4 micro-batches of 2 x 512 through
+   ``launch.pipeline_prefill.make_pipelined_prefill`` in 4 stages of 7
+   layers: the last token's hidden state bit-equal, micro-batch by
+   micro-batch, to ``core.pipeline.sequential_apply`` over the same stages
+   in this process and within ``PIPE_BOUND`` x max(1, max|h|) of the
+   whole-batch stack; 7 ticks, utilisation 4/7, 28 flash launches a rank;
+   both planted faults (the hop skipped, the last stage's table row a
+   tick late) must miss the bit-equal comparison; ms a prefill per rank
+   (four processes sharing one card: no pipeline speed) and the bytes of
+   a hop.  (b) ``seq_causal``, 2 stages x 2 model ranks: llama3.2-3b at
+   full depth with each ``causal_bound`` x ``seq_residual`` against the
+   unsharded forward (``CP_BOUND``; 56 flash launches a rank; a hop of a
+   rank's 256 rows under the blocked residual, 512 otherwise), then
+   qwen2-moe-a2.7b at full width and 4 layers in f32 against the port's
+   layers in this process with each MoE layer on ``h.reshape(B mm, S/mm,
+   d)``: every route equal, h within 2e-3 x max(1, max|h|).  (c) the
+   striped flash kernel (``q_stride`` 2, 4, 8; D 64, 128, 256; bf16 and
+   f32) against its plain version (2e-3 f32, 5e-2 bf16), stride 1 equal
+   to the call without it, then at every shape (b) launches (2 x 256
+   rows, blocked or at stride 2, over each model rank's keys; llama's
+   heads in bf16, qwen2-moe's in f32); its device µs at (b)'s shape (2 x
+   24/8 heads x 256 rows at stride 2 over 512 keys), and at an extra
+   shape no path runs (mm = 4: 128 rows at stride 4), each held against
+   its plain version and timed beside SDPA with the same boolean mask and
+   the bound.  The flash row of the ``kernels`` line gains ``striped``
+   and ``launches_by_path``.
+
 20. (run after phases 7, 10, 11, 12 and 21, on each model while it is on the
    card: llama3.2-3b with both caches, falcon-mamba-7b, qwen2-moe-a2.7b,
    the reduced jamba with both caches, qwen2-vl-7b, seamless-m4t-large-v2)
@@ -415,6 +448,7 @@ import io
 import itertools
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -4072,10 +4106,10 @@ def _flip_readings(k_routes, p_routes, k_marg, p_marg):
     return out
 
 
-def _print_flips(tag, by_layer):
+def _print_flips(tag, by_layer, phase="[23]"):
     """``_flip_readings``' readings, a line a MoE layer."""
     for i, r in enumerate(by_layer):
-        print(f"[23] {tag} MoE layer {i}: {r['flips']} flips (the "
+        print(f"{phase} {tag} MoE layer {i}: {r['flips']} flips (the "
               f"larger margin there: median {r['flip_margin_median']}), "
               f"{r['fresh']} fresh (no flip at an earlier layer at or "
               f"before the token in its row); the larger of the two "
@@ -5417,6 +5451,532 @@ def _timed(fn, *args, **kw):
     return out
 
 
+# ----------------------------------------------------- phase 25: pipeline
+ROOT = pathlib.Path(__file__).resolve().parent
+PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 4, 4, 8, 512
+PIPE_BOUND = 0.05               # bf16 at full depth, as phase 7's logits
+# context parallelism against the unsharded forward, bf16 at full depth: the
+# same arithmetic row by row (every combination read 0 on the H100), so a
+# tenth of a bf16 step at max|h| (~20: step 0.125); a shifted stripe or mask
+# moves h by O(1)
+CP_BOUND = 1e-3
+CP_COMBOS = [(cb, sr) for cb in (False, True) for sr in (True, False)]
+CP_MOE_LAYERS = 4
+
+
+def _pipe_tokens(vocab, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, vocab, (PIPE_MICRO, PIPE_BATCH // PIPE_MICRO,
+                                    PIPE_SEQ), generator=gen)
+
+
+def _moe_cfg():
+    return dataclasses.replace(get_arch(MOE_ARCH), n_layers=CP_MOE_LAYERS,
+                               param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def _shifted_schedule(real):
+    """A planted fault: the schedule with the last stage's row a tick late
+    (its starts as they were, so ``check_one_item_buffer`` passes)."""
+    from repro_torch.core import pipeline as pipe
+
+    def derive(kinds, n):
+        s = real(kinds, n)
+        table = np.concatenate([s.table, np.full((s.table.shape[0], 1), -1)],
+                               axis=1)
+        table[-1] = np.roll(table[-1], 1)
+        return pipe.Schedule(start=s.start, table=table,
+                             n_ticks=s.n_ticks + 1)
+    return derive
+
+
+def _no_hop(send, dst, recv_like, src, group):
+    """A planted fault: the hop skipped; what arrives is zeros."""
+    return None if recv_like is None else torch.zeros_like(recv_like)
+
+
+def _pipeline_rank(argv):
+    """One rank of phase 25 (``--pipeline-rank rank world store dir
+    device``): a gloo group over the card's four ranks; (a), (b) llama, (b)
+    qwen2-moe; results to ``dir/rank<r>.pt``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.core import pipeline as pipe
+    from repro_torch.distributed import comm
+    from repro_torch.launch import pipeline_prefill as pp
+    from repro_torch.launch.mesh import make_pod_mesh
+    rank, world, store, tmp = (int(argv[0]), int(argv[1]), argv[2],
+                               pathlib.Path(argv[3]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(argv[4])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    res = {}
+    tokens = torch.load(tmp / "tokens.pt")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dist.barrier()
+
+    def counted(fn, stage, toks):
+        sync()
+        flash_attn.reset_launches()
+        out = fn(stage, toks)
+        sync()
+        return out.cpu(), flash_attn.LAUNCHES["flash_attention"]
+
+    try:
+        # (a) four stages of seven layers
+        cfg = get_arch(LM_ARCH)
+        mesh = make_pod_mesh(PIPE_STAGES, 1, 1, device_type="cpu")
+        stage = lm.init_stage(cfg, mesh.get_local_rank("pod"), PIPE_STAGES,
+                              dev, seed=0)
+        fn, sched = pp.make_pipelined_prefill(cfg, mesh, PIPE_MICRO,
+                                              PIPE_SEQ, PIPE_BATCH)
+        fn(stage, tokens["llama"])                          # warm-up
+        res["a"], res["a_launches"] = counted(fn, stage, tokens["llama"])
+        res["a_ticks"] = (sched.n_ticks, sched.utilization())
+        times = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            fn(stage, tokens["llama"])
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["a_ms"] = times
+        real_hop, real_derive = comm.hop, pipe.derive_schedule
+        comm.hop = _no_hop
+        try:
+            res["fault_hop"] = fn(stage, tokens["llama"]).cpu()
+        finally:
+            comm.hop = real_hop
+        pipe.derive_schedule = _shifted_schedule(real_derive)
+        try:
+            bad, _ = pp.make_pipelined_prefill(cfg, mesh, PIPE_MICRO,
+                                               PIPE_SEQ, PIPE_BATCH)
+            res["fault_shift"] = bad(stage, tokens["llama"]).cpu()
+        finally:
+            pipe.derive_schedule = real_derive
+        del stage, fn, bad
+        torch.cuda.empty_cache()
+        # (b) two stages of two model ranks each
+        mesh = make_pod_mesh(2, 1, 2, device_type="cpu")
+        sid = mesh.get_local_rank("pod")
+        res["coord"] = (sid, mesh.get_local_rank("model"))
+        stage = lm.init_stage(cfg, sid, 2, dev, seed=0)
+        for cb, sr in CP_COMBOS:
+            c = dataclasses.replace(cfg, attn_shard="seq", causal_bound=cb,
+                                    seq_residual=sr)
+            fn, _ = pp.make_pipelined_prefill(c, mesh, PIPE_MICRO, PIPE_SEQ,
+                                              PIPE_BATCH)
+            fn(stage, tokens["llama"])
+            res[f"b_{int(cb)}{int(sr)}"], res[f"b_{int(cb)}{int(sr)}_l"] = \
+                counted(fn, stage, tokens["llama"])
+            res[f"b_{int(cb)}{int(sr)}_rows"] = fn.hop_rows
+        del stage, fn
+        torch.cuda.empty_cache()
+        qcfg = dataclasses.replace(_moe_cfg(), attn_shard="seq",
+                                   causal_bound=True)
+        stage = lm.init_stage(qcfg, sid, 2, dev, seed=0)
+        fn, _ = pp.make_pipelined_prefill(qcfg, mesh, PIPE_MICRO, PIPE_SEQ,
+                                          PIPE_BATCH)
+        routes, margins = [], []
+        with _routes_spied(record=routes, margins=margins):
+            res["moe"] = fn(stage, tokens["moe"]).cpu()
+        res["moe_routes"], res["moe_margins"] = routes, margins
+    finally:
+        torch.save(res, tmp / f"rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(tmp, dev, world=PIPE_STAGES, timeout=600):
+    """The ranks of phase 25 as processes of this script; killed and failed
+    when late or failing."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    store = str(tmp / "store")
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         "--pipeline-rank", str(r), str(world), store, str(tmp), str(dev)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs, late = [], []
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            try:
+                outs.append(p.communicate(timeout=left)[0])
+            except subprocess.TimeoutExpired:
+                late.append(p.args[3])
+                outs.append("")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if late or any(p.returncode for p in procs):
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            print(f"[25] rank {r} rc {p.returncode}:\n{o[-3000:]}")
+        raise AssertionError(f"[25] ranks late {late} or failed")
+    return [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
+
+
+def _grouped_moe_ffn(mm):
+    """``lm._ffn`` with each MoE layer on ``h.reshape(B mm, S/mm, d)``: the
+    reference's sequence-parallel groups in one process."""
+    def ffn(cfg, p, h, cp=None):
+        if p.spec["ffn"] == "moe":
+            b, s, d = h.shape
+            y, aux = port_models.layers.moe(cfg, p.moe,
+                                            h.reshape(b * mm, s // mm, d))
+            return y.reshape(b, s, d), aux
+        return port_models.layers.mlp(cfg, p.mlp, h), None
+    return ffn
+
+
+def _pipe_oracles(dev, tokens):
+    """This process's side of phase 25: ``sequential_apply`` over llama's
+    four stages, the whole-batch stack, and qwen2-moe's grouped forward
+    with its routes; launches made here are not counted."""
+    from repro_torch.core import pipeline as pipe
+    out = {}
+    b_m = PIPE_BATCH // PIPE_MICRO
+    pos = torch.arange(PIPE_SEQ, device=dev)[None].expand(b_m, PIPE_SEQ)
+    with launches_apart({}), torch.no_grad():
+        cfg = get_arch(LM_ARCH)
+        model = lm.LM(cfg, dev, seed=0)
+        scfg = lm.stage_config(cfg, PIPE_STAGES)
+        toks = tokens["llama"].to(dev)
+        emb = model.embed[toks]
+        out["seq"] = pipe.sequential_apply(
+            lambda st, x: lm.run_stack(scfg, st, x, pos),
+            lm.split_stages(model, PIPE_STAGES), emb,
+            collect=lambda y: y[:, -1]).cpu()
+        whole = lm.run_stack(cfg, model, emb.reshape(PIPE_BATCH, PIPE_SEQ, -1),
+                             pos.repeat(PIPE_MICRO, 1))
+        out["whole"] = whole[:, -1].reshape(out["seq"].shape).cpu()
+        del model, emb, whole
+        _free()
+        qcfg = _moe_cfg()
+        model = lm.LM(qcfg, dev, seed=0)
+        real = lm._ffn
+        lm._ffn = _grouped_moe_ffn(2)
+        routes, margins, hs = [], [], []
+        try:
+            with _routes_spied(record=routes, margins=margins):
+                for m in range(PIPE_MICRO):
+                    h = lm.run_stack(qcfg, model,
+                                     model.embed[tokens["moe"][m].to(dev)],
+                                     pos)
+                    hs.append(h[:, -1].cpu())
+        finally:
+            lm._ffn = real
+        out["moe"], out["moe_routes"] = torch.stack(hs), routes
+        out["moe_margins"] = margins
+        del model
+        _free()
+    return out
+
+
+def _cp_flip_readings(ranks, oracle, mm=2):
+    """The ranks' routing of qwen2-moe under context parallelism against the
+    grouped forward's, as ``_flip_readings`` reads two paths: each MoE
+    layer's (B mm, S/mm) groups of every micro-batch, rank (stage s, model
+    g)'s group b at b mm + g.  A flip far from a tie is not f32 rounding."""
+    per_stage = CP_MOE_LAYERS // 2
+    port = {}
+    for r in ranks:
+        sid, g = r["coord"]
+        for i, (idx, (probs, marg)) in enumerate(zip(r["moe_routes"],
+                                                     r["moe_margins"])):
+            item, layer = divmod(i, per_stage)
+            port[(item, sid * per_stage + layer, g)] = (idx, probs, marg)
+
+    def grouped(item, layer, k):
+        parts = [port[(item, layer, g)][k] for g in range(mm)]
+        return torch.stack(parts, 1).reshape(-1, *parts[0].shape[1:])
+
+    k_routes, p_routes, k_marg, p_marg = [], [], [], []
+    for layer in range(CP_MOE_LAYERS):
+        items = range(PIPE_MICRO)
+        k_routes.append(torch.cat([grouped(m, layer, 0) for m in items]))
+        k_marg.append((torch.cat([grouped(m, layer, 1) for m in items]),
+                       torch.cat([grouped(m, layer, 2) for m in items])))
+        at = [m * CP_MOE_LAYERS + layer for m in items]
+        p_routes.append(torch.cat([oracle["moe_routes"][i] for i in at]))
+        p_marg.append((torch.cat([oracle["moe_margins"][i][0] for i in at]),
+                       torch.cat([oracle["moe_margins"][i][1] for i in at])))
+    return _flip_readings(k_routes, p_routes, k_marg, p_marg)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max().item(),
+            max(1.0, want.float().abs().max().item()))
+
+
+def _stripe_keys(rows, stride, g):
+    """Keys model rank g of 2 passes for its ``rows`` query rows: its
+    stripe's last position + 1 (``stride`` 2), or its block's (1)."""
+    return (rows - 1) * stride + g + 1 if stride > 1 else (g + 1) * rows
+
+
+def _qkv(dev, gen, b, hq, hkv, sq, sk, d, dt):
+    """q (B, Hq, Sq, D), k, v (B, Hkv, Sk, D) as the model's transposed
+    views of (B, S, H, D)."""
+    q = torch.randn(b, sq, hq, d, generator=gen, device=dev).to(
+        dt).transpose(1, 2)
+    k, v = (torch.randn(b, sk, hkv, d, generator=gen, device=dev).to(
+        dt).transpose(1, 2) for _ in range(2))
+    return q, k, v
+
+
+def _striped_one(q, k, v, stride, tol, what):
+    """The kernel against its plain version on the same inputs."""
+    got = flash_attn.flash_attention(q, k, v, q_stride=stride)
+    err, scale = _rel(got, flash_attn.flash_attention_plain(
+        q, k, v, q_stride=stride))
+    if not torch.isfinite(got).all() or err > tol * scale:
+        raise AssertionError(f"[25] flash {what}: err {err} > {tol} x "
+                             f"{scale}")
+    return err
+
+
+def _striped_checks(dev):
+    """(c): the striped kernel against its plain version; stride 1 against
+    the call without it; then every shape phase 25 (b) launches (each
+    model rank's rows of a 512-token micro-batch, blocked or striped, at
+    llama's heads in bf16 and qwen2-moe's in f32).  Launches made here are
+    not counted."""
+    gen = torch.Generator(device=dev).manual_seed(25)
+    errs = {"f32": 0.0, "bf16": 0.0}
+    tols = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+    key = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    with launches_apart({}):
+        for dt in (torch.float32, torch.bfloat16):
+            for d in (64, 128, 256):
+                for stride in (2, 4, 8):
+                    for g in (0, stride - 1):
+                        sq = 96
+                        q, k, v = _qkv(dev, gen, 2, 8, 2, sq,
+                                       (sq - 1) * stride + g + 1, d, dt)
+                        err = _striped_one(q, k, v, stride, tols[dt],
+                                           f"{dt} D {d} stride {stride} g "
+                                           f"{g}")
+                        errs[key[dt]] = max(errs[key[dt]], err)
+                    if not torch.equal(flash_attn.flash_attention(q, k, v),
+                                       flash_attn.flash_attention(
+                                           q, k, v, q_stride=1)):
+                        raise AssertionError("[25] q_stride=1 changed the "
+                                             "output")
+        main = {}
+        rows = PIPE_SEQ // 2
+        for arch, dt in ((LM_ARCH, torch.bfloat16),
+                         (MOE_ARCH, torch.float32)):
+            cfg = get_arch(arch)
+            for stride in (1, 2):
+                for g in (0, 1):
+                    sk = _stripe_keys(rows, stride, g)
+                    what = (f"{arch} {key[dt]} (B, Hq, Hkv, rows, keys, D) = "
+                            f"({PIPE_BATCH // PIPE_MICRO}, {cfg.n_heads}, "
+                            f"{cfg.n_kv_heads}, {rows}, {sk}, {cfg.hd}) "
+                            f"stride {stride}")
+                    q, k, v = _qkv(dev, gen, PIPE_BATCH // PIPE_MICRO,
+                                   cfg.n_heads, cfg.n_kv_heads, rows, sk,
+                                   cfg.hd, dt)
+                    main[what] = _striped_one(q, k, v, stride, tols[dt],
+                                              what)
+                    errs[key[dt]] = max(errs[key[dt]], main[what])
+    print(f"[25] (c) striped flash attention against its plain version at "
+          f"q_stride 2/4/8, D 64/128/256, the first and last rank's keys, "
+          f"and at phase 25 (b)'s shapes {main}: max err f32 "
+          f"{errs['f32']:.3g} (2e-3 x scale), bf16 {errs['bf16']:.3g} "
+          f"(5e-2 x scale); q_stride=1 equal to the call without it")
+    return dict(errs, main_path=main)
+
+
+def _striped_time(dev, sq, stride, label):
+    """The striped kernel at llama's heads, bf16, the last model rank's
+    ``sq`` rows at ``stride`` over 512 keys: events and device µs, held
+    against its plain version (5e-2 x scale) on the same inputs and timed
+    beside it and SDPA with the same boolean mask, with the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import causal_mask
+    cfg = get_arch(LM_ARCH)
+    b, hq, hkv, d = PIPE_BATCH // PIPE_MICRO, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.hd
+    sk = (sq - 1) * stride + stride
+    gen = torch.Generator(device=dev).manual_seed(26)
+    q, k, v = _qkv(dev, gen, b, hq, hkv, sq, sk, d, torch.bfloat16)
+    mask = causal_mask(sq, sk, stride, dev)
+    with launches_apart({}):
+        kern = lambda: flash_attn.flash_attention(q, k, v, q_stride=stride)
+        plain = lambda: flash_attn.flash_attention_plain(q, k, v,
+                                                         q_stride=stride)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                     enable_gqa=True)
+        out = kern()
+        err, scale = _rel(out, plain())
+        lib_err, _ = _rel(out, lib())
+        if not torch.isfinite(out).all() or err > 5e-2 * scale:
+            raise AssertionError(f"[25] (c) timed striped flash, {label}: "
+                                 f"err vs plain {err} > 5e-2 x {scale}")
+        ms = _events_ms(kern, reps=20, trials=5, warmup=3)
+        dev_us = _device_us(kern, WGMMA_FLASH_KERNEL, reps=20)
+        plain_ms = _events_ms(plain, reps=5, trials=3, warmup=1)
+        lib_ms = _events_ms(lib, reps=20, trials=5, warmup=3)
+        lib_dev_us = _device_total_us(lib, f"[25] SDPA with the striped "
+                                      f"mask, {label}")
+    pairs = int(mask.sum().item())
+    nbytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = 4 * d * pairs * b * hq / PEAK_OPS["bf16"] * 1e3
+    bound, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    out = dict(shape=[b, hq, hkv, sq, sk, d, "bfloat16"], q_stride=stride,
+               ms=ms, device_ms=_ms(dev_us), plain_ms=plain_ms,
+               library_ms=lib_ms, library_device_ms=_ms(lib_dev_us),
+               bound_ms=bound, bound_by=by, max_abs_err=err,
+               max_abs_err_vs_library=lib_err)
+    print(f"[25] (c) striped flash, {label}, at {out['shape']} stride "
+          f"{stride}: events {ms:.4f} ms, device {_us(dev_us)}; plain "
+          f"{plain_ms:.4f} ms; SDPA with the boolean mask {lib_ms:.4f} ms, "
+          f"device {_us(lib_dev_us)}; bound {bound:.4f} ms ({by}); max err "
+          f"vs plain {err:.3g} (5e-2 x {scale:.3g}), vs SDPA {lib_err:.3g}")
+    return out
+
+
+def _striped_times(dev):
+    """(c): the striped kernel at the shape phase 25 (b) launches (llama's
+    512-token micro-batch over 2 model ranks: 256 rows at stride 2), and at
+    an extra shape no path runs yet (4 model ranks: 128 rows at stride
+    4)."""
+    main = _striped_time(dev, PIPE_SEQ // 2, 2, "the main path's shape")
+    main["extra_mm4"] = _striped_time(dev, PIPE_SEQ // 4, 4,
+                                      "an extra shape, mm = 4")
+    return main
+
+
+def phase_pipeline(dev):
+    """Phase 25: the pipelined prefill across four ranks on the card, context
+    parallelism inside its stages, and the striped flash kernel."""
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    tokens = {"llama": _pipe_tokens(get_arch(LM_ARCH).vocab_size, 25),
+              "moe": _pipe_tokens(get_arch(MOE_ARCH).vocab_size, 26)}
+    oracle = _pipe_oracles(dev, tokens)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        tmp = pathlib.Path(tmp)
+        torch.save(tokens, tmp / "tokens.pt")
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(tmp, dev)
+        spawn_s = time.perf_counter() - t0
+    out = {"ranks_wall_s": spawn_s}
+    seq = oracle["seq"]
+    d = seq.shape[-1]
+    hop_bytes = (PIPE_BATCH // PIPE_MICRO) * PIPE_SEQ * d * 2
+    # (a)
+    launches = [r["a_launches"] for r in ranks]
+    ticks = ranks[0]["a_ticks"]
+    err, scale = _rel(ranks[0]["a"], oracle["whole"])
+    faults = {}
+    for name in ("fault_hop", "fault_shift"):
+        faults[name] = [not torch.equal(r[name], seq) for r in ranks]
+    equal = [torch.equal(r["a"], seq) for r in ranks]
+    ms = [statistics.median(r["a_ms"]) for r in ranks]
+    print(f"[25] (a) {LM_ARCH} bf16, {PIPE_STAGES} stages x "
+          f"{get_arch(LM_ARCH).n_layers // PIPE_STAGES} layers, "
+          f"{PIPE_MICRO} micro-batches of {PIPE_BATCH // PIPE_MICRO} x "
+          f"{PIPE_SEQ}: bit-equal to sequential_apply on every rank {equal}; "
+          f"whole-batch stack err {err:.4g} (bound {PIPE_BOUND} x "
+          f"{scale:.4g}); ticks {ticks[0]}, utilisation {ticks[1]:.4f}; "
+          f"flash launches a rank {launches}; planted faults missed "
+          f"{faults}; ms a prefill per rank {[round(m, 2) for m in ms]} "
+          f"(four processes sharing one card, hops through the host: no "
+          f"pipeline speed); hop {hop_bytes} bytes")
+    if not all(equal):
+        raise AssertionError("[25] (a) the pipeline is not sequential_apply")
+    if err > PIPE_BOUND * scale:
+        raise AssertionError(f"[25] (a) whole-batch err {err}")
+    if tuple(ticks) != (PIPE_MICRO + PIPE_STAGES - 1,
+                        PIPE_MICRO / (PIPE_MICRO + PIPE_STAGES - 1)):
+        raise AssertionError(f"[25] (a) schedule {ticks}")
+    per_rank = get_arch(LM_ARCH).n_layers // PIPE_STAGES * PIPE_MICRO
+    if launches != [per_rank] * PIPE_STAGES:
+        raise AssertionError(f"[25] (a) flash launches {launches}")
+    if not all(all(v) for v in faults.values()):
+        raise AssertionError(f"[25] (a) a planted fault was not seen "
+                             f"{faults}")
+    out["a"] = dict(equal=equal, whole_err=err, whole_scale=scale,
+                    ticks=ticks[0], utilization=ticks[1], launches=launches,
+                    faults_missed=faults, ms_per_rank=ms,
+                    ms_all=[r["a_ms"] for r in ranks], hop_bytes=hop_bytes)
+    # (b) llama
+    out["b"] = {}
+    cp_launches = get_arch(LM_ARCH).n_layers // 2 * PIPE_MICRO
+    for cb, sr in CP_COMBOS:
+        tag = f"b_{int(cb)}{int(sr)}"
+        errs = [_rel(r[tag], seq) for r in ranks]
+        ls = [r[tag + "_l"] for r in ranks]
+        rows = ranks[0][tag + "_rows"]
+        cp_hop = (PIPE_BATCH // PIPE_MICRO) * rows * d * 2
+        print(f"[25] (b) {LM_ARCH} seq, causal_bound={cb}, seq_residual="
+              f"{sr}, 2 stages x 2 model ranks: err vs the unsharded forward "
+              f"{max(e for e, _ in errs):.4g} (bound {CP_BOUND} x "
+              f"{errs[0][1]:.4g}); flash launches a rank {ls}; hop {rows} "
+              f"rows, {cp_hop} bytes")
+        if any(e > CP_BOUND * s for e, s in errs) or \
+                ls != [cp_launches] * PIPE_STAGES or \
+                rows != (PIPE_SEQ // 2 if sr else PIPE_SEQ):
+            raise AssertionError(f"[25] (b) {tag}: {errs} {ls} {rows}")
+        out["b"][f"causal_bound={cb},seq_residual={sr}"] = dict(
+            err=max(e for e, _ in errs), scale=errs[0][1], launches=ls,
+            hop_bytes=cp_hop)
+    # (b) qwen2-moe: routes and h
+    by_layer = _cp_flip_readings(ranks, oracle)
+    flips = [f["flips"] for f in by_layer]
+    bad = [f"MoE layer {i}: {f['fresh']} fresh flips, margins up to "
+           f"{f['fresh_margin_max']}" for i, f in enumerate(by_layer)
+           if f["fresh"] and f["fresh_margin_max"] > MOE_F32_TIE]
+    moe_err = [_rel(r["moe"], oracle["moe"]) for r in ranks]
+    tag = f"{MOE_ARCH} f32, {CP_MOE_LAYERS} layers, seq_causal 2 x 2"
+    print(f"[25] (b) {tag}: tokens routed otherwise than the grouped "
+          f"forward, by layer (of {PIPE_BATCH * PIPE_SEQ}) {flips}; h err "
+          f"{max(e for e, _ in moe_err):.4g} (bound 2e-3 x "
+          f"{moe_err[0][1]:.4g})")
+    _print_flips(tag, by_layer, "[25] (b)")
+    if bad or any(e > 2e-3 * s for e, s in moe_err):
+        raise AssertionError(f"[25] (b) qwen2-moe parts from the grouped "
+                             f"forward by more than f32 rounding: {bad}, "
+                             f"{moe_err}")
+    out["b"]["moe"] = dict(flips_by_layer=flips, by_layer=by_layer,
+                           err=max(e for e, _ in moe_err),
+                           scale=moe_err[0][1])
+    # (c)
+    out["c"] = dict(errs=_striped_checks(dev), times=_striped_times(dev))
+    return out
+
+
+def pipeline_cells(row, pipe25):
+    """The flash row of the ``kernels`` line gains phase 25's launches and
+    the striped kernel's figures."""
+    row.setdefault("launches_by_path", {})
+    row["launches_by_path"]["pipelined_prefill_rank"] = \
+        pipe25["a"]["launches"][0]
+    row["launches_by_path"]["seq_causal_rank"] = pipe25["b"][
+        "causal_bound=True,seq_residual=True"]["launches"][0]
+    t = pipe25["c"]["times"]
+    row["striped"] = dict(
+        t, max_abs_err_f32_checks=pipe25["c"]["errs"]["f32"],
+        max_abs_err_bf16_checks=pipe25["c"]["errs"]["bf16"],
+        launches=pipe25["b"]["causal_bound=True,seq_residual=True"][
+            "launches"][0])
+    row["pipeline"] = {k: v for k, v in pipe25.items() if k != "c"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and "
@@ -5516,6 +6076,8 @@ def main() -> int:
     dist24 = _timed(phase_distributed, dev)
     kernels.append(compress_kernel_row(dist24))
     adamw_f32_cells(next(r for r in kernels if r["name"] == "adamw"), dist24)
+    pipeline_cells(next(r for r in kernels if r["name"] == "flash_attention"),
+                   _timed(phase_pipeline, dev))
     conv_errs = _timed(phase_conv_kernel, dev)
     qs = _timed(phase_quickstart)
     faults = _timed(phase_fault_serve, dev)
@@ -5544,4 +6106,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pipeline-rank"]:
+        _pipeline_rank(sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

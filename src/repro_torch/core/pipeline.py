@@ -16,21 +16,40 @@ automata give a static pipeline schedule:
      sweep over the automata yields each (stage, item) earliest start tick —
      for pointwise edges this recovers the classic 1-deep pipeline skew, for
      ``full`` edges it degenerates to layer-at-a-time, exactly as the
-     formalism predicts.
+     formalism predicts;
+  4. the schedule executes across the ranks of a ``"stage"`` process group
+     (:func:`pipeline_apply`), one stage a rank, each holding only its own
+     stage's parameters; at each tick a rank reads ``schedule.table[sid,
+     tick]``, computes its item (stage 0 reads ``xs[item]``, the others the
+     activation that arrived) and the activation hops to ``sid + 1`` by
+     ``dist.batch_isend_irecv`` (``distributed.comm.hop``).
 
-Port of the schedule half of ``repro.core.pipeline``: the same code over the
+Port of ``repro.core.pipeline``: the schedule half is the same code over the
 port's ``poly``/``fisl``, with every import inside ``repro_torch``;
-``tests/test_torch_pipeline.py`` holds the two equal.  The execution half —
-running a :class:`Schedule` across devices, one stage a device, activations
-hopping stage to stage each tick — and its sequential oracle are not ported:
-they wait for the distributed layer (ROADMAP Queue 1 item 10), and
-:func:`pipeline_apply` raises until then.
+``tests/test_torch_pipeline.py`` holds the two equal.  The execution half
+differs from the reference's ``shard_map`` body where that body is wasteful
+or wrong:
+
+- an idle tick computes nothing (the reference computes and discards);
+- the ring's wrap, last stage back to 0, is dropped;
+- the last stage collects the outputs and broadcasts them to every rank
+  (the reference's ``psum`` adds the zeros of the other stages: the same
+  result);
+- each stage carries one activation, as the reference does, so the
+  schedule must start every item on a stage exactly one tick after the
+  stage before it (``start[s, t] == start[s - 1, t] + 1``).  The reference
+  assumes this without checking and returns a wrong answer for ``full``
+  edges; :func:`pipeline_apply` raises ``ValueError`` for such a schedule.
+
+:func:`sequential_apply` runs every item through every stage in a plain
+loop, with the same arithmetic per item, so on one device type the
+pipeline's result equals it bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -181,9 +200,93 @@ def reference_schedule_bruteforce(edge_kinds: Sequence[str],
 
 
 # ----------------------------------------------------------------- execution
-def pipeline_apply(*args, **kwargs):
-    """Not ported: executing a schedule across devices needs the
-    distributed layer (per-tick ``torch.distributed`` send/recv)."""
-    raise NotImplementedError(
-        "pipeline_apply: executing a pipeline schedule across devices is not "
-        "ported yet (ROADMAP Queue 1 item 10, the distributed layer)")
+def check_one_item_buffer(schedule: Schedule) -> None:
+    """Raise ``ValueError`` unless every item starts on each stage exactly one
+    tick after it started on the stage before: the precondition of a stage
+    that holds one incoming activation."""
+    start = schedule.start
+    for s in range(1, start.shape[0]):
+        for t in range(start.shape[1]):
+            if start[s, t] != start[s - 1, t] + 1:
+                raise ValueError(
+                    f"pipeline_apply: stage {s} starts item {t} at tick "
+                    f"{int(start[s, t])}, not one tick after stage {s - 1} "
+                    f"(tick {int(start[s - 1, t])}); a stage holds one "
+                    f"activation, so this schedule cannot run")
+
+
+def _identity(y):
+    return y
+
+
+def pipeline_apply(stage_fn: Callable, stage_params, xs, schedule: Schedule,
+                   group=None, *, collect: Optional[Callable] = None):
+    """Run ``schedule`` across the ranks of ``group``, one stage a rank.
+
+    Call it on every rank of ``group`` (a process group, a 1-D
+    ``DeviceMesh`` or ``None`` for the default group); the rank's index in
+    the group is its stage ``sid``.  ``stage_params`` is this rank's own
+    stage's parameters; ``stage_fn(stage_params, x) -> y`` maps an item to
+    an item of the same shape and dtype (the activation that hops).
+    ``xs`` (n_items, *item_shape): stage 0 reads ``xs[item]``; on the other
+    ranks only its shape, dtype and device are used (``torch.empty`` will
+    do).  ``collect`` (default: identity) maps each finished item on the
+    last stage to what is kept of it (the prefill keeps the last token).
+    Returns the kept outputs stacked, (n_items, *kept_shape), on every
+    rank: the last stage broadcasts them.
+    """
+    import torch
+
+    from ..distributed import comm
+
+    group = comm.group_of(group)
+    n_stages, n_ticks = schedule.table.shape
+    if comm.size(group) != n_stages:
+        raise ValueError(f"pipeline_apply: {n_stages} stages over a group of "
+                         f"{comm.size(group)} ranks")
+    n_items = xs.shape[0]
+    if schedule.start.shape[1] != n_items:
+        raise ValueError(f"pipeline_apply: the schedule has "
+                         f"{schedule.start.shape[1]} items, xs {n_items}")
+    check_one_item_buffer(schedule)
+    collect = collect or _identity
+    sid = comm.rank(group)
+    last = n_stages - 1
+    item_like = xs[0]
+    kept_shape = collect(torch.empty(item_like.shape, dtype=xs.dtype,
+                                     device="meta")).shape
+    outs = torch.empty((n_items,) + tuple(kept_shape), dtype=xs.dtype,
+                       device=xs.device)
+    table = schedule.table
+    buf = None
+    for tick in range(n_ticks):
+        item = int(table[sid, tick])
+        y = None
+        if item >= 0:
+            x = xs[item] if sid == 0 else buf
+            y = stage_fn(stage_params, x)
+            if sid == last:
+                outs[item] = collect(y)
+        # the hop: this stage's item to sid + 1; sid - 1's item into buf
+        send = y if sid < last and item >= 0 else None
+        take = sid > 0 and int(table[sid - 1, tick]) >= 0
+        got = comm.hop(send, sid + 1, item_like if take else None, sid - 1,
+                       group)
+        buf = got if take else buf
+    return comm.broadcast(outs, last, group)
+
+
+def sequential_apply(stage_fn: Callable, stage_params: Sequence, xs, *,
+                     collect: Optional[Callable] = None):
+    """Oracle of :func:`pipeline_apply` in one process: every item through
+    every stage (``stage_params[s]``) in a plain loop, then ``collect``."""
+    import torch
+
+    collect = collect or _identity
+    outs = []
+    for item in range(xs.shape[0]):
+        x = xs[item]
+        for params in stage_params:
+            x = stage_fn(params, x)
+        outs.append(collect(x))
+    return torch.stack(outs)

@@ -1,10 +1,14 @@
 """The distributed layer of the port: gradient compression (its int8 round
 trip a hand-written pass on the card), ring and hierarchical reductions on
-``torch.distributed``, the accumulated train step, and elastic mesh plans.
-Port of ``repro.distributed``.
+``torch.distributed``, the accumulated train step, elastic mesh plans, and
+``comm``: the hops and collectives of the pipeline and of context
+parallelism, routed by the process group's backend.  Port of
+``repro.distributed``.
 
-The reference's ``compat.py`` has no counterpart: it is a shim over JAX
-releases' two ``shard_map`` APIs, and the port's collectives are
+The reference's ``compat.py`` has no counterpart: it translates
+``shard_map``'s API across JAX releases and records a body's manual axes
+for the model's sharding constraints.  The port has neither ``shard_map``
+nor such constraints: each rank's part is written out by hand with
 ``torch.distributed`` calls on a ``DeviceMesh``'s groups, so neither
 ``shard_map`` nor ``HAS_NATIVE_SHARD_MAP`` is exported.
 """

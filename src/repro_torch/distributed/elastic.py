@@ -23,6 +23,7 @@ with the plan's axis names, over the default process group's first
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -111,22 +112,30 @@ def plan_mesh(n_devices: int, cfg: ArchConfig, *,
     return best
 
 
-def make_mesh_from_plan(plan: ElasticPlan, device_type: str = "cuda"):
-    """A ``DeviceMesh`` of ``plan.mesh_shape`` named ``plan.axis_names``:
-    ``init_device_mesh`` where the default group's world is ``n_used``, else
-    a mesh over its first ``n_used`` ranks (the idle ones hold no part of
-    it).  The default process group must be initialised."""
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
+              device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``axis_names``:
+    ``init_device_mesh`` where the default group's world is the mesh's size,
+    else a mesh over its first ranks (the others hold no part of it).  The
+    default process group must be initialised."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+    shape, axis_names = tuple(shape), tuple(axis_names)
+    n = math.prod(shape)
     world = dist.get_world_size()
-    if world == plan.n_used:
-        return init_device_mesh(device_type, plan.mesh_shape,
-                                mesh_dim_names=plan.axis_names)
-    if world < plan.n_used:
-        raise ValueError(f"the plan uses {plan.n_used} ranks, the world has "
+    if world == n:
+        return init_device_mesh(device_type, shape, mesh_dim_names=axis_names)
+    if world < n:
+        raise ValueError(f"a {shape} mesh uses {n} ranks, the world has "
                          f"{world}")
-    ranks = torch.arange(plan.n_used).reshape(plan.mesh_shape)
-    return DeviceMesh(device_type, ranks, mesh_dim_names=plan.axis_names)
+    ranks = torch.arange(n).reshape(shape)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=axis_names)
+
+
+def make_mesh_from_plan(plan: ElasticPlan, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``plan.mesh_shape`` named ``plan.axis_names``
+    (:func:`make_mesh`; the plan's idle ranks hold no part of it)."""
+    return make_mesh(plan.mesh_shape, plan.axis_names, device_type)
 
 
 def rescale_tree(host_tree: Dict[str, Any], spec_tree: Dict[str, Any],

@@ -66,6 +66,15 @@
 // transposed views; edges in Sq and Sk are masked, so any length works, and
 // rows beyond Sq are computed and not stored.
 //
+// Strided queries (q_stride > 1; context parallelism's striped rows): query
+// row i sits at absolute position i * q_stride + q_offset, q_offset = Sk - 1
+// - (Sq - 1) * q_stride, so the last row sits at Sk - 1 (bottom-right, as
+// with stride 1, where q_offset = Sk - Sq); the caller passes the keys up to
+// the last row's position.  The stride enters only the block's key bound
+// (kv_end) and the causal masks; at q_stride = 1 both are what they were,
+// bit for bit.  The wrapper refuses a stride above 1 with rows before the
+// first key (q_offset < 0).
+//
 // Causal with Sq > Sk: a query row at absolute position < 0 comes before
 // every key.  The Pallas kernel masks with the finite -1e30, so such a row
 // has a uniform softmax and gets the mean of V over all Sk keys.  Both
@@ -135,7 +144,8 @@ __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        float* __restrict__ lse, int Sq, int Sk, int G,
-                       int causal, float sm_scale, AttnStrides st) {
+                       int causal, int q_stride, float sm_scale,
+                       AttnStrides st) {
   constexpr int DP = D + 4;            // padded row of Q and K tiles
   constexpr int PP = BK + 4;           // padded row of the P tile
   constexpr int NC = D / 4;            // float4 chunks per row
@@ -151,7 +161,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / G;
-  const int q_offset = Sk - Sq;
+  const int q_offset = Sk - 1 - (Sq - 1) * q_stride;
   const T* qb = q + b * st.q.b + h * st.q.h;
   const T* kb = k + b * st.k.b + hk * st.k.h;
   const T* vb = v + b * st.v.b + hk * st.v.h;
@@ -175,7 +185,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // keys past the block's last query position are masked for every row
   const int q_last = min(q0 + BQ, Sq) - 1;
-  const int kv_end = causal ? min(Sk, q_last + q_offset + 1) : Sk;
+  const int kv_end = causal ? min(Sk, q_last * q_stride + q_offset + 1) : Sk;
 
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the previous tile's K, V and P are consumed
@@ -213,7 +223,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + tr + 16 * i + q_offset;
+      const int qpos = (q0 + tr + 16 * i) * q_stride + q_offset;
       bool ok[4];
       float mx = NEG;
 #pragma unroll
@@ -367,7 +377,8 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
                              const bf16* __restrict__ k,
                              const bf16* __restrict__ v, bf16* __restrict__ o,
                              float* __restrict__ lse, int Sq, int Sk, int G,
-                             int causal, float scale_log2, AttnStrides st) {
+                             int causal, int q_stride, float scale_log2,
+                             AttnStrides st) {
   using Tile = WgTile<D>;
   constexpr int BKT = Tile::BK, DP = Tile::DP;
   constexpr int CH = DP / 8;   // 16-byte chunks of a staged row
@@ -384,7 +395,7 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * WG_BQ;  // longest first
   const int hk = h / G;
-  const int q_offset = Sk - Sq;
+  const int q_offset = Sk - 1 - (Sq - 1) * q_stride;
   const bf16* qg = q + b * st.q.b + h * st.q.h;
   const bf16* kg = k + b * st.k.b + hk * st.k.h;
   const bf16* vg = v + b * st.v.b + hk * st.v.h;
@@ -399,7 +410,7 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
 
   // keys past the block's last query position are masked for every row
   const int q_last = min(q0 + WG_BQ, Sq) - 1;
-  const int kv_end = causal ? min(Sk, q_last + q_offset + 1) : Sk;
+  const int kv_end = causal ? min(Sk, q_last * q_stride + q_offset + 1) : Sk;
   const int n_tiles = (kv_end + BKT - 1) / BKT;
 
   auto load_kv = [&](int tile) {
@@ -419,7 +430,9 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
   load_kv(0);
   cp_async_commit();
 
-  const int qpos = q0 + warp * 16 + g + q_offset;  // row g's; g + 8: +8
+  // row g's position; row g + 8's is 8 * q_stride further
+  const int qpos = (q0 + warp * 16 + g) * q_stride + q_offset;
+  const int qpos8 = 8 * q_stride;
   const uint32_t q_addr = smem_addr(Qs);
   float acc[DP / 2];
 #pragma unroll
@@ -455,7 +468,7 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
     fence_regs(s);
 
     const bool masked = k0 + BKT > Sk ||
-                        (causal && k0 + BKT - 1 > q0 + q_offset);
+                        (causal && k0 + BKT - 1 > q0 * q_stride + q_offset);
     float mx[2] = {NEG, NEG};
 #pragma unroll
     for (int n = 0; n < NS; ++n)
@@ -464,7 +477,7 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
         float x = s[4 * n + e] * scale_log2;
         if (masked) {
           const int key = k0 + n * 8 + 2 * t + (e & 1);
-          if (key >= Sk || (causal && key > qpos + (e >> 1) * 8))
+          if (key >= Sk || (causal && key > qpos + (e >> 1) * qpos8))
             x = -INFINITY;
         }
         s[4 * n + e] = x;
@@ -549,7 +562,8 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
-               float sm_scale, const AttnStrides& st, cudaStream_t stream) {
+               int q_stride, float sm_scale, const AttnStrides& st,
+               cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<float, D>,
@@ -559,14 +573,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_attention_kernel<float, D><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk,
-      Hq / Hkv, causal, sm_scale, st);
+      Hq / Hkv, causal, q_stride, sm_scale, st);
   return prefix_mean<float>(v, o, B, Hq, Hkv, Sq, Sk, causal, D, st, stream);
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
-                float sm_scale, const AttnStrides& st, cudaStream_t stream) {
+                int q_stride, float sm_scale, const AttnStrides& st,
+                cudaStream_t stream) {
   constexpr size_t smem = WgTile<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_wgmma_kernel<D>,
@@ -576,24 +591,25 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   flash_attention_wgmma_kernel<D><<<grid, WG_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Sk,
-      Hq / Hkv, causal, sm_scale * LOG2E, st);
+      Hq / Hkv, causal, q_stride, sm_scale * LOG2E, st);
   return prefix_mean<bf16>(v, o, B, Hq, Hkv, Sq, Sk, causal, D, st, stream);
 }
 
 template <int D>
 int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
            float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
-           float sm_scale, const AttnStrides& st, cudaStream_t stream) {
+           int q_stride, float sm_scale, const AttnStrides& st,
+           cudaStream_t stream) {
   return bf16 ? launch_bf16<D>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
-                               sm_scale, st, stream)
+                               q_stride, sm_scale, st, stream)
               : launch_f32<D>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal,
-                              sm_scale, st, stream);
+                              q_stride, sm_scale, st, stream);
 }
 
 int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o,
              void* lse_ptr, int B, int Hq, int Hkv, int Sq, int Sk, int D,
-             int causal, float sm_scale, const long long* strides,
-             void* stream) {
+             int causal, int q_stride, float sm_scale,
+             const long long* strides, void* stream) {
   float* lse = static_cast<float*>(lse_ptr);
   const AttnStrides st{{strides[0], strides[1], strides[2]},
                        {strides[3], strides[4], strides[5]},
@@ -601,10 +617,10 @@ int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o,
                        {strides[9], strides[10], strides[11]}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(bf16, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
-    case 64: return launch<64>(bf16, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
-    case 128: return launch<128>(bf16, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
-    case 256: return launch<256>(bf16, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, sm_scale, st, s);
+    case 32: return launch<32>(bf16, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, q_stride, sm_scale, st, s);
+    case 64: return launch<64>(bf16, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, q_stride, sm_scale, st, s);
+    case 128: return launch<128>(bf16, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, q_stride, sm_scale, st, s);
+    case 256: return launch<256>(bf16, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, q_stride, sm_scale, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -614,23 +630,24 @@ int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // strides: 12 element strides (b, h, s) of q, k, v and o, in that order;
-// lse: null, or (B, Hq, Sq) f32 contiguous
+// lse: null, or (B, Hq, Sq) f32 contiguous; q_stride >= 1 (query row i at
+// position i * q_stride + Sk - 1 - (Sq - 1) * q_stride)
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         void* lse, int B, int Hq, int Hkv, int Sq, int Sk,
-                        int D, int causal, float sm_scale,
+                        int D, int causal, int q_stride, float sm_scale,
                         const long long* strides, void* stream) {
   return dispatch(false, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, causal,
-                  sm_scale, strides, stream);
+                  q_stride, sm_scale, strides, stream);
 }
 
 // q, k, v, o bf16; the data pointers and the b, h, s strides are multiples
 // of 8 elements (cp.async moves 16 bytes); lse as above
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int Hq, int Hkv, int Sq, int Sk,
-                         int D, int causal, float sm_scale,
+                         int D, int causal, int q_stride, float sm_scale,
                          const long long* strides, void* stream) {
   return dispatch(true, q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, causal,
-                  sm_scale, strides, stream);
+                  q_stride, sm_scale, strides, stream);
 }
 
 }  // extern "C"

@@ -22,6 +22,13 @@ data pointer or b, h, s strides are not multiples of the kernel's load
 width (4 elements in f32, 8 in bf16: 16 bytes either way) is copied first;
 the model's views are never copied.
 
+**Strided queries.**  ``q_stride`` > 1 places query row i at position
+``i * q_stride + Sk - 1 - (Sq - 1) * q_stride`` (the last row at Sk - 1):
+context parallelism's striped rows (``models.layers.SeqParallel``), one
+rank's rows g, g + mm, ... over the keys up to its last row.  Both kernels
+take it in their key bound and causal masks only; at 1 they compute what
+they computed before, bit for bit.  Forward only.
+
 **Training.**  Where autograd records the call (grad mode on and an input
 requires grad), :func:`flash_attention` goes through :class:`FlashAttention`:
 its forward is the same kernel, which then also stores each row's f32
@@ -77,9 +84,23 @@ def bwd_kernels(dtype: torch.dtype, d: int):
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True) -> torch.Tensor:
+                          causal: bool = True,
+                          q_stride: int = 1) -> torch.Tensor:
     """The plain version of :func:`flash_attention`."""
-    return attention_ref(q, k, v, causal=causal)
+    return attention_ref(q, k, v, causal=causal, q_stride=q_stride)
+
+
+def _check_stride(sq, sk, causal, q_stride):
+    """A query stride is a positive int; above 1 with causal, every row
+    needs a key at or before its position (the last row at Sk - 1, the
+    first at Sk - 1 - (Sq - 1) q_stride >= 0)."""
+    if not isinstance(q_stride, int) or q_stride < 1:
+        raise ValueError(f"flash_attention: q_stride must be an int >= 1, "
+                         f"got {q_stride!r}")
+    if causal and q_stride > 1 and sk < (sq - 1) * q_stride + 1:
+        raise ValueError(f"flash_attention: Sq={sq} rows at stride "
+                         f"{q_stride} need Sk >= {(sq - 1) * q_stride + 1}, "
+                         f"got {sk}")
 
 
 def _check(q, k, v, causal, train=False):
@@ -112,20 +133,28 @@ def _check(q, k, v, causal, train=False):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, q_stride: int = 1) -> torch.Tensor:
     """q (B, Hq, Sq, D); k/v (B, Hkv, Sk, D), f32 or bf16 -> (B, Hq, Sq, D)
     in q's dtype.  Query head h reads KV head ``h // (Hq // Hkv)``; with
     ``causal`` query i sees keys at positions ``<= i + Sk - Sq``.  Where
     Sq > Sk, a query row before the first key (``i + Sk - Sq < 0``) sees
     none and gets the mean of V over all Sk keys, as the Pallas kernel
     (which masks with the finite -1e30) and the plain version give.
-    Differentiable where autograd records it (:class:`FlashAttention`)."""
+    Differentiable where autograd records it (:class:`FlashAttention`).
+
+    ``q_stride`` > 1 (context parallelism's striped rows, forward only):
+    query i sits at position ``i * q_stride + Sk - 1 - (Sq - 1) *
+    q_stride``, the last row at Sk - 1, so the caller passes the keys up to
+    its last row's position; no row may come before the first key."""
     _check(q, k, v, causal)
+    _check_stride(q.shape[2], k.shape[2], causal, q_stride)
     if _tensors.grad_needed(q, k, v):
+        if q_stride != 1:
+            raise ValueError("flash_attention: no backward for q_stride > 1")
         return FlashAttention.apply(q, k, v, causal)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
-    return _forward(q, k, v, causal, with_lse=False)[0]
+        return flash_attention_plain(q, k, v, causal, q_stride)
+    return _forward(q, k, v, causal, with_lse=False, q_stride=q_stride)[0]
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -148,7 +177,7 @@ def _check_trainable(q, k, causal):
                          f"before the first key)")
 
 
-def _forward(q, k, v, causal, with_lse):
+def _forward(q, k, v, causal, with_lse, q_stride=1):
     """The forward kernel on checked CUDA operands: (out, lse or None)."""
     b, hq, sq, d = q.shape
     sk = k.shape[2]
@@ -170,7 +199,7 @@ def _forward(q, k, v, causal, with_lse):
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  0 if lse is None else lse.data_ptr(), b, hq, k.shape[1], sq,
-                 sk, d, int(causal), 1.0 / (d ** 0.5), st,
+                 sk, d, int(causal), q_stride, 1.0 / (d ** 0.5), st,
                  _tensors.stream(q.device))
     _build.check(lib, "flash_attention", err)
     LAUNCHES["flash_attention"] += 1

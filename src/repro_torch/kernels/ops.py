@@ -44,10 +44,11 @@ def conv2d(x, wq, scale, stride=1, pad=0, fh=3, fw=3,
     return ref.crossbar_conv2d_ref(x, wq, scale, stride, pad, fh, fw)
 
 
-def attention(q, k, v, causal: bool = True, use_kernel: bool = True):
+def attention(q, k, v, causal: bool = True, use_kernel: bool = True,
+              q_stride: int = 1):
     if use_kernel:
-        return flash_attention(q, k, v, causal=causal)
-    return ref.attention_ref(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal, q_stride=q_stride)
+    return ref.attention_ref(q, k, v, causal=causal, q_stride=q_stride)
 
 
 def decode_attention(q, k, v, length, use_kernel: bool = True):

@@ -75,10 +75,22 @@ def crossbar_conv2d_ref(x: torch.Tensor, wq: torch.Tensor,
 NEG_INF = -1e30
 
 
+def causal_mask(sq: int, sk: int, q_stride: int = 1, device=None):
+    """(Sq, Sk) bool: query row i, at absolute position ``i * q_stride +
+    Sk - 1 - (Sq - 1) * q_stride`` (the last row at Sk - 1), sees the keys
+    at positions up to its own.  At ``q_stride`` 1 row i sits at
+    ``i + Sk - Sq``: the lower triangle of diagonal Sk - Sq."""
+    qpos = torch.arange(sq, device=device) * q_stride + \
+        (sk - 1 - (sq - 1) * q_stride)
+    return qpos[:, None] >= torch.arange(sk, device=device)[None]
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True, q_stride: int = 1) -> torch.Tensor:
     """q (B,Hq,Sq,D); k/v (B,Hkv,Sk,D) — full-softmax GQA oracle.  Query i
-    sits at absolute position ``i + Sk - Sq``; output in q's dtype."""
+    sits at absolute position ``i * q_stride + Sk - 1 - (Sq - 1) *
+    q_stride`` (``i + Sk - Sq`` at stride 1, :func:`causal_mask`); output
+    in q's dtype."""
     d = q.shape[-1]
     sq, sk = q.shape[2], k.shape[2]
     g = q.shape[1] // k.shape[1]
@@ -87,9 +99,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) / (d ** 0.5)
     if causal:
-        mask = torch.ones((sq, sk), dtype=torch.bool,
-                          device=q.device).tril(diagonal=sk - sq)
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(causal_mask(sq, sk, q_stride, q.device), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p,
                         v.to(torch.float32)).to(q.dtype)

@@ -1,0 +1,70 @@
+"""The flash kernel at ``q_stride`` 1 against another checkout's, bit for bit.
+
+    PYTHONPATH=src python3 -m repro_torch.launch.flash_stride_check \\
+        --other <other checkout>/src
+
+Both checkouts' ``flash_attention`` wrappers run in one process on the card
+(the other's imported beside this one, ``launch._checkout``) on the same
+inputs: llama3.2-3b's heads (Hq 24, Hkv 8, D 128) at S 1, 17, 128, 512
+and 2048, B 1 and 8, causal and not, Sq < Sk and causal Sq > Sk, and D 32,
+64 and 256 at S 128, in bf16 and f32.  Prints one JSON line: every shape
+and whether the two outputs are equal bit for bit.  Exits 1 where one is
+not.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+from ..kernels import flash_attn
+from ._checkout import load_other
+
+# (b, hq, hkv, sq, sk, d, causal)
+SHAPES = ([(b, 24, 8, s, s, 128, c) for b in (1, 8)
+           for s in (1, 17, 128, 512, 2048) for c in (True, False)]
+          + [(2, 24, 8, 100, 300, 128, True), (2, 24, 8, 100, 33, 128, True),
+             (2, 24, 8, 100, 300, 128, False)]
+          + [(2, 8, 2, 128, 128, d, True) for d in (32, 64, 256)])
+
+
+def compare(other, dev) -> list:
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        for b, hq, hkv, sq, sk, d, causal in SHAPES:
+            q = torch.randn(b, sq, hq, d, generator=gen, device=dev).to(dt)
+            k, v = (torch.randn(b, sk, hkv, d, generator=gen,
+                                device=dev).to(dt) for _ in range(2))
+            args = tuple(t.transpose(1, 2) for t in (q, k, v))
+            mine = flash_attn.flash_attention(*args, causal=causal)
+            theirs = other.flash_attention(*args, causal=causal)
+            rows.append({"shape": [b, hq, hkv, sq, sk, d, causal,
+                                   str(dt).split(".")[-1]],
+                         "equal": bool(torch.equal(mine, theirs))})
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--other", required=True,
+                    help="the other checkout's src directory")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("flash_stride_check: needs the card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    (other,) = load_other(args.other, "kernels.flash_attn")
+    rows = compare(other, dev)
+    n_equal = sum(r["equal"] for r in rows)
+    print(json.dumps({"device": torch.cuda.get_device_name(dev),
+                      "compared": len(rows), "bit_equal": n_equal,
+                      "rows": rows}))
+    return 0 if n_equal == len(rows) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,12 +11,30 @@ to the compute dtype where the reference does: norms and RoPE compute in f32
 and cast back, attention keeps f32 scores, softmax and accumulator and casts
 its output to the input's dtype.
 
-Not ported, because on one card the reference's model-axis size is 1 and
-they never act: the sharding constraints (``_constrain``, ``_rope_hd_pin``,
-``_attn_constraints``, ``constrain_residual``) and
-``_seq_parallel_attention``, ``_constrain_moe_groups`` (it pins the MoE
-dispatch groups' sharding only); ``_chunked_attention`` only bounds memory,
-and the kernel computes the whole causal attention in one call.
+**Context parallelism** (``cfg.attn_shard == "seq"``) over the "model"
+dimension of an ambient mesh (:func:`ambient_mesh`, as the reference's
+``with mesh:``; without one, or with a "model" size of 1, every path is the
+one-card path).  Where the reference states a layout with sharding
+constraints and GSPMD moves the data, each rank's part is written out here
+(:class:`SeqParallel`), with the collectives of ``distributed.comm``:
+
+- ``seq_residual``: the residual is blocked over the mm model ranks (rank g
+  holds rows ``[g S/mm, (g+1) S/mm)``); norms, projections, MLP and MoE are
+  local; K and V are all-gathered, queries stay local; a Mamba mixer
+  gathers the sequence, scans it whole and keeps its own rows;
+- without it the residual is replicated: a rank computes its queries'
+  attention and the outputs are all-gathered;
+- ``causal_bound``: the striped assignment (rank g computes query rows g,
+  g + mm, ..., moved there and back by an all-to-all under the blocked
+  residual) through the flash kernel's ``q_stride``; else blocked rows.
+
+The flash kernel's bottom-right causal alignment gives the reference's
+``qpos >= kpos`` with the keys cut at the rank's last row.  Forward only:
+no collective here has a backward.  The reference's ``_constrain``,
+``_rope_hd_pin``, ``_attn_constraints``, ``constrain_residual`` and
+``_constrain_moe_groups`` pin layouts only and have no counterpart;
+``_chunked_attention`` only bounds memory, and the kernel computes the
+whole causal attention in one call.
 
 **The decode cache is updated in place.**  ``attention_decode`` writes the
 new K/V (or int8 codes and scales) at position ``length`` of the cache
@@ -27,8 +45,11 @@ cache and returns new arrays.  The two agree bit for bit: the blend computes
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
 import math
-from typing import Mapping, Optional
+from typing import Any, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -145,6 +166,147 @@ def positional_rotate(cfg: ArchConfig, x, pos):
     return apply_rope(x, pos, cfg.rope_theta)
 
 
+# ------------------------------------------------------ context parallelism
+_MESH = None                  # the ambient mesh (ambient_mesh)
+
+
+@contextlib.contextmanager
+def ambient_mesh(mesh):
+    """Within, the model reads ``mesh`` (a ``DeviceMesh`` with named
+    dimensions) as the reference reads the mesh of ``with mesh:``: its
+    "model" dimension carries context parallelism."""
+    global _MESH
+    prev, _MESH = _MESH, mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = prev
+
+
+def _ambient_mesh():
+    """The ambient mesh, or None."""
+    return _MESH
+
+
+def _mesh_axis(name: str) -> int:
+    """The ambient mesh's size along ``name``; 1 without a mesh or such a
+    dimension."""
+    mesh = _ambient_mesh()
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if name not in names:
+        return 1
+    return int(mesh.shape[names.index(name)])
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqParallel:
+    """Context parallelism of a sequence of ``s`` over ``mm`` model ranks;
+    this is rank ``rank`` of ``group``.  ``residual``: the residual is
+    blocked (``cfg.seq_residual``); ``striped``: attention takes the
+    striped rows (``cfg.causal_bound``)."""
+
+    mm: int
+    rank: int
+    group: Any
+    s: int
+    residual: bool
+    striped: bool
+
+    @property
+    def sl(self) -> int:
+        """Rows a rank holds."""
+        return self.s // self.mm
+
+    def block(self, x, dim: int = 1):
+        """This rank's block of rows ``[rank sl, (rank + 1) sl)``."""
+        return x.narrow(dim, self.rank * self.sl, self.sl)
+
+    def gather(self, x, dim: int = 1):
+        """Every rank's block along ``dim``, in rank order."""
+        from ..distributed import comm
+        return comm.all_gather(x, self.group, dim)
+
+    def rows(self, device=None) -> torch.Tensor:
+        """The global rows whose queries this rank computes: its block, or
+        its stripe ``rank, rank + mm, ...``."""
+        if self.striped:
+            return torch.arange(self.rank, self.s, self.mm, device=device)
+        return torch.arange(self.rank * self.sl, (self.rank + 1) * self.sl,
+                            device=device)
+
+    def n_keys(self) -> int:
+        """Keys the rank's last query row sees: up to its position."""
+        if self.striped:
+            return self.rank + (self.sl - 1) * self.mm + 1
+        return (self.rank + 1) * self.sl
+
+    def _stripe_plan(self, device) -> Tuple[torch.Tensor, List[int],
+                                            List[int]]:
+        """The all-to-all from blocked rows to stripes: this block's rows
+        ordered by the rank whose stripe each is (:func:`_stripe_order`),
+        the rows sent to each rank, the rows received from each."""
+        mm, sl = self.mm, self.sl
+        send = [_stripe_count(self.rank * sl, sl, mm, r) for r in range(mm)]
+        recv = [_stripe_count(r * sl, sl, mm, self.rank) for r in range(mm)]
+        return _stripe_order(mm, sl, self.rank, device), send, recv
+
+    def to_stripes(self, x):
+        """(B, sl, ...) blocked rows -> (B, sl, ...) this rank's stripe, in
+        ascending position, by one all-to-all."""
+        from ..distributed import comm
+        order, send, recv = self._stripe_plan(x.device)
+        rows = x.transpose(0, 1)[order]
+        got = comm.all_to_all(rows, send, recv, self.group)
+        return got.transpose(0, 1)
+
+    def from_stripes(self, x):
+        """The inverse of :meth:`to_stripes`."""
+        from ..distributed import comm
+        order, send, recv = self._stripe_plan(x.device)
+        got = comm.all_to_all(x.transpose(0, 1).contiguous(), recv, send,
+                              self.group)
+        out = torch.empty_like(got)
+        out[order] = got
+        return out.transpose(0, 1)
+
+
+def _stripe_count(start: int, sl: int, mm: int, r: int) -> int:
+    """Rows j in [0, sl) with (start + j) % mm == r."""
+    first = (r - start) % mm
+    return 0 if first >= sl else (sl - 1 - first) // mm + 1
+
+
+@functools.lru_cache(maxsize=64)
+def _stripe_order(mm: int, sl: int, rank: int, device) -> torch.Tensor:
+    """Rank ``rank``'s block rows grouped by destination stripe, in
+    ascending order within each: made once a shape and device (no sort, no
+    copy from the host at each call)."""
+    start = rank * sl
+    order = [j for r in range(mm) for j in range((r - start) % mm, sl, mm)]
+    return torch.tensor(order, dtype=torch.int64, device=device)
+
+
+def seq_parallel(cfg: ArchConfig, s: int) -> Optional[SeqParallel]:
+    """Context parallelism for a sequence of ``s`` under the ambient mesh, as
+    the reference decides it: ``attn_shard == "seq"``, a "model" size mm
+    above 1 that divides S, S > 1; else None (the one-card path)."""
+    mm = _mesh_axis("model")
+    if cfg.attn_shard != "seq" or mm <= 1 or s % mm or s <= 1:
+        return None
+    mesh = _ambient_mesh()
+    return SeqParallel(mm=mm, rank=mesh.get_local_rank("model"),
+                       group=mesh.get_group("model"), s=s,
+                       residual=cfg.seq_residual, striped=cfg.causal_bound)
+
+
+def refuse_backward(what: str) -> None:
+    """Context parallelism is forward only (the serving path)."""
+    raise NotImplementedError(
+        f"{what} under context parallelism (a 'model' mesh dimension above "
+        f"1 with attn_shard='seq'): forward only; the backward is ROADMAP "
+        f"Queue 1 item 10(c)")
+
+
 # ----------------------------------------------------------------- attention
 def init_attention(cfg: ArchConfig, gen: torch.Generator,
                    cross: bool = False) -> dict:
@@ -187,13 +349,19 @@ def _project_qkv(cfg: ArchConfig, p: Params, xq, xkv):
 
 
 def attention(cfg: ArchConfig, p: Params, x, pos, causal: bool = True,
-              kv_out: bool = False, use_kernel: bool = True):
+              kv_out: bool = False, use_kernel: bool = True,
+              cp: Optional[SeqParallel] = None):
     """Causal GQA self-attention over the whole sequence, one
     ``ops.attention`` call (the flash kernel on the card).
 
     The causal mask is that of query i over keys 0..i: ``pos`` is the
     prefill's ``arange(S)`` for every row, as in the reference's callers.
+    With ``cp`` (causal only) the rank computes its queries' rows
+    (:func:`_seq_parallel_attention`).
     """
+    if cp is not None and causal:
+        return _seq_parallel_attention(cfg, p, x, pos, kv_out, use_kernel,
+                                       cp)
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, x)
     q = positional_rotate(cfg, q, pos)
@@ -202,6 +370,49 @@ def attention(cfg: ArchConfig, p: Params, x, pos, causal: bool = True,
     o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                       causal=causal, use_kernel=use_kernel)
     y = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    if kv_out:
+        return y, (k, v)
+    return y
+
+
+def _seq_parallel_attention(cfg: ArchConfig, p: Params, x, pos, kv_out,
+                            use_kernel, cp: SeqParallel):
+    """Context-parallel attention, this rank's part.  With ``cp.residual``,
+    x (B, S/mm, d) is the rank's block and ``pos`` its positions: K and V
+    are all-gathered, the queries stay local (moved to the rank's stripe and
+    back when striped) and y is the block's.  Without it, x (B, S, d) is
+    replicated: the rank computes its rows' queries over the whole K and V
+    and the outputs are all-gathered into y (B, S, d).  Either way a row
+    sees the keys up to its position, from one flash call over the keys up
+    to the rank's last row (``q_stride`` mm for stripes).  The K/V returned
+    for the cache are the whole sequence's."""
+    b = x.shape[0]
+    hq, hd = cfg.n_heads, cfg.hd
+    if cp.residual:
+        q, k, v = _project_qkv(cfg, p, x, x)
+        q = positional_rotate(cfg, q, pos)
+        k = positional_rotate(cfg, k, pos)
+        k, v = cp.gather(torch.stack([k, v]), dim=2)   # (B, S, Hkv, D)
+        if cp.striped:
+            q = cp.to_stripes(q)
+    else:
+        rows = cp.rows(x.device)
+        q, k, v = _project_qkv(cfg, p, x.index_select(1, rows), x)
+        q = positional_rotate(cfg, q, pos.index_select(-1, rows))
+        k = positional_rotate(cfg, k, pos)
+    n = cp.n_keys()
+    o = ops.attention(q.transpose(1, 2), k[:, :n].transpose(1, 2),
+                      v[:, :n].transpose(1, 2), causal=True,
+                      use_kernel=use_kernel,
+                      q_stride=cp.mm if cp.striped else 1).transpose(1, 2)
+    if cp.residual and cp.striped:
+        o = cp.from_stripes(o)
+    y = o.reshape(b, cp.sl, hq * hd) @ p["wo"]
+    if not cp.residual:
+        y = cp.gather(y)                               # rank-major rows
+        if cp.striped:                                 # to positions
+            y = y.reshape(b, cp.mm, cp.sl, -1).transpose(1, 2).reshape(
+                b, cp.s, -1)
     if kv_out:
         return y, (k, v)
     return y
@@ -360,11 +571,15 @@ def moe_capacity(cfg: ArchConfig, t: int) -> int:
                                            * m.capacity_factor))))
 
 
-def moe(cfg: ArchConfig, p: Params, x, *, capacity: Optional[int] = None):
+def moe(cfg: ArchConfig, p: Params, x, *, capacity: Optional[int] = None,
+        aux_group=None):
     """Capacity-based top-k MoE with scatter dispatch / gather combine.
 
     ``x`` is (G, T, d): G dispatch groups (capacity is budgeted per group),
     T tokens per group.  Returns (y (G, T, d), the load-balancing aux loss).
+    With ``aux_group`` (the sequence-parallel MoE: every rank of the group
+    holds as many groups) the aux loss is that of every rank's groups
+    together: the router-probability and dispatch means all-reduced.
     Each (token, k) slot keeps its place in its expert's queue up to the
     capacity; the rest go to a sentinel row and add nothing.  The dispatch
     scatter (``index_add_``) adds one non-zero row to each buffer row it
@@ -432,6 +647,10 @@ def moe(cfg: ArchConfig, p: Params, x, *, capacity: Optional[int] = None):
     # load-balancing auxiliary loss (Switch-style)
     me = probs.mean(dim=(0, 1))                         # (E,)
     ce = onehot.to(torch.float32).mean(dim=(0, 1, 2)) * e
+    if aux_group is not None:        # the means over every rank's groups
+        from ..distributed import comm
+        me, ce = comm.all_reduce(torch.stack([me, ce]),
+                                 aux_group) / comm.size(aux_group)
     aux = torch.sum(me * ce)
     return y, aux
 
@@ -533,7 +752,7 @@ def _mamba_proj(cfg: ArchConfig, p: Params, xa, dtype):
 
 
 def mamba(cfg: ArchConfig, p: Params, x, return_state: bool = False,
-          use_kernel: bool = True):
+          use_kernel: bool = True, cp: Optional[SeqParallel] = None):
     """Mamba-1 block.  x (B, S, d) -> (B, S, d).
 
     ``use_kernel`` runs the scan through ``ops.mamba_scan`` (the scan kernel
@@ -545,7 +764,16 @@ def mamba(cfg: ArchConfig, p: Params, x, return_state: bool = False,
     inputs of the conv, zeros before the first token (where the reference
     slices fewer than K-1 rows for a prompt shorter than K-1, which its
     decode cannot take).
+
+    Under a blocked residual (``cp.residual``) x is the rank's block: the
+    block gathers the sequence, scans it whole and keeps its own rows (the
+    states returned are the whole sequence's).
     """
+    if cp is not None and cp.residual:
+        out = mamba(cfg, p, cp.gather(x), return_state, use_kernel)
+        if return_state:
+            return cp.block(out[0]), out[1]
+        return cp.block(out)
     s = _ssm(cfg)
     xz = x @ p["in_proj"]
     xin, z = torch.chunk(xz, 2, dim=-1)                 # (B, S, Din)

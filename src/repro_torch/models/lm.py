@@ -56,12 +56,29 @@ reference's ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
 the reference's.  The parameters are built frozen
 (``requires_grad=False``) for serving; a trainer turns them on.
 
-Not ported: the sequence-parallel MoE branch of ``_position_block``, which
-needs a model axis above 1 (ROADMAP Queue 1 item 10).
+Pipelines and context parallelism: :func:`run_stack` is the period stack
+without embedding, final norm or head, the unit a pipeline stage runs;
+:func:`stage_config` / :func:`init_stage` / :func:`split_stages` give stage
+``s`` of ``n`` the layers ``[s L/n, (s+1) L/n)`` (stage 0 also the
+embedding), as the reference's ``launch.pipeline_prefill.stage_config``.
+Under an ambient mesh whose "model" dimension is above 1
+(``layers.ambient_mesh``) with ``cfg.attn_shard == "seq"``,
+:func:`run_stack` and :func:`backbone` run the sequence in parallel over
+the model ranks (``layers.SeqParallel``): with ``cfg.seq_residual`` the
+residual is blocked at their entry and gathered at their exit (a pipeline
+stage takes and returns the rank's block: ``run_stack(blocked=True)``),
+and a MoE layer takes the reference's sequence-parallel branch (each
+rank's (B, S/mm) rows are its share of the (B mm, S/mm) dispatch groups,
+data-major and model-minor; capacity budgeted from S/mm; the aux loss
+over every group).
+A prefill under it fills the whole cache on every model rank.  Forward
+only: a loss, or a call autograd would record, raises (ROADMAP Queue 1
+item 10(c)).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -193,6 +210,13 @@ class F32Unembedding:
         return self._unembed
 
 
+def _vocab_table(cfg: ArchConfig, gen: torch.Generator) -> nn.Parameter:
+    """A (V, d) embedding or head drawn from ``gen``, as the reference's."""
+    t = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                    device=gen.device) * 0.02
+    return nn.Parameter(t.to(L._dtype(cfg.param_dtype)), requires_grad=False)
+
+
 class LM(F32Unembedding, nn.Module):
     """An LM's parameters on one device, initialised from ``seed`` by a
     ``torch.Generator`` on that device.  The same seed gives other numbers
@@ -204,21 +228,15 @@ class LM(F32Unembedding, nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         gen = torch.Generator(device=dev).manual_seed(seed)
-        dt = L._dtype(cfg.param_dtype)
         struct = period_structure(cfg)
         n_periods(cfg)                   # whole periods, or raise
         self.layers = nn.ModuleList(Block(cfg, gen, struct[i % len(struct)])
                                     for i in range(cfg.n_layers))
-        shape = (cfg.vocab_size, cfg.d_model)
-        self.embed = nn.Parameter(
-            (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dt),
-            requires_grad=False)
+        self.embed = _vocab_table(cfg, gen)
         self.final_norm = _frozen(L.init_norm(cfg, cfg.d_model, dev))
         self.lm_head: Optional[nn.Parameter] = None
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(
-                (torch.randn(shape, generator=gen, device=dev) * 0.02
-                 ).to(dt), requires_grad=False)
+            self.lm_head = _vocab_table(cfg, gen)
 
     @property
     def device(self) -> torch.device:
@@ -242,68 +260,140 @@ def init_lm(cfg: ArchConfig, device="cuda", seed: int = 0) -> LM:
     return LM(cfg, device, seed)
 
 
-def _layer(model: LM, per: int, pos_i: int, plen: int) -> Block:
+def _layer(model, per: int, pos_i: int, plen: int) -> Block:
     return model.layers[per * plen + pos_i]
 
 
+# ------------------------------------------------------------------- stages
+def stage_config(cfg: ArchConfig, n_stages: int) -> ArchConfig:
+    """The config of one of ``n_stages`` pipeline stages: ``n_layers / n``
+    layers, whole periods (the reference's
+    ``launch.pipeline_prefill.stage_config``)."""
+    if n_stages < 1 or cfg.n_layers % n_stages:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split "
+                         f"into {n_stages} stages")
+    scfg = dataclasses.replace(cfg, n_layers=cfg.n_layers // n_stages)
+    n_periods(scfg)                      # whole periods, or raise
+    return scfg
+
+
+class Stage(nn.Module):
+    """Pipeline stage ``sid`` of ``n_stages`` of a model of ``cfg``: its
+    layers ``[sid L/n, (sid+1) L/n)`` and, on stage 0, the embedding
+    (``embed`` is None elsewhere).  ``cfg`` is the whole model's; the
+    stage runs as :func:`run_stack` of :func:`stage_config`'s config."""
+
+    def __init__(self, cfg: ArchConfig, sid: int, n_stages: int, layers,
+                 embed: Optional[nn.Parameter]):
+        super().__init__()
+        stage_config(cfg, n_stages)              # whole periods, or raise
+        self.cfg, self.sid, self.n_stages = cfg, sid, n_stages
+        self.layers = nn.ModuleList(layers)
+        self.embed = embed
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+
+def stage_layers(cfg: ArchConfig, sid: int, n_stages: int) -> range:
+    """The layers stage ``sid`` of ``n_stages`` holds."""
+    per = stage_config(cfg, n_stages).n_layers
+    return range(sid * per, (sid + 1) * per)
+
+
+def split_stages(model: LM, n_stages: int) -> List[Stage]:
+    """``model``'s stages, holding its own parameters (no copy)."""
+    cfg = model.cfg
+    return [Stage(cfg, s, n_stages,
+                  [model.layers[i] for i in stage_layers(cfg, s, n_stages)],
+                  model.embed if s == 0 else None)
+            for s in range(n_stages)]
+
+
+def init_stage(cfg: ArchConfig, sid: int, n_stages: int, device="cuda",
+               seed: int = 0) -> Stage:
+    """Stage ``sid`` of ``n_stages`` of ``LM(cfg, device, seed)``, bit for bit,
+    holding only that stage's parameters: the model's generator is run
+    through every layer in :class:`LM`'s order (on ``device``, as the
+    model's), and only the stage's layers (and, on stage 0, the embedding,
+    drawn after them) are kept."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    struct = period_structure(cfg)
+    n_periods(cfg)
+    keep = stage_layers(cfg, sid, n_stages)
+    layers = []
+    for i in range(cfg.n_layers):
+        block = Block(cfg, gen, struct[i % len(struct)])
+        if i in keep:
+            layers.append(block)
+        del block
+    embed = _vocab_table(cfg, gen) if sid == 0 else None
+    return Stage(cfg, sid, n_stages, layers, embed)
+
+
 # -------------------------------------------------------------------- forward
-def _ffn(cfg: ArchConfig, p: Block, h):
+def _ffn(cfg: ArchConfig, p: Block, h, cp: Optional[L.SeqParallel] = None):
     """The position's FFN on h (B, S, d); MoE dispatches each row's S tokens
-    as one group.  Returns (y, aux loss or None for a dense MLP)."""
+    as one group.  Returns (y, aux loss or None for a dense MLP).  Under a
+    blocked residual (``cp.residual``) h is the rank's (B, S/mm, d): the
+    reference's sequence-parallel MoE, its aux loss over every rank's
+    groups."""
     if p.spec["ffn"] == "moe":
-        return L.moe(cfg, p.moe, h)
+        group = cp.group if cp is not None and cp.residual else None
+        return L.moe(cfg, p.moe, h, aux_group=group)
     return L.mlp(cfg, p.mlp, h), None
 
 
 def _position_block(cfg: ArchConfig, p: Block, x, pos, kv_out: bool = False,
-                    use_kernel: bool = True):
+                    use_kernel: bool = True,
+                    cp: Optional[L.SeqParallel] = None):
     """One layer: pre-norm mixer + pre-norm FFN.  Returns (x, aux, extras):
     aux is the MoE aux loss (None for a dense MLP); extras are the layer's
     (k, v) for attention or (conv_state, ssm_state) for Mamba when
-    ``kv_out``, else None.
-
-    The reference's sequence-parallel MoE branch needs a model axis above 1;
-    on one card it takes this plain branch."""
+    ``kv_out``, else None.  ``cp``: context parallelism (x and pos the
+    rank's block under a blocked residual)."""
     extras = None
     h = L.apply_norm(cfg, p.norm1, x)
     if p.spec["mixer"] == "attn":
-        if kv_out:
-            y, extras = L.attention(cfg, p.attn, h, pos, kv_out=True,
-                                    use_kernel=use_kernel)
-        else:
-            y = L.attention(cfg, p.attn, h, pos, use_kernel=use_kernel)
+        out = L.attention(cfg, p.attn, h, pos, kv_out=kv_out,
+                          use_kernel=use_kernel, cp=cp)
     else:
-        if kv_out:
-            y, extras = L.mamba(cfg, p.mamba, h, return_state=True,
-                                use_kernel=use_kernel)
-        else:
-            y = L.mamba(cfg, p.mamba, h, use_kernel=use_kernel)
+        out = L.mamba(cfg, p.mamba, h, return_state=kv_out,
+                      use_kernel=use_kernel, cp=cp)
+    y, extras = out if kv_out else (out, None)
     x = x + y
     h = L.apply_norm(cfg, p.norm2, x)
-    y, aux = _ffn(cfg, p, h)
+    y, aux = _ffn(cfg, p, h, cp)
     return x + y, aux, extras
 
 
-def backbone(cfg: ArchConfig, model: LM, x, pos, collect_cache: bool = False,
-             use_kernel: bool = True):
-    """x (B, S, d) -> (h (B, S, d), aux loss, caches | None).
-
-    ``collect_cache``: also return, per period position, the list over
-    periods of the layer's (k, v), each (B, S, Hkv, hd), or (conv_state,
-    ssm_state), for prefill.  Without it, where autograd records the call
-    and ``cfg.remat``, each period runs under ``torch.utils.checkpoint``
-    (training)."""
+def _periods(cfg: ArchConfig, layers, x, pos, collect_cache: bool,
+             use_kernel: bool, blocked: bool = False):
+    """The period loop over ``layers`` (a model or a stage): x (B, S, d) ->
+    (x, aux loss, caches | None).  Under context parallelism
+    (``layers.seq_parallel``) with a blocked residual, x and pos are cut to
+    the rank's block here and x gathered whole at the end; with
+    ``blocked`` they come as the block and x leaves as it."""
     struct = period_structure(cfg)
     caches: List[List] = [[] for _ in struct]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    cp = residual_block(cfg, x.shape[1], blocked)
+    if cp is not None:
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                t.requires_grad for t in layers.parameters())):
+            L.refuse_backward("a backward")
+        if cp.residual and not blocked:
+            x, pos = cp.block(x), cp.block(pos, dim=-1)
 
     def period_run(x, per):
         a_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for pos_i in range(len(struct)):
-            p = _layer(model, per, pos_i, len(struct))
+            p = _layer(layers, per, pos_i, len(struct))
             x, a, extra = _position_block(cfg, p, x, pos,
                                           kv_out=collect_cache,
-                                          use_kernel=use_kernel)
+                                          use_kernel=use_kernel, cp=cp)
             if a is not None:
                 a_total = a_total + a
             if collect_cache:
@@ -318,8 +408,49 @@ def backbone(cfg: ArchConfig, model: LM, x, pos, collect_cache: bool = False,
         else:
             x, a = period_run(x, per)
         aux = aux + a
+    if cp is not None and cp.residual and not blocked:
+        x = cp.gather(x)
+    return x, aux, (caches if collect_cache else None)
+
+
+def residual_block(cfg: ArchConfig, s: int, blocked: bool = False
+                   ) -> Optional[L.SeqParallel]:
+    """The context parallelism of a sequence of ``s`` rows (``layers.
+    seq_parallel``); with ``blocked``, ``s`` is the rows of a rank's block
+    of a blocked residual, which must then be what the ambient mesh and
+    ``cfg`` give."""
+    if not blocked:
+        return L.seq_parallel(cfg, s)
+    cp = L.seq_parallel(cfg, s * L._mesh_axis("model"))
+    if cp is None or not cp.residual:
+        raise ValueError(f"{cfg.name}: blocked rows given, but there is no "
+                         f"blocked residual under the ambient mesh")
+    return cp
+
+
+def run_stack(cfg: ArchConfig, layers, x, pos, use_kernel: bool = True,
+              blocked: bool = False):
+    """The period stack of ``layers`` (an :class:`LM` or a :class:`Stage`
+    whose ``cfg`` is ``cfg``) on x (B, S, d), without embedding, final norm
+    or head: the unit a pipeline stage runs.  The aux loss is dropped, as in
+    the reference (stages serve).  ``blocked``: under a blocked residual, x
+    and pos are this rank's rows (B, S/mm, d) and so is the result, so that
+    a pipeline hops a rank's block and not the whole sequence."""
+    return _periods(cfg, layers, x, pos, False, use_kernel, blocked)[0]
+
+
+def backbone(cfg: ArchConfig, model: LM, x, pos, collect_cache: bool = False,
+             use_kernel: bool = True):
+    """x (B, S, d) -> (h (B, S, d), aux loss, caches | None).
+
+    ``collect_cache``: also return, per period position, the list over
+    periods of the layer's (k, v), each (B, S, Hkv, hd), or (conv_state,
+    ssm_state), for prefill.  Without it, where autograd records the call
+    and ``cfg.remat``, each period runs under ``torch.utils.checkpoint``
+    (training)."""
+    x, aux, caches = _periods(cfg, model, x, pos, collect_cache, use_kernel)
     h = L.apply_norm(cfg, model.final_norm, x)
-    return h, aux, (caches if collect_cache else None)
+    return h, aux, caches
 
 
 def embed_tokens(cfg: ArchConfig, model: LM, tokens):
@@ -367,6 +498,8 @@ def lm_loss(cfg: ArchConfig, model: LM, batch: Dict,
     (CE + 0.01 x aux, {"ce", "aux"})."""
     tokens = batch.get("embeds", batch.get("tokens"))
     b, s = tokens.shape[:2]
+    if L.seq_parallel(cfg, s) is not None:
+        L.refuse_backward("a loss")
     pos = batch.get("positions")
     if pos is None:
         pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
