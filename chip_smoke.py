@@ -3010,14 +3010,15 @@ GRAD_REL_L2_BOUND, LOSS_REL_BOUND = 0.1, 1e-3
 
 def _bwd_bound(b, hq, hkv, sq, sk, d, elem, causal, products=5,
                reads=("q", "k", "v", "o", "do"), writes=("dq", "dk", "dv"),
-               f32_rows=2):
+               f32_rows=2, q_stride=1):
     """The backward's least time: each input read and each gradient written
     once, ``f32_rows`` f32 values a query row (lse and D), and ``products``
     products of 2 d operations per unmasked (query, key) pair and head
     (five for the whole backward: S, dP, dV, dK, dQ), at the peak of the
-    inputs' type."""
-    off = sk - sq
-    pairs = sum(min(sk, max(0, i + 1 + off)) for i in range(sq)) \
+    inputs' type; query row i at position i q_stride + Sk - 1 - (Sq - 1)
+    q_stride."""
+    off = sk - 1 - (sq - 1) * q_stride
+    pairs = sum(min(sk, max(0, i * q_stride + off + 1)) for i in range(sq)) \
         if causal else sq * sk
     size = {"q": b * hq * sq * d, "o": b * hq * sq * d, "do": b * hq * sq * d,
             "dq": b * hq * sq * d, "k": b * hkv * sk * d, "v": b * hkv * sk * d,
@@ -3213,11 +3214,11 @@ def _head0_left_out():
     second launch on dO with head 0 zeroed."""
     bwd = flash_attn.flash_attention_bwd
 
-    def faulted(q, k, v, o, lse, do, causal=True):
-        dq, _, _ = bwd(q, k, v, o, lse, do, causal)
+    def faulted(q, k, v, o, lse, do, causal=True, q_stride=1):
+        dq, _, _ = bwd(q, k, v, o, lse, do, causal, q_stride)
         do0 = do.clone()
         do0[:, 0] = 0
-        _, dk, dv = bwd(q, k, v, o, lse, do0, causal)
+        _, dk, dv = bwd(q, k, v, o, lse, do0, causal, q_stride)
         return dq, dk, dv
     flash_attn.flash_attention_bwd = faulted
     try:
@@ -5594,14 +5595,16 @@ def _pipeline_rank(argv):
         dist.destroy_process_group()
 
 
-def _spawn_ranks(tmp, dev, world=PIPE_STAGES, timeout=600):
-    """The ranks of phase 25 as processes of this script; killed and failed
+def _spawn_ranks(tmp, dev, world=PIPE_STAGES, timeout=600,
+                 flag="--pipeline-rank", tag="[25]"):
+    """The ranks of a phase (25: ``--pipeline-rank``; 26:
+    ``--cp-train-rank``) as processes of this script; killed and failed
     when late or failing."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     store = str(tmp / "store")
     procs = [subprocess.Popen(
         [sys.executable, str(pathlib.Path(__file__).resolve()),
-         "--pipeline-rank", str(r), str(world), store, str(tmp), str(dev)],
+         flag, str(r), str(world), store, str(tmp), str(dev)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
     outs, late = [], []
@@ -5621,15 +5624,15 @@ def _spawn_ranks(tmp, dev, world=PIPE_STAGES, timeout=600):
                 p.wait()
     if late or any(p.returncode for p in procs):
         for r, (p, o) in enumerate(zip(procs, outs)):
-            print(f"[25] rank {r} rc {p.returncode}:\n{o[-3000:]}")
-        raise AssertionError(f"[25] ranks late {late} or failed")
+            print(f"{tag} rank {r} rc {p.returncode}:\n{o[-3000:]}")
+        raise AssertionError(f"{tag} ranks late {late} or failed")
     return [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
 
 
 def _grouped_moe_ffn(mm):
     """``lm._ffn`` with each MoE layer on ``h.reshape(B mm, S/mm, d)``: the
     reference's sequence-parallel groups in one process."""
-    def ffn(cfg, p, h, cp=None):
+    def ffn(cfg, p, h, aux_groups=()):
         if p.spec["ffn"] == "moe":
             b, s, d = h.shape
             y, aux = port_models.layers.moe(cfg, p.moe,
@@ -5977,6 +5980,510 @@ def pipeline_cells(row, pipe25):
     row["pipeline"] = {k: v for k, v in pipe25.items() if k != "c"}
 
 
+# ------------------------------------------ phase 26: context parallelism trains
+# llama3.2-3b at full width, its depth cut to fit two training states on one
+# card (4 layers: ~0.8 B parameters, ~9.6 GB a rank at 12 bytes a
+# parameter), bf16, B = 2 x S = 4096 (the reference's train_4k sequence)
+CP_TRAIN_LAYERS, CP_TRAIN_B, CP_TRAIN_S, CP_TRAIN_WORLD = 4, 2, 4096, 2
+CP_MOE_TRAIN_S = 512
+# the CP step's loss against the one-rank step's (the same function), and
+# each parameter's gradient, relative L2: the bound PERF.md states with its
+# readings (the planted faults, ``_cp_fault``, must miss it)
+CP_LOSS_BOUND, CP_GRAD_BOUND = 1e-3, 0.05
+CP_FAULTS = ("gather_slices", "loss_unscaled", "stride_one")
+# the backward kernels at q_stride 2, 4, 8 against attention_bwd_ref: the
+# limits of phase 22 (``_bwd_limit``)
+CP_BWD_SWEEP = [(2, 4, 2, 70, d, dt) for d in (64, 128, 256)
+                for dt in (torch.bfloat16, torch.float32)]
+
+
+def _cp_train_cfg(cb, sr):
+    return dataclasses.replace(get_arch(LM_ARCH), n_layers=CP_TRAIN_LAYERS,
+                               attn_shard="seq", causal_bound=cb,
+                               seq_residual=sr)
+
+
+@contextlib.contextmanager
+def _cp_fault(name):
+    """While entered, a planted fault of the CP step: ``gather_slices``, the
+    all-gather's backward keeps its own slice of the gradient instead of
+    reduce-scattering; ``loss_unscaled``, each rank's loss is not scaled by
+    1 / (the mesh's ranks); ``stride_one``, the backward kernels are handed
+    q_stride 1."""
+    from repro_torch.distributed import comm
+    from repro_torch.train import loop
+    if name == "gather_slices":
+        real = comm._AllGather.backward
+
+        def sliced(ctx, g):
+            n, r = comm.size(ctx.group), comm.rank(ctx.group)
+            return g.chunk(n, ctx.dim)[r].contiguous(), None, None
+        comm._AllGather.backward = staticmethod(sliced)
+        try:
+            yield
+        finally:
+            comm._AllGather.backward = real
+    elif name == "loss_unscaled":
+        real = loop.mesh_step
+        loop.mesh_step = lambda: real()._replace(ranks=1)
+        try:
+            yield
+        finally:
+            loop.mesh_step = real
+    else:
+        real = flash_attn.flash_attention_bwd
+        flash_attn.flash_attention_bwd = (
+            lambda q, k, v, o, lse, do, causal=True, q_stride=1:
+            real(q, k, v, o, lse, do, causal))
+        try:
+            yield
+        finally:
+            flash_attn.flash_attention_bwd = real
+
+
+@contextlib.contextmanager
+def _attn_grads_only():
+    """While entered, the CP step reduces and keeps only the attention
+    projections' gradients, where the planted faults show first: the
+    others' 3 GB of f32 would cross the host at each fault's step."""
+    from repro_torch.train import loop
+    real = loop.MeshStep.reduce_grads
+
+    def reduce(self, params):
+        for n, p in params.items():
+            if ".attn." not in n:
+                p.grad = None
+        real(self, params)
+    loop.MeshStep.reduce_grads = reduce
+    try:
+        yield
+    finally:
+        loop.MeshStep.reduce_grads = real
+
+
+def _cp_train_rank(argv):
+    """One rank of phase 26 (``--cp-train-rank rank world store dir
+    device``): a gloo group over the card's two ranks, a (1, 2) ``("data",
+    "model")`` mesh; results to ``dir/rank<r>.pt``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.train import loop
+    rank, world, store, tmp = (int(argv[0]), int(argv[1]), argv[2],
+                               pathlib.Path(argv[3]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(argv[4])
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    res = {}
+    data = torch.load(tmp / "batches.pt")
+    try:
+        mesh = make_host_mesh(1, world, device_type="cpu")
+        batch = {k: v.to(dev) for k, v in data["llama"].items()}
+        model = lm.LM(_cp_train_cfg(True, True), dev,
+                      seed=0).requires_grad_(True)
+        params = dict(model.named_parameters())
+
+        def grads(cfg):
+            for p in params.values():
+                p.grad = None
+            loss, _ = loop.loss_and_grads(cfg, model, batch)
+            g = {n: p.grad for n, p in params.items() if p.grad is not None}
+            for p in params.values():
+                p.grad = None
+            return loss.item(), g
+
+        one = None
+        if rank == 0:     # the one-rank step (no mesh) on the same card
+            res["one_loss"], one = grads(_cp_train_cfg(True, True))
+
+        def reading(loss, g, launches):
+            out = {"loss": loss, "launches": launches,
+                   "bits": _bits_checksum(g.values())}
+            if one is not None:
+                rel = _rel_l2(g, {n: one[n] for n in g})
+                worst = max(rel, key=rel.get)
+                out.update(loss_err=abs(loss - res["one_loss"]),
+                           rel_l2=rel[worst], rel_l2_at=worst,
+                           rel_l2_median=statistics.median(rel.values()))
+            return out
+
+        for cb, sr in CP_COMBOS:
+            with L.ambient_mesh(mesh):
+                flash_attn.reset_launches()
+                loss, g = grads(_cp_train_cfg(cb, sr))
+                launches = dict(flash_attn.LAUNCHES)
+            res[f"{int(cb)}{int(sr)}"] = reading(loss, g, launches)
+            del g
+        for name in CP_FAULTS:
+            with L.ambient_mesh(mesh), _cp_fault(name), _attn_grads_only():
+                loss, g = grads(_cp_train_cfg(True, True))
+            res["fault_" + name] = reading(loss, g, None)
+            del g
+        del model, params, one
+        _free()
+        # the main path: one Trainer step under the mesh, the counts zeroed
+        # just before it and read just after
+        tr = Trainer(_cp_train_cfg(True, True), batch=CP_TRAIN_B,
+                     seq_len=CP_TRAIN_S, peak_lr=TRAIN_LR, device=dev)
+        state = tr.init_state()
+        with L.ambient_mesh(mesh):
+            dist.barrier()
+            _zero_counts()
+            state = tr.run(1, state=state)
+            res["train_launches"] = _nonzero(_all_counts())
+        res["train"] = {"loss": tr.history, "step_ms": tr.step_ms,
+                        "peak_gib": [b / 2**30 for b in tr.peak_bytes],
+                        "grad_norm": tr.grad_norms, "replayed": tr.replayed,
+                        "bits": _bits_checksum(
+                            p.detach() for p in state.model.parameters())}
+        del tr, state
+        _free()
+        # qwen2-moe at 4 layers in f32 under seq_residual: each rank's
+        # gradients, kernel path against plain path under the same CP
+        qcfg = dataclasses.replace(_moe_cfg(), attn_shard="seq",
+                                   causal_bound=True, seq_residual=True)
+        model = lm.LM(qcfg, dev, seed=0).requires_grad_(True)
+        qbatch = {k: v.to(dev) for k, v in data["moe"].items()}
+
+        def local(use_kernel):
+            routes, margins = [], []
+            for p in model.parameters():
+                p.grad = None
+            with L.ambient_mesh(mesh), _routes_spied(record=routes,
+                                                     margins=margins):
+                flash_attn.reset_launches()
+                loss, _ = port_models.loss(qcfg, model, qbatch, use_kernel)
+                (loss / world).backward()
+                launches = dict(flash_attn.LAUNCHES)
+            return loss.item(), routes, margins, launches
+
+        loss_k, rk, mk, lk = local(True)
+        host = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        loss_p, rp, mp, _ = local(False)
+        rel = {n: ((p.grad.float() - host[n].to(dev)).norm()
+                   / p.grad.float().norm().clamp_min(1e-30)).item()
+               for n, p in model.named_parameters()}
+        n_moe = CP_MOE_LAYERS         # the forward's calls; then remat's
+        res["moe"] = {
+            "loss_kernel": loss_k, "loss_plain": loss_p,
+            "rel_l2": max(rel.values()), "rel_l2_at": max(rel, key=rel.get),
+            "routes_equal": [bool(torch.equal(a.sort(-1).values,
+                                              b.sort(-1).values))
+                             for a, b in zip(rk, rp)],
+            "flips": _flip_readings(rk[:n_moe], rp[:n_moe],
+                                    mk[:n_moe], mp[:n_moe]),
+            "launches": lk}
+        del model, host
+        _free()
+    finally:
+        torch.save(res, tmp / f"rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def _cp_batches():
+    gen = torch.Generator().manual_seed(26)
+    out = {}
+    for key, arch, s in (("llama", LM_ARCH, CP_TRAIN_S),
+                         ("moe", MOE_ARCH, CP_MOE_TRAIN_S)):
+        v = get_arch(arch).vocab_size
+        toks = torch.randint(0, v, (CP_TRAIN_B, s + 1), generator=gen)
+        out[key] = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    return out
+
+
+def _striped_bwd_one(shape, q_stride, sk, gen, dev):
+    """The striped forward with lse and the backward kernels at ``shape``
+    (b, hq, hkv, sq, d, dtype) with the rows at ``q_stride`` over ``sk``
+    keys (the last row at the last key), each against its plain version on
+    the same inputs: the forward's output bit-equal to the serving call's
+    and within phase 25's limit of ``attention_lse_ref``'s (2e-3 x scale in
+    f32, 5e-2 in bf16), its lse within phase 22's 1e-5 x max(1, |lse|); dq,
+    dk, dv from the kernel's o and lse within ``_bwd_limit`` of
+    ``attention_bwd_ref`` from the plain o and lse, so that a fault of the
+    forward shows here too.  Returns the largest error of the forward (o
+    and lse) and of the backward, each as a share of its limit."""
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_lse_ref
+    b, hq, hkv, sq, d, dt = shape
+    what = f"{shape} stride {q_stride} over {sk} keys"
+    q, k, v, do = _bwd_inputs((b, hq, hkv, sq, sk, d, True, dt), gen, dev)
+    o, lse = flash_attn.flash_attention_fwd(q, k, v, True, q_stride)
+    want_o, want_lse = attention_lse_ref(q, k, v, True, q_stride)
+    if not torch.equal(o, flash_attn.flash_attention(q, k, v, True,
+                                                     q_stride)):
+        raise AssertionError(f"[26] striped forward with lse at {what}: not "
+                             f"bit-equal to the serving call")
+    err, scale = _rel(o, want_o)
+    o_lim = (2e-3 if dt == torch.float32 else 5e-2) * scale
+    lse_err = (lse - want_lse).abs().max().item()
+    lse_lim = 1e-5 * max(1.0, want_lse.abs().max().item())
+    if not torch.isfinite(o).all() or err > o_lim or not lse_err <= lse_lim:
+        raise AssertionError(f"[26] striped forward with lse at {what}: o "
+                             f"err {err} (limit {o_lim}), lse err {lse_err} "
+                             f"(limit {lse_lim})")
+    fwd = max(err / o_lim, lse_err / lse_lim)
+    got = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, True, q_stride)
+    want = attention_bwd_ref(q, k, v, want_o, want_lse, do, True, q_stride)
+    bwd = 0.0
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        err = (a.float() - w.float()).abs().max().item()
+        lim = _bwd_limit(w, dt)
+        if not torch.isfinite(a).all() or err > lim:
+            raise AssertionError(f"[26] striped backward {name} at {what}: "
+                                 f"err {err} > {lim}")
+        bwd = max(bwd, err / lim)
+    return fwd, bwd
+
+
+def _striped_bwd_checks(dev):
+    """The striped forward with lse and the backward kernels
+    (``_striped_bwd_one``) at q_stride 2, 4, 8 (D 64/128/256, bf16 and
+    f32, the first and last rank's keys), the backward at stride 1 equal to
+    the call without it, then at every shape phase 26 launches: each model
+    rank's 2,048 rows of llama's 4,096 (bf16, blocked or at stride 2, over
+    the keys up to its last row) and qwen2-moe's 256 of 512 (f32, stride
+    2).  Launches made here are not counted."""
+    gen = torch.Generator(device=dev).manual_seed(2626)
+    sweep, sweep_fwd, main = 0.0, 0.0, {}
+    with launches_apart({}):
+        for shape in CP_BWD_SWEEP:
+            sq = shape[3]
+            for stride in (2, 4, 8):
+                for g in (0, stride - 1):
+                    fwd, bwd = _striped_bwd_one(
+                        shape, stride, (sq - 1) * stride + g + 1, gen, dev)
+                    sweep, sweep_fwd = max(sweep, bwd), max(sweep_fwd, fwd)
+            b, hq, hkv, sq, d, dt = shape
+            q, k, v, do = _bwd_inputs((b, hq, hkv, sq, sq + 5, d, True, dt),
+                                      gen, dev)
+            o, lse = flash_attn.flash_attention_fwd(q, k, v, True)
+            if not all(torch.equal(x, y) for x, y in zip(
+                    flash_attn.flash_attention_bwd(q, k, v, o, lse, do),
+                    flash_attn.flash_attention_bwd(q, k, v, o, lse, do,
+                                                   q_stride=1))):
+                raise AssertionError("[26] q_stride=1 changed the backward")
+        for label, arch, s, dt, strides in (
+                ("llama", LM_ARCH, CP_TRAIN_S, torch.bfloat16, (1, 2)),
+                ("qwen2-moe", MOE_ARCH, CP_MOE_TRAIN_S, torch.float32,
+                 (2,))):
+            cfg, r = get_arch(arch), s // CP_TRAIN_WORLD
+            shape = (CP_TRAIN_B, cfg.n_heads, cfg.n_kv_heads, r, cfg.hd, dt)
+            for stride in strides:
+                for g in range(CP_TRAIN_WORLD):
+                    # the keys up to rank g's last row: its block's end, or
+                    # its stripe's last position + 1
+                    sk = (g + 1) * r if stride == 1 else \
+                        (r - 1) * stride + g + 1
+                    fwd, bwd = _striped_bwd_one(shape, stride, sk, gen, dev)
+                    main[f"{label} {str(dt).split('.')[-1]} rank {g} "
+                         f"stride {stride} {list(shape[:5])} over {sk}"] = {
+                        "fwd": fwd, "bwd": bwd}
+    print(f"[26] the striped forward with lse against attention_lse_ref "
+          f"(o: phase 25's limits, lse: phase 22's) and the backward kernels "
+          f"against attention_bwd_ref on the plain o and lse (phase 22's "
+          f"limits) at q_stride 2/4/8, D 64/128/256, bf16 and f32, the "
+          f"first and last rank's keys: worst error {sweep_fwd:.3g} "
+          f"(forward), {sweep:.3g} (backward) of its limit; the backward at "
+          f"q_stride=1 equal to the call without it; at phase 26's shapes "
+          f"(error / limit) {main}")
+    return {"sweep_worst_share": sweep, "sweep_worst_fwd_share": sweep_fwd,
+            "main_path": main}
+
+
+def _striped_bwd_time(dev, cfg, sq, stride, dt, label):
+    """The striped backward at (B, cfg's heads, ``sq`` rows at ``stride``
+    over the last model rank's keys, D): the call's µs (events) and device
+    µs, each kernel's device µs (``flash_attn.bwd_kernels``), the plain
+    version's ms, SDPA's backward with the same boolean mask through
+    autograd (events and device), the bounds (``_bwd_bound`` at the
+    stride)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import attention_bwd_ref, causal_mask
+    b, hq, hkv, d = CP_TRAIN_B, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sk = (sq - 1) * stride + stride
+    gen = torch.Generator(device=dev).manual_seed(2627)
+    q, k, v, do = _bwd_inputs((b, hq, hkv, sq, sk, d, True, dt), gen, dev)
+    elem = q.element_size()
+    dkdv, dq, _ = flash_attn.bwd_kernels(dt, d)
+    with launches_apart({}):
+        o, lse = flash_attn.flash_attention_fwd(q, k, v, True, stride)
+        call = lambda: flash_attn.flash_attention_bwd(q, k, v, o, lse, do,
+                                                      True, stride)
+        out = {"shape": [b, hq, hkv, sq, sk, d, str(dt).split(".")[-1]],
+               "q_stride": stride,
+               "ms": _events_ms(call, reps=10, trials=5, warmup=2),
+               "dev_us": {n: _device_us(call, n, reps=10, tries=3)
+                          for n in ("attn_bwd_preprocess_kernel", dkdv, dq)},
+               "call_dev_us": _device_total_us(
+                   call, f"[26] striped backward, {label}", reps=10,
+                   whole=True),
+               "plain_ms": _events_ms(lambda: attention_bwd_ref(
+                   q, k, v, o, lse, do, True, stride), reps=3, trials=3,
+                   warmup=1)}
+        mask = causal_mask(sq, sk, stride, dev)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        ref_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                 enable_gqa=True)
+        lib = lambda: torch.autograd.grad(ref_out, leaves, do,
+                                          retain_graph=True)
+        got = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, True,
+                                             stride)
+        out["max_abs_err_vs_library"] = max(
+            (a.float() - w.float()).abs().max().item()
+            for a, w in zip(got, lib()))
+        out["lib_ms"] = _events_ms(lib, reps=10, trials=5, warmup=2)
+        out["lib_dev_us"] = _device_total_us(
+            lib, f"[26] SDPA backward with the striped mask, {label}",
+            reps=10, whole=True)
+    bound = _bwd_bound(b, hq, hkv, sq, sk, d, elem, True, q_stride=stride)
+    parts = {"attn_bwd_preprocess_kernel": _bwd_bound(
+                 b, hq, hkv, sq, sk, d, elem, True, 0, ("o", "do"), (), 1),
+             dkdv: _bwd_bound(b, hq, hkv, sq, sk, d, elem, True, 4,
+                              ("q", "k", "v", "do"), ("dk", "dv"),
+                              q_stride=stride),
+             dq: _bwd_bound(b, hq, hkv, sq, sk, d, elem, True, 3,
+                            ("q", "k", "v", "do"), ("dq",), q_stride=stride)}
+    out.update(bound_ms=bound[0], bound_by=bound[1], kernel_bounds=parts)
+    print(f"[26] striped backward, {label}, at {out['shape']} stride "
+          f"{stride}: {out['ms'] * 1e3:.2f} us per call (events), device "
+          f"{_us(out['call_dev_us'])} ("
+          + ", ".join(f"{n} {_us(u)}" for n, u in out["dev_us"].items())
+          + f"); bound {bound[0] * 1e3:.2f} us ({bound[1]}); plain "
+          f"{out['plain_ms']:.3f} ms; SDPA backward with the boolean mask "
+          f"{out['lib_ms'] * 1e3:.2f} us per call, device "
+          f"{_us(out['lib_dev_us'])}; max err vs SDPA "
+          f"{out['max_abs_err_vs_library']:.3g}")
+    return out
+
+
+def phase_cp_train(dev):
+    """Phase 26: context parallelism trains.  Two ranks on the card
+    (``_cp_train_rank``) take llama3.2-3b's CP train step at full width
+    and ``CP_TRAIN_LAYERS`` layers against the one-rank step, planted
+    faults, a ``Trainer`` step (the main path: parameters bit-equal on both
+    ranks, launches counted), qwen2-moe in f32 kernel path against plain;
+    then the striped backward kernels checked and timed here."""
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        tmp = pathlib.Path(tmp)
+        torch.save(_cp_batches(), tmp / "batches.pt")
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(tmp, dev, CP_TRAIN_WORLD, flag="--cp-train-rank",
+                             tag="[26]")
+        spawn_s = time.perf_counter() - t0
+    out = {"ranks_wall_s": spawn_s, "layers": CP_TRAIN_LAYERS,
+           "batch": CP_TRAIN_B, "seq_len": CP_TRAIN_S, "combos": {}}
+    r0 = ranks[0]
+    per_step = {"flash_attention": 2 * CP_TRAIN_LAYERS,      # remat: twice
+                "flash_attention_bwd": CP_TRAIN_LAYERS}
+    for cb, sr in CP_COMBOS:
+        tag = f"{int(cb)}{int(sr)}"
+        got = [r[tag] for r in ranks]
+        same = all(g["bits"] == got[0]["bits"] for g in got)
+        launches = [g["launches"] for g in got]
+        print(f"[26] {LM_ARCH} bf16, {CP_TRAIN_LAYERS} layers, B = "
+              f"{CP_TRAIN_B} x {CP_TRAIN_S}, causal_bound={cb}, seq_residual="
+              f"{sr}, 2 model ranks: loss {got[0]['loss']:.6f} against the "
+              f"one-rank step's {r0['one_loss']:.6f} (err "
+              f"{got[0]['loss_err']:.3g}, bound {CP_LOSS_BOUND}); gradients' "
+              f"relative L2 max {got[0]['rel_l2']:.4g} at "
+              f"{got[0]['rel_l2_at']}, median {got[0]['rel_l2_median']:.4g} "
+              f"(bound {CP_GRAD_BOUND}); gradients bit-equal on both ranks "
+              f"{same}; flash launches a rank {launches}")
+        if got[0]["loss_err"] > CP_LOSS_BOUND or \
+                got[0]["rel_l2"] > CP_GRAD_BOUND or not same or \
+                any(l != per_step for l in launches):
+            raise AssertionError(f"[26] CP step {tag}: {got[0]} {launches}")
+        out["combos"][f"causal_bound={cb},seq_residual={sr}"] = {
+            k: got[0][k] for k in ("loss", "loss_err", "rel_l2", "rel_l2_at",
+                                   "rel_l2_median")}
+    faults = {n: {k: r0["fault_" + n][k] for k in ("loss_err", "rel_l2",
+                                                     "rel_l2_at")}
+              for n in CP_FAULTS}
+    print(f"[26] planted faults (causal_bound, seq_residual; the attention "
+          f"projections' gradients), each must miss the bound "
+          f"{CP_GRAD_BOUND}: {faults}")
+    if any(f["rel_l2"] <= CP_GRAD_BOUND for f in faults.values()):
+        raise AssertionError(f"[26] a planted fault was not seen: {faults}")
+    out["faults"] = faults
+    train = [r["train"] for r in ranks]
+    tl = [r["train_launches"] for r in ranks]
+    want = {"flash_attention": 2 * CP_TRAIN_LAYERS,
+            "flash_attention_bwd": CP_TRAIN_LAYERS, "adamw": 1}
+    equal = all(t["bits"] == train[0]["bits"] for t in train)
+    print(f"[26] the main path: one Trainer step under the (1, 2) mesh, "
+          f"eager ({train[0]['replayed']} replayed): loss {train[0]['loss']}, "
+          f"grad norm {train[0]['grad_norm']}, parameters bit-equal on both "
+          f"ranks {equal}; launches a rank {tl}; step ms a rank "
+          f"{[t['step_ms'] for t in train]} (two processes time-slicing one "
+          f"card, the collectives through the host: no speed); peak GiB a "
+          f"rank {[t['peak_gib'] for t in train]}")
+    if not equal or any(t != want for t in tl) or any(
+            not math.isfinite(t["loss"][0]) for t in train):
+        raise AssertionError(f"[26] Trainer step: {equal} {tl}")
+    out["train"] = {"per_rank": train, "launches": tl, "params_equal": equal}
+    moe = [r["moe"] for r in ranks]
+    flips = [[f["flips"] for f in m["flips"]] for m in moe]
+    print(f"[26] {MOE_ARCH} f32, {CP_MOE_LAYERS} layers, B = {CP_TRAIN_B} x "
+          f"{CP_MOE_TRAIN_S}, causal_bound and seq_residual: each rank's "
+          f"gradients, kernel path against plain path, relative L2 max "
+          f"{[m['rel_l2'] for m in moe]} at {[m['rel_l2_at'] for m in moe]} "
+          f"(bound 2e-3); losses {[(m['loss_kernel'], m['loss_plain']) for m in moe]}; "
+          f"every top-k set equal (forward and remat) "
+          f"{[all(m['routes_equal']) for m in moe]}; flips by layer {flips}; "
+          f"flash launches {[m['launches'] for m in moe]}")
+    if any(not all(m["routes_equal"]) or m["rel_l2"] > 2e-3 for m in moe):
+        raise AssertionError(f"[26] qwen2-moe kernel against plain: {moe}")
+    out["moe"] = moe
+    out["checks"] = _striped_bwd_checks(dev)
+    out["times"] = {
+        "llama_bf16": _striped_bwd_time(
+            dev, get_arch(LM_ARCH), CP_TRAIN_S // CP_TRAIN_WORLD,
+            CP_TRAIN_WORLD, torch.bfloat16, "the main path's shape"),
+        "qwen2_moe_f32": _striped_bwd_time(
+            dev, get_arch(MOE_ARCH), CP_MOE_TRAIN_S // CP_TRAIN_WORLD,
+            CP_TRAIN_WORLD, torch.float32, "qwen2-moe's f32 shape")}
+    return out
+
+
+def cp_train_cells(kernels, cp26):
+    """The backward kernels' rows of the ``kernels`` line gain phase 26's
+    striped figures: at llama's CP shape in bf16 (the preprocess and the
+    tensor-core pair, launched by the main path) and qwen2-moe's in f32
+    (the CUDA-core pair), each kernel's device ms, bound and launches a
+    rank, the plain version's and SDPA's backward's."""
+    train = cp26["train"]["launches"][0]["flash_attention_bwd"]
+    moe = cp26["moe"][0]["launches"]["flash_attention_bwd"]
+    for row in kernels:
+        for key, launches in (("llama_bf16", train), ("qwen2_moe_f32", moe)):
+            t = cp26["times"][key]
+            if row["name"] not in t["dev_us"]:
+                continue
+            row.setdefault("launches_by_path", {})[
+                f"cp_train_rank_{key}"] = launches
+            row.setdefault("striped", {})[key] = {
+                "shape": t["shape"], "q_stride": t["q_stride"],
+                "launches": launches, "ms": _ms(t["dev_us"][row["name"]]),
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["kernel_bounds"][row["name"]][0],
+                "bound_by": t["kernel_bounds"][row["name"]][1],
+                "library_ms": t["lib_ms"],
+                "library_device_ms": _ms(t["lib_dev_us"]),
+                "call": {"ms": t["ms"], "device_ms": _ms(t["call_dev_us"]),
+                         "bound_ms": t["bound_ms"],
+                         "bound_by": t["bound_by"]},
+                "max_abs_err_share": cp26["checks"]["sweep_worst_share"]}
+    for row in kernels:
+        if row["name"] == "attn_bwd_preprocess_kernel":
+            row["cp_train"] = {k: v for k, v in cp26.items()
+                               if k not in ("times", "checks")}
+            row["cp_train"]["checks"] = cp26["checks"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and "
@@ -6078,6 +6585,7 @@ def main() -> int:
     adamw_f32_cells(next(r for r in kernels if r["name"] == "adamw"), dist24)
     pipeline_cells(next(r for r in kernels if r["name"] == "flash_attention"),
                    _timed(phase_pipeline, dev))
+    cp_train_cells(kernels, _timed(phase_cp_train, dev))
     conv_errs = _timed(phase_conv_kernel, dev)
     qs = _timed(phase_quickstart)
     faults = _timed(phase_fault_serve, dev)
@@ -6108,5 +6616,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--pipeline-rank"]:
         _pipeline_rank(sys.argv[2:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--cp-train-rank"]:
+        _cp_train_rank(sys.argv[2:])
         sys.exit(0)
     sys.exit(main())

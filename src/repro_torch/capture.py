@@ -11,10 +11,21 @@ from typing import Any
 import torch
 
 
-def resolve_compile(compile: Any, device: torch.device) -> bool:
+def resolve_compile(compile: Any, device: torch.device,
+                    ranks: int = 1) -> bool:
     """Whether an engine or trainer on ``device`` replays a captured step:
     ``"auto"`` on a CUDA device, ``True`` (a CUDA device or ValueError),
-    ``False`` never."""
+    ``False`` never.  A train step across ``ranks`` > 1 (under an ambient
+    mesh: context parallelism, ``train.loop``) runs eagerly: ``"auto"`` is
+    eager and ``True`` raises.  Its collectives go through host copies on
+    ``gloo``, which a CUDA graph cannot record; the captured step across
+    ranks on ``nccl`` is ROADMAP Queue 1 item 10(e)."""
+    if ranks > 1 and compile in ("auto", False):
+        return False
+    if ranks > 1 and compile is True:
+        raise NotImplementedError(
+            f"compile=True across {ranks} ranks: the step across a mesh runs "
+            f"eagerly; its capture on nccl is ROADMAP Queue 1 item 10(e)")
     if compile == "auto":
         return device.type == "cuda"
     if compile is True:

@@ -13,6 +13,31 @@ backend decides how a tensor travels, never a caught error:
 
 Any other backend raises.  Ranks are the group's own (0 .. n-1); each
 function maps them to global ranks itself.
+
+**Gradients.**  :func:`all_gather`, :func:`reduce_scatter`,
+:func:`all_to_all` and :func:`all_reduce` are differentiable
+(``torch.autograd.Function``s): each one's backward is its adjoint, the
+linear map that sends every rank's output gradient back to every rank's
+input, run through the same routing by backend:
+
+- ``all_gather`` <-> ``reduce_scatter`` (rank r's part of the gathered
+  gradient, summed over every rank);
+- ``all_to_all`` <-> the inverse ``all_to_all`` (the counts swapped);
+- ``all_reduce`` <-> ``all_reduce``.
+
+So a program that runs on every rank of a group, with every rank's result
+scaled by 1/n before ``backward`` (a result that is the same on every rank
+counts n times) and every parameter's gradient summed over the group, gets
+the gradient of the one program the ranks compute together.  ``hop`` has
+no backward (the pipeline prefills).
+
+The reductions (``all_reduce``, ``reduce_scatter``, forward or backward)
+sum bf16 and f16 tensors in f32 and round once to the tensor's dtype: NCCL
+and gloo sum in the buffer's dtype, rounding after every add of n ranks'
+parts.  ``reduce_scatter`` on ``gloo`` is an all-reduce of which each rank
+keeps its part (the host path carries n times the bytes; gloo's
+reduce-scatter is not in every PyTorch release); on ``nccl``
+``reduce_scatter_tensor``.
 """
 
 from __future__ import annotations
@@ -38,10 +63,14 @@ def group_of(group):
     return group
 
 
+def _backend(group) -> str:
+    return str(_dist().get_backend(group))
+
+
 def _via_host(t: torch.Tensor, group) -> bool:
     """Whether ``t`` crosses ``group`` through a host copy: a CUDA tensor on
     ``gloo``.  ``nccl`` takes device tensors; other backends raise."""
-    backend = str(_dist().get_backend(group))
+    backend = _backend(group)
     if backend == "nccl":
         if t.device.type != "cuda":
             raise ValueError(f"nccl takes CUDA tensors, got {t.device}")
@@ -55,6 +84,12 @@ def _wire(t: torch.Tensor, host: bool) -> torch.Tensor:
     """``t`` as it crosses the wire: contiguous, on the host if ``host``."""
     t = t.contiguous()
     return t.cpu() if host else t
+
+
+def _sum_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype a reduction of ``t`` sums in: f32 for bf16 and f16."""
+    return torch.float32 if t.dtype in (torch.bfloat16, torch.float16) \
+        else t.dtype
 
 
 def _global(group, r: int) -> int:
@@ -97,8 +132,7 @@ def hop(send: Optional[torch.Tensor], dst: Optional[int],
     return out
 
 
-def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     dist = _dist()
     host = _via_host(x, group)
     w = _wire(x, host)
@@ -107,11 +141,25 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return torch.cat(parts, dim=dim).to(x.device)
 
 
-def all_to_all(x: torch.Tensor, send_counts: Sequence[int],
-               recv_counts: Sequence[int], group) -> torch.Tensor:
-    """Rows of ``x`` (dim 0) split by ``send_counts`` in rank order, part r
-    to rank r; returns the parts received, concatenated in rank order
-    (``recv_counts`` rows from each)."""
+def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    dist = _dist()
+    n = size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does "
+                         f"not split over {n} ranks")
+    host = _via_host(x, group)
+    w = _wire(torch.stack(x.chunk(n, dim)), host).to(_sum_dtype(x))
+    if _backend(group) == "nccl":
+        out = torch.empty(w.shape[1:], dtype=w.dtype, device=w.device)
+        dist.reduce_scatter_tensor(out, w, group=group)
+    else:
+        dist.all_reduce(w, group=group)
+        out = w[rank(group)]
+    return out.to(device=x.device, dtype=x.dtype)
+
+
+def _all_to_all(x: torch.Tensor, send_counts: Sequence[int],
+                recv_counts: Sequence[int], group) -> torch.Tensor:
     dist = _dist()
     host = _via_host(x, group)
     w = _wire(x, host)
@@ -122,12 +170,83 @@ def all_to_all(x: torch.Tensor, send_counts: Sequence[int],
     return out.to(x.device)
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of every rank's ``x`` (a new tensor)."""
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     host = _via_host(x, group)
-    w = _wire(x, host).clone()
+    # summed in place: a copy of x, unless the host copy already is one
+    w = _wire(x, host).to(_sum_dtype(x), copy=not host)
     _dist().all_reduce(w, group=group)
-    return w.to(x.device)
+    return w.to(device=x.device, dtype=x.dtype)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, send_counts, recv_counts, group):
+        ctx.counts, ctx.group = (tuple(send_counts), tuple(recv_counts)), group
+        return _all_to_all(x, send_counts, recv_counts, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        send, recv = ctx.counts
+        return _all_to_all(g, recv, send, ctx.group), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order;
+    backward: :func:`reduce_scatter`."""
+    return _AllGather.apply(x, group, dim)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Part r (of n equal parts along ``dim``) of the sum over the ranks of
+    ``x``, on rank r; backward: :func:`all_gather`."""
+    return _ReduceScatter.apply(x, group, dim)
+
+
+def all_to_all(x: torch.Tensor, send_counts: Sequence[int],
+               recv_counts: Sequence[int], group) -> torch.Tensor:
+    """Rows of ``x`` (dim 0) split by ``send_counts`` in rank order, part r
+    to rank r; returns the parts received, concatenated in rank order
+    (``recv_counts`` rows from each).  Backward: the inverse all-to-all."""
+    return _AllToAll.apply(x, send_counts, recv_counts, group)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` (a new tensor); backward: the sum of
+    every rank's gradient."""
+    return _AllReduce.apply(x, group)
 
 
 def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:

@@ -39,9 +39,9 @@ _S = ctypes.POINTER(ctypes.c_longlong)      # an array of element strides
 _PLAN = ctypes.POINTER(ctypes.c_int)        # a launch plan's fields
 # q, k, v, out, lse; B, Hq, Hkv, Sq, Sk, D, causal, q_stride; scale
 _ATTN = (_P,) * 5 + (_I,) * 8 + (_F, _S, _P)
-# q, k, v, o, dO, lse, delta, dq, dk, dv; B, Hq, Hkv, Sq, Sk, D, causal;
-# scale
-_ATTN_BWD = (_P,) * 10 + (_I,) * 7 + (_F, _S, _P)
+# q, k, v, o, dO, lse, delta, dq, dk, dv; B, Hq, Hkv, Sq, Sk, D, causal,
+# q_stride; scale
+_ATTN_BWD = (_P,) * 10 + (_I,) * 8 + (_F, _S, _P)
 # q, k, v, out, length, workspace; B, Hq, Hkv, S, D; scale
 _DECODE = (_P,) * 6 + (_I,) * 5 + (_F, _S, _P)
 # q, k8, k scale, v8, v scale, out, length, workspace; as _DECODE

@@ -16,10 +16,24 @@
 //
 // where sum_g runs over the G = Hq / Hkv query heads of a KV head.  S and P
 // are recomputed from lse in both kernels, never stored.  Query i sits at
-// position i + Sk - Sq and, when causal, sees keys at positions <= its own;
+// position i q_stride + q_offset, q_offset = Sk - 1 - (Sq - 1) q_stride (the
+// last row at Sk - 1; i + Sk - Sq at q_stride 1), as in the forward
+// (csrc/flash_attn.cu), and, when causal, sees keys at positions <= its own;
 // every row then sees at least one key (the wrapper refuses causal Sq > Sk,
-// whose first rows see none and which no training path sends).  Ragged Sq and
-// Sk are masked: rows past Sq and keys past Sk get P = 0.
+// whose first rows see none and which no training path sends, and a stride
+// whose first row would come before the first key).  Ragged Sq and Sk are
+// masked: rows past Sq and keys past Sk get P = 0.
+//
+// Strided queries (q_stride > 1) are context parallelism's striped rows: a
+// model rank's rows g, g + mm, ... over the keys up to its last row.  The
+// stride enters only the causal masks, each block's range of tiles (the
+// first query tile that sees a key tile: t_first, the first row at or after
+// the key, ceil((k0 - q_offset) / q_stride); the last key tile a query tile
+// sees: kv_end) and the tensor-core kernels' test whether a tile needs its
+// mask.  At q_stride 1 every one of them is what it was, and the floating-
+// point work is unchanged, bit for bit.  A key tile's query tiles and a
+// query tile's key tiles stay monotone in the tile's index at any stride, so
+// the launch order below (longest first) holds.
 //
 // No atomics: each dK/dV tile is written by the one block that owns its keys,
 // which loops over the G query heads and every query tile that sees them, and
@@ -118,6 +132,12 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x, float s) {
   __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
   p2[0] = __floats2bfloat162_rn(x.x * s, x.y * s);
   p2[1] = __floats2bfloat162_rn(x.z * s, x.w * s);
+}
+
+// the first query row at or after key k: the least i >= 0 with
+// i q_stride + q_offset >= k (k - q_offset at q_stride 1)
+__device__ __forceinline__ int first_row(int k, int q_offset, int q_stride) {
+  return (max(0, k - q_offset) + q_stride - 1) / q_stride;
 }
 
 // D = rowsum(dO o O) in f32, (B, Hq, Sq) contiguous: one warp a row.  Grid
@@ -230,7 +250,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int Hq, int Sq, int Sk, int G,
-                     int causal, float scale, BwdStrides st) {
+                     int causal, int q_stride, float scale, BwdStrides st) {
   using Tl = Tile<D>;
   constexpr int BT = Tl::BT, R = Tl::R, DP = Tl::DP, PP = Tl::PP;
   constexpr int OC = Tl::OC;
@@ -246,7 +266,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
   const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BT;
-  const int off = Sk - Sq;
+  const int q_offset = Sk - 1 - (Sq - 1) * q_stride;
   load_tile<T, D>(Ks, k + b * st.k.b + hk * st.k.h, st.k.s, k0, Sk);
   load_tile<T, D>(Vs, v + b * st.v.b + hk * st.v.h, st.v.s, k0, Sk);
 
@@ -259,8 +279,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dv_acc[i][c] = dk_acc[i][c];
     }
 
-  // the first query that sees key k0 sits at k0 - off
-  const int t_first = causal ? max(0, k0 - off) / BT : 0;
+  // the first query that sees key k0: ceil((k0 - q_offset) / q_stride)
+  const int t_first = causal ? first_row(k0, q_offset, q_stride) / BT : 0;
   const int n_qt = (Sq + BT - 1) / BT;
   for (int gi = 0; gi < G; ++gi) {
     const int h = hk * G + gi;
@@ -287,7 +307,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < R; ++j) {
           const int c = tc + 16 * j, kk = k0 + c;
-          const bool ok = qi < Sq && kk < Sk && (!causal || kk <= qi + off);
+          const bool ok = qi < Sq && kk < Sk &&
+                          (!causal || kk <= qi * q_stride + q_offset);
           const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
           Ps[r * PP + c] = p;
           dSs[r * PP + c] = p * (dp[i][j] - Ds[r]);
@@ -346,8 +367,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dq,
-                   int Sq, int Sk, int G, int causal, float scale,
-                   BwdStrides st) {
+                   int Sq, int Sk, int G, int causal, int q_stride,
+                   float scale, BwdStrides st) {
   using Tl = Tile<D>;
   constexpr int BT = Tl::BT, R = Tl::R, DP = Tl::DP, PP = Tl::PP;
   constexpr int OC = Tl::OC;
@@ -364,7 +385,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BT;
   const int hk = h / G;
-  const int off = Sk - Sq;
+  const int q_offset = Sk - 1 - (Sq - 1) * q_stride;
   const long long row0 = (static_cast<long long>(b) * gridDim.x + h) * Sq;
   load_tile<T, D>(Qs, q + b * st.q.b + h * st.q.h, st.q.s, q0, Sq);
   load_tile<T, D>(dOs, dout + b * st.dout.b + h * st.dout.h, st.dout.s, q0, Sq);
@@ -383,7 +404,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < OC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   const int q_last = min(q0 + BT, Sq) - 1;
-  const int kv_end = causal ? min(Sk, q_last + off + 1) : Sk;
+  const int kv_end = causal ? min(Sk, q_last * q_stride + q_offset + 1) : Sk;
   for (int k0 = 0; k0 < kv_end; k0 += BT) {
     __syncthreads();  // the previous tile's K and dS are consumed
     load_tile<T, D>(Ks, kb, st.k.s, k0, Sk);
@@ -399,7 +420,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const int c = tc + 16 * j, kk = k0 + c;
-        const bool ok = qi < Sq && kk < Sk && (!causal || kk <= qi + off);
+        const bool ok = qi < Sq && kk < Sk &&
+                        (!causal || kk <= qi * q_stride + q_offset);
         const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
         dSs[r * PP + c] = p * (dp[i][j] - Ds[r]);
       }
@@ -555,7 +577,8 @@ attn_bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q,
                            const float* __restrict__ delta,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
                            int Hq, int Sq, int Sk, int G, int causal,
-                           float scale, float scale_log2, BwdStrides st) {
+                           int q_stride, float scale, float scale_log2,
+                           BwdStrides st) {
   using W = WgBwd<D>;
   constexpr int DP = W::DP;
   extern __shared__ uint8_t smem_wg[];
@@ -570,13 +593,13 @@ attn_bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * WG_T;
-  const int off = Sk - Sq;
+  const int q_offset = Sk - 1 - (Sq - 1) * q_stride;
   load_wg_tile<D>(Ks, k + b * st.k.b + hk * st.k.h, st.k.s, k0, Sk);
   load_wg_tile<D>(Vs, v + b * st.v.b + hk * st.v.h, st.v.s, k0, Sk);
   cp_async_commit();
 
-  // the first query that sees key k0 sits at k0 - off
-  const int t_first = causal ? max(0, k0 - off) / WG_T : 0;
+  // the first query that sees key k0: ceil((k0 - q_offset) / q_stride)
+  const int t_first = causal ? first_row(k0, q_offset, q_stride) / WG_T : 0;
   const int nt = (Sq + WG_T - 1) / WG_T - t_first;
   const int n_it = G * nt;   // query tiles: head-major, then by position
   auto load_q = [&](int it) {
@@ -631,7 +654,7 @@ attn_bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q,
     // P^T in place of S^T: element [4 n + e] is key key0 + 8 (e / 2),
     // query q0 + 8 n + 2 t + e % 2
     const bool masked = q0 + WG_T > Sq ||
-                        (causal && k0 + WG_T - 1 > q0 + off);
+                        (causal && k0 + WG_T - 1 > q0 * q_stride + q_offset);
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const float2 l2 = *reinterpret_cast<const float2*>(Lt + 8 * n + 2 * t);
@@ -642,7 +665,7 @@ attn_bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q,
         if (masked) {
           const int qi = q0 + 8 * n + 2 * t + (e & 1);
           const int kk = key0 + 8 * (e >> 1);
-          if (qi >= Sq || (causal && kk > qi + off)) p = 0.f;
+          if (qi >= Sq || (causal && kk > qi * q_stride + q_offset)) p = 0.f;
         }
         s[4 * n + e] = p;
       }
@@ -696,8 +719,8 @@ attn_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          bf16* __restrict__ dq, int Sq, int Sk, int G,
-                         int causal, float scale, float scale_log2,
-                         BwdStrides st) {
+                         int causal, int q_stride, float scale,
+                         float scale_log2, BwdStrides st) {
   using W = WgBwd<D>;
   constexpr int DP = W::DP;
   extern __shared__ uint8_t smem_wg[];
@@ -712,7 +735,7 @@ attn_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * WG_T;  // longest first
   const int hk = h / G;
-  const int off = Sk - Sq;
+  const int q_offset = Sk - 1 - (Sq - 1) * q_stride;
   load_wg_tile<D>(Qs, q + b * st.q.b + h * st.q.h, st.q.s, q0, Sq);
   load_wg_tile<D>(dOs, dout + b * st.dout.b + h * st.dout.h, st.dout.s, q0,
                   Sq);
@@ -720,7 +743,7 @@ attn_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
   const bf16* kg = k + b * st.k.b + hk * st.k.h;
   const bf16* vg = v + b * st.v.b + hk * st.v.h;
   const int q_last = min(q0 + WG_T, Sq) - 1;
-  const int kv_end = causal ? min(Sk, q_last + off + 1) : Sk;
+  const int kv_end = causal ? min(Sk, q_last * q_stride + q_offset + 1) : Sk;
   const int n_tiles = (kv_end + WG_T - 1) / WG_T;
   auto load_kv = [&](int j) {
     load_wg_tile<D>(Ks + (j & 1) * W::TILE, kg, st.k.s, j * WG_T, Sk);
@@ -732,6 +755,8 @@ attn_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
   // this thread's query rows, r = 0, 1: row0 + 8 r; their lse (log2 units)
   // and D, read once
   const int row0 = q0 + warp * 16 + g;
+  // their positions: row g + 8's is 8 q_stride further
+  const int qpos = row0 * q_stride + q_offset, qpos8 = 8 * q_stride;
   float l2[2], dd[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -770,7 +795,7 @@ attn_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
     // P in place of S: element [4 n + e] is query row0 + 8 (e / 2), key
     // k0 + 8 n + 2 t + e % 2
     const bool masked = k0 + WG_T > Sk ||
-                        (causal && k0 + WG_T - 1 > q0 + off);
+                        (causal && k0 + WG_T - 1 > q0 * q_stride + q_offset);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -778,7 +803,7 @@ attn_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
         float p = exp2f(fmaf(s[4 * n + e], scale_log2, -l2[e >> 1]));
         if (masked) {
           const int kk = k0 + 8 * n + 2 * t + (e & 1);
-          if (kk >= Sk || (causal && kk > row0 + 8 * (e >> 1) + off)) p = 0.f;
+          if (kk >= Sk || (causal && kk > qpos + (e >> 1) * qpos8)) p = 0.f;
         }
         s[4 * n + e] = p;
       }
@@ -808,7 +833,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Sk,
-           int causal, float scale, const BwdStrides& st,
+           int causal, int q_stride, float scale, const BwdStrides& st,
            cudaStream_t stream) {
   using Tl = Tile<D>;
   const T* qp = static_cast<const T*>(q);
@@ -826,7 +851,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   attn_bwd_dkdv_kernel<T, D><<<dim3(Hkv, B, (Sk + Tl::BT - 1) / Tl::BT), NT,
                                s_kv, stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      Hq, Sq, Sk, Hq / Hkv, causal, scale, st);
+      Hq, Sq, Sk, Hq / Hkv, causal, q_stride, scale, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -838,7 +863,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   attn_bwd_dq_kernel<T, D><<<dim3(Hq, B, (Sq + Tl::BT - 1) / Tl::BT), NT, s_q,
                              stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<T*>(dq), Sq, Sk, Hq / Hkv,
-      causal, scale, st);
+      causal, q_stride, scale, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -846,7 +871,7 @@ template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, float* delta, void* dq,
                  void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Sk,
-                 int causal, float scale, const BwdStrides& st,
+                 int causal, int q_stride, float scale, const BwdStrides& st,
                  cudaStream_t stream) {
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
@@ -865,8 +890,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   attn_bwd_dkdv_wgmma_kernel<D><<<dim3(Hkv, B, (Sk + WG_T - 1) / WG_T), WG_NT,
                                   smem, stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Hq, Sq, Sk, Hq / Hkv, causal, scale, scale_log2,
-      st);
+      static_cast<bf16*>(dv), Hq, Sq, Sk, Hq / Hkv, causal, q_stride, scale,
+      scale_log2, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -877,7 +902,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   attn_bwd_dq_wgmma_kernel<D><<<dim3(Hq, B, (Sq + WG_T - 1) / WG_T), WG_NT,
                                 smem, stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dq), Sq, Sk, Hq / Hkv,
-      causal, scale, scale_log2, st);
+      causal, q_stride, scale, scale_log2, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -887,22 +912,22 @@ template <typename T, int D>
 int route(const void* q, const void* k, const void* v, const void* o,
           const void* dout, const float* lse, float* delta, void* dq,
           void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Sk,
-          int causal, float scale, const BwdStrides& st,
+          int causal, int q_stride, float scale, const BwdStrides& st,
           cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value && D <= 128)
     return launch_wgmma<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq,
-                           Hkv, Sq, Sk, causal, scale, st, stream);
+                           Hkv, Sq, Sk, causal, q_stride, scale, st, stream);
   else
     return launch<T, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv,
-                        Sq, Sk, causal, scale, st, stream);
+                        Sq, Sk, causal, q_stride, scale, st, stream);
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const void* lse, void* delta, void* dq,
              void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Sk,
-             int D, int causal, float scale, const long long* sv,
-             void* stream) {
+             int D, int causal, int q_stride, float scale,
+             const long long* sv, void* stream) {
   BwdStrides st;
   Strides3* parts[] = {&st.q, &st.k, &st.v, &st.o,
                        &st.dout, &st.dq, &st.dk, &st.dv};
@@ -911,10 +936,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return route<T, 32>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Hq, Hkv, Sq, Sk, causal, scale, st, s);
-    case 64: return route<T, 64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Hq, Hkv, Sq, Sk, causal, scale, st, s);
-    case 128: return route<T, 128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Hq, Hkv, Sq, Sk, causal, scale, st, s);
-    case 256: return route<T, 256>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Hq, Hkv, Sq, Sk, causal, scale, st, s);
+    case 32: return route<T, 32>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Hq, Hkv, Sq, Sk, causal, q_stride, scale, st, s);
+    case 64: return route<T, 64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Hq, Hkv, Sq, Sk, causal, q_stride, scale, st, s);
+    case 128: return route<T, 128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Hq, Hkv, Sq, Sk, causal, q_stride, scale, st, s);
+    case 256: return route<T, 256>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Hq, Hkv, Sq, Sk, causal, q_stride, scale, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -924,27 +949,29 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 extern "C" {
 
 // q, k, v, o, dO in one dtype; lse (B, Hq, Sq) f32 from the forward; delta a
-// (B, Hq, Sq) f32 workspace; dq, dk, dv outputs in the inputs' dtype.
-// strides: 24 element strides (b, h, s) of q, k, v, o, dO, dq, dk, dv.
+// (B, Hq, Sq) f32 workspace; dq, dk, dv outputs in the inputs' dtype;
+// q_stride >= 1 (query row i at position i * q_stride + Sk - 1 - (Sq - 1) *
+// q_stride).  strides: 24 element strides (b, h, s) of q, k, v, o, dO, dq,
+// dk, dv.
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
                             void* delta, void* dq, void* dk, void* dv, int B,
                             int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-                            float scale, const long long* strides,
-                            void* stream) {
+                            int q_stride, float scale,
+                            const long long* strides, void* stream) {
   return dispatch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv,
-                         Sq, Sk, D, causal, scale, strides, stream);
+                         Sq, Sk, D, causal, q_stride, scale, strides, stream);
 }
 
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* delta, void* dq, void* dk, void* dv, int B,
                              int Hq, int Hkv, int Sq, int Sk, int D,
-                             int causal, float scale,
+                             int causal, int q_stride, float scale,
                              const long long* strides, void* stream) {
   return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                                 Hq, Hkv, Sq, Sk, D, causal, scale, strides,
-                                 stream);
+                                 Hq, Hkv, Sq, Sk, D, causal, q_stride, scale,
+                                 strides, stream);
 }
 
 }  // extern "C"

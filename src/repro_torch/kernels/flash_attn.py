@@ -27,7 +27,8 @@ the model's views are never copied.
 context parallelism's striped rows (``models.layers.SeqParallel``), one
 rank's rows g, g + mm, ... over the keys up to its last row.  Both kernels
 take it in their key bound and causal masks only; at 1 they compute what
-they computed before, bit for bit.  Forward only.
+they computed before, bit for bit.  So do the backward kernels, which take
+it the same way (``FlashAttention`` carries it from the forward).
 
 **Training.**  Where autograd records the call (grad mode on and an input
 requires grad), :func:`flash_attention` goes through :class:`FlashAttention`:
@@ -142,32 +143,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (which masks with the finite -1e30) and the plain version give.
     Differentiable where autograd records it (:class:`FlashAttention`).
 
-    ``q_stride`` > 1 (context parallelism's striped rows, forward only):
-    query i sits at position ``i * q_stride + Sk - 1 - (Sq - 1) *
+    ``q_stride`` > 1 (context parallelism's striped rows): query i sits at position ``i * q_stride + Sk - 1 - (Sq - 1) *
     q_stride``, the last row at Sk - 1, so the caller passes the keys up to
     its last row's position; no row may come before the first key."""
     _check(q, k, v, causal)
     _check_stride(q.shape[2], k.shape[2], causal, q_stride)
     if _tensors.grad_needed(q, k, v):
-        if q_stride != 1:
-            raise ValueError("flash_attention: no backward for q_stride > 1")
-        return FlashAttention.apply(q, k, v, causal)
+        return FlashAttention.apply(q, k, v, causal, q_stride)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, q_stride)
     return _forward(q, k, v, causal, with_lse=False, q_stride=q_stride)[0]
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True):
+                        causal: bool = True, q_stride: int = 1):
     """(out, lse): :func:`flash_attention`'s output and the f32 (B, Hq, Sq)
     natural-log log-sum-exp of each row's scaled, masked scores, stored by
     the forward kernel (``ref.attention_lse_ref`` on CPU tensors).  Causal
     with Sq > Sk raises: no backward takes it."""
     _check(q, k, v, causal, train=True)
+    _check_stride(q.shape[2], k.shape[2], causal, q_stride)
     _check_trainable(q, k, causal)
     if q.device.type == "cpu":
-        return attention_lse_ref(q, k, v, causal)
-    return _forward(q, k, v, causal, with_lse=True)
+        return attention_lse_ref(q, k, v, causal, q_stride)
+    return _forward(q, k, v, causal, with_lse=True, q_stride=q_stride)
 
 
 def _check_trainable(q, k, causal):
@@ -208,13 +207,15 @@ def _forward(q, k, v, causal, with_lse, q_stride=1):
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
-                        do: torch.Tensor, causal: bool = True):
+                        do: torch.Tensor, causal: bool = True,
+                        q_stride: int = 1):
     """(dq, dk, dv) of :func:`flash_attention` at ``do`` (the gradient of its
     output ``o``), from the forward's ``lse``: three backward kernels on
     CUDA tensors (:func:`bwd_kernels` says which), ``ref.attention_bwd_ref``
-    on CPU tensors.  Each gradient
+    on CPU tensors; ``q_stride`` as the forward's.  Each gradient
     has its input's dtype and shape (and, on the card, its layout)."""
     b, hq, hkv, sq, sk, d = _check(q, k, v, causal, train=True)
+    _check_stride(sq, sk, causal, q_stride)
     _check_trainable(q, k, causal)
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
             or o.dtype != q.dtype or do.dtype != q.dtype:
@@ -226,7 +227,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: lse must be float32 of shape "
                          f"{(b, hq, sq)}, got {lse.dtype} {tuple(lse.shape)}")
     if q.device.type == "cpu":
-        return attention_bwd_ref(q, k, v, o, lse, do, causal)
+        return attention_bwd_ref(q, k, v, o, lse, do, causal, q_stride)
     _tensors.check_cuda_head_dim("flash_attention_bwd", d)
     bt = bwd_kernels(q.dtype, d)[2]       # grid z: tiles of keys, queries
     if b > _GRID_MAX or -(-max(sq, sk) // bt) > _GRID_MAX:
@@ -248,7 +249,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq,
-                 sk, d, int(causal), 1.0 / (d ** 0.5), st,
+                 sk, d, int(causal), q_stride, 1.0 / (d ** 0.5), st,
                  _tensors.stream(q.device))
     _build.check(lib, "flash_attention_bwd", err)
     LAUNCHES["flash_attention_bwd"] += 1
@@ -257,18 +258,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with a backward: the forward kernel with lse, the
-    backward kernels (the plain versions on CPU tensors).  It saves q, k, v,
-    the output and lse."""
+    backward kernels (the plain versions on CPU tensors), at the forward's
+    ``q_stride``.  It saves q, k, v, the output and lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = flash_attention_fwd(q, k, v, causal)
+    def forward(ctx, q, k, v, causal, q_stride=1):
+        o, lse = flash_attention_fwd(q, k, v, causal, q_stride)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.q_stride = causal, q_stride
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                         ctx.q_stride)
+        return dq, dk, dv, None, None

@@ -111,28 +111,26 @@ def _work_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _scores(q, k, causal):
+def _scores(q, k, causal, q_stride=1):
     """The scaled, masked scores (B, Hq, Sq, Sk) of ``attention_ref``, in
     f32 (f64 for f64 inputs), K repeated over the G query heads of each KV
-    head."""
+    head; query rows at ``q_stride`` (:func:`causal_mask`)."""
     d = q.shape[-1]
     sq, sk = q.shape[2], k.shape[2]
     wt = _work_dtype(q.dtype)
     k = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(wt), k.to(wt)) / (d ** 0.5)
     if causal:
-        mask = torch.ones((sq, sk), dtype=torch.bool,
-                          device=q.device).tril(diagonal=sk - sq)
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(causal_mask(sq, sk, q_stride, q.device), s, NEG_INF)
     return s
 
 
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool = True):
+                      causal: bool = True, q_stride: int = 1):
     """``attention_ref`` and the f32 (B, Hq, Sq) natural-log log-sum-exp of
     its scaled, masked scores: what the flash kernels' forward stores for
     the backward.  f64 inputs are computed, and give lse, in f64."""
-    s = _scores(q, k, causal)
+    s = _scores(q, k, causal, q_stride)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     v = v.repeat_interleave(q.shape[1] // v.shape[1], dim=1)
@@ -142,14 +140,16 @@ def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                      causal: bool = True):
+                      causal: bool = True, q_stride: int = 1):
     """(dq, dk, dv) of ``attention_ref`` by the FlashAttention-2 formulas,
     in f32, each in its input's dtype: ``D_i = sum dO_i O_i``,
     ``P = exp(S scale - lse)``, ``dV = sum_g P^T dO``,
     ``dS = P (dO V^T - D)``, ``dQ = scale dS K``,
     ``dK = scale sum_g dS^T Q``; the sums over g run over the G query heads
     of each KV head.  The arithmetic the backward kernels do, written out
-    (not autograd of ``attention_ref``); f64 inputs in f64."""
+    (not autograd of ``attention_ref``); f64 inputs in f64.  ``q_stride``
+    places the query rows as :func:`attention_ref` does (context
+    parallelism's striped rows)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -157,7 +157,8 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     wt = _work_dtype(q.dtype)
     q32, k32, v32, do32 = (t.to(wt) for t in (q, k, v, do))
     delta = (do32 * o.to(wt)).sum(-1)                        # (B, Hq, Sq)
-    p = torch.exp(_scores(q, k, causal) - lse[..., None])    # (B, Hq, Sq, Sk)
+    p = torch.exp(_scores(q, k, causal, q_stride)
+                  - lse[..., None])                          # (B, Hq, Sq, Sk)
     kr = k32.repeat_interleave(g, dim=1)
     vr = v32.repeat_interleave(g, dim=1)
     dp = torch.einsum("bhqd,bhkd->bhqk", do32, vr)

@@ -1,4 +1,5 @@
-"""The flash kernel at ``q_stride`` 1 against another checkout's, bit for bit.
+"""The flash kernels at ``q_stride`` 1 against another checkout's, bit for
+bit: the forward and the backward.
 
     PYTHONPATH=src python3 -m repro_torch.launch.flash_stride_check \\
         --other <other checkout>/src
@@ -7,9 +8,12 @@ Both checkouts' ``flash_attention`` wrappers run in one process on the card
 (the other's imported beside this one, ``launch._checkout``) on the same
 inputs: llama3.2-3b's heads (Hq 24, Hkv 8, D 128) at S 1, 17, 128, 512
 and 2048, B 1 and 8, causal and not, Sq < Sk and causal Sq > Sk, and D 32,
-64 and 256 at S 128, in bf16 and f32.  Prints one JSON line: every shape
-and whether the two outputs are equal bit for bit.  Exits 1 where one is
-not.
+64 and 256 at S 128, in bf16 and f32.  Then the backward kernels
+(``flash_attention_bwd``: the tensor-core pair for bf16 at D <= 128, else
+the CUDA-core pair) at every such shape a backward takes (no causal Sq >
+Sk), both checkouts' on this one's forward output and lse: dq, dk, dv.
+Prints one JSON line: every shape and whether the two results are equal
+bit for bit.  Exits 1 where one is not.
 """
 
 from __future__ import annotations
@@ -48,6 +52,32 @@ def compare(other, dev) -> list:
     return rows
 
 
+def compare_bwd(other, dev) -> list:
+    """This checkout's backward at ``q_stride`` 1 against ``other``'s
+    (which may have no ``q_stride``), on the same inputs, lse and dO."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        for b, hq, hkv, sq, sk, d, causal in SHAPES:
+            if causal and sq > sk:
+                continue
+            q, do = (torch.randn(b, sq, hq, d, generator=gen,
+                                 device=dev).to(dt).transpose(1, 2)
+                     for _ in range(2))
+            k, v = (torch.randn(b, sk, hkv, d, generator=gen,
+                                device=dev).to(dt).transpose(1, 2)
+                    for _ in range(2))
+            o, lse = flash_attn.flash_attention_fwd(q, k, v, causal)
+            mine = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                                  q_stride=1)
+            theirs = other.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            rows.append({"shape": [b, hq, hkv, sq, sk, d, causal,
+                                   str(dt).split(".")[-1]],
+                         "equal": all(bool(torch.equal(x, y))
+                                      for x, y in zip(mine, theirs))})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True,
@@ -58,12 +88,14 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     (other,) = load_other(args.other, "kernels.flash_attn")
-    rows = compare(other, dev)
+    rows, bwd = compare(other, dev), compare_bwd(other, dev)
     n_equal = sum(r["equal"] for r in rows)
+    n_bwd = sum(r["equal"] for r in bwd)
     print(json.dumps({"device": torch.cuda.get_device_name(dev),
                       "compared": len(rows), "bit_equal": n_equal,
-                      "rows": rows}))
-    return 0 if n_equal == len(rows) else 1
+                      "bwd_compared": len(bwd), "bwd_bit_equal": n_bwd,
+                      "rows": rows, "bwd_rows": bwd}))
+    return 0 if n_equal == len(rows) and n_bwd == len(bwd) else 1
 
 
 if __name__ == "__main__":

@@ -1,8 +1,12 @@
 """Where llama3.2-3b's training step spends its time on one card, and the
-step's times eager against captured, this checkout against another.
+step's times eager against captured, this checkout against another; and
+the step under context parallelism across ranks.
 
     python -m repro_torch.launch.train_step_times [--split] [--steps N]
         [--other SRC] [--out FILE]
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train_step_times \
+        --meshes 1x4,2x2 [--steps N] [--seq-len 4096] [--depth L]
+        [--reduced] [--device cuda|cpu] [--out FILE]
 
 llama3.2-3b at full width and depth, ``Trainer`` on B = 8 x 512 synthetic
 tokens from seed 0, lr 3e-3, f32 moments, remat.
@@ -26,6 +30,22 @@ and moments, captured where it has ``compile``, else eager.  Order: other,
 eager, captured, captured, eager, other.  Then one replayed and one eager
 step profiled for device activity only: wall ms, busy ms, idle share.
 
+``--meshes DxM,...`` (under ``torchrun``, one rank a card on ``nccl``,
+else ``gloo``; ``--device cpu`` runs on the CPU): llama3.2-3b (its depth
+cut to ``--depth`` if given; ``--reduced``: its smoke config) with
+``attn_shard="seq"``, ``causal_bound`` and ``seq_residual`` (the
+reference's ``seq_causal`` variant) trained by ``Trainer`` under each
+``("data", "model")`` mesh of D x M ranks (``models.layers.ambient_mesh``;
+the batch split over "data", the gradients summed over the mesh:
+``train.loop``), B = 2 x S = ``--seq-len`` synthetic tokens from seed 0,
+eager (a step across ranks is not captured), ``--steps`` steps: every
+rank's step ms (CUDA events), the global tokens/s, peak allocated GiB and
+flash launches a step, then on the card one more step profiled for device
+activity: wall ms, busy ms, idle share.  Then the one-card step of the same
+model at the same B x S on rank 0 (no mesh, eager as the mesh steps are:
+``compile=False``), the same figures, while the other ranks wait.  Each
+record lists ``replayed``: every step's is False.
+
 Prints one JSON object a measurement, then one for the whole (also
 written to ``--out``).
 """
@@ -36,6 +56,7 @@ import argparse
 import collections
 import inspect
 import json
+import os
 import subprocess
 import time
 
@@ -44,6 +65,7 @@ import torch
 from ._checkout import load_other
 
 ARCH, BATCH, SEQ, LR = "llama3.2-3b", 8, 512, 3e-3
+MESH_BATCH = 2                # the global batch of --meshes
 # a kernel's part of the step: the first whose keys its name holds
 PARTS = (("adamw kernels", ("adamw_",)),
          ("compress kernels", ("compress_",)),
@@ -207,6 +229,94 @@ def turns(cfg, dev, steps, other) -> dict:
     return out
 
 
+def _steps_record(tr, batch, seq) -> dict:
+    """A rank's figures of ``tr``'s steps: step ms, tokens/s of the global
+    batch, peak GiB, losses, whether each step was a graph's replay."""
+    ms = list(tr.step_ms)
+    return {"step_ms": ms, "loss": list(tr.history),
+            "tokens_per_s": [batch * seq / m * 1e3 for m in ms],
+            "peak_gib": [b / 2**30 for b in tr.peak_bytes],
+            "replayed": list(tr.replayed)}
+
+
+def _train_turn(cfg, dev, args, mesh=None) -> dict:
+    """``args.steps`` eager steps of a new ``Trainer`` of ``cfg`` (under
+    ``mesh`` if given), the flash launches of each step (the last
+    ``args.steps - 1``: the first builds), then on the card one more step
+    profiled for device activity (``profile_ms``), outside the figures."""
+    import contextlib
+    from ..kernels import flash_attn
+    from ..models import layers as L
+    from ..train import Trainer
+    tr = Trainer(cfg, batch=MESH_BATCH, seq_len=args.seq_len, peak_lr=LR,
+                 device=dev, compile=False)
+    with (L.ambient_mesh(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        state = tr.run(1)
+        flash_attn.reset_launches()
+        state = tr.run(args.steps - 1, state=state)
+        rec = _steps_record(tr, MESH_BATCH, args.seq_len)
+        rec["flash_launches_per_step"] = {
+            k: v / max(1, args.steps - 1)
+            for k, v in flash_attn.LAUNCHES.items()}
+        if dev.type == "cuda":
+            prof = profile_ms(lambda: tr.run(1, state=state), cpu=False)
+            rec["profiled"] = {k: prof[k] for k in (
+                "wall_ms", "busy_ms", "idle_share", "device_events",
+                "parts_ms")}
+            rec["profiled"]["top_kernels_ms"] = prof["top_kernels_ms"][:8]
+            rec["profiled"]["replayed"] = tr.replayed[-1]
+    del tr, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_turns(args) -> dict:
+    """``--meshes``: the step across the ranks of each mesh, every rank's
+    figures gathered to every rank; then the one-card step on rank 0."""
+    import dataclasses
+    import torch.distributed as dist
+    from ..configs.base import get_arch, smoke_config
+    from .mesh import make_host_mesh
+    from .pipeline_prefill import _init_group
+    dev, backend = _init_group(args.device)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    cfg = smoke_config(ARCH) if args.reduced else get_arch(ARCH)
+    if args.depth:
+        cfg = dataclasses.replace(cfg, n_layers=args.depth)
+    cfg = dataclasses.replace(cfg, attn_shard="seq", causal_bound=True,
+                              seq_residual=True)
+    out = {"device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                      else "cpu"),
+           "card": card() if dev.type == "cuda" else None,
+           "arch": ARCH, "layers": cfg.n_layers, "batch": MESH_BATCH,
+           "seq_len": args.seq_len, "backend": backend, "world": world,
+           "variant": "seq_causal", "meshes": {}}
+    for spec in args.meshes.split(","):
+        dd, mm = (int(v) for v in spec.split("x"))
+        if dd * mm != world:
+            raise ValueError(f"mesh {spec} is not the {world} ranks")
+        # a gloo group's mesh is a CPU mesh: its collectives move a card's
+        # tensors through the host (distributed.comm)
+        mesh = make_host_mesh(dd, mm, device_type=(
+            dev.type if backend == "nccl" else "cpu"))
+        rec = _train_turn(cfg, dev, args, mesh)
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, rec)
+        out["meshes"][spec] = {"data": dd, "model": mm,
+                               "per_rank": per_rank}
+        if rank == 0:
+            print(json.dumps({"mesh": spec, "per_rank": per_rank}),
+                  flush=True)
+    if rank == 0:
+        out["one_card"] = _train_turn(cfg, dev, args)
+        print(json.dumps({"one_card": out["one_card"]}), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split", action="store_true",
@@ -217,7 +327,27 @@ def main(argv=None) -> dict:
                     help="the src directory of another checkout to compare")
     ap.add_argument("--out", default=None,
                     help="also write the whole result to this JSON file")
+    ap.add_argument("--meshes", default=None,
+                    help="under torchrun: DxM (data x model) meshes, "
+                         "comma-separated, each the whole world")
+    ap.add_argument("--seq-len", type=int, default=4096,
+                    help="with --meshes: the sequence")
+    ap.add_argument("--depth", type=int, default=0,
+                    help="layers (0: the model's whole depth)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's smoke config")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
+    if args.meshes:
+        if args.steps < 2:
+            raise ValueError("--meshes needs --steps >= 2")
+        out = mesh_turns(args)
+        if int(os.environ.get("RANK", "0")) == 0:
+            print(json.dumps(out))
+            if args.out:
+                with open(args.out, "w") as f:
+                    json.dump(out, f, indent=1)
+        return out
     from repro_torch import train
     from repro_torch.configs.base import get_arch
     cfg = get_arch(ARCH)

@@ -29,9 +29,16 @@ constraints and GSPMD moves the data, each rank's part is written out here
   residual) through the flash kernel's ``q_stride``; else blocked rows.
 
 The flash kernel's bottom-right causal alignment gives the reference's
-``qpos >= kpos`` with the keys cut at the rank's last row.  Forward only:
-no collective here has a backward.  The reference's ``_constrain``,
-``_rope_hd_pin``, ``_attn_constraints``, ``constrain_residual`` and
+``qpos >= kpos`` with the keys cut at the rank's last row.  Every
+collective is differentiable (``distributed.comm``: each one's backward is
+its adjoint), and so is the striped flash call (``FlashAttention`` with
+``q_stride``), so a loss under CP has a backward: each rank's loss, the
+same on every rank, scaled by 1 / (the mesh's ranks), and every
+parameter's gradient summed over the mesh, give the reference's gradient
+(``train.loop.step_body``).  Where the mesh's "data" dimension is above
+1 the MoE aux loss takes its means over every data rank's groups as well,
+as the reference's over the global batch (:func:`aux_groups`).  The
+reference's ``_constrain``, ``_rope_hd_pin``, ``_attn_constraints``, ``constrain_residual`` and
 ``_constrain_moe_groups`` pin layouts only and have no counterpart;
 ``_chunked_attention`` only bounds memory, and the kernel computes the
 whole causal attention in one call.
@@ -299,12 +306,20 @@ def seq_parallel(cfg: ArchConfig, s: int) -> Optional[SeqParallel]:
                        residual=cfg.seq_residual, striped=cfg.causal_bound)
 
 
-def refuse_backward(what: str) -> None:
-    """Context parallelism is forward only (the serving path)."""
-    raise NotImplementedError(
-        f"{what} under context parallelism (a 'model' mesh dimension above "
-        f"1 with attn_shard='seq'): forward only; the backward is ROADMAP "
-        f"Queue 1 item 10(c)")
+def aux_groups(cp: Optional[SeqParallel]) -> Tuple:
+    """The groups over which a MoE layer's aux-loss means are all-reduced,
+    beyond its own dispatch groups, so that they are the reference's means
+    over every group of the global batch: the model group under a blocked
+    residual (each model rank holds its sequence block's groups), and the
+    "data" group where it is above 1 (a train step splits the batch over
+    it, ``train.loop``; where every data rank holds the whole batch, the
+    mean of equal values is the value and the gradients are unchanged)."""
+    groups = []
+    if cp is not None and cp.residual:
+        groups.append(cp.group)
+    if _mesh_axis("data") > 1:
+        groups.append(_ambient_mesh().get_group("data"))
+    return tuple(groups)
 
 
 # ----------------------------------------------------------------- attention
@@ -572,14 +587,15 @@ def moe_capacity(cfg: ArchConfig, t: int) -> int:
 
 
 def moe(cfg: ArchConfig, p: Params, x, *, capacity: Optional[int] = None,
-        aux_group=None):
+        aux_groups=()):
     """Capacity-based top-k MoE with scatter dispatch / gather combine.
 
     ``x`` is (G, T, d): G dispatch groups (capacity is budgeted per group),
     T tokens per group.  Returns (y (G, T, d), the load-balancing aux loss).
-    With ``aux_group`` (the sequence-parallel MoE: every rank of the group
-    holds as many groups) the aux loss is that of every rank's groups
-    together: the router-probability and dispatch means all-reduced.
+    With ``aux_groups`` (:func:`aux_groups`: every rank of each holds as
+    many dispatch groups) the aux loss is that of every rank's groups
+    together: the router-probability and dispatch means all-reduced over
+    each group in turn (differentiable: the all-reduce's backward is one).
     Each (token, k) slot keeps its place in its expert's queue up to the
     capacity; the rest go to a sentinel row and add nothing.  The dispatch
     scatter (``index_add_``) adds one non-zero row to each buffer row it
@@ -647,10 +663,12 @@ def moe(cfg: ArchConfig, p: Params, x, *, capacity: Optional[int] = None,
     # load-balancing auxiliary loss (Switch-style)
     me = probs.mean(dim=(0, 1))                         # (E,)
     ce = onehot.to(torch.float32).mean(dim=(0, 1, 2)) * e
-    if aux_group is not None:        # the means over every rank's groups
+    if aux_groups:                   # the means over every rank's groups
         from ..distributed import comm
-        me, ce = comm.all_reduce(torch.stack([me, ce]),
-                                 aux_group) / comm.size(aux_group)
+        both, n = torch.stack([me, ce]), 1
+        for group in aux_groups:
+            both, n = comm.all_reduce(both, group), n * comm.size(group)
+        me, ce = both / n
     aux = torch.sum(me * ce)
     return y, aux
 

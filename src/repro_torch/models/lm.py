@@ -71,9 +71,14 @@ and a MoE layer takes the reference's sequence-parallel branch (each
 rank's (B, S/mm) rows are its share of the (B mm, S/mm) dispatch groups,
 data-major and model-minor; capacity budgeted from S/mm; the aux loss
 over every group).
-A prefill under it fills the whole cache on every model rank.  Forward
-only: a loss, or a call autograd would record, raises (ROADMAP Queue 1
-item 10(c)).
+A prefill under it fills the whole cache on every model rank.  A loss
+under it trains (:func:`lm_loss`): every collective's backward is its
+adjoint, the striped flash call has its backward kernels, and under remat
+the backward recomputes each period's forward, collectives included, in
+the same order on every rank.  The loss is the same on every model rank
+(the residual is gathered before the final norm, as without a blocked
+residual); ``train.loop.step_body`` scales it and sums the gradients over
+the mesh.
 """
 
 from __future__ import annotations
@@ -334,26 +339,28 @@ def init_stage(cfg: ArchConfig, sid: int, n_stages: int, device="cuda",
 
 
 # -------------------------------------------------------------------- forward
-def _ffn(cfg: ArchConfig, p: Block, h, cp: Optional[L.SeqParallel] = None):
+def _ffn(cfg: ArchConfig, p: Block, h, aux_groups=()):
     """The position's FFN on h (B, S, d); MoE dispatches each row's S tokens
     as one group.  Returns (y, aux loss or None for a dense MLP).  Under a
-    blocked residual (``cp.residual``) h is the rank's (B, S/mm, d): the
-    reference's sequence-parallel MoE, its aux loss over every rank's
-    groups."""
+    blocked residual h is the rank's (B, S/mm, d): the reference's
+    sequence-parallel MoE, its aux loss over every rank's groups
+    (``aux_groups``: ``layers.aux_groups``, also over every data
+    rank's)."""
     if p.spec["ffn"] == "moe":
-        group = cp.group if cp is not None and cp.residual else None
-        return L.moe(cfg, p.moe, h, aux_group=group)
+        return L.moe(cfg, p.moe, h, aux_groups=aux_groups)
     return L.mlp(cfg, p.mlp, h), None
 
 
 def _position_block(cfg: ArchConfig, p: Block, x, pos, kv_out: bool = False,
                     use_kernel: bool = True,
-                    cp: Optional[L.SeqParallel] = None):
+                    cp: Optional[L.SeqParallel] = None, aux_groups=()):
     """One layer: pre-norm mixer + pre-norm FFN.  Returns (x, aux, extras):
     aux is the MoE aux loss (None for a dense MLP); extras are the layer's
     (k, v) for attention or (conv_state, ssm_state) for Mamba when
     ``kv_out``, else None.  ``cp``: context parallelism (x and pos the
-    rank's block under a blocked residual)."""
+    rank's block under a blocked residual); ``aux_groups``: :func:`_ffn`'s.
+    Both are decided once a stack, outside remat, so that a recomputed
+    period issues the collectives of its first run."""
     extras = None
     h = L.apply_norm(cfg, p.norm1, x)
     if p.spec["mixer"] == "attn":
@@ -365,7 +372,7 @@ def _position_block(cfg: ArchConfig, p: Block, x, pos, kv_out: bool = False,
     y, extras = out if kv_out else (out, None)
     x = x + y
     h = L.apply_norm(cfg, p.norm2, x)
-    y, aux = _ffn(cfg, p, h, cp)
+    y, aux = _ffn(cfg, p, h, aux_groups)
     return x + y, aux, extras
 
 
@@ -380,12 +387,9 @@ def _periods(cfg: ArchConfig, layers, x, pos, collect_cache: bool,
     caches: List[List] = [[] for _ in struct]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cp = residual_block(cfg, x.shape[1], blocked)
-    if cp is not None:
-        if torch.is_grad_enabled() and (x.requires_grad or any(
-                t.requires_grad for t in layers.parameters())):
-            L.refuse_backward("a backward")
-        if cp.residual and not blocked:
-            x, pos = cp.block(x), cp.block(pos, dim=-1)
+    if cp is not None and cp.residual and not blocked:
+        x, pos = cp.block(x), cp.block(pos, dim=-1)
+    groups = L.aux_groups(cp)
 
     def period_run(x, per):
         a_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -393,7 +397,8 @@ def _periods(cfg: ArchConfig, layers, x, pos, collect_cache: bool,
             p = _layer(layers, per, pos_i, len(struct))
             x, a, extra = _position_block(cfg, p, x, pos,
                                           kv_out=collect_cache,
-                                          use_kernel=use_kernel, cp=cp)
+                                          use_kernel=use_kernel, cp=cp,
+                                          aux_groups=groups)
             if a is not None:
                 a_total = a_total + a
             if collect_cache:
@@ -495,11 +500,10 @@ def lm_loss(cfg: ArchConfig, model: LM, batch: Dict,
             use_kernel: bool = True) -> Tuple[torch.Tensor, Dict]:
     """batch: {'tokens' (B, S) or 'embeds' (B, S, d), 'labels' (B, S),
     optional 'positions'} as tensors on the model's device ->
-    (CE + 0.01 x aux, {"ce", "aux"})."""
+    (CE + 0.01 x aux, {"ce", "aux"}).  Under context parallelism every
+    model rank computes the same loss (of its data rank's batch)."""
     tokens = batch.get("embeds", batch.get("tokens"))
     b, s = tokens.shape[:2]
-    if L.seq_parallel(cfg, s) is not None:
-        L.refuse_backward("a loss")
     pos = batch.get("positions")
     if pos is None:
         pos = torch.arange(s, device=tokens.device)[None].expand(b, s)

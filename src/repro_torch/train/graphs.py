@@ -43,6 +43,13 @@ of the counters as the capture's own) and adds it at every replay, as
 
 No fallback: a capture or a replay that fails raises, and nothing runs the
 eager step instead.
+
+A step across the ranks of an ambient mesh (context parallelism,
+``train.loop``'s "Across ranks") is not captured: ``compile="auto"``
+resolves to eager there and ``compile=True`` raises
+(``capture.resolve_compile``).  Its collectives go through host copies on
+``gloo``, which a graph cannot record; the captured step across ranks on
+``nccl`` is ROADMAP Queue 1 item 10(e).
 """
 
 from __future__ import annotations

@@ -16,6 +16,20 @@ the accumulated step (``distributed.overlap.accum_step_body``: the rule of
 the reference's ``launch/specs.py::make_cell``), eager or captured by the
 same rule; every other config with :func:`step_body`.
 
+**Across ranks.**  Under an ambient ``("data", "model")`` mesh of more
+than one rank (``models.layers.ambient_mesh``: context parallelism over
+"model" with ``attn_shard="seq"``), :func:`step_body` runs on every rank of
+the mesh (:class:`MeshStep`): each data rank takes its share of the batch
+(the rows ``[r B/dd, (r+1) B/dd)``), every rank's loss is scaled by 1 /
+(dd mm) before ``backward``, and every gradient is summed over the mesh
+(over "model", then "data"), in f32 and rounded once to its dtype, before
+AdamW's global-norm clip.  The sum is the gradient of the reference's loss,
+the mean over the global batch; every rank then applies the same update,
+so the parameters stay equal on every rank, bit for bit.  The loss and CE
+reported are the mean over the data ranks.  Such a step runs eagerly
+(``capture.resolve_compile``; its capture on ``nccl`` is ROADMAP Queue 1
+item 10(e)), and the accumulated step does not take a mesh (item 10(f)).
+
 As in the reference: ``AsyncCheckpointer`` every ``ckpt_every`` steps with
 the data cursor, ``resume_or_init`` restores parameters, moments, step and
 cursor and replays the identical stream; a prefetched input pipeline; a
@@ -47,6 +61,7 @@ from ..data import PrefetchLoader, SyntheticLMData
 from ..distributed.overlap import (accum_step_body, compression_of,
                                    wants_accum)
 from ..models import Model, build_model, loss as model_loss
+from ..models import layers as L
 from ..models.convert import decayed
 from ..models.lm import resolve_device
 from ..optim import OptState, adamw_init, cosine_schedule
@@ -72,6 +87,95 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     return out
 
 
+class MeshStep(NamedTuple):
+    """A train step across the ranks of the ambient mesh: ``mesh``, its
+    "data" size ``data`` and this rank's place on it ``data_rank``, its
+    ranks ``ranks`` (data x model), and ``groups``, the groups of its
+    dimensions above one, "model" first."""
+    mesh: Any
+    data: int
+    data_rank: int
+    ranks: int
+    groups: tuple
+
+    def shard(self, batch: Dict[str, torch.Tensor]) -> Dict[str,
+                                                            torch.Tensor]:
+        """This data rank's rows of every tensor of ``batch`` (dim 0)."""
+        out = {}
+        for k, v in batch.items():
+            if v.shape[0] % self.data:
+                raise ValueError(f"a batch of {v.shape[0]} rows ({k!r}) does "
+                                 f"not split over {self.data} data ranks")
+            out[k] = v.chunk(self.data, 0)[self.data_rank]
+        return out
+
+    @torch.no_grad()
+    def reduce_grads(self, params: Dict[str, torch.Tensor]) -> None:
+        """Every parameter's gradient summed over the mesh in place of its
+        own: in f32 over each group in turn, rounded once to its dtype (a
+        bf16 sum over ranks would round at every add).  A parameter the
+        loss does not reach has no gradient on any rank and is skipped."""
+        from ..distributed import comm
+        for p in params.values():
+            if p.grad is None:
+                continue
+            g = p.grad.to(torch.float32)
+            for group in self.groups:
+                g = comm.all_reduce(g, group)
+            p.grad = g.to(p.grad.dtype)
+
+    @torch.no_grad()
+    def mean_over_data(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s mean over the data ranks (a model rank's loss is every
+        model rank's)."""
+        if self.data == 1:
+            return t
+        from ..distributed import comm
+        return comm.all_reduce(t, self.mesh.get_group("data")) / self.data
+
+
+def mesh_step() -> Optional[MeshStep]:
+    """The :class:`MeshStep` of the ambient mesh, or None without one or
+    with one rank.  A mesh dimension above one other than "data" and
+    "model" raises."""
+    mesh = L._ambient_mesh()
+    if mesh is None:
+        return None
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    other = {n: s for n, s in sizes.items()
+             if n not in ("data", "model") and s > 1}
+    if other:
+        raise ValueError(f"a train step runs across 'data' and 'model' "
+                         f"only; the ambient mesh also has {other}")
+    dd, mm = sizes.get("data", 1), sizes.get("model", 1)
+    if dd * mm == 1:
+        return None
+    return MeshStep(mesh=mesh, data=dd,
+                    data_rank=mesh.get_local_rank("data") if dd > 1 else 0,
+                    ranks=dd * mm,
+                    groups=tuple(mesh.get_group(n) for n in ("model", "data")
+                                 if sizes.get(n, 1) > 1))
+
+
+def loss_and_grads(cfg, model, batch):
+    """The loss and its gradients (in ``.grad``): on this rank alone, or
+    across the ambient mesh's ranks (:class:`MeshStep`).  Returns (loss,
+    metrics), detached."""
+    across = mesh_step()
+    if across is None:
+        loss, metrics = model_loss(cfg, model, batch)
+        loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+    # the backward inside the mesh too: remat recomputes under it
+    with L.ambient_mesh(across.mesh):
+        loss, metrics = model_loss(cfg, model, across.shard(batch))
+        (loss / across.ranks).backward()
+    across.reduce_grads(dict(model.named_parameters()))
+    return across.mean_over_data(loss.detach()), {
+        "ce": across.mean_over_data(metrics["ce"].detach()),
+        "aux": metrics["aux"].detach()}
+
+
 def step_body(model: Model, opt: OptState, *,
               weight_decay: float = 0.1) -> Callable:
     """``body(batch, hyper) -> metrics``: one step of ``model`` with the
@@ -81,7 +185,9 @@ def step_body(model: Model, opt: OptState, *,
     the loss does not reach (a VLM's input embedding) has no gradient and
     counts as a zero gradient, as under ``jax.grad``; nothing is allocated
     for it.  The eager step and the captured one (``graphs.TrainGraph``)
-    both run it."""
+    both run it.  Under an ambient mesh of more than one rank the loss and
+    its gradients are the mesh's (the module docstring, "Across
+    ranks")."""
     cfg = model.cfg
     params = dict(model.named_parameters())
     decay = decayed(model)
@@ -89,17 +195,14 @@ def step_body(model: Model, opt: OptState, *,
     def body(batch, hyper):
         for p in params.values():
             p.grad = None
-        loss, metrics = model_loss(cfg, model, batch)
-        loss.backward()
+        loss, metrics = loss_and_grads(cfg, model, batch)
         grads = {n: p.grad for n, p in params.items()}
         gnorm = adamw_apply(grads, opt, params, hyper,
                             weight_decay=weight_decay, decayed=decay)
         del grads
         for p in params.values():
             p.grad = None
-        return {"loss": loss.detach(),
-                **{k: v.detach() for k, v in metrics.items()},
-                "grad_norm": gnorm}
+        return {"loss": loss, **metrics, "grad_norm": gnorm}
 
     return body
 
@@ -108,9 +211,17 @@ def train_body(model: Model, opt: OptState, *,
                weight_decay: float = 0.1) -> Callable:
     """The step body ``model``'s config trains with: the accumulated one
     (``grad_accum`` micro-batches, ``grad_compression``) where the config
-    asks for it, else :func:`step_body`."""
+    asks for it, else :func:`step_body`.  The accumulated step under an
+    ambient mesh of more than one rank raises (ROADMAP Queue 1 item
+    10(f))."""
     cfg = model.cfg
     if wants_accum(cfg):
+        if mesh_step() is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the accumulated step (grad_accum="
+                f"{cfg.grad_accum}, grad_compression="
+                f"{cfg.grad_compression!r}) across the ranks of a mesh is "
+                f"not ported yet (ROADMAP Queue 1 item 10(f))")
         return accum_step_body(model, opt, max(cfg.grad_accum, 1),
                                compression_of(cfg),
                                weight_decay=weight_decay)
@@ -160,7 +271,10 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
 class Trainer:
     """End-to-end loop around the train step, on ``device``; on a CUDA
     device the step is replayed from a CUDA graph unless ``compile`` is
-    False (``capture.resolve_compile``'s rule)."""
+    False (``capture.resolve_compile``'s rule).  Run under an ambient mesh
+    (``models.layers.ambient_mesh``) on every rank of it, the step runs
+    across the mesh, eagerly (the module docstring, "Across ranks"); each
+    rank reads the same global batches from ``seed``."""
 
     cfg: ArchConfig
     batch: int
@@ -249,6 +363,9 @@ class Trainer:
             state = self.resume_or_init()
         self.model = state.model
         step_fn = make_train_step(state.model, peak_lr=self.peak_lr)
+        across = mesh_step()
+        compiled = self.compiled if across is None else resolve_compile(
+            self.compile, self.device, across.ranks)
         loader = PrefetchLoader(self.data, deadline_s=None,
                                 delay_fn=self.delay_fn)
         times: list = []
@@ -259,9 +376,8 @@ class Trainer:
                 if die_at is not None and gstep == die_at:
                     raise RuntimeError(f"injected failure at step {gstep}")
                 data_step, batch = loader.next()
-                graph = self._graph_for(state, batch) if self.compiled \
-                    else None
-                warm = self.compiled and graph is None
+                graph = self._graph_for(state, batch) if compiled else None
+                warm = compiled and graph is None
                 with (graphs.on_capture_stream(self.device) if warm
                       else contextlib.nullcontext()):
                     if cuda:

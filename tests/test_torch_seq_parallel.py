@@ -16,7 +16,10 @@ the port against the JAX package, on the CPU.
 * Without context parallelism nothing changes: a model size of 1,
   ``attn_shard`` "default" or "replicate" under mm = 2, bit-equal to no
   mesh; a prefill under CP fills the whole cache on every model rank,
-  equal to the one-rank prefill; a loss or a recorded backward raises.
+  equal to the one-rank prefill; a loss and a recorded backward under CP
+  (every model rank's result scaled by 1/mm, the gradients summed over the
+  model ranks) give the reference's gradients (its ``jax.value_and_grad``
+  with ``_mesh_axis`` patched).
 * The pipelined prefill (``launch.pipeline_prefill``), baseline 4 x 1 and
   ``seq_causal`` 2 x 2, on ``tests/test_pipeline_prefill.py``'s case
   (llama smoke, 4 layers, ``q_chunk`` 8, S 16, batch 4, ``n_micro`` 2,
@@ -186,22 +189,26 @@ for name, layers in MODELS.items():
                     errs.append((ge[k] - we[k]).abs().max().item())
             res["prefill_cache_" + tag] = np.array(errs)
             res["prefill_length_" + tag] = got_c["length"].numpy()
-    # forward only
+    # a loss and a recorded backward: every data rank holds the whole batch,
+    # so each model rank's result scaled by 1/mm and the gradients summed
+    # over the model ranks
     c = dataclasses.replace(cfg, attn_shard="seq")
-    refused = []
-    with L.ambient_mesh(meshes[2]):
-        try:
-            lm.lm_loss(c, model, {"tokens": tokens, "labels": tokens})
-            refused.append(False)
-        except NotImplementedError as e:
-            refused.append("10(c)" in str(e))
-        xg = x.clone().requires_grad_(True)
-        try:
-            lm.backbone(c, model, xg, pos)
-            refused.append(False)
-        except NotImplementedError as e:
-            refused.append("10(c)" in str(e))
-    res["refused_" + name] = np.array(refused)
+    mesh, mm = meshes[2], 2
+    group = mesh.get_group("model")
+    model.requires_grad_(True)
+    with L.ambient_mesh(mesh):
+        loss, _ = lm.lm_loss(c, model, {"tokens": tokens, "labels": tokens})
+        (loss / mm).backward()
+    res["cp_loss_" + name] = loss.detach().numpy()
+    for n, p in model.named_parameters():
+        res[f"cp_g_{name}__{n}"] = comm.all_reduce(p.grad, group).numpy()
+    model.requires_grad_(False)
+    w = torch.from_numpy(data["w"])
+    xg = x.clone().requires_grad_(True)
+    with L.ambient_mesh(mesh):
+        h, _, _ = lm.backbone(c, model, xg, pos)
+        ((h * w).sum() / mm).backward()
+    res["cp_xg_" + name] = comm.all_reduce(xg.grad, group).numpy()
 
 # the pipelined prefill: baseline 4 x 1, seq_causal 2 x 2
 cfg, model = model_of("llama3.2-3b", PF["layers"], q_chunk=PF["q_chunk"])
@@ -257,6 +264,7 @@ def _reference(root):
                 tag = f"{name}_{mm}_{int(cb)}{int(sr)}"
                 want["h_" + tag] = np.asarray(h)
                 want["aux_" + tag] = np.asarray(a)
+        want.update(_reference_grads(name, cfg, params, x, pos))
     cfg, params = _ref_params("llama3.2-3b", PF["layers"],
                               q_chunk=PF["q_chunk"])
     toks = np.load(root / "prefill_tokens.npz")["tokens"]
@@ -268,6 +276,42 @@ def _reference(root):
     return want
 
 
+def _reference_grads(name, cfg, params, x, pos):
+    """The reference's gradients of the two calls the ranks make under
+    ``attn_shard="seq"`` at mm = 2: the loss's, by parameter (laid out as
+    the port's parameters), and x's of ``sum(backbone(x) * w)``."""
+    import jax
+    import jax.numpy as jnp
+    import repro.models.layers as JL
+    from repro.models import build_model
+    from repro.models import lm as jlm
+    from repro_torch.configs.base import smoke_config as tsmoke
+    from repro_torch.models.convert import params_from_reference
+    c = dataclasses.replace(cfg, attn_shard="seq")
+    tokens, w = _inputs(cfg, params)[0], _cotangent(cfg)
+    batch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(tokens)}
+    real = JL._mesh_axis
+    JL._mesh_axis = lambda n: 2 if n == "model" else 1
+    try:
+        (loss, _), g = jax.value_and_grad(
+            lambda p: build_model(c).loss(p, batch), has_aux=True)(params)
+        xg = jax.grad(lambda x_: jnp.sum(jlm.backbone(
+            c, params, x_, jnp.asarray(pos))[0] * w))(jnp.asarray(x))
+    finally:
+        JL._mesh_axis = real
+    tcfg = dataclasses.replace(tsmoke(name), n_layers=cfg.n_layers)
+    port = params_from_reference(jax.tree.map(np.asarray, g), tcfg, "cpu")
+    return {"cp_loss_" + name: np.asarray(loss),
+            "cp_xg_" + name: np.asarray(xg),
+            **{f"cp_g_{name}__{n}": t.detach().numpy()
+               for n, t in port.named_parameters()}}
+
+
+def _cotangent(cfg, seed=2):
+    return np.random.default_rng(seed).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Every rank's results (one spawn of four gloo ranks) and the
@@ -277,7 +321,8 @@ def ranks(tmp_path_factory):
         cfg, params = _ref_params(name, layers)
         np.savez(root / f"params_{name}.npz", **_flat(params))
         tokens, x, pos = _inputs(cfg, params)
-        np.savez(root / f"inputs_{name}.npz", tokens=tokens, x=x, pos=pos)
+        np.savez(root / f"inputs_{name}.npz", tokens=tokens, x=x, pos=pos,
+                 w=_cotangent(cfg))
     cfg, params = _ref_params("llama3.2-3b", PF["layers"],
                               q_chunk=PF["q_chunk"])
     b_m = PF["batch"] // PF["micro"]
@@ -374,10 +419,20 @@ def test_prefill_under_cp_fills_the_whole_cache(ranks, name, sr):
 
 
 @pytest.mark.parametrize("name", list(MODELS))
-def test_cp_refuses_a_loss_and_a_backward(ranks, name):
-    got, _ = ranks
+def test_cp_loss_and_backward_match_reference(ranks, name):
+    """``lm_loss`` and a recorded backward of ``backbone`` under CP, every
+    data rank holding the whole batch: the loss, every parameter's
+    gradient and x's gradient equal the reference's, on every rank, at
+    1e-4 x max(1, max|g|)."""
+    got, want = ranks
+    keys = [k for k in want if k.startswith(f"cp_g_{name}__")]
+    assert keys
     for r in range(WORLD):
-        assert got[r]["refused_" + name].all()
+        for k in keys + [f"cp_loss_{name}", f"cp_xg_{name}"]:
+            w = want[k]
+            np.testing.assert_allclose(
+                got[r][k], w, rtol=1e-4,
+                atol=1e-4 * max(1.0, np.abs(w).max()), err_msg=k)
 
 
 @pytest.mark.parametrize("variant", ["baseline", "seq_causal"])
@@ -525,12 +580,28 @@ def test_a_stride_the_keys_cannot_hold_raises(q_stride, sk):
         flash_attn.flash_attention(q, kv, kv, causal=True, q_stride=q_stride)
 
 
-def test_strided_attention_has_no_backward():
-    from repro_torch.kernels import flash_attn
-    q = torch.zeros((1, 2, 4, 16), requires_grad=True)
-    kv = torch.zeros((1, 2, 8, 16))
-    with pytest.raises(ValueError, match="no backward"):
-        flash_attn.flash_attention(q, kv, kv, causal=True, q_stride=2)
+@pytest.mark.parametrize("q_stride", [2, 4])
+def test_strided_attention_backward_matches_autograd(q_stride):
+    """``flash_attention`` under autograd at ``q_stride``
+    (``FlashAttention``, the plain backward on CPU tensors) gives
+    autograd's gradients of the plain ``attention_ref`` at the same
+    stride."""
+    from repro_torch.kernels import flash_attn, ref
+    rng = np.random.default_rng(q_stride)
+    q = torch.from_numpy(rng.standard_normal((1, 2, 4, 16),
+                                             dtype=np.float32))
+    kv = torch.from_numpy(rng.standard_normal((1, 2, 3 * q_stride + 1, 16),
+                                              dtype=np.float32))
+    do = torch.from_numpy(rng.standard_normal((1, 2, 4, 16),
+                                              dtype=np.float32))
+    got, want = ([t.clone().requires_grad_(True) for t in (q, kv)]
+                 for _ in range(2))
+    flash_attn.flash_attention(got[0], got[1], got[1], causal=True,
+                               q_stride=q_stride).backward(do)
+    ref.attention_ref(want[0], want[1], want[1], causal=True,
+                      q_stride=q_stride).backward(do)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.grad, w.grad, rtol=1e-5, atol=1e-5)
 
 
 # ------------------------------------------------------------------ imports
@@ -541,6 +612,9 @@ sys.modules["repro"] = None
 import repro_torch.core.pipeline, repro_torch.distributed.comm
 import repro_torch.launch.mesh, repro_torch.launch.pipeline_prefill
 import repro_torch.launch.flash_stride_check
+import repro_torch.launch.train_step_times, repro_torch.train.loop
+import repro_torch.train.graphs, repro_torch.capture
+import repro_torch.kernels.flash_attn, repro_torch.kernels.ref
 import repro_torch.models.lm, repro_torch.models.layers
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
