@@ -92,11 +92,12 @@ result line):
    full depth in bf16, logits within ``BF16_LOGIT_BOUND`` x
    max(1, max|logit|) (measured on the card, PERF.md);
 8. times: prefill ms and decode tok/s from ``throughput_probe`` in turns
-   (graph, eager, eager, graph: the captured decode step against
+   (graph, eager: ``CUT_TURNS``, the captured decode step against
    ``compile=False``), the plain path's and the int8 cache's (graph); a
    profiled ``generate`` each way (wall ms, device-busy ms, idle share, the
    graph captured before the profile; the profiler records the replayed
-   kernels one by one), the same call profiled for device activity only
+   kernels one by one; the eager generate profiled once, for device
+   activity only), the same call profiled for device activity only
    (wall and busy from that one call), and the full profile's busy time
    over an unprofiled call's wall, an estimate from two calls; the engine's B = 8 prefill profiled, and a B = 1
    bucket prefill (the batcher's, buckets 16, 128, 512, 1024) eager and
@@ -178,7 +179,8 @@ result line):
    prefills, flash attention 1 x prefills, the decode kernel of the cache's
    type 1 x decode steps; phase 20 with both cache types;
 13. times: falcon-mamba prefill ms and decode tok/s from ``throughput_probe``
-   (graph, eager, eager, graph), the profiled generates and prefills of 8;
+   (graph, eager: ``CUT_TURNS``), the profiled generates (the eager one
+   profiled once, for device activity only) and prefills of 8;
    the scan at the prefill shape and at
    the batcher's B = 1 for L in {16, 128, 512, 1024} (CUDA events, device
    time of the call under torch.profiler: the scan kernel's mean times
@@ -226,7 +228,8 @@ result line):
 19. the autotuned CM programs (``configs/tuned/lenet.json``: 79 cycles;
    ``resnet4.json``: 159 cycles on a 2-chip chain mesh, every conv
    replicated x4): ``python -m repro_torch.tune --model <m> --check``
-   returns 0 for both (host seconds printed); each compiled with
+   returns 0 for both (its processes started after phase 13, running
+   beside the card's phases: ``start_tune_checks``); each compiled with
    ``compile_model(tune=m, quantizer=dequantize_int8)`` runs on the event
    engine, pipelined, on the images the search costs it on, on
    ``NumpyPlane`` and on ``TorchPlane`` on the card: cycles equal the
@@ -419,6 +422,34 @@ result line):
    the bound.  The flash row of the ``kernels`` line gains ``striped``
    and ``launches_by_path``.
 
+26. context parallelism trains (after 25, ``phase_cp_train``).
+
+27. the sharded train step (after 26, ``phase_sharded_train``): ranks on
+   the card over gloo, 2 on a (1, 2) ``("data", "model")`` mesh, then 4
+   on (2, 2), each model built under the mesh holding its rank's shards
+   (tensor parallelism over "model", ZeRO-1 moments over "data", FSDP for
+   ``fsdp`` configs): falcon-mamba-7b (both meshes) and llama3.2-3b ((1,
+   2)) at full width and 4 layers, bf16, B = 4 x 512: the loss within
+   ``SH_LOSS_BOUND`` of the one-rank step's on the same card, each
+   gathered gradient within ``SH_GRAD_BOUND`` (relative L2), each rank's
+   shapes the spec's; planted faults (a shard's gradient summed over
+   "model", a row-parallel output unsummed, every tensor counted in the
+   norm) missing their bounds; one ``Trainer`` step each (the main path:
+   counts zeroed before it, ``SH_LAUNCHES`` exact), AdamW's norm across
+   ranks within ``SH_NORM_BOUND`` of the plain split's and of the
+   gathered tree's, every copy of a parameter bit-equal, the tree's
+   parameters within ``SH_GRAD_BOUND`` of the one-rank step's;
+   qwen2-moe-a2.7b at 4 layers in f32 on (1, 2) (expert parallelism):
+   every route equal across ranks and to the one-rank step's, gradients
+   within ``SH_MOE_TOL`` x max(1, max|g|); jamba's smoke config with
+   ``fsdp=True`` on (2, 2), its checkpoint restored on one rank bit for
+   bit.  Then the flash kernels (forward with lse, backward) at a rank's
+   heads (12/4, 6/2, 8/8, 4/4) and the scan (forward, backward) at a
+   rank's channels (Din 4096, 2048), B = 4 x 512, bf16, against their
+   plain versions and timed beside their bounds; AdamW at falcon-mamba's
+   1 x 4 share (64 layers).  The AdamW row gains ``sharded``, the flash
+   and scan rows ``local_shapes``.
+
 20. (run after phases 7, 10, 11, 12 and 21, on each model while it is on the
    card: llama3.2-3b with both caches, falcon-mamba-7b, qwen2-moe-a2.7b,
    the reduced jamba with both caches, qwen2-vl-7b, seamless-m4t-large-v2)
@@ -479,6 +510,7 @@ from repro_torch.kernels import compress as kcompress  # noqa: E402
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels._tensors import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.ref import (quantize_crossbar, quantize_vec,  # noqa: E402
+                                     attention_bwd_ref, attention_lse_ref,
                                      selective_scan_bwd_ref,
                                      selective_scan_ref)
 from repro_torch.launch import quickstart  # noqa: E402
@@ -619,9 +651,17 @@ def _device_us(fn, name, reps=50, tries=2):
     """Mean device time of the kernel whose name contains ``name`` under
     torch.profiler (CUPTI); None where the profiler shows no device time
     in ``tries`` profiles (a profile now and then records no kernel)."""
+    return _device_us_of(fn, (name,), reps, tries)[name]
+
+
+def _device_us_of(fn, names, reps=10, tries=2):
+    """:func:`_device_us` of each of ``names`` from the same profiles of
+    ``reps`` calls: a second profile only where the first recorded one of
+    them not."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    out = dict.fromkeys(names)
     for _ in range(tries):
         try:
             with profile(activities=[ProfilerActivity.CPU,
@@ -632,17 +672,17 @@ def _device_us(fn, name, reps=50, tries=2):
             events = prof.key_averages()
         except RuntimeError as e:
             print(f"[5] torch.profiler gave no trace: {e}")
-            return None
-        times = []
+            return out
         for e in events:
             total = getattr(e, "device_time_total", None)
             if total is None:
                 total = getattr(e, "cuda_time_total", 0)
-            if name in e.key and e.count and total > 0:
-                times.append(total / e.count)
-        if times:
-            return times[0]
-    return None
+            for n in names:
+                if out[n] is None and n in e.key and e.count and total > 0:
+                    out[n] = total / e.count
+        if all(v is not None for v in out.values()):
+            break
+    return out
 
 
 def _device_total_us(fn, label, reps=50, profiles=3, whole=False):
@@ -1694,10 +1734,15 @@ def _share_text(x):
     return "not measured" if x is None else f"{x:.4f}"
 
 
-def _probe_turns(cfg, model):
-    """``throughput_probe`` in turns, graph, eager, eager, graph."""
+# phases 8 and 13 (room for phase 27): two probe turns, graph then eager
+CUT_TURNS = (True, False)
+
+
+def _probe_turns(cfg, model, turns=(True, False, False, True)):
+    """``throughput_probe`` in turns (``compile`` of each): by default
+    graph, eager, eager, graph."""
     out = []
-    for compile in (True, False, False, True):
+    for compile in turns:
         eng = ServeEngine(cfg, max_len=PROMPT + NEW + 1, params=model,
                           compile=compile)
         out.append((compile, eng.throughput_probe(BATCH, PROMPT, NEW)))
@@ -1713,7 +1758,10 @@ def _profiled_generates(cfg, model, prompts):
     the measurement; the profiler adds host time to every graph launch
     (one record per replayed kernel), so the device-only profile, whose
     wall and busy time come from one call too, is the second reading, and
-    busy time over the unprofiled call's wall an estimate from two."""
+    busy time over the unprofiled call's wall an estimate from two.  The
+    eager way is profiled once, for device activity only (its host ops not
+    recorded: the full profile of an eager generate records some 110,000
+    launches)."""
     out = {}
     for compile in (True, False):
         eng = ServeEngine(cfg, max_len=MAX_LEN, params=model, compile=compile)
@@ -1724,9 +1772,11 @@ def _profiled_generates(cfg, model, prompts):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         device_only = _device_busy(lambda: eng.generate(prompts, NEW),
-                                   host_ops=False)[:2]
-        out["graph" if compile else "eager"] = _device_busy(
-            lambda: eng.generate(prompts, NEW)) + (wall, device_only)
+                                   host_ops=False)
+        full = _device_busy(lambda: eng.generate(prompts, NEW)) \
+            if compile else device_only
+        out["graph" if compile else "eager"] = full + (wall,
+                                                       device_only[:2])
         del eng
     return out
 
@@ -2015,7 +2065,7 @@ def phase_lm_times(dev, model, serve, shapes):
     prompts, _ = _lm_workload(model.cfg.vocab_size)
     cfg = _lm_cfg("compute")
     before = _all_counts()
-    probes = _probe_turns(cfg, model)
+    probes = _probe_turns(cfg, model, CUT_TURNS)
     plain_probe = ServeEngine(cfg, max_len=PROMPT + NEW + 1, params=model,
                               use_kernel=False).throughput_probe(
                                   BATCH, PROMPT, NEW)
@@ -2463,7 +2513,8 @@ def _layer0_parting(cfg, model, prompts, far, far_probs):
         x = model.embed[tokens]
         h = lay.apply_norm(cfg, p.norm1, x)
         pos = torch.arange(s, device=dev)[None].expand(b, s)
-        q, k, v = lay._project_qkv(cfg, p.attn, h, h)
+        q, k, v = lay._project_qkv(cfg, p.attn, h, h,
+                                   lay._head_plan(cfg, p.attn))
         q = lay.positional_rotate(cfg, q, pos)
         k = lay.positional_rotate(cfg, k, pos)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -2868,7 +2919,7 @@ def phase_mamba_times(dev, model):
     cfg = model.cfg
     prompts, _ = _lm_workload(cfg.vocab_size)
     before = _all_counts()
-    probes = _probe_turns(cfg, model)
+    probes = _probe_turns(cfg, model, CUT_TURNS)
     profiled = _profiled_generates(cfg, model, prompts)
     engine_prefill = _device_busy(lambda: lm.prefill(
         cfg, model, torch.as_tensor(prompts, dtype=torch.int64,
@@ -3432,20 +3483,24 @@ def _adamw_bound_ms(ps, gs, ms):
     return total / HBM_BYTES_PER_S * 1e3
 
 
-def _adamw_bits(ps, gs, mus, nus, decs, hyper, host, gnorm_t):
+def _adamw_bits(ps, gs, mus, nus, decs, hyper, host, gnorm_t, faults=True):
     """The AdamW kernels' p, m and v (after their call) against the plain
-    version's per tensor from the host copies ``host`` of (p, m, v) before
-    it, given the kernels' norm ``gnorm_t``: (elements bit-equal, elements,
+    version's per tensor from the copies ``host`` of (p, m, v) before it,
+    given the kernels' norm ``gnorm_t``: (elements bit-equal, elements,
     max |difference|, {planted fault: elements of p it moves off the
-    kernels'})."""
+    kernels'}, with ``faults``)."""
+    if not ps:
+        return 0, 0, 0.0, {}
     dev = ps[0].device
     scale = kadamw.clip_scale_ref(gnorm_t, 1.0)
     lr, bc1, bc2 = hyper[0], hyper[1], hyper[2]
     one = torch.ones_like(bc2)
     # a fault planted in the plain version, and the elements of p it moves
-    faults = {"bc2 left out": 0, "weight decay left out": 0}
+    planted = {"bc2 left out": 0, "weight decay left out": 0}
     max_abs, equal, total = 0.0, 0, 0
     for i, (p, g, m, v) in enumerate(zip(ps, gs, mus, nus)):
+        if not p.numel():
+            continue
         p0, m0, v0 = (t.to(dev) for t in host[i])
         kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1 if decs[i] else 0.0)
         p32, m32, v32 = kadamw.update_ref(p0, g, m0, v0, scale, lr, bc1, bc2,
@@ -3459,19 +3514,21 @@ def _adamw_bits(ps, gs, mus, nus, decs, hyper, host, gnorm_t):
         for fault, args, fkw in (
                 ("bc2 left out", (scale, lr, bc1, one), kw),
                 ("weight decay left out", (scale, lr, bc1, bc2),
-                 {**kw, "wd": 0.0})):
+                 {**kw, "wd": 0.0})) if faults else ():
             fp = kadamw.update_ref(p0, g, m0, v0, *args, **fkw)[0]
-            faults[fault] += int((p != fp.to(p.dtype)).sum())
-        del p0, m0, v0, p32, m32, v32, fp
-    return equal, total, max_abs, faults
+            planted[fault] += int((p != fp.to(p.dtype)).sum())
+            del fp
+        del p0, m0, v0, p32, m32, v32
+    return equal, total, max_abs, planted
 
 
-def _adamw_times(ps, gs, mus, nus, decs, hyper):
-    """The AdamW call over the tree: ms a call (CUDA events), device us of
-    its kernels (all, the update, the norm) and the plain version's ms;
+def _adamw_times(ps, gs, mus, nus, decs, hyper, **kw):
+    """The AdamW call over the tree (``kw``: ``counted`` and ``sum_norm``,
+    the call across ranks): ms a call (CUDA events), device us of its
+    kernels (all, the update, the norm) and the plain version's ms;
     launches made here are not counted."""
     def call():
-        kadamw.adamw_step(ps, gs, mus, nus, decs, hyper)
+        kadamw.adamw_step(ps, gs, mus, nus, decs, hyper, **kw)
 
     with launches_apart({}):
         ms = _events_ms(call, reps=5, trials=3, warmup=1)
@@ -3483,7 +3540,8 @@ def _adamw_times(ps, gs, mus, nus, decs, hyper):
                 if dev_us[k] is not None:
                     break
         plain_ms = _events_ms(lambda: kadamw.adamw_step_ref(
-            ps, gs, mus, nus, decs, hyper), reps=1, trials=2, warmup=1)
+            ps, gs, mus, nus, decs, hyper, **kw), reps=1, trials=2,
+            warmup=1)
     return ms, dev_us, plain_ms
 
 
@@ -5325,37 +5383,54 @@ def _tuned_run(prog, chip, images, plane):
     return outs, stats, shapes, _all_counts()
 
 
-def phase_tuned(dev):
+def start_tune_checks():
+    """The recorded searches' ``python -m repro_torch.tune --model <name>
+    --check``, one process each, started early so that their host time
+    overlaps the card's phases (phase 19 reads them); none where Z3 is
+    missing (the CPU tests check them under the backtracking mapper)."""
+    from repro_torch.core import mapping
+    if not mapping.HAVE_Z3:
+        return {}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return {name: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.tune", "--model", name,
+         "--check"], env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for name in TUNED}
+
+
+def phase_tuned(dev, checks):
     """[19] The committed autotuned programs on the card: the recorded
     searches regenerate their artifacts under Z3's mapper (the CPU tests
-    hold them under the backtracking one), the tuned programs simulate on
+    hold them under the backtracking one; ``checks``: the processes of
+    :func:`start_tune_checks`), the tuned programs simulate on
     ``TorchPlane`` to the artifacts' cycles with the numpy plane's
     counters, and ``CmServer`` serves them and the baseline configs.
     Returns each program's kernel launches by plane kind ("float", "dac")."""
     from repro_torch.core import mapping, poly
     from repro_torch.tune import TuneConfig, ZOO, load_tuned
-    from repro_torch.tune.__main__ import main as tune_main
     out = {}
-    # the CPU tests reproduce the artifacts with the backtracking mapper;
-    # where Z3 is installed the searches map with it, so check them again
     backends = (f"mapper {'z3' if mapping.HAVE_Z3 else 'backtracking'}, "
                 f"polyhedral backend {'islpy' if poly.HAVE_ISL else 'fisl'}")
     for name in TUNED:
         out[name] = {}
-        if not mapping.HAVE_Z3:
+        if name not in checks:
             print(f"[19] tune --check {name}: not run ({backends}, the "
                   f"CPU tests' mapper)")
             continue
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()) as log:
-            rc = tune_main(["--model", name, "--check"])
+        t0, proc = checks[name]
+        try:
+            log = proc.communicate(timeout=300)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         secs = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"[19] tune --check {name}: rc {rc}\n"
-                                 f"{log.getvalue()}")
+        if proc.returncode != 0:
+            raise AssertionError(f"[19] tune --check {name}: rc "
+                                 f"{proc.returncode}\n{log}")
         print(f"[19] python -m repro_torch.tune --model {name} --check: "
-              f"rc 0 in {secs:.2f} s of host time ({backends}); "
-              f"{log.getvalue().splitlines()[0]}")
+              f"rc 0, {secs:.2f} s from its start, alongside the card's "
+              f"phases ({backends}); {log.splitlines()[0]}")
     for name in TUNED:
         entry, art = ZOO[name], load_tuned(name)
         graph, chip = entry.build(), entry.chip()
@@ -6484,6 +6559,829 @@ def cp_train_cells(kernels, cp26):
             row["cp_train"]["checks"] = cp26["checks"]
 
 
+# --------------------------------------- phase 27: the sharded train step
+# full width, bf16, B = 4 x 512, depth cut to 4 layers: falcon-mamba-7b on
+# (data, model) meshes (1, 2) and (2, 2) and llama3.2-3b on (1, 2), the
+# ranks sharing the card over gloo; qwen2-moe-a2.7b at 4 layers in f32 on
+# (1, 2) (expert parallelism); jamba's smoke config with fsdp=True on (2, 2)
+SH_LAYERS, SH_B, SH_S, SH_JAMBA_S = 4, 4, 512, 64
+SH_MESHES = {2: (1, 2), 4: (2, 2)}       # world -> (data, model)
+# the sharded step against the one-rank step on the same card: the loss,
+# each gathered gradient's and parameter's relative L2 (bf16: each rank's
+# partial products rounded before their sum), the bound PERF.md states with
+# its readings; the planted faults must miss it
+SH_LOSS_BOUND, SH_GRAD_BOUND = 1e-3, 0.05
+# one Trainer step at peak lr SH_LR (lr SH_LR / 100 at the first step, the
+# warm-up's): each parameter's change against the one-rank step's change,
+# relative L2 a tensor.  Adam's first update is lr sign(g) a element, so
+# where bf16 gradients near zero change sign between the two steps the
+# element moves the other way; a parameter not updated reads 1.0
+SH_LR, SH_DELTA_BOUND = 1.0, 0.5
+# AdamW's norm across ranks against the plain version of the same split
+# and against the one-rank norm of the gathered tree: f64 sums in other
+# orders, one f32 rounding
+SH_NORM_BOUND = 1e-6
+SH_MOE_TOL = 1e-4                        # x max(1, max|g|), f32
+SH_FAULTS = ("model_summed", "row_unsummed", "norm_every_rank")
+# ZeRO-1's update on (2, 2), replayed from the step's gradients: no
+# parameter updated; the other data rank updating an owned layer; the cut
+# tensors' slices gathered in reverse order
+SH_ZERO1_FAULTS = ("no_update", "owner_wrong", "slice_wrong")
+# the kernels at a rank's shapes on the four-card meshes: llama's heads over
+# 2 and 4 model ranks, qwen2-moe's, falcon-mamba's channels
+SH_HEADS = [(12, 4), (6, 2), (8, 8), (4, 4)]
+SH_CHANNELS = (4096, 2048)
+
+
+def _sh_cfg(arch, **over):
+    return dataclasses.replace(get_arch(arch), n_layers=SH_LAYERS, **over)
+
+
+def _sh_jamba_cfg():
+    # head_dim 32: the flash kernels' smallest (phase 23's jamba run)
+    return dataclasses.replace(smoke_config(HYBRID_ARCH), fsdp=True,
+                               head_dim=32)
+
+
+@contextlib.contextmanager
+def _sh_fault(name):
+    """While entered, a planted fault of the sharded step:
+    ``model_summed``, every gradient summed over every mesh dimension (a
+    rank's shard over "model" too); ``row_unsummed``, a row-parallel
+    product's partial sums left unsummed; ``norm_every_rank``, every
+    tensor counted in AdamW's norm on every rank that updates it; and
+    ``SH_ZERO1_FAULTS``: ``no_update``, the AdamW call updating nothing
+    (its norm kept); ``owner_wrong``, each owned layer's moments and update
+    on the other data rank of two; ``slice_wrong``, ``comm.all_gather``
+    putting the parts in reverse order (entered around the optimizer
+    only)."""
+    from repro_torch.distributed import comm
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import rules
+    from repro_torch.train import loop
+    saved = (loop.MeshStep.reduce_grads, L.reduce_model,
+             rules.ModelShards.counted, rules.ModelShards.owns,
+             kadamw.adamw_step, comm.all_gather)
+    gather = comm.all_gather
+
+    @torch.no_grad()
+    def summed(self, params):
+        for p in params.values():
+            if p.grad is not None:
+                g = p.grad.to(torch.float32)
+                for group in self.groups:
+                    g = comm.all_reduce(g, group)
+                p.grad = g.to(p.grad.dtype)
+    def no_update(*a, counted=None, sum_norm=None, **kw):
+        return kadamw.global_norm_ref(a[1], counted, sum_norm, a[5].device)
+
+    def reversed_parts(x, group, dim=0):
+        return torch.cat(gather(x, group, dim).chunk(comm.size(group),
+                                                     dim)[::-1], dim)
+    if name == "model_summed":
+        loop.MeshStep.reduce_grads = summed
+    elif name == "row_unsummed":
+        L.reduce_model = lambda y, group: y
+    elif name == "norm_every_rank":
+        rules.ModelShards.counted = lambda self, n: True
+    elif name == "no_update":
+        kadamw.adamw_step = no_update
+    elif name == "owner_wrong":
+        rules.ModelShards.owns = lambda self, n: self.moments[n].owner in (
+            None, 1 - self.coords["data"])
+    else:
+        comm.all_gather = reversed_parts
+    try:
+        yield
+    finally:
+        (loop.MeshStep.reduce_grads, L.reduce_model,
+         rules.ModelShards.counted, rules.ModelShards.owns,
+         kadamw.adamw_step, comm.all_gather) = saved
+
+
+def _sh_grads(cfg, model, batch):
+    from repro_torch.train import loop
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = loop.loss_and_grads(cfg, model, batch)
+    return loss.item()
+
+
+def _sh_compare(model, want, f32_tol=None, only=None):
+    """Each parameter's gradient of ``model`` (a rank's shards) made whole,
+    one tensor at a time (a collective), against ``want`` (this rank's
+    one-rank gradients, or None): {name: relative L2} or, with
+    ``f32_tol``, {name: max |g - w| / max(1, max|w|)}; ``only``: the
+    names whose prefix it is (the others' gradients dropped)."""
+    out = {}
+    for n, p in model.named_parameters():
+        if p.grad is None or (only and not n.startswith(only)):
+            p.grad = None
+            continue
+        g = model.shards.whole(n, p.grad)
+        if want is not None:
+            w = want[n].float()
+            if f32_tol:
+                out[n] = ((g.float() - w).abs().max()
+                          / max(1.0, w.abs().max().item())).item()
+            else:
+                out[n] = ((g.float() - w).norm()
+                          / w.norm().clamp_min(1e-30)).item()
+        del g
+        p.grad = None
+    return out
+
+
+def _sh_worst(rel):
+    if not rel:
+        return None
+    n = max(rel, key=rel.get)
+    return {"max": rel[n], "at": n, "median": statistics.median(rel.values())}
+
+
+def _sh_shapes_ok(cfg, model):
+    """Every parameter holds the shape its placement cuts from the whole
+    (``rules.shard`` of a meta tensor of the full shape); Mamba's in_proj
+    holds both halves."""
+    from repro_torch.sharding import rules
+    full = dict(rules.abstract_model(cfg).named_parameters())
+    sh = model.shards
+    bad = [n for n, p in model.named_parameters()
+           if tuple(p.shape) != tuple(rules.shard(
+               torch.empty(full[n].shape, device="meta"), sh.params[n],
+               sh.coords, sh.sizes).shape)]
+    split = sum(1 for n, p in model.named_parameters()
+                if p.numel() < full[n].numel())
+    return {"bad": bad, "split": split,
+            "halves": [n for n, pl in sh.params.items() if pl.halves
+                       and rules.spec_axes(pl.spec)][:1]}
+
+
+def _sh_case(cfg, batch, mesh, rank, dev, faults, ckpt_dir=None,
+             replays=()):
+    """One configuration on this rank: the one-rank gradients and
+    ``Trainer`` step (rank 0, no mesh), the sharded ones under ``mesh``,
+    the planted faults, the main path's step with its launches counted;
+    its AdamW call replayed from the step's gradients under each fault of
+    ``replays`` (``norm_every_rank``, ``SH_ZERO1_FAULTS``)."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.kernels import adamw as kadamw_mod
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw as opt_adamw
+    from repro_torch.train import loop
+    out = {}
+    one = None
+    if rank == 0:
+        m1 = build_model(cfg, dev).requires_grad_(True)
+        out["one_loss"] = _sh_grads(cfg, m1, batch)
+        one = {n: p.grad for n, p in m1.named_parameters()
+               if p.grad is not None}
+        del m1
+    with L.ambient_mesh(mesh):
+        model = build_model(cfg, dev).requires_grad_(True)
+        out["shapes"] = _sh_shapes_ok(cfg, model)
+        out["loss"] = _sh_grads(cfg, model, batch)
+        out["grads"] = _sh_worst(_sh_compare(model, one))
+        # the faults on the last layer's gradients, where every fault shows
+        last = f"layers.{cfg.n_layers - 1}."
+        for name in (("model_summed", "row_unsummed") if faults else ()):
+            with _sh_fault(name):
+                loss = _sh_grads(cfg, model, batch)
+            out["fault_" + name] = dict(_sh_worst(_sh_compare(
+                model, one, only=last)) or {}, loss=loss)
+    del model, one
+    _free()
+    # the one-rank Trainer step (rank 0), then the sharded one: the main
+    # path, its launches counted
+    base = None
+    if rank == 0:
+        tr1 = Trainer(cfg, batch=SH_B, seq_len=batch["tokens"].shape[1],
+                      peak_lr=SH_LR, device=dev, compile=False)
+        st1 = tr1.init_state()
+        init1 = {n: p.detach().clone()
+                 for n, p in st1.model.named_parameters()}
+        st1 = tr1.run(1, state=st1)
+        base = {n: (init1.pop(n), p.detach())
+                for n, p in st1.model.named_parameters()}
+        out["one_train"] = {"loss": tr1.history, "grad_norm": tr1.grad_norms}
+        del st1, tr1
+        _free()
+    norms, kept = {}, {}
+    real_step, real_lg = kadamw_mod.adamw_step, loop.loss_and_grads
+
+    def spied_step(*a, counted=None, sum_norm=None, **kw):
+        # the plain version of the same split (before the kernels' call);
+        # then the kernels' p, m and v against the plain update's, given
+        # the kernels' norm, every element (host copies from before)
+        ps, gs, ms_, vs, decs, hyper = a
+        norms["plain_split"] = kadamw_mod.global_norm_ref(
+            gs, counted, sum_norm, hyper.device).item()
+        before = [tuple(t.clone() for t in ts) for ts in zip(ps, ms_, vs)]
+        gnorm = real_step(*a, counted=counted, sum_norm=sum_norm, **kw)
+        equal, total, max_abs, _ = _adamw_bits(ps, gs, ms_, vs, decs, hyper,
+                                               before, gnorm.clone(),
+                                               faults=False)
+        del before
+        norms["update_bits"] = {"equal": equal, "elements": total,
+                                "max_abs": max_abs}
+        kept["hyper"] = hyper.clone()
+        return gnorm
+
+    def spied_lg(cfg_, model_, batch_, **kw):
+        r = real_lg(cfg_, model_, batch_, **kw)
+        # the gathered tree's norm from the step's own gradients (this
+        # rank's parts, ZeRO-1 sums them): each summed in f32 over the
+        # axes its parameter is replicated on and rounded to its dtype, its
+        # squares summed over the axes that split it, f64 throughout
+        from repro_torch.distributed import comm
+        from repro_torch.sharding import rules
+        sh_ = model_.shards
+        groups = {a: sh_.mesh.get_group(a) for a in ("model", "data")
+                  if sh_.sizes.get(a, 1) > 1}
+        named = [(n, p) for n, p in model_.named_parameters()
+                 if p.grad is not None]
+        sq = []
+        for n, p in named:
+            g = p.grad.float()
+            for a in rules.replicated_axes(sh_.params[n].spec, sh_.sizes):
+                g = comm.all_reduce(g, groups[a])
+            sq.append(g.to(p.dtype).double().square().sum())
+            del g
+        sq = torch.stack(sq)
+        for a in groups:
+            m = torch.tensor([a in _spec_axes(sh_.params[n].spec)
+                              for n, _ in named], device=dev)
+            sq = torch.where(m, comm.all_reduce(
+                torch.where(m, sq, 0.0), groups[a]), sq)
+        norms["gathered"] = sq.sum().sqrt().item()
+        if replays:             # the step's gradients, for the replays
+            kept["grads"] = {n: p.grad.clone() for n, p in named}
+        return r
+
+    def sharded_step():
+        tr = Trainer(cfg, batch=SH_B, seq_len=batch["tokens"].shape[1],
+                     peak_lr=SH_LR, device=dev, compile=False)
+        with L.ambient_mesh(mesh):
+            state = tr.init_state()
+            if replays:
+                kept["init"] = {n: p.detach().clone()
+                                for n, p in state.model.named_parameters()}
+            dist.barrier()
+            opt_adamw.adamw_kernels.adamw_step = spied_step
+            loop.loss_and_grads = spied_lg
+            _zero_counts()
+            try:
+                state = tr.run(1, state=state)
+            finally:
+                launches = _nonzero(_all_counts())
+                opt_adamw.adamw_kernels.adamw_step = real_step
+                loop.loss_and_grads = real_lg
+        return tr, state, launches
+
+    def deltas(model_):
+        """{name: relative L2 of the parameter's change (made whole)
+        against the one-rank step's change} on rank 0 (a collective)."""
+        rel = {}
+        with L.ambient_mesh(mesh):
+            for n, p in model_.named_parameters():
+                w = model_.shards.whole(n, p.detach())
+                if base is not None:
+                    b0, b1 = base[n]
+                    want = b1.float() - b0.float()
+                    rel[n] = ((w.float() - b0.float() - want).norm()
+                              / want.norm().clamp_min(1e-30)).item()
+                del w
+        return rel
+
+    tr, state, launches = sharded_step()
+    sh = state.model.shards
+    out["train"] = {"loss": tr.history, "grad_norm": tr.grad_norms,
+                    "step_ms": tr.step_ms, "replayed": tr.replayed,
+                    "peak_gib": [b / 2**30 for b in tr.peak_bytes],
+                    "launches": launches, "norms": dict(norms),
+                    "coords": [sh.coords.get("data", 0),
+                               sh.coords["model"]],
+                    # each parameter's bits and the axes that split it
+                    "bits": {n: (_bits_checksum([p.detach()]),
+                                 [a in _spec_axes(sh.params[n].spec)
+                                  for a in ("data", "model")])
+                             for n, p in state.model.named_parameters()},
+                    "moments_held": sum(1 for m in state.opt.mu.values()
+                                        if m.numel())}
+    out["train"]["params"] = _sh_worst(deltas(state.model))
+    if ckpt_dir is not None:
+        with L.ambient_mesh(mesh):
+            out["ckpt"] = ckpt.save_checkpoint(str(ckpt_dir), 1, state)
+    if replays:
+        # the step's AdamW call again from its first parameters and its
+        # gradients, each time with a fault planted
+        model = state.model
+        params = dict(model.named_parameters())
+        for name in replays:
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(kept["init"][n])
+            with _sh_fault(name):
+                opt = opt_adamw.adamw_init(params, cfg.adam_dtype, sh)
+                gnorm = opt_adamw.adamw_apply(
+                    kept["grads"], opt, params, kept["hyper"],
+                    decayed=decayed(model), shards=sh).item()
+            del opt
+            out["fault_" + name] = (
+                {"grad_norm": [gnorm]} if name == "norm_every_rank" else
+                dict(_sh_worst(deltas(model)) or {}, delta=True))
+        del model, params
+    kept.clear()
+    del tr, state, base
+    _free()
+    return out
+
+
+def _spec_axes(spec):
+    from repro_torch.sharding.rules import spec_axes
+    return spec_axes(spec)
+
+
+def _sh_moe(batch, mesh, rank, dev):
+    """qwen2-moe at 4 layers in f32 on (1, 2): expert parallelism; every
+    router call's top-k set equal across ranks and to the one-rank step's
+    (forward and remat), gradients within SH_MOE_TOL."""
+    from repro_torch.models import layers as L
+    cfg = _sh_cfg(MOE_ARCH, param_dtype="float32", compute_dtype="float32")
+    out, one, routes1 = {}, None, []
+    if rank == 0:
+        m1 = build_model(cfg, dev).requires_grad_(True)
+        with _routes_spied(record=routes1):
+            out["one_loss"] = _sh_grads(cfg, m1, batch)
+        one = {n: p.grad for n, p in m1.named_parameters()
+               if p.grad is not None}
+        del m1
+    routes = []
+    with L.ambient_mesh(mesh):
+        model = build_model(cfg, dev).requires_grad_(True)
+        out["shapes"] = _sh_shapes_ok(cfg, model)
+        with _routes_spied(record=routes):
+            out["loss"] = _sh_grads(cfg, model, batch)
+        out["grads"] = _sh_worst(_sh_compare(model, one, f32_tol=True))
+    out["routes"] = [r.sort(-1).values for r in routes]
+    out["routes_equal_one"] = None if rank else [
+        bool(torch.equal(a.sort(-1).values, b.sort(-1).values))
+        for a, b in zip(routes, routes1)]
+    del model, one
+    _free()
+    return out
+
+
+def _sharded_rank(argv):
+    """One rank of phase 27 (``--sharded-rank rank world store dir
+    device``): a gloo group over the card's ranks, a ``SH_MESHES[world]``
+    mesh; results to ``dir/rank<r>.pt``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    rank, world, store, tmp = (int(argv[0]), int(argv[1]), argv[2],
+                               pathlib.Path(argv[3]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(argv[4])
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    res = {}
+    data = torch.load(tmp / "batches.pt")
+    batch = lambda key: {k: v.to(dev) for k, v in data[key].items()}
+    try:
+        mesh = make_host_mesh(*SH_MESHES[world], device_type="cpu")
+        res["falcon"] = _sh_case(_sh_cfg(MAMBA_ARCH),
+                                 batch("falcon"), mesh, rank, dev,
+                                 faults=world == 2,
+                                 replays=("norm_every_rank",) if world == 2
+                                 else SH_ZERO1_FAULTS)
+        if world == 2:
+            res["llama"] = _sh_case(_sh_cfg(LM_ARCH),
+                                    batch("llama"), mesh, rank, dev,
+                                    faults=True)
+            res["moe"] = _sh_moe(batch("moe"), mesh, rank, dev)
+        else:
+            res["jamba"] = _sh_case(_sh_jamba_cfg(),
+                                    batch("jamba"), mesh, rank, dev,
+                                    faults=False, ckpt_dir=tmp / "ckpt")
+            dist.barrier()
+            if rank == 0:        # the (2, 2) checkpoint on one rank
+                from repro_torch.checkpoint import ckpt
+                path = res["jamba"]["ckpt"]
+                tr = Trainer(_sh_jamba_cfg(), batch=SH_B,
+                             seq_len=SH_JAMBA_S, device=dev, compile=False,
+                             seed=1)
+                restored, _ = ckpt.restore_checkpoint(path,
+                                                      tr.init_state())
+                got, saved = ckpt.state_arrays(restored), np.load(path)
+                res["jamba"]["ckpt_one_rank"] = all(
+                    np.array_equal(np.atleast_1d(got[k]).view(np.uint8),
+                                   np.atleast_1d(saved[k]).view(np.uint8))
+                    for k in saved.files if k != "__extra__")
+    finally:
+        torch.save(res, tmp / f"rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def _sh_batches():
+    gen = torch.Generator().manual_seed(27)
+    out = {}
+    for key, cfg, s in (("falcon", get_arch(MAMBA_ARCH), SH_S),
+                        ("llama", get_arch(LM_ARCH), SH_S),
+                        ("moe", get_arch(MOE_ARCH), SH_S),
+                        ("jamba", _sh_jamba_cfg(), SH_JAMBA_S)):
+        toks = torch.randint(0, cfg.vocab_size, (SH_B, s + 1), generator=gen)
+        out[key] = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    return out
+
+
+# a rank's launches in phase 27's Trainer step (remat: the forward kernels
+# twice a layer)
+SH_LAUNCHES = {
+    "falcon": {"selective_scan": 2 * SH_LAYERS,
+               "selective_scan_bwd": SH_LAYERS, "adamw": 1},
+    "llama": {"flash_attention": 2 * SH_LAYERS,
+              "flash_attention_bwd": SH_LAYERS, "adamw": 1},
+    "jamba": {"selective_scan": 14, "selective_scan_bwd": 7,
+              "flash_attention": 2, "flash_attention_bwd": 1, "adamw": 1}}
+
+
+def _sh_check_case(what, ranks, key):
+    """Phase 27's checks of one configuration over every rank's results;
+    returns its readings."""
+    got = [r[key] for r in ranks]
+    g0 = got[0]
+    shapes = [g["shapes"] for g in got]
+    ok_shapes = all(not s["bad"] and s["split"] for s in shapes)
+    losses = [g["loss"] for g in got]
+    loss_err = abs(losses[0] - g0["one_loss"])
+    print(f"[27] {what}: loss {losses[0]:.6f} on every rank "
+          f"{len(set(losses)) == 1}, the one-rank step's "
+          f"{g0['one_loss']:.6f} (err {loss_err:.3g}, bound "
+          f"{SH_LOSS_BOUND}); gathered gradients' relative L2 "
+          f"{g0['grads']} (bound {SH_GRAD_BOUND}); each rank holds the "
+          f"spec's shapes {ok_shapes} ({shapes[0]['split']} tensors split a "
+          f"rank; in_proj as halves: {shapes[0]['halves']})")
+    if loss_err > SH_LOSS_BOUND or len(set(losses)) != 1 or not ok_shapes \
+            or g0["grads"]["max"] > SH_GRAD_BOUND:
+        raise AssertionError(f"[27] {what}: {g0}")
+    out = {"loss": losses[0], "one_loss": g0["one_loss"],
+           "loss_err": loss_err, "grads": g0["grads"],
+           "split_tensors": shapes[0]["split"]}
+    faults = {k[6:]: v for k, v in g0.items() if k.startswith("fault_")}
+    tr = [g["train"] for g in got]
+    # every copy of a parameter bit-equal: ranks at the same place on the
+    # axes that split it hold the same bits
+    unequal = []
+    for n, (bits, axes) in tr[0]["bits"].items():
+        for t in tr[1:]:
+            same_place = all(t["coords"][i] == tr[0]["coords"][i]
+                             for i in range(2) if axes[i])
+            if same_place and t["bits"][n][0] != bits:
+                unequal.append(n)
+    norms = tr[0]["norms"]
+    knorm = tr[0]["grad_norm"][0]
+    norm_err = {k: abs(knorm - norms[k]) / norms[k]
+                for k in ("plain_split", "gathered")}
+    print(f"[27] {what}, one Trainer step (the main path, eager): loss "
+          f"{tr[0]['loss']} (one rank {g0['one_train']['loss']}), AdamW's "
+          f"norm across ranks {knorm!r} against the plain split's "
+          f"{norms['plain_split']!r} and the one-rank norm of the gathered "
+          f"tree {norms['gathered']!r} (relative {norm_err}, bound "
+          f"{SH_NORM_BOUND}; the one-rank step's {g0['one_train']['grad_norm']}); "
+          f"the kernels' p, m and v against the plain update's at their norm "
+          f"{[t['norms']['update_bits'] for t in tr]} (every element "
+          f"bit-equal); each parameter's change against the one-rank step's "
+          f"change, relative L2 {tr[0]['params']} (bound {SH_DELTA_BOUND}); "
+          f"every copy bit-equal {not unequal}; moments "
+          f"held a rank {[t['moments_held'] for t in tr]}; launches a rank "
+          f"{[t['launches'] for t in tr]}; step ms {[t['step_ms'] for t in tr]}"
+          f", peak GiB {[t['peak_gib'] for t in tr]} (ranks time-slicing one "
+          f"card, the collectives through the host: no speed)")
+    bits_off = [t["coords"] for t in tr
+                if t["norms"]["update_bits"]["equal"]
+                != t["norms"]["update_bits"]["elements"]]
+    if unequal or bits_off or max(norm_err.values()) > SH_NORM_BOUND or \
+            any(t["launches"] != SH_LAUNCHES[key] for t in tr) or \
+            tr[0]["params"]["max"] > SH_DELTA_BOUND or any(
+                not math.isfinite(t["loss"][0]) for t in tr):
+        raise AssertionError(f"[27] {what} Trainer step: {unequal} "
+                             f"{bits_off} {norm_err} {tr[0]['params']}")
+    out["train"] = {k: tr[0][k] for k in ("loss", "grad_norm", "norms",
+                                          "params", "launches")}
+    out["train"].update(step_ms=[t["step_ms"] for t in tr],
+                        peak_gib=[t["peak_gib"] for t in tr],
+                        launches_per_rank=[t["launches"] for t in tr],
+                        moments_held=[t["moments_held"] for t in tr])
+    if faults:
+        readings = {n: (f["max"] if "max" in f else
+                        abs(f["grad_norm"][0] - knorm) / knorm)
+                    for n, f in faults.items()}
+        bounds = {n: SH_NORM_BOUND if n == "norm_every_rank" else
+                  SH_DELTA_BOUND if f.get("delta") else SH_GRAD_BOUND
+                  for n, f in faults.items()}
+        print(f"[27] {what}: planted faults, each must miss its bound "
+              f"(gradients' relative L2 {SH_GRAD_BOUND}, the norm's "
+              f"{SH_NORM_BOUND}, the parameters' change {SH_DELTA_BOUND}): "
+              + ", ".join(f"{n} {readings[n]} (at {faults[n].get('at')})"
+                          for n in readings))
+        if any(readings[n] <= bounds[n] for n in readings):
+            raise AssertionError(f"[27] {what}: a fault was not seen")
+        out["faults"] = readings
+    return out
+
+
+def _sh_kernel_times(dev):
+    """The flash kernels (forward with lse, backward) at a rank's heads and
+    the scan (forward, backward) at a rank's channels, B = 4 x 512, bf16,
+    against their plain versions; each one's device µs beside its bound."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    out = {"flash": {}, "scan": {}}
+    b, s, d, dt = SH_B, SH_S, 128, torch.bfloat16
+    with launches_apart({}):
+        for hq, hkv in SH_HEADS:
+            q, k, v, do = _bwd_inputs((b, hq, hkv, s, s, d, True, dt), gen,
+                                      dev)
+            o, lse = flash_attn.flash_attention_fwd(q, k, v, True)
+            wo, wl = attention_lse_ref(q, k, v, True)
+            err_o = (o.float() - wo.float()).abs().max().item() / max(
+                1.0, wo.float().abs().max().item())
+            err_l = (lse - wl).abs().max().item() / max(
+                1.0, wl.abs().max().item())
+            got = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, True)
+            want = attention_bwd_ref(q, k, v, o, lse, do, True)
+            share = max((g.float() - w.float()).abs().max().item()
+                        / _bwd_limit(w, dt) for g, w in zip(got, want))
+            if err_o > 5e-2 or err_l > 1e-5 or share > 1:
+                raise AssertionError(f"[27] flash at heads {hq}/{hkv}: "
+                                     f"{err_o} {err_l} {share}")
+            fwd = lambda: flash_attn.flash_attention_fwd(q, k, v, True)
+            bwd = lambda: flash_attn.flash_attention_bwd(q, k, v, o, lse, do,
+                                                         True)
+            row = {"shape": [b, hq, hkv, s, d, "bfloat16"],
+                   "fwd_ms": _events_ms(fwd, reps=10, trials=3, warmup=2),
+                   "fwd_dev_us": _device_us(fwd, WGMMA_FLASH_KERNEL, reps=10),
+                   "fwd_bound_ms": _attn_bound(b, hq, hkv, s, s, d, 2),
+                   "fwd_plain_ms": _events_ms(
+                       lambda: attention_lse_ref(q, k, v, True), reps=1,
+                       trials=2, warmup=1),
+                   "fwd_library_ms": _events_ms(
+                       lambda: torch.nn.functional.scaled_dot_product_attention(
+                           q, k, v, is_causal=True, enable_gqa=True),
+                       reps=10, trials=3, warmup=2),
+                   "bwd_ms": _events_ms(bwd, reps=10, trials=3, warmup=2),
+                   "bwd_dev_us": _device_us_of(
+                       bwd, ("attn_bwd_preprocess_kernel",
+                             "attn_bwd_dkdv_wgmma_kernel",
+                             "attn_bwd_dq_wgmma_kernel")),
+                   "bwd_bound_ms": _bwd_bound(b, hq, hkv, s, s, d, 2, True),
+                   "bwd_plain_ms": _events_ms(
+                       lambda: attention_bwd_ref(q, k, v, o, lse, do, True),
+                       reps=1, trials=2, warmup=1),
+                   "err": {"o": err_o, "lse": err_l, "bwd_share": share}}
+            out["flash"][f"{hq}/{hkv}"] = row
+            print(f"[27] flash at a rank's heads {row['shape']}: forward "
+                  f"with lse {row['fwd_ms'] * 1e3:.2f} us (events), device "
+                  f"{_us(row['fwd_dev_us'])}, bound "
+                  f"{row['fwd_bound_ms'][0] * 1e3:.2f} us "
+                  f"({row['fwd_bound_ms'][1]}), plain "
+                  f"{row['fwd_plain_ms'] * 1e3:.1f} us, SDPA "
+                  f"{row['fwd_library_ms'] * 1e3:.2f} us; backward "
+                  f"{row['bwd_ms'] * 1e3:.2f} us, device "
+                  + ", ".join(f"{kk} {_us(vv)}"
+                              for kk, vv in row["bwd_dev_us"].items())
+                  + f", bound {row['bwd_bound_ms'][0] * 1e3:.2f} us "
+                  f"({row['bwd_bound_ms'][1]}), plain "
+                  f"{row['bwd_plain_ms'] * 1e3:.1f} us; errors {row['err']}")
+            del q, k, v, do, o, lse, got, want
+        n = 16
+        for din in SH_CHANNELS:
+            args = scan_inputs(gen, b, s, din, n, dev, dt, True)
+            y, h = mamba_scan.selective_scan(*args, return_state=True)
+            wy, wh = selective_scan_ref(*args, return_state=True)
+            err_y = _rel_err(y, wy, f"[27] scan at Din {din}")
+            dy = torch.randn(b, s, din, generator=gen, device=dev)
+            got = mamba_scan.selective_scan_bwd(*args, dy)
+            want = selective_scan_bwd_ref(*args, dy)
+            share = max((g.float() - w.float()).abs().max().item()
+                        / _scan_bwd_limit(w, dt) for g, w in zip(got, want))
+            if share > 1:
+                raise AssertionError(f"[27] scan backward at Din {din}: "
+                                     f"{share}")
+            plan = mamba_scan.scan_plan(b, s, din, n, dt)
+            fwd = lambda: mamba_scan.selective_scan(*args, return_state=True)
+            bwd = lambda: mamba_scan.selective_scan_bwd(*args, dy)
+            row = {"shape": [b, s, din, n, "bfloat16"],
+                   "plan": {"states": plan.states, "lanes": plan.lanes,
+                            "working_warps": plan.working_warps,
+                            "target_warps": mamba_scan.TARGET_WARPS},
+                   "fwd_ms": _events_ms(fwd, reps=10, trials=3, warmup=2),
+                   "fwd_dev_us": scan_device_us(fwd),
+                   "fwd_bound_ms": _scan_bound(b, s, din, n, 2)[0],
+                   "bwd_ms": _events_ms(bwd, reps=10, trials=3, warmup=2),
+                   "bwd_dev_us": _device_us_of(bwd,
+                                               mamba_scan.BWD_KERNELS),
+                   "bwd_bound_ms": _scan_bwd_bound(b, s, din, n, 2)[0],
+                   "plain_ms": _events_ms(
+                       lambda: selective_scan_ref(*args, return_state=True),
+                       reps=1, trials=2, warmup=1),
+                   "bwd_plain_ms": _events_ms(
+                       lambda: selective_scan_bwd_ref(*args, dy), reps=1,
+                       trials=2, warmup=1),
+                   "err": {"y": err_y, "bwd_share": share}}
+            out["scan"][din] = row
+            print(f"[27] scan at a rank's channels {row['shape']}: plan "
+                  f"{row['plan']}; forward {row['fwd_ms'] * 1e3:.2f} us, "
+                  f"device {_us(row['fwd_dev_us'])}, bound "
+                  f"{row['fwd_bound_ms'][0] * 1e3:.2f} us; backward "
+                  f"{row['bwd_ms'] * 1e3:.2f} us, device " + ", ".join(
+                      f"{kk} {_us(vv)}" for kk, vv in row["bwd_dev_us"].items())
+                  + f", bound {row['bwd_bound_ms'][0] * 1e3:.2f} us; plain "
+                  f"{row['plain_ms'] * 1e3:.1f} us forward, "
+                  f"{row['bwd_plain_ms'] * 1e3:.1f} us backward; errors "
+                  f"{row['err']}")
+            del args, y, h, wy, wh, dy, got, want
+    _free()
+    return out
+
+
+def _sh_adamw_times(dev):
+    """AdamW at a rank's share on four cards: falcon-mamba-7b at full
+    depth on (1, 4), each tensor as model rank 1 holds it (bf16 parameters
+    and gradients, f32 moments), called as the main path calls it: the
+    tensors replicated over "model" not counted in the norm (``NO_NORM``),
+    the norm's partials through ``sum_norm`` between ``adamw_norm`` and
+    ``adamw_finish`` (here a copy in place of the sum over the ranks, one
+    process): the call's ms and its kernels' device µs beside the bytes
+    bound; the plain version's ms, the same split."""
+    from repro_torch.sharding import rules
+    cfg = get_arch(MAMBA_ARCH)
+    sizes = {"data": 1, "model": 4}
+    model = rules.abstract_model(cfg)
+    params, _ = rules.port_layout(cfg, model, sizes)
+    dec = decayed(model)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ps, gs, ms_, vs, decs, counted = [], [], [], [], [], []
+    for n, p in model.named_parameters():
+        shape = rules.shard(torch.empty(p.shape, device="meta"), params[n],
+                            {"data": 0, "model": 1}, sizes).shape
+        counted.append("model" in rules.spec_axes(params[n].spec))
+        ps.append((torch.randn(shape, generator=gen, device=dev) * 0.02).to(
+            p.dtype))
+        gs.append((torch.randn(shape, generator=gen, device=dev) * 1e-3).to(
+            p.dtype))
+        ms_.append(torch.zeros(shape, device=dev))
+        vs.append(torch.zeros(shape, device=dev))
+        decs.append(dec[n])
+    del model
+    hyper = torch.tensor(hyper_values(1, 1e-4), dtype=torch.float32,
+                         device=dev)
+    call_ms, dev_us, plain_ms = _adamw_times(
+        ps, gs, ms_, vs, decs, hyper, counted=counted,
+        sum_norm=lambda t: t.clone())
+    n_params = sum(p.numel() for p in ps)
+    out = {"arch": MAMBA_ARCH, "mesh": [1, 4], "tensors": len(ps),
+           "not_counted": counted.count(False),
+           "params_a_rank": n_params, "ms": call_ms,
+           "dev_us": dev_us, "plain_ms": plain_ms,
+           "bound_ms": _adamw_bound_ms(ps, gs, ms_)}
+    print(f"[27] AdamW at a rank's share ({MAMBA_ARCH}, 64 layers, model "
+          f"rank 1 of 1 x 4: {len(ps)} tensors, {counted.count(False)} of "
+          f"them NO_NORM, {n_params} parameters, bf16 with f32 moments; the "
+          f"norm's partials through sum_norm): {call_ms:.3f} ms a call "
+          f"(events), device "
+          + ", ".join(f"{k} {_us(v)}" for k, v in dev_us.items())
+          + f"; bound {out['bound_ms']:.3f} ms (bytes); plain "
+          f"{plain_ms:.1f} ms")
+    del ps, gs, ms_, vs
+    _free()
+    return out
+
+
+def phase_sharded_train(dev):
+    """Phase 27: the sharded train step.  Ranks on the card over gloo
+    (``_sharded_rank``), first two on (1, 2), then four on (2, 2): each
+    configuration's loss and gathered gradients against the one-rank
+    step's, the planted faults, a ``Trainer`` step (the main path: AdamW's
+    norm across ranks, every copy of a parameter bit-equal, launches
+    counted), qwen2-moe's routes and f32 gradients, jamba fsdp's
+    checkpoint restored on one rank; then the kernels at a rank's shapes
+    here."""
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    ranks = {}
+    t0 = time.perf_counter()
+    for world in SH_MESHES:
+        with tempfile.TemporaryDirectory(dir=root) as tmp:
+            tmp = pathlib.Path(tmp)
+            torch.save(_sh_batches(), tmp / "batches.pt")
+            ranks[world] = _spawn_ranks(tmp, dev, world,
+                                        flag="--sharded-rank", tag="[27]")
+    out = {"ranks_wall_s": time.perf_counter() - t0, "layers": SH_LAYERS,
+           "batch": SH_B, "seq_len": SH_S}
+    out["falcon_1x2"] = _sh_check_case(
+        f"{MAMBA_ARCH} bf16 {SH_LAYERS} layers (1, 2)", ranks[2],
+        "falcon")
+    out["llama_1x2"] = _sh_check_case(
+        f"{LM_ARCH} bf16 {SH_LAYERS} layers (1, 2)", ranks[2],
+        "llama")
+    out["falcon_2x2"] = _sh_check_case(
+        f"{MAMBA_ARCH} bf16 {SH_LAYERS} layers (2, 2)", ranks[4],
+        "falcon")
+    out["jamba_fsdp_2x2"] = _sh_check_case(
+        f"{HYBRID_ARCH} smoke fsdp=True (2, 2)", ranks[4], "jamba")
+    ck = ranks[4][0]["jamba"].get("ckpt_one_rank")
+    print(f"[27] the checkpoint written on (2, 2) restored on one rank, "
+          f"every tensor bit for bit: {ck}")
+    if not ck:
+        raise AssertionError("[27] checkpoint (2, 2) -> one rank")
+    out["jamba_fsdp_2x2"]["ckpt_one_rank"] = ck
+    moe = [r["moe"] for r in ranks[2]]
+    across = all(torch.equal(a, b) for a, b in zip(moe[0]["routes"],
+                                                   moe[1]["routes"]))
+    print(f"[27] {MOE_ARCH} f32 {SH_LAYERS} layers (1, 2), expert "
+          f"parallelism: loss {moe[0]['loss']:.6f} (one rank "
+          f"{moe[0]['one_loss']:.6f}); {len(moe[0]['routes'])} router calls, "
+          f"routes equal across ranks {across} and to the one-rank step's "
+          f"{all(moe[0]['routes_equal_one'])}; gradients max |g - g1| / "
+          f"max(1, max|g1|) {moe[0]['grads']} (bound {SH_MOE_TOL}); each "
+          f"rank holds the spec's shapes {not moe[0]['shapes']['bad']}")
+    if not across or not all(moe[0]["routes_equal_one"]) or \
+            moe[0]["grads"]["max"] > SH_MOE_TOL or moe[0]["shapes"]["bad"] \
+            or abs(moe[0]["loss"] - moe[0]["one_loss"]) > SH_LOSS_BOUND:
+        raise AssertionError(f"[27] qwen2-moe: {moe[0]['grads']}")
+    out["moe_1x2"] = {k: moe[0][k] for k in ("loss", "one_loss", "grads")}
+    out["moe_1x2"]["routes_equal"] = across
+    out["kernels"] = _sh_kernel_times(dev)
+    out["adamw"] = _sh_adamw_times(dev)
+    return out
+
+
+def sharded_cells(kernels, sh27):
+    """The AdamW row gains its cross-rank cell (a rank's share on four
+    cards; launches on phase 27's main path), the flash rows and the scan
+    rows their figures at a rank's shapes."""
+    main = sh27["falcon_2x2"]["train"]["launches"]
+    llama = sh27["llama_1x2"]["train"]["launches"]
+    for row in kernels:
+        name = row["name"]
+        if name == "adamw":
+            a = sh27["adamw"]
+            row["sharded"] = {
+                "shape": f"{a['arch']} 64 layers, model rank 1 of (1, "
+                         f"4): {a['params_a_rank']} parameters, "
+                         f"{a['not_counted']} of {a['tensors']} tensors "
+                         f"NO_NORM, the partials through sum_norm",
+                "launches": main.get("adamw", 0), "ms": a["ms"],
+                "device_ms": _ms(a["dev_us"]["adamw_"]),
+                "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+                "bound_by": "bytes", "library_ms": None,
+                "norm_across_ranks": sh27["falcon_2x2"]["train"]["norms"],
+                "train": {k: v for k, v in sh27.items()
+                          if k not in ("kernels", "adamw")}}
+        elif name in ("flash_attention", "attn_bwd_preprocess_kernel"):
+            fwd = name == "flash_attention"
+            row["local_shapes"] = {
+                k: {"shape": t["shape"],
+                    "launches": llama.get(
+                        "flash_attention" if fwd else "flash_attention_bwd",
+                        0) if k == "12/4" else None,
+                    "ms": t["fwd_ms" if fwd else "bwd_ms"],
+                    "device_ms": _ms(t["fwd_dev_us"]) if fwd else {
+                        kk: _ms(v) for kk, v in t["bwd_dev_us"].items()},
+                    "bound_ms": t["fwd_bound_ms" if fwd
+                                  else "bwd_bound_ms"][0],
+                    "bound_by": t["fwd_bound_ms" if fwd
+                                  else "bwd_bound_ms"][1],
+                    "plain_ms": t["fwd_plain_ms" if fwd else "bwd_plain_ms"],
+                    "library_ms": t["fwd_library_ms"] if fwd else None,
+                    "err": t["err"]}
+                for k, t in sh27["kernels"]["flash"].items()}
+        elif name in ("selective_scan", "selective_scan_bwd"):
+            fwd = name == "selective_scan"
+            row["local_shapes"] = {
+                str(din): {"shape": t["shape"], "plan": t["plan"],
+                           "launches": main.get(
+                               "selective_scan" if fwd
+                               else "selective_scan_bwd", 0)
+                           if din == SH_CHANNELS[0] else None,
+                           "ms": t["fwd_ms" if fwd else "bwd_ms"],
+                           "device_ms": _ms(t["fwd_dev_us"]) if fwd else {
+                               kk: _ms(v) for kk, v in
+                               t["bwd_dev_us"].items()},
+                           "bound_ms": t["fwd_bound_ms" if fwd
+                                         else "bwd_bound_ms"][0],
+                           "bound_by": t["fwd_bound_ms" if fwd
+                                         else "bwd_bound_ms"][1],
+                           "plain_ms": t["plain_ms" if fwd
+                                         else "bwd_plain_ms"],
+                           "library_ms": None, "err": t["err"]}
+                for din, t in sh27["kernels"]["scan"].items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and "
@@ -6548,6 +7446,7 @@ def main() -> int:
     fm_times = _timed(phase_mamba_times, dev, fm)
     del fm
     _free()
+    tune_checks = start_tune_checks()        # phase 19's host searches
     qm = _timed(_build_full, MOE_ARCH, dev)
     moe = _timed(phase_moe, dev, qm)
     del qm
@@ -6586,6 +7485,7 @@ def main() -> int:
     pipeline_cells(next(r for r in kernels if r["name"] == "flash_attention"),
                    _timed(phase_pipeline, dev))
     cp_train_cells(kernels, _timed(phase_cp_train, dev))
+    sharded_cells(kernels, _timed(phase_sharded_train, dev))
     conv_errs = _timed(phase_conv_kernel, dev)
     qs = _timed(phase_quickstart)
     faults = _timed(phase_fault_serve, dev)
@@ -6593,7 +7493,7 @@ def main() -> int:
     conv_times = _timed(phase_conv_times, dev)
     kernels.append(conv_kernel_row(conv_errs, qs, conv_times, faults,
                                    analyze))
-    tuned = _timed(phase_tuned, dev)
+    tuned = _timed(phase_tuned, dev, tune_checks)
     for row in kernels:              # the crossbar rows: launches by path
         kind = {"crossbar_mxv": "float",
                 "crossbar_mxv_int8": "dac"}.get(row["name"])
@@ -6619,5 +7519,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--cp-train-rank"]:
         _cp_train_rank(sys.argv[2:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        _sharded_rank(sys.argv[2:])
         sys.exit(0)
     sys.exit(main())

@@ -23,6 +23,15 @@ corrupts the latest checkpoint.  The state is the port's ``TrainState``
 (``train.loop``): the model's parameters and the moments, keyed by
 parameter name, and ``count`` / ``step`` as integers; a restore copies into
 the template's tensors in place.
+
+**Sharding-agnostic**, as the reference's ("restore device_puts against the
+*current* mesh's shardings"): a model built under a mesh
+(``model.shards``) writes whole tensors in the same format, every rank
+taking part in making each one whole, one tensor at a time, and the
+mesh's first rank keeping them on the host and writing the file (the
+other ranks drop each at once); a restore cuts each whole
+tensor to the rank's part for the mesh the template was built on, so a
+checkpoint written on one mesh restores on another and on one rank.
 """
 
 from __future__ import annotations
@@ -63,15 +72,58 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
         out[prefix] = np.asarray(tree)
 
 
+def _whole_moment(shards, name: str, m: torch.Tensor,
+                  like: torch.Tensor) -> torch.Tensor:
+    """The whole moment of parameter ``name`` (``like``: the rank's part of
+    the parameter) from every rank's part ``m``: from its owning data rank,
+    then gathered over the axes its spec splits (a collective)."""
+    from ..distributed import comm
+    from ..sharding.rules import Placement, unshard
+    place = shards.moments[name]
+    if place.owner is not None:
+        buf = m if shards.owns(name) else torch.empty(
+            like.shape, dtype=m.dtype, device=m.device)
+        m = comm.broadcast(buf, place.owner, shards.mesh.get_group("data"))
+        place = Placement(place.spec, place.halves)
+    return unshard(m, place, shards.mesh)
+
+
 def state_arrays(state) -> Dict[str, np.ndarray]:
     """The checkpoint's arrays of a ``TrainState``, keyed and ordered as the
-    reference's (a snapshot on the host)."""
+    reference's (a snapshot on the host).  For a model built under a mesh,
+    a collective: each tensor made whole on every rank of it, in turn, and
+    every rank gets the whole state."""
+    return _arrays(state, keep=True)
+
+
+def _arrays(state, keep: bool) -> Optional[Dict[str, np.ndarray]]:
+    """:func:`state_arrays`; with ``keep`` False (a rank of a mesh that does
+    not write) the rank takes part in each tensor's collective and drops
+    the whole tensor at once, holding one at a time, and gets None.  The
+    writing rank holds the whole state on the host, as a one-card save
+    does."""
     model = state.model
+    params = dict(model.named_parameters())
+    shards = model.shards
     flat: Dict[str, np.ndarray] = {}
-    for prefix, tensors in (("params", dict(model.named_parameters())),
-                            ("opt/mu", state.opt.mu),
+    for prefix, tensors in (("params", params), ("opt/mu", state.opt.mu),
                             ("opt/nu", state.opt.nu)):
-        _flatten(tree_to_reference(model, tensors, _host), prefix, flat)
+        if shards is None:
+            tree = tree_to_reference(model, tensors, _host)
+            _flatten(tree, prefix, flat)
+            continue
+        host = {}
+        for n, t in tensors.items():
+            whole = (shards.whole(n, t) if prefix == "params" else
+                     _whole_moment(shards, n, t, params[n]))
+            if keep:
+                host[n] = _host(whole)
+            del whole
+        if keep:
+            _flatten(tree_to_reference(model, host, lambda a: a,
+                                       gather=False), prefix, flat)
+    if not keep:
+        return None
     flat["opt/count"] = np.asarray(state.opt.count, np.int32)
     flat["step"] = np.asarray(state.step, np.int32)
     return flat
@@ -80,19 +132,30 @@ def state_arrays(state) -> Dict[str, np.ndarray]:
 def save_checkpoint(ckpt_dir: str, step: int, state: Any,
                     extra: Optional[Dict] = None, keep: int = 3) -> str:
     """Write ``state`` (a ``TrainState``, or :func:`state_arrays` of one)
-    as ``step_<step>.npz`` in ``ckpt_dir``; keep the ``keep`` newest."""
+    as ``step_<step>.npz`` in ``ckpt_dir``; keep the ``keep`` newest.  A
+    state on a mesh: every rank of it calls this, the first writes."""
+    flat = dict(state) if isinstance(state, dict) else _arrays(
+        state, keep=writes(state))
+    final = os.path.join(ckpt_dir, f"step_{step}.npz")
+    if flat is None:
+        return final
     os.makedirs(ckpt_dir, exist_ok=True)
-    flat = dict(state) if isinstance(state, dict) else state_arrays(state)
     if extra:
         flat["__extra__"] = np.frombuffer(
             json.dumps(extra).encode(), dtype=np.uint8)
     tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
-    final = os.path.join(ckpt_dir, f"step_{step}.npz")
     with open(tmp, "wb") as f:
         np.savez(f, **flat)
     os.replace(tmp, final)                               # atomic
     _prune(ckpt_dir, keep)
     return final
+
+
+def writes(state) -> bool:
+    """Whether this rank writes ``state``'s checkpoint: the mesh's first
+    rank for a model built under a mesh, else every caller."""
+    shards = state.model.shards
+    return shards is None or not any(shards.coords.values())
 
 
 def _steps(ckpt_dir: str):
@@ -139,15 +202,35 @@ def restore_checkpoint(path: str, template: Any):
             key = "/".join([prefix, *map(str, path_k)])
             arr = data[key] if per is None else data[key][per]
             dst = tensors[name]
-            if tuple(arr.shape) != tuple(dst.shape):
+            t = _part(model.shards, prefix, name, _tensor(arr, dst))
+            if t is None:
+                continue
+            if tuple(t.shape) != tuple(dst.shape):
                 raise ValueError(f"{key}: checkpoint leaf {arr.shape} does "
                                  f"not fit {tuple(dst.shape)}")
-            dst.copy_(_tensor(arr, dst))
+            dst.copy_(t)
     extra = None
     if "__extra__" in data:
         extra = json.loads(bytes(data["__extra__"].tobytes()).decode())
     opt = template.opt._replace(count=int(data["opt/count"]))
     return template._replace(opt=opt, step=int(data["step"])), extra
+
+
+def _part(shards, prefix: str, name: str, t: torch.Tensor):
+    """The rank's part of the whole restored tensor ``t`` of parameter
+    ``name`` (``prefix`` "params" or a moment's), or None for a moment
+    another data rank owns; ``t`` itself without ``shards``."""
+    if shards is None:
+        return t
+    from ..sharding.rules import Placement, shard
+    if prefix == "params":
+        place = shards.params[name]
+    else:
+        if not shards.owns(name):
+            return None
+        place = Placement(shards.moments[name].spec,
+                          shards.moments[name].halves)
+    return shard(t, place, shards.coords, shards.sizes)
 
 
 class AsyncCheckpointer:
@@ -161,7 +244,9 @@ class AsyncCheckpointer:
 
     def save(self, step: int, state: Any, extra: Optional[Dict] = None):
         self.wait()
-        host = state_arrays(state)                       # snapshot now
+        host = _arrays(state, keep=writes(state))       # snapshot now
+        if host is None:
+            return
 
         def work():
             p = save_checkpoint(self.ckpt_dir, step, host, extra, self.keep)

@@ -28,16 +28,18 @@ input, run through the same routing by backend:
 So a program that runs on every rank of a group, with every rank's result
 scaled by 1/n before ``backward`` (a result that is the same on every rank
 counts n times) and every parameter's gradient summed over the group, gets
-the gradient of the one program the ranks compute together.  ``hop`` has
-no backward (the pipeline prefills).
+the gradient of the one program the ranks compute together.  ``hop``,
+:func:`broadcast` and :func:`reduce` have no backward (the pipeline
+prefills; ZeRO-1's gradients to the data rank that owns them and its
+parameters back, ``optim.adamw``).
 
-The reductions (``all_reduce``, ``reduce_scatter``, forward or backward)
-sum bf16 and f16 tensors in f32 and round once to the tensor's dtype: NCCL
-and gloo sum in the buffer's dtype, rounding after every add of n ranks'
-parts.  ``reduce_scatter`` on ``gloo`` is an all-reduce of which each rank
-keeps its part (the host path carries n times the bytes; gloo's
-reduce-scatter is not in every PyTorch release); on ``nccl``
-``reduce_scatter_tensor``.
+The reductions (``all_reduce``, ``reduce_scatter``, forward or backward,
+and ``reduce``) sum bf16 and f16 tensors in f32 and round once to the
+tensor's dtype: NCCL and gloo sum in the buffer's dtype, rounding after
+every add of n ranks' parts.  ``reduce_scatter`` on ``gloo`` is an
+all-reduce of which each rank keeps its part (the host path carries n
+times the bytes; gloo's reduce-scatter is not in every PyTorch release);
+on ``nccl`` ``reduce_scatter_tensor``.
 """
 
 from __future__ import annotations
@@ -256,3 +258,14 @@ def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
     w = _wire(x, host).clone()
     _dist().broadcast(w, src=_global(group, src), group=group)
     return w.to(x.device)
+
+
+def reduce(x: torch.Tensor, dst: int, group) -> Optional[torch.Tensor]:
+    """The sum of every rank's ``x`` on group rank ``dst`` (a new tensor),
+    None on the others."""
+    host = _via_host(x, group)
+    w = _wire(x, host).to(_sum_dtype(x), copy=not host)
+    _dist().reduce(w, dst=_global(group, dst), group=group)
+    if rank(group) != dst:
+        return None
+    return w.to(device=x.device, dtype=x.dtype)

@@ -54,7 +54,7 @@ _SCAN_BWD = (_P,) * 18 + (_I,) * 4 + (_S, _P)
 _CONV = (_P, _P, _P, _P) + (_I,) * 12 + (_P,)
 # entries (n rows of g, p, m, v, numel, flags), n, workspace, stats, hyper;
 # b1, 1 - b1, b2, 1 - b2, eps, weight decay, clip
-_ADAMW = (_P, _I, _P, _P, _P) + (_F,) * 7 + (_P,)
+_ADAMW_FINISH = (_P, _I, _P, _P, _P) + (_F,) * 7 + (_P,)
 # entries (n rows of g, e, numel), n, block, vec, workspace, SMs
 _COMPRESS = (_P, _I, _I, _I, _P, _I, _P)
 # name -> argtypes; every entry returns the launch's cudaError_t as an int
@@ -78,7 +78,9 @@ SIGNATURES = {
     "selective_scan_bwd_bf16": _SCAN_BWD,
     # bf16 or not; out: blocks an SM, warps an SM, shared bytes a block
     "selective_scan_bwd_occupancy": (_I, _PLAN),
-    "adamw_step": _ADAMW,
+    # entries, n, workspace
+    "adamw_norm": (_P, _I, _P, _P),
+    "adamw_finish": _ADAMW_FINISH,
     # n tensors -> workspace bytes (not an error code)
     "adamw_workspace_bytes": (_I,),
     "compress_int8": _COMPRESS,

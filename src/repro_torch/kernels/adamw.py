@@ -41,6 +41,18 @@ every tensor is contiguous and 16-byte aligned (a gradient that is not is
 copied first; a parameter or moment that is not is refused, as the update
 writes it in place).
 
+**Across ranks** (a tree split over a mesh: ``optim.adamw`` under
+ZeRO-1), each rank passes the tensors it updates, ``counted`` says which
+of them count in the global norm (an element that several ranks update
+counts on one of them only) and ``sum_norm`` sums the f64 sum of squares
+over the mesh, in f64, before the square root: on the card the norm's
+1,024 f64 partials between the norm kernel and the finalize
+(``csrc/adamw.cu``: ``adamw_norm``, then ``adamw_finish``), in the plain
+version the rank's f64 total.  Without them a call is PR 28's: one rank,
+every tensor counted, the same kernels in the same order, the same bits.
+A rank that updates nothing still takes part in the sum (its partials
+zero) and gets the norm.
+
 ``LAUNCHES["adamw"]`` counts the wrapper's calls that launch the kernels,
 one a call (the table's fill launches, the norm, its finalize and the
 update: ``KERNELS``).
@@ -48,7 +60,7 @@ update: ``KERNELS``).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -63,17 +75,26 @@ KERNELS = ("adamw_fill_kernel", "adamw_norm_kernel", "adamw_finalize_kernel",
 PAIRS = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
          (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16))
 # csrc/adamw.cu's entry flags
-_DECAY, _P_BF16, _M_BF16, _G_F32 = 1, 2, 4, 8
+_DECAY, _P_BF16, _M_BF16, _G_F32, _NO_NORM = 1, 2, 4, 8, 16
+# the norm's f64 partials (csrc/adamw.cu NORM_BLOCKS)
+NORM_BLOCKS = 1024
 
 
-def global_norm_ref(grads: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, summed in f64 and
-    rounded to f32 once: a 0-d f32 tensor."""
-    dev = next(g.device for g in grads if g is not None)
+def global_norm_ref(grads: Sequence[Optional[torch.Tensor]],
+                    counted: Optional[Sequence[bool]] = None,
+                    sum_norm: Optional[Callable] = None,
+                    device=None) -> torch.Tensor:
+    """sqrt of the sum of the squares of every gradient (of those
+    ``counted``), summed in f64 (and over the ranks by ``sum_norm``, a f64
+    0-d tensor to its sum) and rounded to f32 once: a 0-d f32 tensor."""
+    dev = device or next(g.device for g in grads if g is not None)
+    counted = counted or [True] * len(grads)
     total = torch.zeros((), dtype=torch.float64, device=dev)
-    for g in grads:
-        if g is not None:
+    for g, c in zip(grads, counted):
+        if g is not None and c:
             total = total + torch.sum(torch.square(g.to(torch.float64)))
+    if sum_norm is not None:
+        total = sum_norm(total)
     return torch.sqrt(total).to(torch.float32)
 
 
@@ -105,10 +126,11 @@ def update_ref(p, g, m, v, scale, lr, bc1, bc2, *, b1, b2, eps, wd):
 
 @torch.no_grad()
 def adamw_step_ref(params, grads, mus, nus, decayed, hyper, *, b1=0.9,
-                   b2=0.95, eps=1e-8, weight_decay=0.1, grad_clip=1.0):
+                   b2=0.95, eps=1e-8, weight_decay=0.1, grad_clip=1.0,
+                   counted=None, sum_norm=None):
     """The plain version of :func:`adamw_step`: the same arguments, the
     same in-place writes, the norm (a 0-d f32 tensor) returned."""
-    gnorm = global_norm_ref(grads)
+    gnorm = global_norm_ref(grads, counted, sum_norm, hyper.device)
     scale = clip_scale_ref(gnorm, grad_clip)
     lr, bc1, bc2 = hyper[0], hyper[1], hyper[2]
     for p, g, m, v, dec in zip(params, grads, mus, nus, decayed):
@@ -124,10 +146,10 @@ def adamw_step_ref(params, grads, mus, nus, decayed, hyper, *, b1=0.9,
 def _check(params, grads, mus, nus, decayed, hyper):
     name = "adamw_step"
     n = len(params)
-    if not n or any(len(x) != n for x in (grads, mus, nus, decayed)):
+    if any(len(x) != n for x in (grads, mus, nus, decayed)):
         raise ValueError(f"{name}: params, grads, mus, nus and decayed must "
-                         f"be non-empty and of one length")
-    dev = params[0].device
+                         f"be of one length")
+    dev = hyper.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     if hyper.dtype != torch.float32 or tuple(hyper.shape) != (3,) or \
@@ -160,22 +182,30 @@ def adamw_step(params: Sequence[torch.Tensor],
                mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor],
                decayed: Sequence[bool], hyper: torch.Tensor, *,
                b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-               weight_decay: float = 0.1,
-               grad_clip: float = 1.0) -> torch.Tensor:
-    """AdamW over the tree (lists in one order), in place; returns the
-    global gradient norm before clipping, a 0-d f32 tensor (on the card a
-    view of the kernels' output).  See the module docstring."""
+               weight_decay: float = 0.1, grad_clip: float = 1.0,
+               counted: Optional[Sequence[bool]] = None,
+               sum_norm: Optional[Callable] = None) -> torch.Tensor:
+    """AdamW over the tree (lists in one order; empty only with
+    ``sum_norm``), in place; returns the global gradient norm before
+    clipping, a 0-d f32 tensor (on the card a view of the kernels' output).
+    ``counted``, ``sum_norm``: the norm across ranks.  See the module
+    docstring."""
     params, grads, mus, nus = (list(x) for x in (params, grads, mus, nus))
     decayed = [bool(d) for d in decayed]
+    counted = [True] * len(params) if counted is None else \
+        [bool(c) for c in counted]
+    if not params and sum_norm is None:
+        raise ValueError("adamw_step: an empty tree outside a mesh")
     _check(params, grads, mus, nus, decayed, hyper)
-    if params[0].device.type == "cpu":
+    dev = hyper.device
+    if dev.type == "cpu":
         return adamw_step_ref(params, grads, mus, nus, decayed, hyper, b1=b1,
                               b2=b2, eps=eps, weight_decay=weight_decay,
-                              grad_clip=grad_clip)
-    dev = params[0].device
+                              grad_clip=grad_clip, counted=counted,
+                              sum_norm=sum_norm)
     rows = []
-    for i, (p, g, m, v, dec) in enumerate(zip(params, grads, mus, nus,
-                                              decayed)):
+    for i, (p, g, m, v, dec, c) in enumerate(zip(params, grads, mus, nus,
+                                                 decayed, counted)):
         if not all(_aligned(t) for t in (p, m, v)):
             raise ValueError(f"adamw_step: tensor {i}: the parameter and its "
                              f"moments must be contiguous and 16-byte "
@@ -187,20 +217,31 @@ def adamw_step(params: Sequence[torch.Tensor],
             grads[i] = g                    # alive until the launch is queued
         flags = (_DECAY * dec + _P_BF16 * (p.dtype == torch.bfloat16)
                  + _M_BF16 * (m.dtype == torch.bfloat16)
-                 + _G_F32 * (g is not None and g.dtype != p.dtype))
+                 + _G_F32 * (g is not None and g.dtype != p.dtype)
+                 + _NO_NORM * (not c))
         rows.append((g.data_ptr() if g is not None else 0, p.data_ptr(),
                      m.data_ptr(), v.data_ptr(), p.numel(), flags))
-    if not rows:
+    if not rows and sum_norm is None:
         return torch.zeros((), dtype=torch.float32, device=dev)
-    entries = np.ascontiguousarray(np.array(rows, dtype=np.int64))
+    entries = np.ascontiguousarray(np.array(rows, dtype=np.int64).reshape(
+        -1, 6))
     lib = _build.load()
-    work = torch.empty((lib.adamw_workspace_bytes(len(rows)),),
-                       dtype=torch.uint8, device=dev)
+    n = len(rows)
+    table = lib.adamw_workspace_bytes(n) - NORM_BLOCKS * 8
+    work = torch.empty((lib.adamw_workspace_bytes(n),), dtype=torch.uint8,
+                       device=dev)
     stats = torch.empty((2,), dtype=torch.float32, device=dev)
+    stream = _tensors.stream(dev)
     with torch.cuda.device(dev):
-        err = lib.adamw_step(entries.ctypes.data, len(rows), work.data_ptr(),
-                 stats.data_ptr(), hyper.data_ptr(), b1, 1 - b1, b2, 1 - b2,
-                 eps, weight_decay, grad_clip, _tensors.stream(dev))
-    _build.check(lib, "adamw_step", err)
+        err = lib.adamw_norm(entries.ctypes.data, n, work.data_ptr(), stream)
+        _build.check(lib, "adamw_norm", err)
+        if sum_norm is not None:
+            partials = work[table:].view(torch.float64)
+            partials.copy_(sum_norm(partials))
+        err = lib.adamw_finish(entries.ctypes.data, n, work.data_ptr(),
+                               stats.data_ptr(), hyper.data_ptr(), b1, 1 - b1,
+                               b2, 1 - b2, eps, weight_decay, grad_clip,
+                               stream)
+    _build.check(lib, "adamw_finish", err)
     LAUNCHES["adamw"] += 1
     return stats[0]

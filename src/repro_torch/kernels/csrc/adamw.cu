@@ -50,6 +50,11 @@
 //   3. adamw_update_kernel: a block a chunk, 256 threads, 8 elements a
 //      thread a step in 16-byte loads and stores (two for f32), the tensor
 //      found by a binary search of the table's first chunks.
+// Across ranks (a tree split over a mesh, ZeRO-1) the host entry points
+// split after 1: the wrapper sums the NORM_BLOCKS f64 partials over the
+// mesh in f64, then 2 and 3 run on the sum; a tensor whose elements
+// another rank also updates (replicated over "model", say) is flagged
+// NO_NORM on all but one rank, so each element's square counts once.
 // Every pointer is 16-byte aligned (the wrapper checks, and copies a
 // gradient that is not) and chunks start at multiples of 8 elements, so
 // every vector access is aligned; a chunk's last count % 8 elements go one
@@ -74,6 +79,8 @@ constexpr int P_BF16 = 2;              // the parameter (and, without G_F32,
 constexpr int M_BF16 = 4;              // the moments are bf16
 constexpr int G_F32 = 8;               // the gradient is f32 beside a bf16
                                        // parameter
+constexpr int NO_NORM = 16;            // the tensor is updated here but its
+                                       // squares count on another rank
 
 struct Entry {
   const void* g;                       // nullptr: a zero gradient
@@ -186,7 +193,7 @@ adamw_norm_kernel(const Entry* __restrict__ table, int n, long long chunks,
     if (threadIdx.x == 0) entry = find(table, n, c);
     __syncthreads();
     const Entry& e = table[entry];
-    if (e.g == nullptr) continue;
+    if (e.g == nullptr || (e.flags & NO_NORM)) continue;
     const long long start = (c - e.chunk0) * CHUNK;
     const long long rem = e.numel - start;
     const int count = (int)(rem < CHUNK ? rem : CHUNK);
@@ -311,27 +318,13 @@ adamw_update_kernel(const Entry* __restrict__ table, int n,
 
 }  // namespace
 
-extern "C" {
-
-// the workspace bytes of a tree of n tensors: the table, then the partials
-int adamw_workspace_bytes(int n) {
-  return (int)((((size_t)n * sizeof(Entry) + 15) & ~15) +
-               NORM_BLOCKS * sizeof(double));
-}
-
-// entries: n rows of (g, p, m, v, numel, flags) as the wrapper's int64
-// array (flags: DECAY | P_BF16 | M_BF16 | G_F32); workspace: the table (n Entry),
-// then NORM_BLOCKS doubles; stats: gnorm, scale (out); hyper: lr, bc1, bc2
-int adamw_step(const long long* entries, int n, void* workspace, void* stats,
-               const void* hyper, float b1, float omb1, float b2, float omb2,
-               float eps, float wd, float clip, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return cudaErrorInvalidValue;
-  Entry* table = static_cast<Entry*>(workspace);
-  double* partials = reinterpret_cast<double*>(
-      static_cast<char*>(workspace) + (((size_t)n * sizeof(Entry) + 15) & ~15));
+// the table's rows from the wrapper's int64 array, written by fill
+// launches; returns the chunks' count (0 with an error in *err)
+static long long fill_table(const long long* entries, int n, Entry* table,
+                     cudaStream_t s, cudaError_t* err) {
   long long chunks = 0;
   Fill f;
+  *err = cudaSuccess;
   for (int i0 = 0; i0 < n; i0 += FILL) {
     const int cnt = n - i0 < FILL ? n - i0 : FILL;
     for (int j = 0; j < cnt; ++j) {
@@ -342,21 +335,78 @@ int adamw_step(const long long* entries, int n, void* workspace, void* stats,
                      reinterpret_cast<void*>(r[3]), r[4], (int)chunks,
                      (int)r[5]};
       chunks += (r[4] + CHUNK - 1) / CHUNK;
-      if (chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
+      if (chunks > 0x7fffffffLL) {
+        *err = cudaErrorInvalidValue;
+        return 0;
+      }
     }
     adamw_fill_kernel<<<1, FILL, 0, s>>>(f, table, i0, cnt);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    *err = cudaGetLastError();
+    if (*err != cudaSuccess) return 0;
   }
+  return chunks;
+}
+
+static long long count_chunks(const long long* entries, int n) {
+  long long chunks = 0;
+  for (int i = 0; i < n; ++i) chunks += (entries[6 * i + 4] + CHUNK - 1) / CHUNK;
+  return chunks;
+}
+
+static size_t table_bytes(int n) { return ((size_t)n * sizeof(Entry) + 15) & ~15; }
+
+extern "C" {
+
+// the workspace bytes of a tree of n tensors: the table, then the partials
+int adamw_workspace_bytes(int n) {
+  return (int)(table_bytes(n) + NORM_BLOCKS * sizeof(double));
+}
+
+// The step in two calls, so that the norm's partials can be summed over
+// ranks between them (the wrapper: a tree split over a mesh).  On one rank
+// the two calls launch what one did: the fills, the norm, the finalize,
+// the update.
+//
+// adamw_norm: entries: n rows of (g, p, m, v, numel, flags) as the
+// wrapper's int64 array (flags: DECAY | P_BF16 | M_BF16 | G_F32 |
+// NO_NORM); workspace: the table (n Entry), then NORM_BLOCKS doubles, the
+// partials of the sum of squares written here (zeros for n == 0: a rank
+// that updates nothing still takes part in the sum).
+int adamw_norm(const long long* entries, int n, void* workspace,
+               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 0) return cudaErrorInvalidValue;
+  Entry* table = static_cast<Entry*>(workspace);
+  double* partials = reinterpret_cast<double*>(
+      static_cast<char*>(workspace) + table_bytes(n));
+  if (n == 0)
+    return cudaMemsetAsync(partials, 0, NORM_BLOCKS * sizeof(double), s);
+  cudaError_t err;
+  const long long chunks = fill_table(entries, n, table, s, &err);
+  if (err != cudaSuccess) return err;
   if (chunks == 0) return cudaErrorInvalidValue;
   adamw_norm_kernel<<<NORM_BLOCKS, THREADS, 0, s>>>(table, n, chunks,
                                                     partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// adamw_finish: the same entries and workspace after adamw_norm (the
+// partials possibly summed over ranks since); stats: gnorm, scale (out);
+// hyper: lr, bc1, bc2.  The finalize, then the update (none for n == 0).
+int adamw_finish(const long long* entries, int n, void* workspace,
+                 void* stats, const void* hyper, float b1, float omb1,
+                 float b2, float omb2, float eps, float wd, float clip,
+                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 0) return cudaErrorInvalidValue;
+  Entry* table = static_cast<Entry*>(workspace);
+  double* partials = reinterpret_cast<double*>(
+      static_cast<char*>(workspace) + table_bytes(n));
   adamw_finalize_kernel<<<1, NORM_BLOCKS, 0, s>>>(
       partials, static_cast<float*>(stats), clip);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n == 0) return err;
+  const long long chunks = count_chunks(entries, n);
   adamw_update_kernel<<<(unsigned)chunks, THREADS, 0, s>>>(
       table, n, static_cast<const float*>(stats),
       static_cast<const float*>(hyper), Consts{b1, omb1, b2, omb2, eps, wd});

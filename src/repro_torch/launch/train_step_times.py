@@ -5,8 +5,9 @@ the step under context parallelism across ranks.
     python -m repro_torch.launch.train_step_times [--split] [--steps N]
         [--other SRC] [--out FILE]
     torchrun --nproc-per-node 4 -m repro_torch.launch.train_step_times \
-        --meshes 1x4,2x2 [--steps N] [--seq-len 4096] [--depth L]
-        [--reduced] [--device cuda|cpu] [--out FILE]
+        --meshes 1x4,2x2 [--variant seq_causal|baseline] [--arch A]
+        [--steps N] [--seq-len S] [--depth L] [--reduced]
+        [--device cuda|cpu] [--out FILE]
 
 llama3.2-3b at full width and depth, ``Trainer`` on B = 8 x 512 synthetic
 tokens from seed 0, lr 3e-3, f32 moments, remat.
@@ -31,20 +32,27 @@ eager, captured, captured, eager, other.  Then one replayed and one eager
 step profiled for device activity only: wall ms, busy ms, idle share.
 
 ``--meshes DxM,...`` (under ``torchrun``, one rank a card on ``nccl``,
-else ``gloo``; ``--device cpu`` runs on the CPU): llama3.2-3b (its depth
-cut to ``--depth`` if given; ``--reduced``: its smoke config) with
-``attn_shard="seq"``, ``causal_bound`` and ``seq_residual`` (the
-reference's ``seq_causal`` variant) trained by ``Trainer`` under each
-``("data", "model")`` mesh of D x M ranks (``models.layers.ambient_mesh``;
-the batch split over "data", the gradients summed over the mesh:
-``train.loop``), B = 2 x S = ``--seq-len`` synthetic tokens from seed 0,
-eager (a step across ranks is not captured), ``--steps`` steps: every
-rank's step ms (CUDA events), the global tokens/s, peak allocated GiB and
-flash launches a step, then on the card one more step profiled for device
-activity: wall ms, busy ms, idle share.  Then the one-card step of the same
-model at the same B x S on rank 0 (no mesh, eager as the mesh steps are:
-``compile=False``), the same figures, while the other ranks wait.  Each
-record lists ``replayed``: every step's is False.
+else ``gloo``; ``--device cpu`` runs on the CPU): ``--arch`` (llama3.2-3b
+by default; its depth cut to ``--depth`` if given; ``--reduced``: its
+smoke config) under ``--variant``, one of two of the reference's
+hillclimb variants (:data:`VARIANTS`, each with its global batch and
+default sequence: ``seq_causal`` by default, ``attn_shard="seq"`` with
+``causal_bound`` and ``seq_residual``, B = 2 x S = 4,096 as the
+reference's ``train_4k``; ``baseline`` the default layout, where the model
+built under the mesh holds its rank's shards: tensor parallelism over
+"model", ZeRO-1 moments over "data", FSDP where the config has it, B = 8
+x S = 512), trained by ``Trainer`` under each ``("data", "model")`` mesh
+of D x M ranks (``models.layers.ambient_mesh``; the batch split over
+"data": ``train.loop``), S = ``--seq-len`` if given, synthetic tokens
+from seed 0, eager (a step across ranks is not captured), ``--steps``
+steps: every rank's step ms (CUDA events), the global tokens/s, peak
+allocated GiB and flash launches a step, then on the card one more step
+profiled for device activity: wall ms, busy ms, idle share.  Then the
+one-card step of the same model at the same B x S on rank 0 (no mesh,
+eager as the mesh steps are: ``compile=False``), the same figures, while
+the other ranks wait; on a card whose memory its parameters, gradients
+and moments exceed (:func:`one_card_bytes`) the record says so instead.
+Each record lists ``replayed``: every step's is False.
 
 Prints one JSON object a measurement, then one for the whole (also
 written to ``--out``).
@@ -65,7 +73,13 @@ import torch
 from ._checkout import load_other
 
 ARCH, BATCH, SEQ, LR = "llama3.2-3b", 8, 512, 3e-3
-MESH_BATCH = 2                # the global batch of --meshes
+# two of the reference's hillclimb variants (src/repro/launch/hillclimb.py):
+# name -> (config fields, global batch, default sequence)
+VARIANTS = {
+    "baseline": ({}, 8, 512),
+    "seq_causal": ({"attn_shard": "seq", "causal_bound": True,
+                    "seq_residual": True}, 2, 4096),
+}
 # a kernel's part of the step: the first whose keys its name holds
 PARTS = (("adamw kernels", ("adamw_",)),
          ("compress kernels", ("compress_",)),
@@ -248,14 +262,14 @@ def _train_turn(cfg, dev, args, mesh=None) -> dict:
     from ..kernels import flash_attn
     from ..models import layers as L
     from ..train import Trainer
-    tr = Trainer(cfg, batch=MESH_BATCH, seq_len=args.seq_len, peak_lr=LR,
+    tr = Trainer(cfg, batch=args.batch, seq_len=args.seq_len, peak_lr=LR,
                  device=dev, compile=False)
     with (L.ambient_mesh(mesh) if mesh is not None
           else contextlib.nullcontext()):
         state = tr.run(1)
         flash_attn.reset_launches()
         state = tr.run(args.steps - 1, state=state)
-        rec = _steps_record(tr, MESH_BATCH, args.seq_len)
+        rec = _steps_record(tr, args.batch, args.seq_len)
         rec["flash_launches_per_step"] = {
             k: v / max(1, args.steps - 1)
             for k, v in flash_attn.LAUNCHES.items()}
@@ -272,6 +286,16 @@ def _train_turn(cfg, dev, args, mesh=None) -> dict:
     return rec
 
 
+def one_card_bytes(cfg) -> int:
+    """The bytes of ``cfg``'s parameters, their gradients and AdamW's two
+    moments on one card (activations not counted)."""
+    from ..models.layers import _dtype
+    from ..sharding.rules import abstract_model
+    moment = _dtype(cfg.adam_dtype).itemsize
+    return sum(p.numel() * (2 * p.element_size() + 2 * moment)
+               for p in abstract_model(cfg).parameters())
+
+
 def mesh_turns(args) -> dict:
     """``--meshes``: the step across the ranks of each mesh, every rank's
     figures gathered to every rank; then the one-card step on rank 0."""
@@ -282,17 +306,18 @@ def mesh_turns(args) -> dict:
     from .pipeline_prefill import _init_group
     dev, backend = _init_group(args.device)
     world, rank = dist.get_world_size(), dist.get_rank()
-    cfg = smoke_config(ARCH) if args.reduced else get_arch(ARCH)
+    cfg = smoke_config(args.arch) if args.reduced else get_arch(args.arch)
     if args.depth:
         cfg = dataclasses.replace(cfg, n_layers=args.depth)
-    cfg = dataclasses.replace(cfg, attn_shard="seq", causal_bound=True,
-                              seq_residual=True)
+    fields, args.batch, seq = VARIANTS[args.variant]
+    args.seq_len = args.seq_len or seq
+    cfg = dataclasses.replace(cfg, **fields)
     out = {"device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                       else "cpu"),
            "card": card() if dev.type == "cuda" else None,
-           "arch": ARCH, "layers": cfg.n_layers, "batch": MESH_BATCH,
+           "arch": args.arch, "layers": cfg.n_layers, "batch": args.batch,
            "seq_len": args.seq_len, "backend": backend, "world": world,
-           "variant": "seq_causal", "meshes": {}}
+           "variant": args.variant, "meshes": {}}
     for spec in args.meshes.split(","):
         dd, mm = (int(v) for v in spec.split("x"))
         if dd * mm != world:
@@ -310,7 +335,14 @@ def mesh_turns(args) -> dict:
             print(json.dumps({"mesh": spec, "per_rank": per_rank}),
                   flush=True)
     if rank == 0:
-        out["one_card"] = _train_turn(cfg, dev, args)
+        need = one_card_bytes(cfg)
+        have = (torch.cuda.get_device_properties(dev).total_memory
+                if dev.type == "cuda" else None)
+        out["one_card"] = (_train_turn(cfg, dev, args)
+                           if have is None or need < have else
+                           {"skipped": f"parameters, gradients and moments "
+                                       f"need {need / 2**30:.1f} GiB, the "
+                                       f"card has {have / 2**30:.1f} GiB"})
         print(json.dumps({"one_card": out["one_card"]}), flush=True)
     dist.barrier()
     dist.destroy_process_group()
@@ -330,8 +362,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--meshes", default=None,
                     help="under torchrun: DxM (data x model) meshes, "
                          "comma-separated, each the whole world")
-    ap.add_argument("--seq-len", type=int, default=4096,
-                    help="with --meshes: the sequence")
+    ap.add_argument("--seq-len", type=int, default=0,
+                    help="with --meshes: the sequence (0: the variant's)")
+    ap.add_argument("--arch", default=ARCH,
+                    help="with --meshes: the architecture")
+    ap.add_argument("--variant", default="seq_causal",
+                    choices=sorted(VARIANTS),
+                    help="with --meshes: the reference's hillclimb variant "
+                         "(baseline: the default layout, sharded)")
     ap.add_argument("--depth", type=int, default=0,
                     help="layers (0: the model's whole depth)")
     ap.add_argument("--reduced", action="store_true",

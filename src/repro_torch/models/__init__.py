@@ -14,6 +14,16 @@ many encoder frames.  :func:`loss` is the reference's ``Model.loss``
 for every family: ``lm.lm_loss`` for the decoders (dense, MoE, Mamba,
 hybrid, VLM), ``encdec.encdec_loss`` for the enc-dec.  Entry points run on
 ``"cuda"`` unless given ``device="cpu"``.
+
+**Under a mesh.**  A model built under an ambient mesh of more than one
+rank (``layers.ambient_mesh``) holds only its rank's shards, as
+``sharding.rules.port_layout`` lays them out (``model.shards``; each
+parameter's ``placement``): the values of the one-card model from the same
+seed, each layer's tensors made whole, cut to the rank's part and freed
+before the next layer's are made.  An enc-dec keeps its parameters
+replicated there (its moments are still cut by ZeRO-1).  Such a model
+trains (``train.loop``); serving it is not ported (``prefill`` and
+``decode_step`` raise).
 """
 
 from __future__ import annotations
@@ -30,8 +40,11 @@ from .lm import LM
 Model = Union[LM, EncDec]
 
 
-def build_model(cfg: ArchConfig, device="cuda", seed: int = 0) -> Model:
-    """The model of ``cfg`` on ``device``, initialised from ``seed``."""
+def build_model(cfg: ArchConfig, device="cuda", seed: int = 0,
+                shard: bool = True) -> Model:
+    """The model of ``cfg`` on ``device``, initialised from ``seed``; under
+    an ambient mesh of more than one rank (and ``shard``), the rank's
+    shards of it (the module docstring)."""
     if cfg.scores_dtype != "float32":
         raise NotImplementedError(
             f"{cfg.name}: scores_dtype={cfg.scores_dtype!r} (a knob of the "
@@ -39,9 +52,27 @@ def build_model(cfg: ArchConfig, device="cuda", seed: int = 0) -> Model:
             f"scores")
     if cfg.kv_dtype not in ("compute", "int8"):
         raise ValueError(f"{cfg.name}: unknown kv_dtype {cfg.kv_dtype!r}")
+    mesh = layers._ambient_mesh()
+    if not shard or mesh is None or mesh.size() == 1:
+        return EncDec(cfg, device, seed) if cfg.is_encdec else \
+            LM(cfg, device, seed)
+    from ..sharding.rules import ModelShards, abstract_model, port_layout
+    shards = ModelShards(mesh, *port_layout(cfg, abstract_model(cfg), mesh))
     if cfg.is_encdec:
-        return EncDec(cfg, device, seed)
-    return LM(cfg, device, seed)
+        model = EncDec(cfg, device, seed)
+    else:
+        model = LM(cfg, device, seed, keep=shards.cut)
+    model.shards = shards
+    for name, p in model.named_parameters():
+        p.placement = shards.params[name]
+    return model
+
+
+def _refuse_split(model: Model) -> None:
+    if model.shards is not None and model.shards.split:
+        raise NotImplementedError(
+            f"{model.cfg.name}: serving a model split over a mesh is not "
+            f"ported (ROADMAP Queue 1, serving under cache_specs)")
 
 
 def prefill(cfg: ArchConfig, model: Model, batch: Dict, max_len: int,
@@ -50,6 +81,7 @@ def prefill(cfg: ArchConfig, model: Model, batch: Dict, max_len: int,
     S), or ``"embeds"`` (B, S, d) for the VLM family, or both for an
     enc-dec (frame embeddings and the decoder prompt).  Returns
     (last_logits (B, V) f32, cache); given ``cache``, fills it in place."""
+    _refuse_split(model)
     if cfg.is_encdec:
         return encdec.encdec_prefill(cfg, model, batch["embeds"],
                                      batch["tokens"], max_len, use_kernel,
@@ -62,6 +94,7 @@ def decode_step(cfg: ArchConfig, model: Model, cache: Dict, tokens,
                 use_kernel: bool = True):
     """One step of every sequence, the cache updated in place: tokens (B,),
     or (B, d) embeddings for the VLM family."""
+    _refuse_split(model)
     if cfg.is_encdec:
         return encdec.encdec_decode_step(cfg, model, cache, tokens,
                                          use_kernel)

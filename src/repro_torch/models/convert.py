@@ -52,8 +52,12 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _copy(dst: torch.Tensor, src, what: str) -> None:
+def _copy(dst: torch.Tensor, src, what: str, cut=None) -> None:
+    """``src`` (a whole reference leaf) into ``dst``: what ``cut(dst, t)``
+    keeps of it, for a model built under a mesh (:func:`_cutter`)."""
     t = _to_torch(src)
+    if cut is not None:
+        t = cut(dst, t)
     if tuple(t.shape) != tuple(dst.shape) or t.dtype != dst.dtype:
         raise ValueError(f"{what}: reference leaf {t.dtype} "
                          f"{tuple(t.shape)} does not fit {dst.dtype} "
@@ -68,39 +72,50 @@ def _same_keys(got, want, what: str) -> None:
                          f"keys {sorted(want)}")
 
 
-def _copy_norm(dst, src, what: str) -> None:
+def _copy_norm(dst, src, what: str, cut=None) -> None:
     _same_keys(src, dst, what)
     for name, leaf in src.items():
-        _copy(dst[name], leaf, f"{what}.{name}")
+        _copy(dst[name], leaf, f"{what}.{name}", cut)
+
+
+def _cutter(model: Model):
+    """``cut(param, whole)``: the rank's part of a whole leaf for a model
+    built under a mesh (``model.shards``), else None."""
+    if getattr(model, "shards", None) is None:
+        return None
+    names = {id(p): n for n, p in model.named_parameters()}
+    return lambda dst, t: model.shards.cut(names[id(dst)], t)
 
 
 def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
                           device="cuda") -> Model:
     """The port's model of ``cfg`` on ``device`` holding ``tree``'s
-    weights."""
+    weights; built under a mesh (``models.build_model``), the rank's
+    shards of them."""
     model = build_model(cfg, device)
+    cut = _cutter(model)
     if isinstance(model, EncDec):
         _same_keys(tree, {"embed", "encoder", "enc_final_norm", "decoder",
                           "final_norm"}, "params")
-        _copy(model.embed, tree["embed"], "embed")
+        _copy(model.embed, tree["embed"], "embed", cut)
         for name in ("enc_final_norm", "final_norm"):
-            _copy_norm(getattr(model, name), tree[name], name)
+            _copy_norm(getattr(model, name), tree[name], name, cut)
         for stack in ("encoder", "decoder"):
             blocks = getattr(model, stack)
             _same_keys(tree[stack], blocks[0].groups(), stack)
             for i, block in enumerate(blocks):
                 for group in block.groups():
                     _copy_group(getattr(block, group), tree[stack][group], i,
-                                f"{stack}.{group}")
+                                f"{stack}.{group}", cut)
         return model
     struct = period_structure(cfg)
     want = {"embed", "positions", "final_norm"} | (
         set() if cfg.tie_embeddings else {"lm_head"})
     _same_keys(tree, want, "params")
-    _copy(model.embed, tree["embed"], "embed")
+    _copy(model.embed, tree["embed"], "embed", cut)
     if not cfg.tie_embeddings:
-        _copy(model.lm_head, tree["lm_head"], "lm_head")
-    _copy_norm(model.final_norm, tree["final_norm"], "final_norm")
+        _copy(model.lm_head, tree["lm_head"], "lm_head", cut)
+    _copy_norm(model.final_norm, tree["final_norm"], "final_norm", cut)
     if len(tree["positions"]) != len(struct):
         raise ValueError(f"{len(tree['positions'])} period positions, the "
                          f"config has {len(struct)}")
@@ -111,19 +126,21 @@ def params_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
             block = model.layers[per * len(struct) + pos_i]
             for group in groups:
                 _copy_group(getattr(block, group), stacked[group], per,
-                            f"positions[{pos_i}].{group}")
+                            f"positions[{pos_i}].{group}", cut)
     return model
 
 
-def _copy_group(dst, src: Dict[str, Any], per: int, what: str) -> None:
+def _copy_group(dst, src: Dict[str, Any], per: int, what: str,
+                cut=None) -> None:
     """Period (or layer) ``per`` of the stacked leaves ``src`` into ``dst``,
     a (possibly nested) ``ParameterDict``."""
     _same_keys(src, dst, what)
     for name, leaf in src.items():
         if isinstance(leaf, dict):
-            _copy_group(dst[name], leaf, per, f"{what}.{name}")
+            _copy_group(dst[name], leaf, per, f"{what}.{name}", cut)
         else:
-            _copy(dst[name], np.asarray(leaf)[per], f"{what}.{name}[{per}]")
+            _copy(dst[name], np.asarray(leaf)[per], f"{what}.{name}[{per}]",
+                  cut)
 
 
 def reference_layout(model: Model
@@ -159,12 +176,18 @@ def decayed(model: Model) -> Dict[str, bool]:
 
 
 def tree_to_reference(model: Model, tensors: Mapping[str, torch.Tensor],
-                      to_numpy: Callable = None) -> Dict[str, Any]:
+                      to_numpy: Callable = None,
+                      gather: bool = True) -> Dict[str, Any]:
     """The reference's tree of ``tensors`` (keyed by ``model``'s parameter
     names, of their shapes: parameters, gradients, moments), per-layer
     tensors stacked over periods, as numpy (``to_numpy``, default: bf16 as
-    ``ml_dtypes.bfloat16``)."""
+    ``ml_dtypes.bfloat16``).  For a model built under a mesh, with
+    ``gather``, the tensors are laid out as its parameters (the rank's
+    shards: parameters, gradients) and made whole first, a collective
+    every rank of the mesh calls; without it they are whole already."""
     to_numpy = to_numpy or _to_numpy
+    if gather and getattr(model, "shards", None) is not None:
+        tensors = {n: model.shards.whole(n, t) for n, t in tensors.items()}
     leaves: Dict[Tuple, Dict] = {}
     for name, (path, per) in reference_layout(model).items():
         leaves.setdefault(path, {})[per] = tensors[name]
@@ -192,7 +215,8 @@ def tree_from_reference(model: Model, tree: Dict[str, Any]
                         ) -> Dict[str, torch.Tensor]:
     """A reference tree of ``model``'s parameter shapes (numpy leaves, bf16
     as ``ml_dtypes.bfloat16``) as tensors keyed by the parameter names, on
-    the model's device, each in its leaf's dtype."""
+    the model's device, each in its leaf's dtype; for a model built under a
+    mesh, the rank's shards of them."""
     params = dict(model.named_parameters())
     out = {}
     for name, (path, per) in reference_layout(model).items():
@@ -201,6 +225,8 @@ def tree_from_reference(model: Model, tree: Dict[str, Any]
             leaf = leaf[key]
         arr = np.asarray(leaf) if per is None else np.asarray(leaf)[per]
         t = _to_torch(arr)
+        if getattr(model, "shards", None) is not None:
+            t = model.shards.cut(name, t)
         if tuple(t.shape) != tuple(params[name].shape):
             raise ValueError(f"{name}: reference leaf {tuple(t.shape)} does "
                              f"not fit {tuple(params[name].shape)}")
@@ -209,5 +235,6 @@ def tree_from_reference(model: Model, tree: Dict[str, Any]
 
 
 def params_to_reference(model: Model) -> Dict[str, Any]:
-    """The reference's pytree layout of ``model``'s weights, as numpy."""
+    """The reference's pytree layout of ``model``'s weights, as numpy
+    (gathered whole for a model built under a mesh: a collective)."""
     return tree_to_reference(model, dict(model.named_parameters()))

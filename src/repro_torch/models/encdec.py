@@ -100,6 +100,8 @@ class EncDec(F32Unembedding, nn.Module):
     the reference's ``jax.random`` init: carry its weights across with
     ``models.convert.params_from_reference``)."""
 
+    shards = None         # its layout on a mesh (models.build_model)
+
     def __init__(self, cfg: ArchConfig, device="cuda", seed: int = 0):
         super().__init__()
         check_config(cfg)

@@ -322,6 +322,141 @@ def aux_groups(cp: Optional[SeqParallel]) -> Tuple:
     return tuple(groups)
 
 
+# ------------------------------------------------------- tensor parallelism
+def _spec(t) -> Tuple:
+    """The spec of the rank's part a parameter holds (``placement``, set
+    by ``models.build_model`` under a mesh); () for a whole tensor."""
+    place = getattr(t, "placement", None)
+    return place.spec if place is not None else ()
+
+
+def _split_over(t, axis: str, dim: int) -> bool:
+    """Whether ``t``'s dimension ``dim`` is split over mesh ``axis``."""
+    spec = _spec(t)
+    if dim < 0:
+        dim += t.dim()
+    entry = spec[dim] if dim < len(spec) else None
+    return entry is not None and axis in (
+        entry if isinstance(entry, tuple) else (entry,))
+
+
+def _mesh_or_raise():
+    mesh = _ambient_mesh()
+    if mesh is None:
+        raise RuntimeError("a model built under a mesh runs under it "
+                           "(layers.ambient_mesh)")
+    return mesh
+
+
+def _model_group(t, dim: int):
+    """The "model" group where ``t``'s dimension ``dim`` is split over it
+    (tensor parallelism), else None."""
+    if not _split_over(t, "model", dim):
+        return None
+    return _mesh_or_raise().get_group("model")
+
+
+def use(t):
+    """A parameter as a layer reads it: where FSDP splits a dimension over
+    "data", all-gathered over it first (differentiable: the gradient comes
+    back by the reduce-scatter, summed over the data ranks)."""
+    spec = _spec(t)
+    for d, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if "data" in axes:
+            from ..distributed import comm
+            t = comm.all_gather(t, _mesh_or_raise().get_group("data"), d)
+    return t
+
+
+def whole_over_model(t, dim: int):
+    """``t`` (as :func:`use` gives it) all-gathered over "model" along
+    ``dim`` where it is split there (a head split mid-head), else ``t``."""
+    group = _model_group(t, dim)
+    if group is None:
+        return t
+    from ..distributed import comm
+    return comm.all_gather(use(t), group, dim)
+
+
+def reduce_model(y, group):
+    """``y`` summed over ``group`` (a row-parallel product's partial sums;
+    differentiable), or ``y`` where ``group`` is None."""
+    if group is None:
+        return y
+    from ..distributed import comm
+    return comm.all_reduce(y, group)
+
+
+def _model_place() -> Tuple[int, int]:
+    mesh = _mesh_or_raise()
+    return _mesh_axis("model"), int(mesh.get_local_rank("model"))
+
+
+@dataclasses.dataclass
+class _Heads:
+    """How a rank runs attention on its shards (:func:`_head_plan`): the
+    projections it multiplies by, its ``hq`` query heads, the kv heads it
+    keeps of its K/V (``kv``: a [lo, hi) range, None for all), the columns
+    of o that its ``wo`` rows take (``o_cols``, None for all) and the group
+    the output is summed over (None: the output is whole)."""
+
+    wq: Any
+    wk: Any
+    wv: Any
+    wo: Any
+    bias: Optional[Tuple[Any, Any, Any]]
+    hq: int
+    kv: Optional[Tuple[int, int]]
+    o_cols: Optional[Tuple[int, int]]
+    group: Any
+
+
+def _head_plan(cfg: ArchConfig, p: Params) -> _Heads:
+    """Tensor parallelism of an attention layer: its query heads local
+    (Hq/mm a rank) where the model ranks split the heads and each rank's
+    query heads share their kv heads whole (Hkv divides over them, or one
+    kv head serves all of a rank's); else every head computed on every
+    rank from the whole projections (gathered over "model" where the spec
+    splits them mid-head, as the reference pins such heads replicated).
+    ``wo`` is row-parallel wherever the spec splits it, the output then
+    summed over "model".  Unsplit parameters: the one-card plan."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    bias = ("bq", "bk", "bv") if "bq" in p else None
+    group = _model_group(p["wo"], 0)
+    if group is None and not any(_split_over(p[n], "model", -1)
+                                 for n in ("wq", "wk", "wv")):
+        return _Heads(use(p["wq"]), use(p["wk"]), use(p["wv"]),
+                      use(p["wo"]),
+                      tuple(p[n] for n in bias) if bias else None, hq,
+                      None, None, None)
+    mm, r = _model_place()
+    hq_l, g = hq // mm, hq // hkv
+    local = (_split_over(p["wq"], "model", 1) and hq % mm == 0
+             and (hkv % mm == 0 or g % hq_l == 0))
+    if local:
+        wq, bq = use(p["wq"]), p["bq"] if bias else None
+        if hkv % mm == 0 and _split_over(p["wk"], "model", 1):
+            kv = None
+            wk, wv = use(p["wk"]), use(p["wv"])
+            bk, bv = (p["bk"], p["bv"]) if bias else (None, None)
+        else:
+            kv = (r * hq_l // g, ((r + 1) * hq_l - 1) // g + 1)
+            wk, wv = (whole_over_model(p[n], 1) for n in ("wk", "wv"))
+            bk, bv = (whole_over_model(p[n], 0) for n in ("bk", "bv")) \
+                if bias else (None, None)
+        o_cols = None
+    else:
+        hq_l, kv = hq, None
+        wq, wk, wv = (whole_over_model(p[n], 1) for n in ("wq", "wk", "wv"))
+        bq, bk, bv = (whole_over_model(p[n], 0) for n in bias) if bias \
+            else (None, None, None)
+        n = hq * hd // mm
+        o_cols = (r * n, (r + 1) * n) if group is not None else None
+    return _Heads(wq, wk, wv, use(p["wo"]), (bq, bk, bv) if bias else None,
+                  hq_l, kv, o_cols, group)
+
+
 # ----------------------------------------------------------------- attention
 def init_attention(cfg: ArchConfig, gen: torch.Generator,
                    cross: bool = False) -> dict:
@@ -345,18 +480,23 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator,
     return p
 
 
-def _project_qkv(cfg: ArchConfig, p: Params, xq, xkv):
+def _project_qkv(cfg: ArchConfig, p: Params, xq, xkv, plan: _Heads):
+    """q (B, Sq, H, D), k and v (B, Skv, Hkv, D): the heads of ``plan``
+    (:func:`_head_plan`: all of them on unsplit parameters)."""
     b, sq, _ = xq.shape
     skv = xkv.shape[1]
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = xq @ p["wq"]
-    k = xkv @ p["wk"]
-    v = xkv @ p["wv"]
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, sq, hq, hd)
-    k = k.reshape(b, skv, hkv, hd)
-    v = v.reshape(b, skv, hkv, hd)
+    hd = cfg.hd
+    q = xq @ plan.wq
+    k = xkv @ plan.wk
+    v = xkv @ plan.wv
+    if plan.bias is not None:
+        q, k, v = q + plan.bias[0], k + plan.bias[1], v + plan.bias[2]
+    q = q.reshape(b, sq, plan.hq, hd)
+    k = k.reshape(b, skv, -1, hd)
+    v = v.reshape(b, skv, -1, hd)
+    if plan.kv is not None:
+        k = k[:, :, plan.kv[0]:plan.kv[1]]
+        v = v[:, :, plan.kv[0]:plan.kv[1]]
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -372,19 +512,25 @@ def attention(cfg: ArchConfig, p: Params, x, pos, causal: bool = True,
     The causal mask is that of query i over keys 0..i: ``pos`` is the
     prefill's ``arange(S)`` for every row, as in the reference's callers.
     With ``cp`` (causal only) the rank computes its queries' rows
-    (:func:`_seq_parallel_attention`).
+    (:func:`_seq_parallel_attention`).  On a rank's shards (a model built
+    under a mesh) the rank computes its heads (:func:`_head_plan`) and the
+    output is summed over "model".
     """
     if cp is not None and causal:
         return _seq_parallel_attention(cfg, p, x, pos, kv_out, use_kernel,
                                        cp)
     b, s, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x, x)
+    plan = _head_plan(cfg, p)
+    q, k, v = _project_qkv(cfg, p, x, x, plan)
     q = positional_rotate(cfg, q, pos)
     k = positional_rotate(cfg, k, pos)
     # (B, S, H, D) tensors seen as (B, H, S, D): the kernel reads strides
     o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                       causal=causal, use_kernel=use_kernel)
-    y = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    o = o.transpose(1, 2).reshape(b, s, plan.hq * cfg.hd)
+    if plan.o_cols is not None:
+        o = o[..., plan.o_cols[0]:plan.o_cols[1]]
+    y = reduce_model(o @ plan.wo, plan.group)
     if kv_out:
         return y, (k, v)
     return y
@@ -404,7 +550,7 @@ def _seq_parallel_attention(cfg: ArchConfig, p: Params, x, pos, kv_out,
     b = x.shape[0]
     hq, hd = cfg.n_heads, cfg.hd
     if cp.residual:
-        q, k, v = _project_qkv(cfg, p, x, x)
+        q, k, v = _project_qkv(cfg, p, x, x, _head_plan(cfg, p))
         q = positional_rotate(cfg, q, pos)
         k = positional_rotate(cfg, k, pos)
         k, v = cp.gather(torch.stack([k, v]), dim=2)   # (B, S, Hkv, D)
@@ -412,7 +558,8 @@ def _seq_parallel_attention(cfg: ArchConfig, p: Params, x, pos, kv_out,
             q = cp.to_stripes(q)
     else:
         rows = cp.rows(x.device)
-        q, k, v = _project_qkv(cfg, p, x.index_select(1, rows), x)
+        q, k, v = _project_qkv(cfg, p, x.index_select(1, rows), x,
+                               _head_plan(cfg, p))
         q = positional_rotate(cfg, q, pos.index_select(-1, rows))
         k = positional_rotate(cfg, k, pos)
     n = cp.n_keys()
@@ -513,7 +660,7 @@ def attention_decode(cfg: ArchConfig, p: Params, x, cache_k, cache_v,
     """
     b = x.shape[0]
     hq, hd = cfg.n_heads, cfg.hd
-    q, k, v = _project_qkv(cfg, p, x, x)                # (B,1,H,D)
+    q, k, v = _project_qkv(cfg, p, x, x, _head_plan(cfg, p))  # (B,1,H,D)
     pos = length[:, None]                               # (B,1)
     q = positional_rotate(cfg, q, pos)
     k = positional_rotate(cfg, k, pos)
@@ -557,9 +704,18 @@ def _act(name: str):
 
 
 def mlp(cfg: ArchConfig, p: Params, x):
-    """SwiGLU (silu) or GeGLU (gelu) gated MLP."""
+    """SwiGLU (silu) or GeGLU (gelu) gated MLP; on a rank's shards
+    ``gate``/``up`` column-parallel, ``down`` row-parallel and the output
+    summed over "model"."""
+    return reduce_model(*_mlp_part(cfg, p, x))
+
+
+def _mlp_part(cfg: ArchConfig, p: Params, x):
+    """(the MLP's output, or the rank's part of it, the group to sum the
+    parts over or None)."""
     a = _act(cfg.mlp_act)
-    return (a(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+    y = (a(x @ use(p["gate"])) * (x @ use(p["up"]))) @ use(p["down"])
+    return y, _model_group(p["down"], 0)
 
 
 # ----------------------------------------------------------------------- MoE
@@ -603,6 +759,13 @@ def moe(cfg: ArchConfig, p: Params, x, *, capacity: Optional[int] = None,
     among the router's probabilities may be broken otherwise than by
     ``jax.lax.top_k``; with float logits they do not occur.
 
+    On a rank's shards (a model built under a mesh): where the model ranks
+    split the experts (expert parallelism), every rank routes every token
+    alike (the router and the tokens are replicated) and fills and
+    computes only its experts' slots; else each expert's ``d_ff`` is split;
+    either way the output is summed over "model".  The aux loss is every
+    rank's.
+
     Differentiable, and bit-stable from run to run on the card: the k
     copies of a token are an expanded copy, whose backward sums the k
     copies by a reduction (no atomics);
@@ -617,7 +780,7 @@ def moe(cfg: ArchConfig, p: Params, x, *, capacity: Optional[int] = None,
     e, k = m.n_experts, m.top_k
     c = moe_capacity(cfg, t) if capacity is None else capacity
 
-    logits = x.to(torch.float32) @ p["router"]          # (G, T, E)
+    logits = x.to(torch.float32) @ use(p["router"])     # (G, T, E)
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, k, dim=-1)               # (G, T, K)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
@@ -629,27 +792,36 @@ def moe(cfg: ArchConfig, p: Params, x, *, capacity: Optional[int] = None,
     pos_tk = torch.sum(pos * oh_flat, dim=-1)           # (G, T*K)
     e_tk = idx.reshape(g_, t * k)
     keep = pos_tk < c
-    slot = torch.where(keep, e_tk * c + pos_tk,
-                       torch.full_like(e_tk, e * c))    # sentinel row
+    # expert parallelism: this rank's experts [e0, e0 + el) only
+    group = _model_group(p["w_gate"], 0)
+    el, e0 = e, 0
+    if group is not None:
+        mm, r = _model_place()
+        el, e0 = e // mm, r * (e // mm)
+        keep = keep & (e_tk >= e0) & (e_tk < e0 + el)
+    else:
+        group = _model_group(p["w_down"], 1)            # d_ff split
+    slot = torch.where(keep, (e_tk - e0) * c + pos_tk,
+                       torch.full_like(e_tk, el * c))   # sentinel row
 
     # each token's k copies, (G, T*K, d): an expanded copy, whose backward
     # sums the k copies by a reduction, no atomics (repeat_interleave's
     # would index_add_ them with float atomics on the card, in an order
     # that changes run to run)
     x_rep = x[:, :, None].expand(g_, t, k, d).reshape(g_, t * k, d)
-    rows = e * c + 1
+    rows = el * c + 1
     base = torch.arange(g_, device=x.device)[:, None] * rows
     buf = torch.zeros((g_ * rows, d), dtype=x.dtype, device=x.device)
     buf.index_add_(0, (slot + base).reshape(-1),
                    (x_rep * keep[..., None].to(x.dtype)).reshape(-1, d))
-    xe = buf.reshape(g_, rows, d)[:, :e * c].reshape(g_, e, c, d)
+    xe = buf.reshape(g_, rows, d)[:, :el * c].reshape(g_, el, c, d)
 
     a = _act(cfg.mlp_act)
-    h = a(torch.einsum("gecd,edf->gecf", xe, p["w_gate"])) * \
-        torch.einsum("gecd,edf->gecf", xe, p["w_up"])
-    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])  # (G, E, C, d)
+    h = a(torch.einsum("gecd,edf->gecf", xe, use(p["w_gate"]))) * \
+        torch.einsum("gecd,edf->gecf", xe, use(p["w_up"]))
+    ye = torch.einsum("gecf,efd->gecd", h, use(p["w_down"]))  # (G, E, C, d)
 
-    flat = torch.cat([ye.reshape(g_, e * c, d),
+    flat = torch.cat([ye.reshape(g_, el * c, d),
                       torch.zeros((g_, 1, d), dtype=ye.dtype,
                                   device=ye.device)], dim=1)
     y_tk = flat[torch.arange(g_, device=x.device)[:, None], slot]
@@ -657,8 +829,15 @@ def moe(cfg: ArchConfig, p: Params, x, *, capacity: Optional[int] = None,
     y = y_tk.reshape(g_, t, k, d).sum(dim=2)
 
     if m.n_shared:
-        gate = torch.sigmoid(x.to(torch.float32) @ p["shared_gate"])
-        y = y + (mlp(cfg, p["shared"], x) * gate.to(x.dtype))
+        gate = torch.sigmoid(x.to(torch.float32) @ use(p["shared_gate"]))
+        ys, sgroup = _mlp_part(cfg, p["shared"], x)
+        ys = ys * gate.to(x.dtype)
+        if sgroup is not None and group is not None:
+            y = y + ys                   # both parts: one sum over "model"
+        else:
+            y = reduce_model(y, group) + reduce_model(ys, sgroup)
+            group = None
+    y = reduce_model(y, group)
 
     # load-balancing auxiliary loss (Switch-style)
     me = probs.mean(dim=(0, 1))                         # (E,)
@@ -760,11 +939,12 @@ def _mamba_proj(cfg: ArchConfig, p: Params, xa, dtype):
     """xa -> (dt, B, C, A) as the reference derives them."""
     s = _ssm(cfg)
     dtr = p["dt_w"].shape[0]
-    proj = xa @ p["x_proj"]                             # (..., dtr + 2N)
+    # row-parallel on a rank's channels: summed over "model"
+    proj = reduce_model(xa @ use(p["x_proj"]), _model_group(p["x_proj"], 0))
     dt_raw = proj[..., :dtr]
     bm = proj[..., dtr:dtr + s.state]
     cm = proj[..., dtr + s.state:]
-    dt = F.softplus(dt_raw @ p["dt_w"] + p["dt_b"].to(dtype))
+    dt = F.softplus(dt_raw @ use(p["dt_w"]) + p["dt_b"].to(dtype))
     a = -torch.exp(p["A_log"])                          # (Din, N)
     return dt, bm, cm, a
 
@@ -785,7 +965,11 @@ def mamba(cfg: ArchConfig, p: Params, x, return_state: bool = False,
 
     Under a blocked residual (``cp.residual``) x is the rank's block: the
     block gathers the sequence, scans it whole and keeps its own rows (the
-    states returned are the whole sequence's).
+    states returned are the whole sequence's).  On a rank's shards (a model
+    built under a mesh) the rank holds Din/mm channels (``in_proj`` as
+    ``[xin_r | z_r]``, ``sharding.rules`` layout (a)): the conv, dt and the
+    scan run on them, ``x_proj`` and ``out_proj`` are row-parallel, their
+    products summed over "model".
     """
     if cp is not None and cp.residual:
         out = mamba(cfg, p, cp.gather(x), return_state, use_kernel)
@@ -793,7 +977,7 @@ def mamba(cfg: ArchConfig, p: Params, x, return_state: bool = False,
             return cp.block(out[0]), out[1]
         return cp.block(out)
     s = _ssm(cfg)
-    xz = x @ p["in_proj"]
+    xz = x @ use(p["in_proj"])
     xin, z = torch.chunk(xz, 2, dim=-1)                 # (B, S, Din)
     xc = _causal_conv1d(xin, p["conv_w"], p["conv_b"])
     xa = F.silu(xc)
@@ -806,7 +990,7 @@ def mamba(cfg: ArchConfig, p: Params, x, return_state: bool = False,
         y, hT = _ssm_scan_chunked(xa, dt, a, bm, cm, cfg.ssm_chunk)
         y = y + p["D"][None, None] * xa.to(torch.float32)
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ p["out_proj"]
+    out = reduce_model(y @ use(p["out_proj"]), _model_group(p["out_proj"], 0))
     if return_state:
         k1 = s.conv - 1
         conv_state = F.pad(xin, (0, 0, k1, 0))[:, xin.shape[1]:]

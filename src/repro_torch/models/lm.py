@@ -106,12 +106,20 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _frozen(params: dict) -> nn.ParameterDict:
+def _keep_all(name: str, t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _frozen(params: dict, keep: Callable = _keep_all,
+            prefix: str = "") -> nn.ParameterDict:
     """Tensors as frozen parameters; a nested dict (MoE's ``shared`` MLP)
-    becomes a nested ``ParameterDict``."""
+    becomes a nested ``ParameterDict``.  ``keep(name, t)`` gives what the
+    parameter ``prefix + name`` holds of ``t`` (a rank's shard: a model
+    built under a mesh, ``models.build_model``)."""
     return nn.ParameterDict({
-        k: _frozen(t) if isinstance(t, dict) else
-        nn.Parameter(t, requires_grad=False) for k, t in params.items()})
+        k: _frozen(t, keep, f"{prefix}{k}.") if isinstance(t, dict) else
+        nn.Parameter(keep(prefix + k, t), requires_grad=False)
+        for k, t in params.items()})
 
 
 # --------------------------------------------------------------------- remat
@@ -169,19 +177,25 @@ class Block(nn.Module):
     ``init_position``."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator,
-                 spec: Dict[str, str]):
+                 spec: Dict[str, str], keep: Callable = _keep_all,
+                 prefix: str = ""):
         super().__init__()
         self.spec = dict(spec)
-        self.norm1 = _frozen(L.init_norm(cfg, cfg.d_model, gen.device))
-        self.norm2 = _frozen(L.init_norm(cfg, cfg.d_model, gen.device))
+        dev = gen.device
+        self.norm1 = _frozen(L.init_norm(cfg, cfg.d_model, dev), keep,
+                             prefix + "norm1.")
+        self.norm2 = _frozen(L.init_norm(cfg, cfg.d_model, dev), keep,
+                             prefix + "norm2.")
         if spec["mixer"] == "attn":
-            self.attn = _frozen(L.init_attention(cfg, gen))
+            self.attn = _frozen(L.init_attention(cfg, gen), keep,
+                                prefix + "attn.")
         else:
-            self.mamba = _frozen(L.init_mamba(cfg, gen))
+            self.mamba = _frozen(L.init_mamba(cfg, gen), keep,
+                                 prefix + "mamba.")
         if spec["ffn"] == "moe":
-            self.moe = _frozen(L.init_moe(cfg, gen))
+            self.moe = _frozen(L.init_moe(cfg, gen), keep, prefix + "moe.")
         else:
-            self.mlp = _frozen(L.init_mlp(cfg, gen))
+            self.mlp = _frozen(L.init_mlp(cfg, gen), keep, prefix + "mlp.")
 
     def groups(self) -> Tuple[str, ...]:
         """The parameter groups, in the reference's names."""
@@ -215,33 +229,47 @@ class F32Unembedding:
         return self._unembed
 
 
-def _vocab_table(cfg: ArchConfig, gen: torch.Generator) -> nn.Parameter:
-    """A (V, d) embedding or head drawn from ``gen``, as the reference's."""
+def _vocab_table(cfg: ArchConfig, gen: torch.Generator,
+                 keep: Callable = _keep_all, name: str = "embed"
+                 ) -> nn.Parameter:
+    """A (V, d) embedding or head drawn from ``gen``, as the reference's
+    (what ``keep`` keeps of it)."""
     t = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                     device=gen.device) * 0.02
-    return nn.Parameter(t.to(L._dtype(cfg.param_dtype)), requires_grad=False)
+    return nn.Parameter(keep(name, t.to(L._dtype(cfg.param_dtype))),
+                        requires_grad=False)
 
 
 class LM(F32Unembedding, nn.Module):
     """An LM's parameters on one device, initialised from ``seed`` by a
     ``torch.Generator`` on that device.  The same seed gives other numbers
     than the reference's ``jax.random`` init: carry the reference's weights
-    across with ``models.convert.params_from_reference``."""
+    across with ``models.convert.params_from_reference``.  ``keep(name,
+    t)``: what parameter ``name`` holds of its whole tensor ``t``, made
+    one layer's group at a time (a rank's shard, ``models.build_model``
+    under a mesh: the same values as the one-card model's).  ``shards``:
+    the model's layout on a mesh (``sharding.rules.ModelShards``), or
+    None."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda", seed: int = 0):
+    shards = None
+
+    def __init__(self, cfg: ArchConfig, device="cuda", seed: int = 0,
+                 keep: Callable = _keep_all):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         gen = torch.Generator(device=dev).manual_seed(seed)
         struct = period_structure(cfg)
         n_periods(cfg)                   # whole periods, or raise
-        self.layers = nn.ModuleList(Block(cfg, gen, struct[i % len(struct)])
+        self.layers = nn.ModuleList(Block(cfg, gen, struct[i % len(struct)],
+                                          keep, f"layers.{i}.")
                                     for i in range(cfg.n_layers))
-        self.embed = _vocab_table(cfg, gen)
-        self.final_norm = _frozen(L.init_norm(cfg, cfg.d_model, dev))
+        self.embed = _vocab_table(cfg, gen, keep, "embed")
+        self.final_norm = _frozen(L.init_norm(cfg, cfg.d_model, dev), keep,
+                                  "final_norm.")
         self.lm_head: Optional[nn.Parameter] = None
         if not cfg.tie_embeddings:
-            self.lm_head = _vocab_table(cfg, gen)
+            self.lm_head = _vocab_table(cfg, gen, keep, "lm_head")
 
     @property
     def device(self) -> torch.device:
@@ -464,7 +492,31 @@ def embed_tokens(cfg: ArchConfig, model: LM, tokens):
     the compute dtype."""
     if cfg.embed_inputs:
         return tokens.to(L._dtype(cfg.compute_dtype))
-    return model.embed[tokens]
+    return vocab_lookup(model.embed, tokens)
+
+
+def _vocab_part(w) -> Tuple[Optional[object], int]:
+    """(the "model" group, this rank's first row) of a (V, d) table split
+    over "model" (vocab parallelism), else (None, 0)."""
+    group = L._model_group(w, 0)
+    if group is None:
+        return None, 0
+    return group, L._model_place()[1] * w.shape[0]
+
+
+def vocab_lookup(w, tokens):
+    """``w[tokens]``; on a rank's rows of a table split over "model" each
+    rank looks up the tokens in its rows (zeros elsewhere) and the rows
+    are summed over "model" (one non-zero term each: exact)."""
+    group, lo = _vocab_part(w)
+    w = L.use(w)
+    if group is None:
+        return w[tokens]
+    n = w.shape[0]
+    local = tokens - lo
+    inside = (local >= 0) & (local < n)
+    x = w[local.clamp(0, n - 1)] * inside[..., None].to(w.dtype)
+    return L.reduce_model(x, group)
 
 
 def unembed_matrix(cfg: ArchConfig, model: LM):
@@ -480,9 +532,14 @@ def chunked_ce_loss(cfg: ArchConfig, model: LM, h, labels, chunk: int = 512):
     """Mean CE over the B x S tokens, the (B, c, V) f32 logits made one
     chunk of ``chunk`` positions at a time (the whole S where it does not
     divide), as the reference's.  The unembedding is converted to f32 once,
-    under autograd."""
+    under autograd.  On a rank's rows of an unembedding split over "model"
+    (vocab parallelism) each rank makes (B, c, V/mm) logits and the
+    logsumexp and the gold logit are reduced over "model": no rank holds
+    the whole (B, c, V)."""
     b, s, _ = h.shape
-    w = unembed_matrix(cfg, model).to(torch.float32)       # (V, d)
+    table = unembed_matrix(cfg, model)
+    group, lo = _vocab_part(table)
+    w = L.use(table).to(torch.float32)                     # (V, d)
     chunk = min(chunk, s)
     if s % chunk:
         chunk = s
@@ -490,10 +547,31 @@ def chunked_ce_loss(cfg: ArchConfig, model: LM, h, labels, chunk: int = 512):
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, chunk):
         logits = h[:, c0:c0 + chunk].to(torch.float32) @ w.T
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, c0:c0 + chunk, None])[..., 0]
+        lab = labels[:, c0:c0 + chunk]
+        if group is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+        else:
+            lse, gold = _vocab_parallel_ce(logits, lab - lo, group)
         tot = tot + torch.sum(lse - gold)
     return tot / (b * s)
+
+
+def _vocab_parallel_ce(logits, lab, group):
+    """(logsumexp, gold logit) of rows whose logits (B, c, V/mm) are this
+    rank's columns of the vocabulary, ``lab`` the labels less its first
+    column: the max over every rank's columns (a constant to the
+    gradient), the sums of exponentials and the gold logit (held by one
+    rank) summed over ``group``."""
+    from ..distributed import comm
+    with torch.no_grad():
+        top = comm.all_gather(logits.amax(-1)[None], group, 0).amax(0)
+    total = L.reduce_model(torch.exp(logits - top[..., None]).sum(-1), group)
+    n = logits.shape[-1]
+    inside = (lab >= 0) & (lab < n)
+    gold = torch.gather(logits, -1, lab.clamp(0, n - 1)[..., None])[..., 0]
+    gold = L.reduce_model(gold * inside, group)
+    return top + torch.log(total), gold
 
 
 def lm_loss(cfg: ArchConfig, model: LM, batch: Dict,

@@ -50,12 +50,19 @@ class OptState(NamedTuple):
 
 
 def adamw_init(params: Mapping[str, torch.Tensor],
-               dtype: str = "float32") -> OptState:
-    """Zero moments of ``params``' shapes, in ``dtype``, on their devices."""
+               dtype: str = "float32", shards=None) -> OptState:
+    """Zero moments of ``params``' shapes, in ``dtype``, on their devices;
+    with ``shards`` (a model's layout on a mesh,
+    ``sharding.rules.ModelShards``) each of this rank's part, as
+    ``opt_specs`` lays it out: (0,) where another data rank owns it."""
     dt = _dtype(dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
-    return OptState(mu={n: zeros(p) for n, p in params.items()},
-                    nu={n: zeros(p) for n, p in params.items()}, count=0)
+
+    def zeros(n, p):
+        shape = p.shape if shards is None else shards.moment_shape(n, p.shape)
+        return torch.zeros(shape, dtype=dt, device=p.device)
+
+    return OptState(mu={n: zeros(n, p) for n, p in params.items()},
+                    nu={n: zeros(n, p) for n, p in params.items()}, count=0)
 
 
 def _f32(x: np.floating) -> float:
@@ -78,19 +85,96 @@ def adamw_apply(grads: Mapping[str, Optional[torch.Tensor]], opt: OptState,
                 params: Mapping[str, torch.Tensor], hyper: torch.Tensor,
                 b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 weight_decay: float = 0.1, grad_clip: float = 1.0, *,
-                decayed: Mapping[str, bool]) -> torch.Tensor:
+                decayed: Mapping[str, bool], shards=None) -> torch.Tensor:
     """One step over every parameter, in place, with lr and the bias
     corrections read from ``hyper`` ((3,) f32 on the parameters' device:
     :func:`hyper_values`): ``kernels.adamw.adamw_step`` over the tree in
     ``params``' order (the kernels on the card, the plain version on the
     CPU).  A missing or None gradient is a zero gradient.  Returns the f32
-    global norm before clipping, a 0-d tensor."""
+    global norm before clipping, a 0-d tensor.
+
+    With ``shards`` (the model built under a mesh: ``model.shards``) the
+    step is ZeRO-1's (:func:`_zero1_step`), and ``grads`` are this rank's
+    parts, not yet summed over the mesh."""
+    kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+              grad_clip=grad_clip)
+    if shards is not None:
+        return _zero1_step(grads, opt, params, hyper, decayed, shards, kw)
     names = list(params)
     return adamw_kernels.adamw_step(
         [params[n] for n in names], [grads.get(n) for n in names],
         [opt.mu[n] for n in names], [opt.nu[n] for n in names],
-        [decayed[n] for n in names], hyper, b1=b1, b2=b2, eps=eps,
-        weight_decay=weight_decay, grad_clip=grad_clip)
+        [decayed[n] for n in names], hyper, **kw)
+
+
+def _zero1_step(grads, opt, params, hyper, decayed, shards, kw):
+    """AdamW on a rank of a mesh.  ``grads`` are this rank's own parts of
+    the mesh's sums (``train.loop`` leaves them unsummed for this step);
+    each is summed in f32 over the mesh dimensions its parameter is
+    replicated on, to the ranks that update it, and rounded once to its
+    dtype: over "model" by an all-reduce; over "data" by a reduce to the
+    data rank that owns the moments (``sharding.rules`` layout (b): a layer
+    whole on one data rank), a reduce-scatter to each data rank's 1/dd
+    along the dimension ZeRO-1 cuts, or an all-reduce where the moments are
+    not cut.  One ``adamw_step`` call over what the rank updates, the norm
+    summed over the mesh with each element counted once
+    (``ModelShards.counted``); then each owner broadcasts its updated
+    parameters over "data" and the cut ones are all-gathered over it, so
+    every copy is the owner's, bit for bit."""
+    from ..distributed import comm
+    from ..sharding.rules import replicated_axes
+    mesh = shards.mesh
+    groups = {a: mesh.get_group(a) for a in ("model", "data")
+              if shards.sizes.get(a, 1) > 1}
+    rows, post = [], []
+    for n, p in params.items():
+        g = grads.get(n)
+        owner, d = shards.moments[n].owner, shards.moment_dim(n)
+        rep = replicated_axes(shards.params[n].spec, shards.sizes)
+        if g is not None and rep:
+            g = g.to(torch.float32)
+            if "model" in rep:
+                g = comm.all_reduce(g, groups["model"])
+            if "data" in rep:
+                if owner is not None:
+                    g = comm.reduce(g, owner, groups["data"])
+                elif d is not None:
+                    g = comm.reduce_scatter(g, groups["data"], d)
+                else:
+                    g = comm.all_reduce(g, groups["data"])
+            g = None if g is None else g.to(p.dtype)
+        target = p
+        if owner is not None:
+            post.append(("broadcast", n, owner))
+            if not shards.owns(n):
+                continue
+        elif d is not None:
+            k = p.shape[d] // shards.sizes["data"]
+            # a copy of its own: contiguous and aligned for the kernels
+            target = p.narrow(d, shards.coords["data"] * k, k).clone(
+                memory_format=torch.contiguous_format)
+            post.append(("gather", n, (d, target)))
+        rows.append((target, g, opt.mu[n], opt.nu[n], decayed[n],
+                     shards.counted(n)))
+
+    def sum_norm(t):
+        for group in groups.values():
+            t = comm.all_reduce(t, group)
+        return t
+
+    ps, gs, ms, vs, decs, cnt = (list(c) for c in zip(*rows)) if rows \
+        else ([], [], [], [], [], [])
+    gnorm = adamw_kernels.adamw_step(ps, gs, ms, vs, decs, hyper,
+                                     counted=cnt, sum_norm=sum_norm, **kw)
+    del rows, gs
+    for kind, n, arg in post:
+        p = params[n]
+        if kind == "broadcast":
+            p.copy_(comm.broadcast(p, arg, groups["data"]))
+        else:
+            d, part = arg
+            p.copy_(comm.all_gather(part, groups["data"], d))
+    return gnorm
 
 
 @torch.no_grad()

@@ -21,20 +21,43 @@ The port keeps its parameters per layer (``models.lm.LM``,
 layers), so a port parameter's spec is the reference's spec of its stacked
 leaf (``models/convert.py::reference_layout``) with the stacked axis
 dropped: the rules run on the stacked shape, as the reference's do, and the
-first entry goes.  That entry is None, except where ZeRO-1 puts "data" on
-the stacked axis of a moment (the period count divisible by the data
-axis): there the port's moment keeps the rest of the spec, replicated over
-"data".  Shapes at full size come from :func:`abstract_model`, the port's
-model built under ``FakeTensorMode`` (no storage is allocated).  Decode
-caches are stacked in the port as in the reference, so their specs are the
-reference's as they are.
+first entry goes.  Shapes at full size come from :func:`abstract_model`,
+the port's model built under ``FakeTensorMode`` (no storage is allocated).
+Decode caches are stacked in the port as in the reference, so their specs
+are the reference's as they are.
+
+**A rank's shards** (the sharded train step, ``train.loop``).  A model
+built under an ambient mesh (``models.build_model``) holds, for each
+parameter, the part :func:`shard` cuts from the whole tensor for the
+rank's place on the mesh (:func:`port_layout`: :func:`param_specs` with
+the axes of size 1 dropped; under ``attn_shard="seq"`` every parameter is
+replicated, as context parallelism has them), and :func:`unshard` makes
+the whole tensor again from every rank's part (a collective).  Two layouts
+differ from the flat spec's, each rank holding as many elements:
+
+(a) **Mamba's ``in_proj``** (d, 2 Din), spec (., "model"): the flat split
+    would give model rank 0 of 2 all of ``xin`` and rank 1 all of ``z``,
+    and the layer splits ``xz`` in halves; here each half is split over
+    the model ranks and rank r holds its Din/mm channels of both halves,
+    ``[xin_r | z_r]`` (:attr:`Placement.halves`).
+(b) **ZeRO-1 on a stacked axis.**  The reference puts "data" on the
+    periods axis of a moment where the period count divides over "data";
+    the port's moments are per layer, so layer l's moments live whole (in
+    their model-sharded form) on data rank ``l dd // P`` and nowhere else
+    (:attr:`Placement.owner`): the contiguous block of periods that
+    ``NamedSharding`` gives each data rank.  A moment whose "data" lies on
+    another axis (the vocab tables, the final norm, a stack the data axis
+    does not divide) keeps 1/dd of its elements on each data rank, as the
+    flat spec cuts them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..configs.base import ArchConfig
 
@@ -170,7 +193,7 @@ def abstract_model(cfg: ArchConfig):
 
     from ..models import build_model
     with FakeTensorMode():
-        return build_model(cfg, "cpu")
+        return build_model(cfg, "cpu", shard=False)
 
 
 def stacked_leaves(model) -> Dict[str, Tuple[str, Tuple[int, ...], bool]]:
@@ -289,3 +312,213 @@ def cache_specs(cfg: ArchConfig, cache: Any, mesh) -> Any:
             return [walk(v, key) for v in node]
         return _cache_rule(str(key), tuple(node.shape), mesh)
     return walk(cache, "")
+
+
+# ------------------------------------------------------------ a rank's shards
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def drop_unit_axes(spec: Spec, sizes: Mapping[str, int]) -> Spec:
+    """``spec`` without the axes of size 1 on the mesh (a split over one
+    rank is no split)."""
+    out = []
+    for entry in spec:
+        axes = tuple(a for a in _axes(entry) if sizes.get(a, 1) > 1)
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    return tuple(out)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes ``spec`` splits a tensor over."""
+    return tuple(a for entry in spec for a in _axes(entry))
+
+
+def replicated_axes(spec: Spec, sizes: Mapping[str, int]) -> Tuple[str, ...]:
+    """The mesh axes above size 1 that ``spec`` does not split over: every
+    rank along them holds the same elements."""
+    used = spec_axes(spec)
+    return tuple(a for a, n in sizes.items() if n > 1 and a not in used)
+
+
+def _part(entry, coords: Mapping[str, int],
+          sizes: Mapping[str, int]) -> Tuple[int, int]:
+    """(index, count) of this rank's part along a dimension whose entry is
+    ``entry``: axes combined in their order, the first major."""
+    i, n = 0, 1
+    for a in _axes(entry):
+        i, n = i * sizes[a] + coords[a], n * sizes[a]
+    return i, n
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """How a rank holds a tensor: ``spec`` over the tensor's own
+    dimensions; ``halves``: the dimension split over "model" is Mamba's
+    ``in_proj`` pair of halves, each split (layout (a) of the module
+    docstring); ``owner``: a moment held whole on that data rank only
+    (layout (b)), else None."""
+
+    spec: Spec
+    halves: bool = False
+    owner: Optional[int] = None
+
+
+def shard(t, place: Placement, coords: Mapping[str, int],
+          sizes: Mapping[str, int]):
+    """The part of the whole tensor ``t`` that the rank at ``coords`` (axis
+    -> index) holds under ``place`` (a view where one narrow gives it)."""
+    for d, entry in enumerate(place.spec):
+        if entry is None:
+            continue
+        i, n = _part(entry, coords, sizes)
+        halves = place.halves and "model" in _axes(entry)
+        if t.shape[d] % (n * (2 if halves else 1)):
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
+                             f"over {n} ranks ({place})")
+        if halves:
+            k = t.shape[d] // (2 * n)
+            half = t.shape[d] // 2
+            t = torch.cat([t.narrow(d, i * k, k),
+                           t.narrow(d, half + i * k, k)], dim=d)
+        else:
+            k = t.shape[d] // n
+            t = t.narrow(d, i * k, k)
+    return t
+
+
+def unshard(t, place: Placement, mesh):
+    """The whole tensor from every rank's part ``t`` under ``place``: an
+    all-gather over each axis the spec splits, last axis first
+    (``distributed.comm``, differentiable).  Every rank of those groups
+    calls it."""
+    from ..distributed import comm
+    for d, entry in enumerate(place.spec):
+        for a in reversed(_axes(entry)):
+            g = mesh.get_group(a)
+            n = comm.size(g)
+            t = comm.all_gather(t, g, d)
+            if place.halves and a == "model":
+                shape = t.shape
+                k = shape[d] // (2 * n)
+                t = t.reshape(*shape[:d], n, 2, k, *shape[d + 1:]) \
+                    .transpose(d, d + 1).reshape(shape)
+    return t
+
+
+def mesh_coords(mesh) -> Dict[str, int]:
+    """``{axis: this rank's index}`` on a ``DeviceMesh``."""
+    return {a: int(mesh.get_local_rank(a)) for a in mesh.mesh_dim_names}
+
+
+def _halves(path: str) -> bool:
+    return path.endswith("mamba/in_proj")
+
+
+def port_layout(cfg: ArchConfig, model, mesh
+                ) -> Tuple[Dict[str, Placement], Dict[str, Placement]]:
+    """({parameter name: its placement}, {parameter name: its moments'
+    placement}) of ``model`` (any device, or :func:`abstract_model`) on
+    ``mesh``: :func:`param_specs` and :func:`opt_specs` with the axes of
+    size 1 dropped, layouts (a) and (b) of the module docstring.  Under
+    ``attn_shard="seq"`` the parameters are replicated (context
+    parallelism's layout), and so are an enc-dec's; ZeRO-1 still cuts their
+    moments over "data"."""
+    sizes = mesh_sizes(mesh)
+    leaves = stacked_leaves(model)
+    if cfg.attn_shard == "seq" or cfg.is_encdec:
+        full = {name: (None,) * len(shape)
+                for name, (_, shape, _) in leaves.items()}
+    else:
+        full = {name: _param_rule(cfg, path, shape, mesh)
+                for name, (path, shape, _) in leaves.items()}
+    dd = sizes.get("data", 1)
+    params, moments = {}, {}
+    layout = None
+    for name, (path, shape, stacked) in leaves.items():
+        half = _halves(path)
+        pspec = drop_unit_axes(full[name], sizes)
+        ospec = drop_unit_axes(_opt_rule(cfg, pspec, shape, mesh), sizes)
+        owner = None
+        if stacked and ospec[0] == "data":
+            if layout is None:
+                from ..models.convert import reference_layout
+                layout = reference_layout(model)
+            owner = layout[name][1] * dd // shape[0]
+        cut = 1 if stacked else 0
+        params[name] = Placement(pspec[cut:], half)
+        moments[name] = Placement(ospec[cut:], half, owner)
+    return params, moments
+
+
+class ModelShards:
+    """A model's layout on a mesh, as built under it
+    (``models.build_model``): ``params`` and ``moments`` as
+    :func:`port_layout` gives them, this rank's ``coords`` and the mesh's
+    ``sizes``.  ``split``: some parameter is split (else only the moments
+    are, by ZeRO-1)."""
+
+    def __init__(self, mesh, params: Mapping[str, Placement],
+                 moments: Mapping[str, Placement]):
+        self.mesh = mesh
+        self.params, self.moments = dict(params), dict(moments)
+        self.coords, self.sizes = mesh_coords(mesh), mesh_sizes(mesh)
+        self.split = any(spec_axes(p.spec) for p in self.params.values())
+
+    def cut(self, name: str, t):
+        """Parameter ``name``'s part of its whole tensor ``t``: a copy of
+        its own, so the whole can be freed."""
+        place = self.params[name]
+        if not spec_axes(place.spec):
+            return t
+        return shard(t, place, self.coords, self.sizes).clone(
+            memory_format=torch.contiguous_format)
+
+    def whole(self, name: str, t):
+        """The whole tensor of parameter ``name`` (or of a tensor laid out
+        as it: its gradient) from every rank's part ``t`` (a
+        collective)."""
+        return unshard(t, self.params[name], self.mesh)
+
+    def owns(self, name: str) -> bool:
+        """Whether this rank holds parameter ``name``'s moments."""
+        owner = self.moments[name].owner
+        return owner is None or owner == self.coords.get("data", 0)
+
+    def moment_shape(self, name: str, shape) -> Tuple[int, ...]:
+        """The shape of parameter ``name``'s moments on this rank, from its
+        parameter's (a rank's) ``shape``: each dimension the moments split
+        over "data" and the parameter does not, divided (0 elements where
+        another data rank owns them)."""
+        if not self.owns(name):
+            return (0,)
+        out = list(shape)
+        pspec = self.params[name].spec
+        for d, entry in enumerate(self.moments[name].spec):
+            extra = [a for a in _axes(entry) if a not in _axes(pspec[d])]
+            for a in extra:
+                out[d] //= self.sizes[a]
+        return tuple(out)
+
+    def moment_dim(self, name: str) -> Optional[int]:
+        """The dimension the moments of ``name`` split over "data" where
+        the parameter does not (ZeRO-1 on a dimension of its own), else
+        None."""
+        pspec = self.params[name].spec
+        for d, entry in enumerate(self.moments[name].spec):
+            if "data" in _axes(entry) and "data" not in _axes(pspec[d]):
+                return d
+        return None
+
+    def counted(self, name: str) -> bool:
+        """Whether this rank's moments of ``name`` count in the global
+        norm: the elements it updates are no other rank's (every axis they
+        are replicated over, this rank at index 0 of it)."""
+        place = self.moments[name]
+        rep = replicated_axes(place.spec, self.sizes)
+        if place.owner is not None:
+            rep = tuple(a for a in rep if a != "data")
+        return all(self.coords[a] == 0 for a in rep)

@@ -17,18 +17,28 @@ the reference's ``launch/specs.py::make_cell``), eager or captured by the
 same rule; every other config with :func:`step_body`.
 
 **Across ranks.**  Under an ambient ``("data", "model")`` mesh of more
-than one rank (``models.layers.ambient_mesh``: context parallelism over
-"model" with ``attn_shard="seq"``), :func:`step_body` runs on every rank of
-the mesh (:class:`MeshStep`): each data rank takes its share of the batch
-(the rows ``[r B/dd, (r+1) B/dd)``), every rank's loss is scaled by 1 /
-(dd mm) before ``backward``, and every gradient is summed over the mesh
-(over "model", then "data"), in f32 and rounded once to its dtype, before
-AdamW's global-norm clip.  The sum is the gradient of the reference's loss,
-the mean over the global batch; every rank then applies the same update,
-so the parameters stay equal on every rank, bit for bit.  The loss and CE
-reported are the mean over the data ranks.  Such a step runs eagerly
-(``capture.resolve_compile``; its capture on ``nccl`` is ROADMAP Queue 1
-item 10(e)), and the accumulated step does not take a mesh (item 10(f)).
+than one rank (``models.layers.ambient_mesh``), :func:`step_body` runs on
+every rank of the mesh (:class:`MeshStep`) on the model built there
+(``models.build_model``): with ``attn_shard="default"`` each rank holds
+its shards as ``sharding.rules`` lays them out (tensor parallelism over
+"model", FSDP's d_model split over "data"), with ``"seq"`` whole
+parameters and context parallelism over "model".  Each data rank takes
+its share of the batch (``sharding.batch_specs``: the rows ``[r B/dd,
+(r+1) B/dd)``), every rank's loss is scaled by 1 / (dd mm) before
+``backward`` (every collective's backward is its adjoint), and every
+gradient is summed over each mesh dimension its parameter is replicated
+on, never over one that splits it, in f32 and rounded once to its dtype.
+The sum is the gradient of the reference's loss, the mean over the global
+batch.  AdamW then runs ZeRO-1 (``optim.adamw``), which makes those sums
+itself, each to the ranks that update it (over "data" a reduce to the
+owning data rank or a reduce-scatter): each rank updates what its moments
+cover, the global norm summed over the mesh with each element counted
+once, and the owners send the updated parameters to the other data ranks,
+so every copy of a parameter is equal, bit for bit.  The loss
+and CE reported are the mean over the data ranks.  Such a step runs
+eagerly (``capture.resolve_compile``; its capture on ``nccl`` is ROADMAP
+Queue 1 item 10(e)), and the accumulated step does not take a mesh (item
+10(f)).
 
 As in the reference: ``AsyncCheckpointer`` every ``ckpt_every`` steps with
 the data cursor, ``resume_or_init`` restores parameters, moments, step and
@@ -91,36 +101,47 @@ class MeshStep(NamedTuple):
     """A train step across the ranks of the ambient mesh: ``mesh``, its
     "data" size ``data`` and this rank's place on it ``data_rank``, its
     ranks ``ranks`` (data x model), and ``groups``, the groups of its
-    dimensions above one, "model" first."""
+    dimensions above one, "model" first, named in ``names``."""
     mesh: Any
     data: int
     data_rank: int
     ranks: int
     groups: tuple
+    names: tuple
 
     def shard(self, batch: Dict[str, torch.Tensor]) -> Dict[str,
                                                             torch.Tensor]:
-        """This data rank's rows of every tensor of ``batch`` (dim 0)."""
-        out = {}
-        for k, v in batch.items():
-            if v.shape[0] % self.data:
-                raise ValueError(f"a batch of {v.shape[0]} rows ({k!r}) does "
-                                 f"not split over {self.data} data ranks")
-            out[k] = v.chunk(self.data, 0)[self.data_rank]
-        return out
+        """This data rank's rows of every tensor of ``batch`` (dim 0), as
+        ``sharding.batch_specs`` lays them out: split over "data" where it
+        divides the rows, else every data rank's whole."""
+        from ..sharding.rules import batch_specs
+        specs = batch_specs(None, batch, {"data": self.data})
+        return {k: v.chunk(self.data, 0)[self.data_rank]
+                if specs[k] and specs[k][0] is not None else v
+                for k, v in batch.items()}
 
     @torch.no_grad()
     def reduce_grads(self, params: Dict[str, torch.Tensor]) -> None:
-        """Every parameter's gradient summed over the mesh in place of its
-        own: in f32 over each group in turn, rounded once to its dtype (a
-        bf16 sum over ranks would round at every add).  A parameter the
-        loss does not reach has no gradient on any rank and is skipped."""
+        """Every parameter's gradient summed over each mesh dimension the
+        parameter is replicated on ("model", then "data"), never over one
+        that splits it (a rank's shard's gradient is its own; an FSDP
+        shard's came back summed over "data" by the gather's adjoint): in
+        f32 over each group in turn, rounded once to its dtype (a bf16 sum
+        over ranks would round at every add), one tensor at a time.  A
+        parameter the loss does not reach has no gradient on any rank and
+        is skipped."""
         from ..distributed import comm
+        from ..sharding.rules import spec_axes
         for p in params.values():
             if p.grad is None:
                 continue
+            split = spec_axes(L._spec(p))
+            groups = [g for n, g in zip(self.names, self.groups)
+                      if n not in split]
+            if not groups:
+                continue
             g = p.grad.to(torch.float32)
-            for group in self.groups:
+            for group in groups:
                 g = comm.all_reduce(g, group)
             p.grad = g.to(p.grad.dtype)
 
@@ -150,17 +171,21 @@ def mesh_step() -> Optional[MeshStep]:
     dd, mm = sizes.get("data", 1), sizes.get("model", 1)
     if dd * mm == 1:
         return None
+    names = tuple(n for n in ("model", "data") if sizes.get(n, 1) > 1)
     return MeshStep(mesh=mesh, data=dd,
                     data_rank=mesh.get_local_rank("data") if dd > 1 else 0,
                     ranks=dd * mm,
-                    groups=tuple(mesh.get_group(n) for n in ("model", "data")
-                                 if sizes.get(n, 1) > 1))
+                    groups=tuple(mesh.get_group(n) for n in names),
+                    names=names)
 
 
-def loss_and_grads(cfg, model, batch):
+def loss_and_grads(cfg, model, batch, *, summed: bool = True):
     """The loss and its gradients (in ``.grad``): on this rank alone, or
-    across the ambient mesh's ranks (:class:`MeshStep`).  Returns (loss,
-    metrics), detached."""
+    across the ambient mesh's ranks (:class:`MeshStep`), each gradient
+    summed over the mesh dimensions its parameter is replicated on
+    (``MeshStep.reduce_grads``); with ``summed`` False left as this rank's
+    part of that sum, which ZeRO-1's step sums to the ranks that update it
+    (``optim.adamw``).  Returns (loss, metrics), detached."""
     across = mesh_step()
     if across is None:
         loss, metrics = model_loss(cfg, model, batch)
@@ -170,7 +195,8 @@ def loss_and_grads(cfg, model, batch):
     with L.ambient_mesh(across.mesh):
         loss, metrics = model_loss(cfg, model, across.shard(batch))
         (loss / across.ranks).backward()
-    across.reduce_grads(dict(model.named_parameters()))
+    if summed:
+        across.reduce_grads(dict(model.named_parameters()))
     return across.mean_over_data(loss.detach()), {
         "ce": across.mean_over_data(metrics["ce"].detach()),
         "aux": metrics["aux"].detach()}
@@ -195,10 +221,12 @@ def step_body(model: Model, opt: OptState, *,
     def body(batch, hyper):
         for p in params.values():
             p.grad = None
-        loss, metrics = loss_and_grads(cfg, model, batch)
+        loss, metrics = loss_and_grads(cfg, model, batch,
+                                       summed=model.shards is None)
         grads = {n: p.grad for n, p in params.items()}
         gnorm = adamw_apply(grads, opt, params, hyper,
-                            weight_decay=weight_decay, decayed=decay)
+                            weight_decay=weight_decay, decayed=decay,
+                            shards=model.shards)
         del grads
         for p in params.values():
             p.grad = None
@@ -319,7 +347,7 @@ class Trainer:
         self.model = build_model(self.cfg, self.device,
                                  self.seed).requires_grad_(True)
         opt = adamw_init(dict(self.model.named_parameters()),
-                         self.cfg.adam_dtype)
+                         self.cfg.adam_dtype, self.model.shards)
         return TrainState(self.model, opt, 0)
 
     def resume_or_init(self) -> TrainState:
