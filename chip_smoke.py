@@ -449,6 +449,30 @@ result line):
    plain versions and timed beside their bounds; AdamW at falcon-mamba's
    1 x 4 share (64 layers).  The AdamW row gains ``sharded``, the flash
    and scan rows ``local_shapes``.
+28. the launch tooling (after 27, ``phase_launch``): (a)
+   ``launch/bench_kernels.py``'s rows (crossbar MxV 16 x 512 x 512, flash
+   attention 4 heads x 512 x 64, the scan 2 x 256 x 64, f32) against their
+   plain versions at phases 2, 6 and 9's bounds, timed beside
+   ``kernel_bound``, and SDPA's backward at the flash backward's local
+   shapes, as ATen's flash backward op called directly (the attention
+   backward row's ``local_shapes`` gain ``library_ms`` and
+   ``library_device_ms``, as the port's ``ms`` and ``device_ms`` a direct
+   call) and through autograd (``library_autograd_ms``, its host time
+   included), the op's gradients within ``SDPA_OP_TOL`` of autograd's;
+   (b) the dry run (``launch.dryrun``) of phase 22's train step
+   (llama3.2-3b, full width and depth, B = 8 x 512, f32 moments, remat) on
+   one rank, traced on fake tensors in a process on the
+   host started with the first phase (``start_host_traces``): its
+   argument bytes must equal phase 22's parameters, moments and batch
+   exactly (the step count is a host int, no device bytes, in both), its
+   roofline bound (the H100's data-sheet rates) must be at most phase
+   22's eager and captured steps; the model-FLOPs share, and the traced
+   peak over phase 22's ``max_memory_allocated``; (c) the collective log
+   of one more step of phase 27's falcon-mamba (2, 2) ``Trainer`` on its
+   gloo ranks (``distributed.comm.CollectiveLog``) equal, record for
+   record on every rank, to the fake trace of the same config, mesh and
+   batch on gloo's branches (``launch.dryrun.step_trace``, in the same
+   host process).
 
 20. (run after phases 7, 10, 11, 12 and 21, on each model while it is on the
    card: llama3.2-3b with both caches, falcon-mamba-7b, qwen2-moe-a2.7b,
@@ -3318,6 +3342,11 @@ def phase_train_full(dev):
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     batch = to_device(SyntheticLMData(cfg.vocab_size, BATCH, PROMPT,
                                       tr.seed).next(), dev)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    state_bytes = {"params": nbytes(state.model.parameters()),
+                   "moments": nbytes(list(state.opt.mu.values())
+                                     + list(state.opt.nu.values())),
+                   "batch": nbytes(batch.values())}
     n = cfg.n_layers
     before = _all_counts()
     loss_p, plain = _grads(cfg, state.model, batch, False)
@@ -3400,6 +3429,7 @@ def phase_train_full(dev):
                                                 route)
     del final, got
     out = {"arch": LM_ARCH, "batch": BATCH, "seq_len": PROMPT,
+           "state_bytes": state_bytes,
            "bwd_kernels": route, "lr": TRAIN_LR, "params": n_params,
            "launches": captured["launches"], "eager": eager,
            "captured": captured, "bit_equal": same, "adamw": adamw,
@@ -6718,10 +6748,11 @@ def _sh_shapes_ok(cfg, model):
 
 
 def _sh_case(cfg, batch, mesh, rank, dev, faults, ckpt_dir=None,
-             replays=()):
+             replays=(), log_step=False):
     """One configuration on this rank: the one-rank gradients and
     ``Trainer`` step (rank 0, no mesh), the sharded ones under ``mesh``,
     the planted faults, the main path's step with its launches counted;
+    with ``log_step`` one more step under the collective log (phase 28);
     its AdamW call replayed from the step's gradients under each fault of
     ``replays`` (``norm_every_rank``, ``SH_ZERO1_FAULTS``)."""
     import torch.distributed as dist
@@ -6870,6 +6901,11 @@ def _sh_case(cfg, batch, mesh, rank, dev, faults, ckpt_dir=None,
                     "moments_held": sum(1 for m in state.opt.mu.values()
                                         if m.numel())}
     out["train"]["params"] = _sh_worst(deltas(state.model))
+    if log_step:                 # phase 28 (c): the step's collectives
+        from repro_torch.distributed.comm import CollectiveLog
+        with L.ambient_mesh(mesh), CollectiveLog(mesh) as log:
+            state = tr.run(1, state=state)
+        out["log"] = [list(r.key()) for r in log.records]
     if ckpt_dir is not None:
         with L.ambient_mesh(mesh):
             out["ckpt"] = ckpt.save_checkpoint(str(ckpt_dir), 1, state)
@@ -6957,7 +6993,7 @@ def _sharded_rank(argv):
                                  batch("falcon"), mesh, rank, dev,
                                  faults=world == 2,
                                  replays=("norm_every_rank",) if world == 2
-                                 else SH_ZERO1_FAULTS)
+                                 else SH_ZERO1_FAULTS, log_step=world == 4)
         if world == 2:
             res["llama"] = _sh_case(_sh_cfg(LM_ARCH),
                                     batch("llama"), mesh, rank, dev,
@@ -7315,6 +7351,7 @@ def phase_sharded_train(dev):
         raise AssertionError(f"[27] qwen2-moe: {moe[0]['grads']}")
     out["moe_1x2"] = {k: moe[0][k] for k in ("loss", "one_loss", "grads")}
     out["moe_1x2"]["routes_equal"] = across
+    out["falcon_2x2_logs"] = [r["falcon"]["log"] for r in ranks[4]]
     out["kernels"] = _sh_kernel_times(dev)
     out["adamw"] = _sh_adamw_times(dev)
     return out
@@ -7341,7 +7378,8 @@ def sharded_cells(kernels, sh27):
                 "bound_by": "bytes", "library_ms": None,
                 "norm_across_ranks": sh27["falcon_2x2"]["train"]["norms"],
                 "train": {k: v for k, v in sh27.items()
-                          if k not in ("kernels", "adamw")}}
+                          if k not in ("kernels", "adamw",
+                                       "falcon_2x2_logs")}}
         elif name in ("flash_attention", "attn_bwd_preprocess_kernel"):
             fwd = name == "flash_attention"
             row["local_shapes"] = {
@@ -7382,6 +7420,151 @@ def sharded_cells(kernels, sh27):
                 for din, t in sh27["kernels"]["scan"].items()}
 
 
+# ------------------------------------------------ phase 28: launch tooling
+SDPA_OP_TOL = 5e-2          # x max(1, max|g|): the bf16 attention tests'
+def start_host_traces():
+    """Phase 28's fake-tensor traces in one process on the host with no
+    card (``launch.dryrun.start_traces``), started with the first phase so
+    that its time overlaps the card's phases: the dry run of phase 22's
+    step (llama3.2-3b, B = 8 x 512) on one rank, and the fake trace of
+    phase 27's falcon-mamba (2, 2) step on gloo's branches."""
+    from repro_torch.launch.dryrun import start_traces
+    return time.perf_counter(), start_traces({
+        "llama": {"arch": LM_ARCH, "seq_len": PROMPT, "batch": BATCH},
+        "falcon_2x2": {"arch": MAMBA_ARCH,
+                       "overrides": {"n_layers": SH_LAYERS},
+                       "seq_len": SH_S, "batch": SH_B,
+                       "mesh": list(SH_MESHES[4]), "branches": "gloo"}})
+
+
+def _host_result(host):
+    from repro_torch.launch.dryrun import finish_traces
+    t0, proc = host
+    res = finish_traces(proc, timeout=900)
+    print(f"[28] host traces done {time.perf_counter() - t0:.1f} s after "
+          f"they started (in parallel with the card's phases)")
+    return res
+
+
+def phase_launch(dev, full, sh27, host):
+    """Phase 28: the launch tooling (the module docstring, 28)."""
+    from repro_torch.launch import bench_kernels
+    from repro_torch.launch.roofline import PEAK_FLOPS
+    bench = bench_kernels.rows(dev)
+    for r in bench:
+        print(f"[28] bench {r['case']}: {r['us_per_launch']:.2f} us per "
+              f"launch (events), device {_us(r['device_us'])}; plain "
+              f"{r['plain_us']:.2f} us; max abs err {r['max_abs_err']:.3g} "
+              f"(limit {r['limit']:.3g}); {r['operations']} operations, "
+              f"{r['bytes']} bytes, bound {r['bound_us']:.4f} us "
+              f"({r['bound_by']}); library {r['library_us']}")
+    if not all(r["ok"] for r in bench):
+        raise AssertionError(f"[28] a bench kernel disagrees with its plain "
+                             f"version: {bench}")
+    sdpa = bench_kernels.sdpa_backward(dev)
+    for r in sdpa:
+        print(f"[28] {r['case']}: ATen's flash backward op "
+              f"{r['us_per_call']:.2f} us per call (events), device "
+              f"{_us(r['device_us'])}; through autograd "
+              f"{r['autograd_us_per_call']:.2f} us, device "
+              f"{_us(r['autograd_device_us'])}; the op's gradients against "
+              f"autograd's: {r['op_vs_autograd_rel']:.3g} of max(1, "
+              f"max|g|); kernels: the op {r['op_kernels']}, autograd "
+              f"{r['autograd_kernels']}")
+    if not all(r["op_vs_autograd_rel"] <= SDPA_OP_TOL for r in sdpa):
+        raise AssertionError(f"[28] ATen's flash backward op disagrees with "
+                             f"SDPA's autograd beyond {SDPA_OP_TOL}: {sdpa}")
+    res = _host_result(host)
+    llama, sb = res["llama"], full["state_bytes"]
+    got = llama["memory"]["argument_size_in_bytes"]
+    want = sum(sb.values())
+    print(f"[28] dry run of phase 22's step ({LM_ARCH}, B = {BATCH} x "
+          f"{PROMPT}, one rank, traced in {llama['s']:.1f} s): argument "
+          f"bytes {got} against phase 22's parameters {sb['params']} + "
+          f"moments {sb['moments']} + batch {sb['batch']} = {want} (the "
+          f"step count a host int in both); traced flops {llama['flops']:.4g}"
+          f", model flops {llama['model_flops']:.4g}")
+    if got != want:
+        raise AssertionError(f"[28] argument bytes {got} != {want}")
+    rf = llama["roofline"]
+    bound_ms = max(rf["t_compute_s"], rf["t_memory_s"],
+                   rf["t_collective_s"]) * 1e3
+    eager = full["eager"]["step_ms"]
+    replays = [ms for ms, rep in zip(full["captured"]["step_ms"],
+                                     full["captured"]["replayed"]) if rep]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    share = {k: llama["model_flops"] / (PEAK_FLOPS * statistics.median(v)
+                                        / 1e3)
+             for k, v in (("eager", eager), ("captured", replays))}
+    peak = max(full["eager"]["peak_gib"]) * 2**30
+    ratio = llama["memory"]["temp_size_in_bytes"] / peak
+    print(f"[28] roofline bound {bound_ms:.2f} ms ({rf['dominant']}: "
+          f"compute {rf['t_compute_s'] * 1e3:.2f}, memory "
+          f"{rf['t_memory_s'] * 1e3:.2f} ms at the data-sheet rates) "
+          f"against phase 22's eager steps {min(eager):.1f}-{max(eager):.1f}"
+          f" ms and replays {min(replays):.1f}-{max(replays):.1f} ms; "
+          f"model-FLOPs share (6 N D over 989 TFLOP/s x step) eager "
+          f"{share['eager']:.4f}, captured {share['captured']:.4f}; traced "
+          f"peak {llama['memory']['temp_size_in_bytes'] / 2**30:.2f} GiB "
+          f"over phase 22's max_memory_allocated {peak / 2**30:.2f} GiB = "
+          f"{ratio:.3f}; {card}")
+    if not bound_ms <= min(min(eager), min(replays)):
+        raise AssertionError(f"[28] the bound {bound_ms} ms exceeds a "
+                             f"measured step")
+    want_log = res["falcon_2x2"]["records"]
+    logs = sh27["falcon_2x2_logs"]
+    equal = [log == want_log for log in logs]
+    print(f"[28] {MAMBA_ARCH} (2, 2) step on gloo ranks: "
+          f"{[len(log) for log in logs]} collectives logged a rank, "
+          f"{sum(k[3] for k in want_log)} operand bytes; equal to the fake "
+          f"trace's {len(want_log)} records (traced in "
+          f"{res['falcon_2x2']['s']:.1f} s) on every rank: {equal}")
+    if not want_log or not all(equal):
+        diff = next(((r, i, a, b) for r, log in enumerate(logs)
+                     for i, (a, b) in enumerate(zip(log, want_log))
+                     if a != b), None)
+        raise AssertionError(f"[28] the gloo ranks' collective log differs "
+                             f"from the fake trace: (rank, record, logged, "
+                             f"traced) {diff}")
+    return {"bench": bench, "sdpa_backward": sdpa, "card": card,
+            "dryrun": {"argument_bytes": got, "state_bytes": sb,
+                       "bound_ms": bound_ms, "roofline": rf,
+                       "model_flops_share": share, "peak_ratio": ratio},
+            "falcon_2x2_log": {"records": len(want_log), "equal": equal}}
+
+
+def launch_cells(kernels, l28):
+    """The bench rows on the crossbar, flash and scan rows; SDPA's
+    backward beside the flash backward's local shapes."""
+    names = {"mxv 16x512x512": "crossbar_mxv",
+             "flash 4h x 512 x 64": "flash_attention",
+             "mamba_scan 2x256x64": "selective_scan"}
+    rows = {row["name"]: row for row in kernels}
+    for b in l28["bench"]:
+        row = rows.get(names[b["case"]])
+        if row is not None:
+            row["bench"] = {
+                "shape": b["case"], "ms": b["us_per_launch"] / 1e3,
+                "device_ms": _ms(b["device_us"]),
+                "plain_ms": b["plain_us"] / 1e3,
+                "max_abs_err": b["max_abs_err"],
+                "bound_ms": b["bound_us"] / 1e3, "bound_by": b["bound_by"],
+                "library_ms": None if b["library_us"] is None
+                else b["library_us"] / 1e3}
+    from repro_torch.launch.bench_kernels import ATTN_BWD_HEADS
+    bwd = rows.get("attn_bwd_preprocess_kernel", {}).get("local_shapes", {})
+    for (hq, hkv), r in zip(ATTN_BWD_HEADS, l28["sdpa_backward"]):
+        if f"{hq}/{hkv}" in bwd:
+            bwd[f"{hq}/{hkv}"].update(
+                library_ms=r["us_per_call"] / 1e3,
+                library_device_ms=_ms(r["device_us"]),
+                library_autograd_ms=r["autograd_us_per_call"] / 1e3,
+                library_autograd_device_ms=_ms(r["autograd_device_us"]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and "
@@ -7394,6 +7577,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+    host = start_host_traces()                 # phase 28's host traces
     _timed(phase_build)
     errs = _timed(phase_kernels, dev)
     paths = {
@@ -7485,7 +7669,10 @@ def main() -> int:
     pipeline_cells(next(r for r in kernels if r["name"] == "flash_attention"),
                    _timed(phase_pipeline, dev))
     cp_train_cells(kernels, _timed(phase_cp_train, dev))
-    sharded_cells(kernels, _timed(phase_sharded_train, dev))
+    sh27 = _timed(phase_sharded_train, dev)
+    sharded_cells(kernels, sh27)
+    launch_cells(kernels, _timed(phase_launch, dev, full, sh27, host))
+    del sh27
     conv_errs = _timed(phase_conv_kernel, dev)
     qs = _timed(phase_quickstart)
     faults = _timed(phase_fault_serve, dev)

@@ -9,7 +9,12 @@ backend decides how a tensor travels, never a caught error:
 - ``gloo``: a CUDA tensor goes through an explicit host copy and comes
   back to its device.  This exists for several ranks sharing one card
   (NCCL refuses two ranks on one device); compute stays on the card.  CPU
-  tensors go as they are.
+  tensors go as they are;
+- ``fake`` (``torch.testing._internal.distributed.fake_pg``: collectives
+  that move nothing, for a trace of one rank's program on fake tensors,
+  ``launch.dryrun``): the branches of ``nccl``, the program the card
+  runs, on tensors of any device; within :func:`fake_branches` ``("gloo")``
+  those of ``gloo``.
 
 Any other backend raises.  Ranks are the group's own (0 .. n-1); each
 function maps them to global ranks itself.
@@ -40,13 +45,24 @@ every add of n ranks' parts.  ``reduce_scatter`` on ``gloo`` is an
 all-reduce of which each rank keeps its part (the host path carries n
 times the bytes; gloo's reduce-scatter is not in every PyTorch release);
 on ``nccl`` ``reduce_scatter_tensor``.
+
+**The collective log.**  :class:`CollectiveLog` records every collective
+a program issues, as the ``c10d`` operators that reach the dispatcher
+(so the direct ``torch.distributed`` calls of ``compression.py`` and
+``overlap.py`` count too): its kind, its group's size and mesh dimension,
+its operand bytes (``repro.launch.roofline``'s definition: an all-gather's
+operand is its input, a reduce-scatter's its whole input), and the port
+function that issued it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+import sys
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def _dist():
@@ -65,16 +81,37 @@ def group_of(group):
     return group
 
 
+_FAKE_AS = ["nccl"]           # the backend whose branches "fake" takes
+
+
+@contextlib.contextmanager
+def fake_branches(backend: str):
+    """Within, a ``fake`` group takes ``backend``'s branches ("nccl" or
+    "gloo"): a trace to hold against a run on that backend."""
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"fake groups take nccl's or gloo's branches, not "
+                         f"{backend!r}")
+    prev, _FAKE_AS[0] = _FAKE_AS[0], backend
+    try:
+        yield
+    finally:
+        _FAKE_AS[0] = prev
+
+
 def _backend(group) -> str:
-    return str(_dist().get_backend(group))
+    """The backend whose branches a collective on ``group`` takes."""
+    backend = str(_dist().get_backend(group))
+    return _FAKE_AS[0] if backend == "fake" else backend
 
 
 def _via_host(t: torch.Tensor, group) -> bool:
     """Whether ``t`` crosses ``group`` through a host copy: a CUDA tensor on
-    ``gloo``.  ``nccl`` takes device tensors; other backends raise."""
+    ``gloo``.  ``nccl`` takes device tensors, a ``fake`` group any tensor;
+    other backends raise."""
+    fake = str(_dist().get_backend(group)) == "fake"
     backend = _backend(group)
     if backend == "nccl":
-        if t.device.type != "cuda":
+        if t.device.type != "cuda" and not fake:
             raise ValueError(f"nccl takes CUDA tensors, got {t.device}")
         return False
     if backend == "gloo":
@@ -269,3 +306,131 @@ def reduce(x: torch.Tensor, dst: int, group) -> Optional[torch.Tensor]:
     if rank(group) != dst:
         return None
     return w.to(device=x.device, dtype=x.dtype)
+
+
+# ------------------------------------------------------------ the collective log
+# c10d operator -> (kind, the argument that holds its operand); recv_ and
+# barrier carry no new bytes (a receive is its send's other end)
+_KINDS = {
+    "allreduce_": ("all-reduce", "tensors"),
+    "allreduce_coalesced_": ("all-reduce", "tensors"),
+    "allgather_": ("all-gather", "input_tensors"),
+    "_allgather_base_": ("all-gather", "input_tensor"),
+    "allgather_into_tensor_coalesced_": ("all-gather", "inputs"),
+    "reduce_scatter_": ("reduce-scatter", "input_tensors"),
+    "_reduce_scatter_base_": ("reduce-scatter", "input_tensor"),
+    "reduce_scatter_tensor_coalesced_": ("reduce-scatter", "inputs"),
+    "alltoall_": ("all-to-all", "input_tensors"),
+    "alltoall_base_": ("all-to-all", "input"),
+    "broadcast_": ("broadcast", "tensors"),
+    "reduce_": ("reduce", "tensors"),
+    "send": ("collective-permute", "tensors"),
+}
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute", "broadcast", "reduce")
+
+
+class Collective(NamedTuple):
+    """One collective as :class:`CollectiveLog` records it: ``kind`` (one of
+    :data:`KINDS`), ``axis`` (the mesh dimension of its group, None for a
+    group that is none of the mesh's), ``size`` (the group's ranks),
+    ``nbytes`` (operand bytes), ``issuer`` (:func:`_issuer`), ``backward``
+    (issued by autograd's backward) and ``ranks`` (the group's global
+    ranks)."""
+    kind: str
+    axis: Optional[str]
+    size: int
+    nbytes: int
+    issuer: str
+    backward: bool
+    ranks: Tuple[int, ...]
+
+    def key(self) -> tuple:
+        """What two runs of one program share: everything but the group's
+        global ranks (another rank's groups are others)."""
+        return (self.kind, self.axis, self.size, self.nbytes, self.issuer,
+                self.backward)
+
+
+def _tensors(x) -> List[torch.Tensor]:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+_DIST = __file__.rsplit("/", 1)[0] + "/"
+_PORT = _DIST.rstrip("/").rsplit("/", 1)[0] + "/"
+_LIBS = tuple({sys.prefix, sys.base_prefix, sys.exec_prefix})
+
+
+def _issuer() -> str:
+    """Who issued a collective: the adjoint of a collective of this module
+    (``module:Function.backward``: autograd may run it on a thread of its
+    own, with no frame of the caller's); else ``module:function`` of the
+    innermost frame of the port outside ``distributed/`` and dispatch
+    modes; where the port has none (a script's own collectives), of the
+    innermost frame outside the port's ``distributed/`` and the installed
+    packages and library."""
+    f, other = sys._getframe(1), None
+    while f is not None:
+        path, name = f.f_code.co_filename, f.f_code.co_name
+        if path == __file__ and name == "backward":
+            return f"repro_torch/distributed/comm.py:" \
+                f"{getattr(f.f_code, 'co_qualname', name)}"
+        if name != "__torch_dispatch__" and not path.startswith(_DIST):
+            if path.startswith(_PORT):
+                return f"{path[len(_PORT) - len('repro_torch/'):]}:{name}"
+            if other is None and not path.startswith(_LIBS):
+                other = f"{path.rsplit('/', 1)[-1]}:{name}"
+        f = f.f_back
+    return other or "?"
+
+
+class CollectiveLog(TorchDispatchMode):
+    """Within, every collective issued on this process is recorded in
+    ``records`` (:class:`Collective`), in order; the collective itself runs
+    as it would.  ``mesh`` (a ``DeviceMesh``; by default the ambient one,
+    ``models.layers.ambient_mesh``, when the log is entered) names each
+    group's dimension."""
+
+    def __init__(self, mesh=None):
+        super().__init__()
+        self.mesh = mesh
+        self.records: List[Collective] = []
+        self._groups: Dict[str, tuple] = {}
+
+    def __enter__(self):
+        if self.mesh is None:
+            from ..models.layers import _ambient_mesh
+            self.mesh = _ambient_mesh()
+        names = {}
+        if self.mesh is not None:
+            for n in self.mesh.mesh_dim_names:
+                names[self.mesh.get_group(n).group_name] = n
+        self._names = names
+        return super().__enter__()
+
+    def _group(self, pg) -> tuple:
+        if not isinstance(pg, _dist().ProcessGroup):
+            pg = _dist().ProcessGroup.unbox(pg)
+        name = pg.group_name
+        if name not in self._groups:
+            ranks = tuple(_dist().get_process_group_ranks(pg))
+            self._groups[name] = (self._names.get(name), len(ranks), ranks)
+        return self._groups[name]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.namespace == "c10d" and func._opname in _KINDS:
+            kind, operand = _KINDS[func._opname]
+            names = [a.name for a in func._schema.arguments]
+            bound = dict(zip(names, args), **kwargs)
+            axis, size, ranks = self._group(bound["process_group"])
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in _tensors(bound[operand]))
+            self.records.append(Collective(
+                kind, axis, size, nbytes, _issuer(),
+                torch._C._current_graph_task_id() != -1, ranks))
+        return func(*args, **kwargs)

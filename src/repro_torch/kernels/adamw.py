@@ -45,11 +45,12 @@ writes it in place).
 ZeRO-1), each rank passes the tensors it updates, ``counted`` says which
 of them count in the global norm (an element that several ranks update
 counts on one of them only) and ``sum_norm`` sums the f64 sum of squares
-over the mesh, in f64, before the square root: on the card the norm's
-1,024 f64 partials between the norm kernel and the finalize
+over the mesh, in f64, before the square root: the norm's 1,024 f64
+partials, on the card between the norm kernel and the finalize
 (``csrc/adamw.cu``: ``adamw_norm``, then ``adamw_finish``), in the plain
-version the rank's f64 total.  Without them a call is PR 28's: one rank,
-every tensor counted, the same kernels in the same order, the same bits.
+version the rank's f64 total and 1,023 zeros (the same collective).
+Without them a call is the one-rank call: every tensor counted, the same
+kernels in the same order, the same bits.
 A rank that updates nothing still takes part in the sum (its partials
 zero) and gets the norm.
 
@@ -85,8 +86,12 @@ def global_norm_ref(grads: Sequence[Optional[torch.Tensor]],
                     sum_norm: Optional[Callable] = None,
                     device=None) -> torch.Tensor:
     """sqrt of the sum of the squares of every gradient (of those
-    ``counted``), summed in f64 (and over the ranks by ``sum_norm``, a f64
-    0-d tensor to its sum) and rounded to f32 once: a 0-d f32 tensor."""
+    ``counted``), summed in f64 and rounded to f32 once: a 0-d f32 tensor.
+    Across ranks ``sum_norm`` sums ``NORM_BLOCKS`` f64 partials over them,
+    as the kernels' (the rank's total in the first, zeros in the rest, so
+    the sum is the total's bits), and the sum is their sum: the plain
+    version issues the kernels' collective (``launch.dryrun`` traces
+    it)."""
     dev = device or next(g.device for g in grads if g is not None)
     counted = counted or [True] * len(grads)
     total = torch.zeros((), dtype=torch.float64, device=dev)
@@ -94,7 +99,10 @@ def global_norm_ref(grads: Sequence[Optional[torch.Tensor]],
         if g is not None and c:
             total = total + torch.sum(torch.square(g.to(torch.float64)))
     if sum_norm is not None:
-        total = sum_norm(total)
+        partials = torch.zeros((NORM_BLOCKS,), dtype=torch.float64,
+                               device=dev)
+        partials[0] = total
+        total = torch.sum(sum_norm(partials))
     return torch.sqrt(total).to(torch.float32)
 
 

@@ -44,11 +44,26 @@ def conv2d(x, wq, scale, stride=1, pad=0, fh=3, fw=3,
     return ref.crossbar_conv2d_ref(x, wq, scale, stride, pad, fh, fw)
 
 
+SCORES_ON_THE_CARD = (
+    "runs on the plain attention path only (the dry run's): the flash "
+    "kernels keep their scores in f32 registers, and the port has no score "
+    "collective for the knob to halve")
+
+
 def attention(q, k, v, causal: bool = True, use_kernel: bool = True,
-              q_stride: int = 1):
+              q_stride: int = 1, scores_dtype: str = "float32"):
+    """Flash attention, or its plain version.  ``scores_dtype`` other than
+    f32 (the reference's knob) is the plain version's alone: the wrapper
+    runs it on CPU and fake tensors and raises on the card
+    (:data:`SCORES_ON_THE_CARD`); ``use_kernel=False`` takes it anywhere."""
     if use_kernel:
-        return flash_attention(q, k, v, causal=causal, q_stride=q_stride)
-    return ref.attention_ref(q, k, v, causal=causal, q_stride=q_stride)
+        if scores_dtype == "float32":
+            return flash_attention(q, k, v, causal=causal, q_stride=q_stride)
+        if q.is_cuda:
+            raise NotImplementedError(
+                f"scores_dtype={scores_dtype!r} {SCORES_ON_THE_CARD}")
+    return ref.attention_ref(q, k, v, causal=causal, q_stride=q_stride,
+                             scores_dtype=scores_dtype)
 
 
 def decode_attention(q, k, v, length, use_kernel: bool = True):

@@ -86,11 +86,26 @@ def causal_mask(sq: int, sk: int, q_stride: int = 1, device=None):
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True, q_stride: int = 1) -> torch.Tensor:
+                  causal: bool = True, q_stride: int = 1,
+                  scores_dtype: str = "float32") -> torch.Tensor:
     """q (B,Hq,Sq,D); k/v (B,Hkv,Sk,D) — full-softmax GQA oracle.  Query i
     sits at absolute position ``i * q_stride + Sk - 1 - (Sq - 1) *
     q_stride`` (``i + Sk - Sq`` at stride 1, :func:`causal_mask`); output
-    in q's dtype."""
+    in q's dtype.  ``scores_dtype`` other than f32 takes the reference's
+    casts (``repro.models.layers._gqa_scores_softmax_out``): q, K and V
+    cast to it before the two products, which sum in f32; the
+    exponentials and the probabilities rounded to it; the softmax's max
+    and sum in f32."""
+    if scores_dtype != "float32":
+        sdt = getattr(torch, scores_dtype)
+        s = _scores(q, k, causal, q_stride, scores_dtype)
+        e = torch.exp(s - s.amax(-1, keepdim=True).detach()).to(sdt)
+        z = e.to(torch.float32).sum(-1, keepdim=True)
+        pr = (e.to(torch.float32) / z).to(sdt)
+        v = v.repeat_interleave(q.shape[1] // v.shape[1], dim=1)
+        o = torch.einsum("bhqk,bhkd->bhqd", pr.to(torch.float32),
+                         v.to(sdt).to(torch.float32))
+        return o.to(q.dtype)
     d = q.shape[-1]
     sq, sk = q.shape[2], k.shape[2]
     g = q.shape[1] // k.shape[1]
@@ -111,13 +126,18 @@ def _work_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _scores(q, k, causal, q_stride=1):
+def _scores(q, k, causal, q_stride=1, scores_dtype="float32"):
     """The scaled, masked scores (B, Hq, Sq, Sk) of ``attention_ref``, in
     f32 (f64 for f64 inputs), K repeated over the G query heads of each KV
-    head; query rows at ``q_stride`` (:func:`causal_mask`)."""
+    head; query rows at ``q_stride`` (:func:`causal_mask`).  q and K are
+    cast to ``scores_dtype`` first where it is not f32 (the product still
+    sums in f32, as the reference's ``preferred_element_type``)."""
     d = q.shape[-1]
     sq, sk = q.shape[2], k.shape[2]
     wt = _work_dtype(q.dtype)
+    if scores_dtype != "float32":
+        sdt = getattr(torch, scores_dtype)
+        q, k = q.to(sdt), k.to(sdt)
     k = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(wt), k.to(wt)) / (d ** 0.5)
     if causal:

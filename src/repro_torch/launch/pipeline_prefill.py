@@ -85,7 +85,10 @@ def make_pipelined_prefill(cfg: ArchConfig, mesh, n_micro: int,
     scfg = lm.stage_config(cfg, n_stages)
     sched = pipeline.derive_schedule(["pointwise"] * (n_stages - 1), n_micro)
     group = mesh.get_group("pod")
-    with L.ambient_mesh(mesh):
+    # a stage's layers run within its pod: "pod" carries stages, not the
+    # batch (no MoE aux mean over it)
+    pod = mesh["data", "model"]
+    with L.ambient_mesh(pod):
         cp = lm.residual_block(scfg, seq_len)
     # under a blocked residual a stage takes, keeps and hops its own rows;
     # the last token is on the last model rank
@@ -115,7 +118,7 @@ def make_pipelined_prefill(cfg: ArchConfig, mesh, n_micro: int,
         else:                         # only stage 0 reads the stream
             xs = torch.empty((n_micro, b_m, rows, cfg.d_model),
                              dtype=L._dtype(cfg.param_dtype), device=dev)
-        with L.ambient_mesh(mesh), torch.no_grad():
+        with L.ambient_mesh(pod), torch.no_grad():
             h = pipeline.pipeline_apply(stage_fn, stage, xs, sched, group,
                                         collect=lambda y: y[:, -1])
             if blocked:

@@ -7,7 +7,7 @@ the step under context parallelism across ranks.
     torchrun --nproc-per-node 4 -m repro_torch.launch.train_step_times \
         --meshes 1x4,2x2 [--variant seq_causal|baseline] [--arch A]
         [--steps N] [--seq-len S] [--depth L] [--reduced]
-        [--device cuda|cpu] [--out FILE]
+        [--device cuda|cpu] [--collectives] [--out FILE]
 
 llama3.2-3b at full width and depth, ``Trainer`` on B = 8 x 512 synthetic
 tokens from seed 0, lr 3e-3, f32 moments, remat.
@@ -53,6 +53,13 @@ eager as the mesh steps are: ``compile=False``), the same figures, while
 the other ranks wait; on a card whose memory its parameters, gradients
 and moments exceed (:func:`one_card_bytes`) the record says so instead.
 Each record lists ``replayed``: every step's is False.
+``--collectives``: after the timed steps, one more step a mesh under
+``distributed.comm.CollectiveLog``; rank 0 then traces the same step on a
+fake world of the mesh's ranks on the backend's branches
+(``launch.dryrun.start_traces``, in a process of its own) and records, for
+every rank, whether its log equals the trace record for record, its
+logged bytes, and its profiled NCCL ms beside the roofline's collective
+term (NVLink's data-sheet rate).
 
 Prints one JSON object a measurement, then one for the whole (also
 written to ``--out``).
@@ -81,7 +88,8 @@ VARIANTS = {
                     "seq_residual": True}, 2, 4096),
 }
 # a kernel's part of the step: the first whose keys its name holds
-PARTS = (("adamw kernels", ("adamw_",)),
+PARTS = (("NCCL collectives", ("nccl",)),
+         ("adamw kernels", ("adamw_",)),
          ("compress kernels", ("compress_",)),
          ("flash backward", ("attn_bwd_",)),
          ("flash forward", ("flash_attention",)),
@@ -273,6 +281,11 @@ def _train_turn(cfg, dev, args, mesh=None) -> dict:
         rec["flash_launches_per_step"] = {
             k: v / max(1, args.steps - 1)
             for k, v in flash_attn.LAUNCHES.items()}
+        if args.collectives and mesh is not None:
+            from ..distributed.comm import CollectiveLog
+            with CollectiveLog(mesh) as log:
+                state = tr.run(1, state=state)
+            rec["collectives"] = [list(r.key()) for r in log.records]
         if dev.type == "cuda":
             prof = profile_ms(lambda: tr.run(1, state=state), cpu=False)
             rec["profiled"] = {k: prof[k] for k in (
@@ -296,6 +309,28 @@ def one_card_bytes(cfg) -> int:
                for p in abstract_model(cfg).parameters())
 
 
+def _traced_beside(spec: dict, per_rank: list) -> dict:
+    """The dry run's trace of the step ``--meshes`` runs
+    (``launch.dryrun.start_traces``: a fake world in a process of its own),
+    held against every rank's logged collectives; each rank's NCCL ms (its
+    profiled step) beside the roofline's collective term."""
+    from .dryrun import finish_traces, start_traces
+    try:
+        tr = finish_traces(start_traces({"step": spec}))["step"]
+    except RuntimeError as e:
+        return {"error": str(e)[-2000:]}
+    out = {k: tr[k] for k in ("coll_bytes", "flops", "memory", "roofline")}
+    out["records"] = len(tr["records"])
+    out["per_rank"] = [{
+        "log_equal": r.get("collectives") == tr["records"],
+        "logged_bytes": sum(k[3] for k in r.get("collectives", [])),
+        "nccl_ms": (r.get("profiled") or {}).get("parts_ms", {}).get(
+            "NCCL collectives"),
+        "t_collective_ms": tr["roofline"]["t_collective_s"] * 1e3}
+        for r in per_rank]
+    return out
+
+
 def mesh_turns(args) -> dict:
     """``--meshes``: the step across the ranks of each mesh, every rank's
     figures gathered to every rank; then the one-card step on rank 0."""
@@ -307,11 +342,10 @@ def mesh_turns(args) -> dict:
     dev, backend = _init_group(args.device)
     world, rank = dist.get_world_size(), dist.get_rank()
     cfg = smoke_config(args.arch) if args.reduced else get_arch(args.arch)
-    if args.depth:
-        cfg = dataclasses.replace(cfg, n_layers=args.depth)
     fields, args.batch, seq = VARIANTS[args.variant]
+    over = dict(fields, **({"n_layers": args.depth} if args.depth else {}))
     args.seq_len = args.seq_len or seq
-    cfg = dataclasses.replace(cfg, **fields)
+    cfg = dataclasses.replace(cfg, **over)
     out = {"device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                       else "cpu"),
            "card": card() if dev.type == "cuda" else None,
@@ -334,6 +368,14 @@ def mesh_turns(args) -> dict:
         if rank == 0:
             print(json.dumps({"mesh": spec, "per_rank": per_rank}),
                   flush=True)
+        if args.collectives and rank == 0:
+            out["meshes"][spec]["dryrun"] = beside = _traced_beside(
+                {"arch": args.arch, "reduced": args.reduced,
+                 "overrides": over, "batch": args.batch,
+                 "seq_len": args.seq_len, "mesh": [dd, mm],
+                 "branches": backend}, per_rank)
+            print(json.dumps({"mesh": spec, "dryrun": beside}), flush=True)
+        dist.barrier()
     if rank == 0:
         need = one_card_bytes(cfg)
         have = (torch.cuda.get_device_properties(dev).total_memory
@@ -375,6 +417,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's smoke config")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--collectives", action="store_true",
+                    help="with --meshes: one more step a mesh under the "
+                         "collective log, held against the dry run's trace "
+                         "of the same step (launch.dryrun.step_trace)")
     args = ap.parse_args(argv)
     if args.meshes:
         if args.steps < 2:

@@ -33,6 +33,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels import ops
 from . import encdec, layers, lm
 from .encdec import EncDec
 from .lm import LM
@@ -44,12 +45,15 @@ def build_model(cfg: ArchConfig, device="cuda", seed: int = 0,
                 shard: bool = True) -> Model:
     """The model of ``cfg`` on ``device``, initialised from ``seed``; under
     an ambient mesh of more than one rank (and ``shard``), the rank's
-    shards of it (the module docstring)."""
-    if cfg.scores_dtype != "float32":
+    shards of it (the module docstring).  ``scores_dtype="bfloat16"`` only
+    off the card: its attention takes the plain path."""
+    if cfg.scores_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"{cfg.name}: unknown scores_dtype "
+                         f"{cfg.scores_dtype!r}")
+    if cfg.scores_dtype != "float32" and torch.device(device).type == "cuda":
         raise NotImplementedError(
-            f"{cfg.name}: scores_dtype={cfg.scores_dtype!r} (a knob of the "
-            f"sharded dry run) is not ported; the flash kernels keep f32 "
-            f"scores")
+            f"{cfg.name}: scores_dtype={cfg.scores_dtype!r} "
+            f"{ops.SCORES_ON_THE_CARD}")
     if cfg.kv_dtype not in ("compute", "int8"):
         raise ValueError(f"{cfg.name}: unknown kv_dtype {cfg.kv_dtype!r}")
     mesh = layers._ambient_mesh()
@@ -72,7 +76,8 @@ def _refuse_split(model: Model) -> None:
     if model.shards is not None and model.shards.split:
         raise NotImplementedError(
             f"{model.cfg.name}: serving a model split over a mesh is not "
-            f"ported (ROADMAP Queue 1, serving under cache_specs)")
+            f"ported (ROADMAP Queue 1 item 10(i), serving under "
+            f"cache_specs)")
 
 
 def prefill(cfg: ArchConfig, model: Model, batch: Dict, max_len: int,

@@ -9,7 +9,8 @@ reference's names and ``(cfg, p, x, ...) -> y`` form, with ``p`` a mapping
 of tensors (an ``nn.ParameterDict`` of :class:`models.lm.LM`).  They round
 to the compute dtype where the reference does: norms and RoPE compute in f32
 and cast back, attention keeps f32 scores, softmax and accumulator and casts
-its output to the input's dtype.
+its output to the input's dtype (``scores_dtype="bfloat16"``: the
+reference's casts, on the plain path only, ``kernels.ops.attention``).
 
 **Context parallelism** (``cfg.attn_shard == "seq"``) over the "model"
 dimension of an ambient mesh (:func:`ambient_mesh`, as the reference's
@@ -60,6 +61,7 @@ from typing import Any, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._guards import active_fake_mode
 
 from ..configs.base import ArchConfig, SSMSpec
 from ..kernels import ops
@@ -255,7 +257,8 @@ class SeqParallel:
         mm, sl = self.mm, self.sl
         send = [_stripe_count(self.rank * sl, sl, mm, r) for r in range(mm)]
         recv = [_stripe_count(r * sl, sl, mm, self.rank) for r in range(mm)]
-        return _stripe_order(mm, sl, self.rank, device), send, recv
+        return _stripe_order(mm, sl, self.rank, device,
+                             active_fake_mode()), send, recv
 
     def to_stripes(self, x):
         """(B, sl, ...) blocked rows -> (B, sl, ...) this rank's stripe, in
@@ -284,10 +287,12 @@ def _stripe_count(start: int, sl: int, mm: int, r: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _stripe_order(mm: int, sl: int, rank: int, device) -> torch.Tensor:
+def _stripe_order(mm: int, sl: int, rank: int, device,
+                  fake_mode=None) -> torch.Tensor:
     """Rank ``rank``'s block rows grouped by destination stripe, in
     ascending order within each: made once a shape and device (no sort, no
-    copy from the host at each call)."""
+    copy from the host at each call), and once a fake-tensor mode
+    (``fake_mode``, a key only: a trace's tensor is of its own mode)."""
     start = rank * sl
     order = [j for r in range(mm) for j in range((r - start) % mm, sl, mm)]
     return torch.tensor(order, dtype=torch.int64, device=device)
@@ -313,12 +318,16 @@ def aux_groups(cp: Optional[SeqParallel]) -> Tuple:
     residual (each model rank holds its sequence block's groups), and the
     "data" group where it is above 1 (a train step splits the batch over
     it, ``train.loop``; where every data rank holds the whole batch, the
-    mean of equal values is the value and the gradients are unchanged)."""
+    mean of equal values is the value and the gradients are unchanged),
+    and so the "pod" group where it is above 1 (the train step splits the
+    batch over pod x data; a pipeline's stages run under their pod's
+    sub-mesh, ``launch.pipeline_prefill``)."""
     groups = []
     if cp is not None and cp.residual:
         groups.append(cp.group)
-    if _mesh_axis("data") > 1:
-        groups.append(_ambient_mesh().get_group("data"))
+    for axis in ("data", "pod"):
+        if _mesh_axis(axis) > 1:
+            groups.append(_ambient_mesh().get_group(axis))
     return tuple(groups)
 
 
@@ -503,6 +512,14 @@ def _project_qkv(cfg: ArchConfig, p: Params, xq, xkv, plan: _Heads):
     return q, k, v
 
 
+def _scores_kw(cfg: ArchConfig) -> dict:
+    """``ops.attention``'s ``scores_dtype`` where the config moves it off
+    f32 (the plain path's knob), else nothing."""
+    if cfg.scores_dtype == "float32":
+        return {}
+    return {"scores_dtype": cfg.scores_dtype}
+
+
 def attention(cfg: ArchConfig, p: Params, x, pos, causal: bool = True,
               kv_out: bool = False, use_kernel: bool = True,
               cp: Optional[SeqParallel] = None):
@@ -526,7 +543,8 @@ def attention(cfg: ArchConfig, p: Params, x, pos, causal: bool = True,
     k = positional_rotate(cfg, k, pos)
     # (B, S, H, D) tensors seen as (B, H, S, D): the kernel reads strides
     o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                      causal=causal, use_kernel=use_kernel)
+                      causal=causal, use_kernel=use_kernel,
+                      **_scores_kw(cfg))
     o = o.transpose(1, 2).reshape(b, s, plan.hq * cfg.hd)
     if plan.o_cols is not None:
         o = o[..., plan.o_cols[0]:plan.o_cols[1]]
@@ -566,7 +584,8 @@ def _seq_parallel_attention(cfg: ArchConfig, p: Params, x, pos, kv_out,
     o = ops.attention(q.transpose(1, 2), k[:, :n].transpose(1, 2),
                       v[:, :n].transpose(1, 2), causal=True,
                       use_kernel=use_kernel,
-                      q_stride=cp.mm if cp.striped else 1).transpose(1, 2)
+                      q_stride=cp.mm if cp.striped else 1,
+                      **_scores_kw(cfg)).transpose(1, 2)
     if cp.residual and cp.striped:
         o = cp.from_stripes(o)
     y = o.reshape(b, cp.sl, hq * hd) @ p["wo"]

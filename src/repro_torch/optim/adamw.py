@@ -113,18 +113,22 @@ def _zero1_step(grads, opt, params, hyper, decayed, shards, kw):
     each is summed in f32 over the mesh dimensions its parameter is
     replicated on, to the ranks that update it, and rounded once to its
     dtype: over "model" by an all-reduce; over "data" by a reduce to the
-    data rank that owns the moments (``sharding.rules`` layout (b): a layer
-    whole on one data rank), a reduce-scatter to each data rank's 1/dd
-    along the dimension ZeRO-1 cuts, or an all-reduce where the moments are
-    not cut.  One ``adamw_step`` call over what the rank updates, the norm
-    summed over the mesh with each element counted once
-    (``ModelShards.counted``); then each owner broadcasts its updated
-    parameters over "data" and the cut ones are all-gathered over it, so
-    every copy is the owner's, bit for bit."""
+    data rank that owns the moments (``sharding.rules`` layout (b): a
+    layer whole on one data rank), a reduce-scatter to each data rank's
+    1/dd along the dimension ZeRO-1 cuts, or an all-reduce where the
+    moments are not cut; then over "pod" by an all-reduce of what the rank
+    holds after that (the moments are the same on every pod, as the
+    reference's ``opt_specs`` cuts them over "data" alone), so only the
+    owner's sum or the rank's 1/dd crosses pods.  One
+    ``adamw_step`` call over what the rank updates, the norm summed over
+    the mesh with each element counted once (``ModelShards.counted``);
+    then each owner broadcasts its updated parameters over "data" and the
+    cut ones are all-gathered over it, so every copy is the owner's, bit
+    for bit."""
     from ..distributed import comm
     from ..sharding.rules import replicated_axes
     mesh = shards.mesh
-    groups = {a: mesh.get_group(a) for a in ("model", "data")
+    groups = {a: mesh.get_group(a) for a in ("model", "pod", "data")
               if shards.sizes.get(a, 1) > 1}
     rows, post = [], []
     for n, p in params.items():
@@ -142,6 +146,9 @@ def _zero1_step(grads, opt, params, hyper, decayed, shards, kw):
                     g = comm.reduce_scatter(g, groups["data"], d)
                 else:
                     g = comm.all_reduce(g, groups["data"])
+            # over "pod" last: only what the rank updates crosses pods
+            if g is not None and "pod" in rep:
+                g = comm.all_reduce(g, groups["pod"])
             g = None if g is None else g.to(p.dtype)
         target = p
         if owner is not None:

@@ -16,26 +16,32 @@ the accumulated step (``distributed.overlap.accum_step_body``: the rule of
 the reference's ``launch/specs.py::make_cell``), eager or captured by the
 same rule; every other config with :func:`step_body`.
 
-**Across ranks.**  Under an ambient ``("data", "model")`` mesh of more
-than one rank (``models.layers.ambient_mesh``), :func:`step_body` runs on
-every rank of the mesh (:class:`MeshStep`) on the model built there
+**Across ranks.**  Under an ambient ``("data", "model")`` or ``("pod",
+"data", "model")`` mesh of more than one rank
+(``models.layers.ambient_mesh``), :func:`step_body` runs on every rank of
+the mesh (:class:`MeshStep`) on the model built there
 (``models.build_model``): with ``attn_shard="default"`` each rank holds
 its shards as ``sharding.rules`` lays them out (tensor parallelism over
-"model", FSDP's d_model split over "data"), with ``"seq"`` whole
-parameters and context parallelism over "model".  Each data rank takes
-its share of the batch (``sharding.batch_specs``: the rows ``[r B/dd,
-(r+1) B/dd)``), every rank's loss is scaled by 1 / (dd mm) before
-``backward`` (every collective's backward is its adjoint), and every
-gradient is summed over each mesh dimension its parameter is replicated
-on, never over one that splits it, in f32 and rounded once to its dtype.
-The sum is the gradient of the reference's loss, the mean over the global
-batch.  AdamW then runs ZeRO-1 (``optim.adamw``), which makes those sums
-itself, each to the ranks that update it (over "data" a reduce to the
-owning data rank or a reduce-scatter): each rank updates what its moments
-cover, the global norm summed over the mesh with each element counted
-once, and the owners send the updated parameters to the other data ranks,
-so every copy of a parameter is equal, bit for bit.  The loss
-and CE reported are the mean over the data ranks.  Such a step runs
+"model", FSDP's d_model split over "data", every parameter replicated over
+"pod"), with ``"seq"`` whole parameters and context parallelism over
+"model".  Each (pod, data) rank takes its share of the batch
+(``sharding.batch_specs``: the batch over ``("pod", "data")``, pod-major,
+the rows ``[r B/n, (r+1) B/n)`` of part r = pod dd + data of n = pods
+dd), every rank's loss is scaled by 1 / (pods dd mm) before ``backward``
+(every collective's backward is its adjoint), and every gradient is
+summed over each mesh dimension its parameter is replicated on, never
+over one that splits it, in f32 and rounded once to its dtype.  The sum
+is the gradient of the reference's loss, the mean over the global batch.
+AdamW then runs ZeRO-1 (``optim.adamw``), which makes those sums itself,
+each to the ranks that update it (over "data" a reduce to the owning
+data rank or a reduce-scatter, then over "pod" an all-reduce of that
+rank's part alone): each rank updates
+what its moments cover (cut over "data" only, the same on every pod, as
+the reference's ``opt_specs``), the global norm summed over the mesh with
+each element counted once, and the owners send the updated parameters to
+the other data ranks of their pod, so every copy of a parameter is equal,
+bit for bit.  The loss and CE reported are the mean over the batch's
+ranks.  Such a step runs
 eagerly (``capture.resolve_compile``; its capture on ``nccl`` is ROADMAP
 Queue 1 item 10(e)), and the accumulated step does not take a mesh (item
 10(f)).
@@ -98,10 +104,11 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 
 class MeshStep(NamedTuple):
-    """A train step across the ranks of the ambient mesh: ``mesh``, its
-    "data" size ``data`` and this rank's place on it ``data_rank``, its
-    ranks ``ranks`` (data x model), and ``groups``, the groups of its
-    dimensions above one, "model" first, named in ``names``."""
+    """A train step across the ranks of the ambient mesh: ``mesh``, the
+    parts its batch splits into ``data`` (pods x data ranks) and this
+    rank's part ``data_rank`` (pod-major), its ranks ``ranks`` (pods x data
+    x model), and ``groups``, the groups of its dimensions above one,
+    "model" first, then "data" and "pod", named in ``names``."""
     mesh: Any
     data: int
     data_rank: int
@@ -111,11 +118,11 @@ class MeshStep(NamedTuple):
 
     def shard(self, batch: Dict[str, torch.Tensor]) -> Dict[str,
                                                             torch.Tensor]:
-        """This data rank's rows of every tensor of ``batch`` (dim 0), as
-        ``sharding.batch_specs`` lays them out: split over "data" where it
-        divides the rows, else every data rank's whole."""
-        from ..sharding.rules import batch_specs
-        specs = batch_specs(None, batch, {"data": self.data})
+        """This rank's rows of every tensor of ``batch`` (dim 0), as
+        ``sharding.batch_specs`` lays them out: split over ("pod", "data")
+        where it divides the rows, else every rank's whole."""
+        from ..sharding.rules import batch_specs, mesh_sizes
+        specs = batch_specs(None, batch, mesh_sizes(self.mesh))
         return {k: v.chunk(self.data, 0)[self.data_rank]
                 if specs[k] and specs[k][0] is not None else v
                 for k, v in batch.items()}
@@ -123,13 +130,13 @@ class MeshStep(NamedTuple):
     @torch.no_grad()
     def reduce_grads(self, params: Dict[str, torch.Tensor]) -> None:
         """Every parameter's gradient summed over each mesh dimension the
-        parameter is replicated on ("model", then "data"), never over one
-        that splits it (a rank's shard's gradient is its own; an FSDP
-        shard's came back summed over "data" by the gather's adjoint): in
-        f32 over each group in turn, rounded once to its dtype (a bf16 sum
-        over ranks would round at every add), one tensor at a time.  A
-        parameter the loss does not reach has no gradient on any rank and
-        is skipped."""
+        parameter is replicated on ("model", then "data", then "pod"),
+        never over one that splits it (a rank's shard's gradient is its
+        own; an FSDP shard's came back summed over "data" by the gather's
+        adjoint): in f32 over each group in turn, rounded once to its dtype
+        (a bf16 sum over ranks would round at every add), one tensor at a
+        time.  A parameter the loss does not reach has no gradient on any
+        rank and is skipped."""
         from ..distributed import comm
         from ..sharding.rules import spec_axes
         for p in params.values():
@@ -147,34 +154,39 @@ class MeshStep(NamedTuple):
 
     @torch.no_grad()
     def mean_over_data(self, t: torch.Tensor) -> torch.Tensor:
-        """``t``'s mean over the data ranks (a model rank's loss is every
-        model rank's)."""
+        """``t``'s mean over the batch's ranks, "data" and "pod" (a model
+        rank's loss is every model rank's)."""
         if self.data == 1:
             return t
         from ..distributed import comm
-        return comm.all_reduce(t, self.mesh.get_group("data")) / self.data
+        for n, g in zip(self.names, self.groups):
+            if n != "model":
+                t = comm.all_reduce(t, g)
+        return t / self.data
 
 
 def mesh_step() -> Optional[MeshStep]:
     """The :class:`MeshStep` of the ambient mesh, or None without one or
-    with one rank.  A mesh dimension above one other than "data" and
-    "model" raises."""
+    with one rank.  A mesh dimension above one other than "pod", "data"
+    and "model" raises."""
     mesh = L._ambient_mesh()
     if mesh is None:
         return None
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     other = {n: s for n, s in sizes.items()
-             if n not in ("data", "model") and s > 1}
+             if n not in ("pod", "data", "model") and s > 1}
     if other:
-        raise ValueError(f"a train step runs across 'data' and 'model' "
-                         f"only; the ambient mesh also has {other}")
-    dd, mm = sizes.get("data", 1), sizes.get("model", 1)
-    if dd * mm == 1:
+        raise ValueError(f"a train step runs across 'pod', 'data' and "
+                         f"'model' only; the ambient mesh also has {other}")
+    pp, dd, mm = (sizes.get(n, 1) for n in ("pod", "data", "model"))
+    if pp * dd * mm == 1:
         return None
-    names = tuple(n for n in ("model", "data") if sizes.get(n, 1) > 1)
-    return MeshStep(mesh=mesh, data=dd,
-                    data_rank=mesh.get_local_rank("data") if dd > 1 else 0,
-                    ranks=dd * mm,
+    names = tuple(n for n in ("model", "data", "pod") if sizes.get(n, 1) > 1)
+    rank = {n: mesh.get_local_rank(n) if sizes.get(n, 1) > 1 else 0
+            for n in ("pod", "data")}
+    return MeshStep(mesh=mesh, data=pp * dd,
+                    data_rank=rank["pod"] * dd + rank["data"],
+                    ranks=pp * dd * mm,
                     groups=tuple(mesh.get_group(n) for n in names),
                     names=names)
 

@@ -63,6 +63,7 @@ CASES = {"llama": ("llama3.2-3b", None, False),
          "jamba_fsdp": ("jamba-1.5-large-398b", None, True),
          "qwen3moe_fsdp": ("qwen3-moe-235b-a22b", None, True)}
 MESHES = {"2x2": (2, 2), "1x4": (1, 4)}        # (data, model)
+POD_MESHES = {"2x1x2": (2, 1, 2), "2x2x1": (2, 2, 1)}   # (pod, data, model)
 TOL = 1e-4                                     # x max(1, max|g|)
 TRAINED = ("falcon", "qwen2moe", "jamba_fsdp")
 PEAK_LR = 1.0              # the first step's lr: PEAK_LR / 100 (warm-up)
@@ -100,13 +101,14 @@ dist.init_process_group("gloo", init_method="file://" + init, rank=rank,
                         timeout=datetime.timedelta(seconds=60))
 import repro_torch.configs.base as base
 from repro_torch.checkpoint import ckpt
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_pod_mesh
 from repro_torch.models import layers as L
 from repro_torch.models.convert import params_from_reference
 from repro_torch.sharding import rules
 from repro_torch.train import loop
 
 CASES, MESHES, TRAINED = %(cases)r, %(meshes)r, %(trained)r
+POD_MESHES = %(pod_meshes)r
 ZERO1_FAULTS, LR = %(zero1)r, %(lr)r
 B, S = %(b)d, %(s)d
 
@@ -148,12 +150,15 @@ def grads(cfg, model, batch):
 
 res = {}
 meshes = {k: make_host_mesh(*v, device_type="cpu") for k, v in MESHES.items()}
+meshes.update({k: make_pod_mesh(*v, device_type="cpu")
+               for k, v in POD_MESHES.items()})
 for key in CASES:
     cfg = config(key)
     tree = unflat(dict(np.load(f"{root}/params_{key}.npz")))
     data = dict(np.load(f"{root}/batch_{key}.npz"))
     batch = {k: torch.from_numpy(v) for k, v in data.items()}
-    for mk, mesh in meshes.items():
+    for mk in MESHES:
+        mesh = meshes[mk]
         with L.ambient_mesh(mesh):
             model = params_from_reference(tree, cfg, "cpu").requires_grad_(
                 True)
@@ -173,8 +178,6 @@ for key in CASES:
                 [list(p.shape), list(want.shape), list(whole[n].shape)])
             res[f"part_{tag}__{n}"] = np.array(torch.equal(p.detach(), want))
         res["split_" + tag] = np.array(shards.split)
-        res["coords_" + tag] = np.array([shards.coords["data"],
-                                         shards.coords["model"]])
 
 # planted faults: falcon-mamba (row-parallel x_proj, out_proj, the vocab
 # tables) under (1, 4)
@@ -268,7 +271,7 @@ for key in TRAINED:
     res[f"one_loss_{key}"] = np.array(one.history + one.grad_norms)
     for n, p in one_state.model.named_parameters():
         res[f"one_{key}__{n}"] = p.detach().numpy().copy()
-    runs = [(mk, mk) for mk in MESHES]
+    runs = [(mk, mk) for mk in (*MESHES, *POD_MESHES)]
     if key == "falcon":
         runs.append(("norm_every_rank", "1x4"))
         runs += [(f, "2x2") for f in ZERO1_FAULTS]
@@ -292,11 +295,12 @@ for key in TRAINED:
             res[f"local_{tag}__{n}"] = p.detach().numpy().copy()
             spec = state.model.shards.params[n].spec
             res[f"axes_{tag}__{n}"] = np.array(
-                [a in rules.spec_axes(spec) for a in ("data", "model")])
+                [a in rules.spec_axes(spec) for a in ("data", "model", "pod")])
         for n, m in state.opt.mu.items():
             res[f"mu_{tag}__{n}"] = np.array(list(m.shape) or [-1])
-        res["coords_" + tag] = np.array([state.model.shards.coords["data"],
-                                         state.model.shards.coords["model"]])
+        res["tcoords_" + tag] = np.array(
+            [state.model.shards.coords.get(a, 0)
+             for a in ("data", "model", "pod")])
 
 # the checkpoint of (2, 2) restored on (1, 4) and on one rank
 dist.barrier()
@@ -395,8 +399,8 @@ def ranks(tmp_path_factory):
     from repro.models import build_model
     from repro_torch.configs import base as tbase
     root = tmp_path_factory.mktemp("shardtrain")
-    fmt = dict(cases=CASES, meshes=MESHES, trained=TRAINED, b=B, s=S,
-               zero1=ZERO1_FAULTS, lr=PEAK_LR)
+    fmt = dict(cases=CASES, meshes=MESHES, pod_meshes=POD_MESHES,
+               trained=TRAINED, b=B, s=S, zero1=ZERO1_FAULTS, lr=PEAK_LR)
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
     for key in CASES:
@@ -521,8 +525,12 @@ def test_in_proj_holds_both_halves_of_the_ranks_channels(ranks):
 
 
 @pytest.mark.parametrize("key", TRAINED)
-@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("mesh", [*MESHES, *POD_MESHES])
 def test_trainer_step_matches_the_one_rank_step(ranks, key, mesh):
+    """One ``Trainer`` step a mesh against the one-rank step: the loss and
+    the global norm (each element counted once, across pods too), and
+    each parameter's change.  The pod meshes' gradients are summed over
+    "data" then over "pod" (``optim.adamw._zero1_step``)."""
     got, _ = ranks
     tag = f"{key}_{mesh}"
     for r in range(WORLD):
@@ -535,19 +543,20 @@ def test_trainer_step_matches_the_one_rank_step(ranks, key, mesh):
 
 
 @pytest.mark.parametrize("key", TRAINED)
-@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("mesh", [*MESHES, *POD_MESHES])
 def test_every_copy_is_bit_equal_and_moments_are_zero1(ranks, key, mesh):
     """Ranks that hold the same part of a parameter (the same place on the
-    axes its spec splits) hold the same bits; a rank holds a stacked
-    layer's moments only where it owns them (ZeRO-1 over "data")."""
+    axes its spec splits) hold the same bits, on every pod; a rank holds a
+    stacked layer's moments only where it owns them (ZeRO-1 over "data",
+    the same on every pod)."""
     got, _ = ranks
     tag = f"{key}_{mesh}"
-    dd, _ = MESHES[mesh]
+    dd = MESHES[mesh][0] if mesh in MESHES else POD_MESHES[mesh][1]
     local = [_of(g, "local_" + tag) for g in got]
-    coords = [g["coords_" + tag] for g in got]
+    coords = [g["tcoords_" + tag] for g in got]
     for n, axes in _of(got[0], "axes_" + tag).items():
         for r in range(1, WORLD):
-            if all(coords[r][i] == coords[0][i] for i in range(2) if axes[i]):
+            if all(coords[r][i] == coords[0][i] for i in range(3) if axes[i]):
                 assert np.array_equal(local[r][n].view(np.uint8),
                                       local[0][n].view(np.uint8)), (n, r)
     if dd > 1 and key == "falcon":
@@ -696,9 +705,12 @@ def test_adamw_norm_across_ranks_on_the_card(cuda_device):
         ref = [[t.cpu() for t in s] for s in sub]
         g = K.adamw_step(*sub, [dec[i] for i in h], hyper,
                          sum_norm=lambda t: parts[0] + parts[1])
-        gr = K.global_norm_ref(ref[1], sum_norm=lambda t, h=h: t + sum(
-            torch.sum(torch.square(whole[1][i].cpu().to(torch.float64)))
-            for i in range(4) if i not in h))
+        def others(t, h=h):             # the other half's squares
+            t = t.clone()
+            t[0] += sum(torch.sum(torch.square(whole[1][i].cpu().to(
+                torch.float64))) for i in range(4) if i not in h)
+            return t
+        gr = K.global_norm_ref(ref[1], sum_norm=others)
         assert abs(float(g) - float(g1)) <= 1e-6 * float(g1)
         assert abs(float(gr) - float(g1)) <= 1e-6 * float(g1)
         # the plain update at the kernels' norm: every tensor bit-equal
