@@ -473,6 +473,29 @@ result line):
    record on every rank, to the fake trace of the same config, mesh and
    batch on gloo's branches (``launch.dryrun.step_trace``, in the same
    host process).
+29. serving under a mesh (after 28, ``phase_mesh_serve``): ranks on the
+   card over gloo (``--serve-rank``), first two, then four
+   (``MS_CASES``): llama3.2-3b with both caches and in f32 on (1, 2) (KV
+   heads over "model"), gemma-2b both caches, in bf16 and in f32, on (1, 2)
+   (its one KV head's 256 dims over "model": the scores and apply
+   kernels), llama3.2-3b at B = 1 over 4,096 positions with both caches,
+   and over 256 in f32, on (2, 1) (positions over "data": the split-KV
+   kernels' partial mode and the merge), falcon-mamba-7b on (1,
+   2); llama3.2-3b both caches and qwen2-moe-a2.7b (f32: bf16's sums in
+   the mesh's order flip routes) on (2, 2); full width, 4 layers, bf16
+   unless f32.  Rank 0 generates with the one-card port
+   model first (launches apart) and broadcasts its greedy tokens; every
+   rank then prefills and decodes them on the model built under the mesh
+   (the main path: counts zeroed just before, read just after), and rank
+   0 holds the gathered logits to ``MS_BF16_BOUND`` (``MS_F32_BOUND`` in
+   f32) of the one-card model's and prints the greedy agreement and each
+   rank's launches of each kernel; the planted faults (``MS_FAULTS``: an
+   empty window contributing its mean of V, the partial scores not summed
+   over "model") must miss the bound; every new kernel must have been
+   launched.  Then each new kernel against its plain version at the
+   phase's local shapes (bf16 and f32; both windows of the partial mode;
+   lse within ``MS_LSE_TOL``), timed (events, device, plain, the bytes
+   bound); their rows join the ``kernels`` line.
 
 20. (run after phases 7, 10, 11, 12 and 21, on each model while it is on the
    card: llama3.2-3b with both caches, falcon-mamba-7b, qwen2-moe-a2.7b,
@@ -7565,6 +7588,404 @@ def launch_cells(kernels, l28):
                 library_autograd_device_ms=_ms(r["autograd_device_us"]))
 
 
+# ------------------------------------------ phase 29: serving under a mesh
+MS_LAYERS = 4
+MS_F32 = {"param_dtype": "float32", "compute_dtype": "float32"}
+# case: (arch, config overrides, kv_dtype, (data, model), batch, prompt,
+# new tokens, max_len); bf16 at full width, MS_LAYERS deep
+MS_CASES = {
+    2: {"llama_1x2": (LM_ARCH, {}, "compute", (1, 2), 8, 512, 16, 528),
+        "llama_int8_1x2": (LM_ARCH, {}, "int8", (1, 2), 8, 512, 32, 544),
+        "llama_f32_1x2": (LM_ARCH, MS_F32, "compute", (1, 2), 8, 128, 8,
+                          136),
+        "gemma_1x2": ("gemma-2b", {}, "compute", (1, 2), 8, 512, 16, 528),
+        "gemma_int8_1x2": ("gemma-2b", {}, "int8", (1, 2), 8, 512, 16, 528),
+        # f32: the head-dim kernels held to MS_F32_BOUND on the model's path
+        "gemma_f32_1x2": ("gemma-2b", MS_F32, "compute", (1, 2), 8, 128, 8,
+                          136),
+        "gemma_int8_f32_1x2": ("gemma-2b", MS_F32, "int8", (1, 2), 8, 128, 8,
+                               136),
+        # B = 1: the positions over "data"; the prompt ends before the
+        # second window, which the decode reaches at its 9th token
+        "llama_b1_2x1": (LM_ARCH, {}, "compute", (2, 1), 1, 2040, 16, 4096),
+        "llama_b1_int8_2x1": (LM_ARCH, {}, "int8", (2, 1), 1, 2040, 16,
+                              4096),
+        # f32, windows of 128: the decode's 9th token opens the second
+        "llama_b1_f32_2x1": (LM_ARCH, MS_F32, "compute", (2, 1), 1, 120, 16,
+                             256),
+        "falcon_1x2": (MAMBA_ARCH, {}, "compute", (1, 2), 8, 512, 16, 528)},
+    4: {"llama_2x2": (LM_ARCH, {}, "compute", (2, 2), 8, 512, 16, 528),
+        "llama_int8_2x2": (LM_ARCH, {}, "int8", (2, 2), 8, 512, 16, 528),
+        # f32: in bf16 the mesh's sums, in another order than one card's,
+        # flip top-4 routes (0.35 of max|logit| on an H100 80GB HBM3)
+        "qwen2moe_f32_2x2": (MOE_ARCH, MS_F32, "compute", (2, 2), 8, 512, 16,
+                             528)}}
+# the mesh's logits against the one-card port model's at the same depth,
+# as a share of max(1, max|logit|): bf16 (phase 20's bound), f32
+MS_BF16_BOUND, MS_F32_BOUND = BF16_LOGIT_BOUND, 2e-3
+MS_LSE_TOL = 1e-5                    # x max(1, |lse|)
+# planted faults: (case, decode steps run with it)
+MS_FAULTS = {"empty_window": ("llama_b1_2x1", 8),
+             "scores_unsummed": ("gemma_1x2", 4)}
+MS_KERNELS = {  # name: (module, replaces)
+    "flash_decode_partial": (decode_attn, "src/repro/kernels/decode_attn.py:67"),
+    "flash_decode_int8_partial": (decode_attn_int8,
+                                  "src/repro/kernels/decode_attn_int8.py:77"),
+    "decode_merge": (decode_attn, "src/repro/kernels/decode_attn.py:67"),
+    "decode_scores": (decode_attn, "src/repro/kernels/decode_attn.py:67"),
+    "decode_apply": (decode_attn, "src/repro/kernels/decode_attn.py:67"),
+    "decode_scores_int8": (decode_attn_int8,
+                           "src/repro/kernels/decode_attn_int8.py:77"),
+    "decode_apply_int8": (decode_attn_int8,
+                          "src/repro/kernels/decode_attn_int8.py:77")}
+MS_DEVICE_KERNELS = {"flash_decode_partial": DECODE_KERNELS,
+                     "flash_decode_int8_partial": DECODE_KERNELS,
+                     "decode_merge": ("decode_merge_kernel",),
+                     "decode_scores": ("decode_scores_kernel",),
+                     "decode_scores_int8": ("decode_scores_kernel",),
+                     "decode_apply": ("decode_apply_kernel",
+                                      "decode_merge_kernel"),
+                     "decode_apply_int8": ("decode_apply_kernel",
+                                           "decode_merge_kernel")}
+
+
+def _ms_cfg(name, world):
+    arch, over, kv = MS_CASES[world][name][:3]
+    return dataclasses.replace(get_arch(arch), n_layers=MS_LAYERS,
+                               kv_dtype=kv, **over)
+
+
+def _ms_prompts(cfg, b, s, dev):
+    g = torch.Generator(device="cpu").manual_seed(29)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                    generator=g).to(dev)}
+
+
+def _ms_generate(cfg, model, batch, max_len, new, tokens=None):
+    """Prefill and ``new`` decode steps, the whole logits of each (gathered
+    under a mesh); fed ``tokens`` (new, B) where given, else greedy:
+    (logits [new + 1 of (B, V) f32], tokens fed)."""
+    logits, cache = port_models.prefill(cfg, model, batch, max_len)
+    out = [port_models.gather_logits(cfg, model, logits, cache)]
+    fed = []
+    for i in range(new):
+        tok = out[-1].argmax(-1) if tokens is None else tokens[i]
+        fed.append(tok)
+        logits, cache = port_models.decode_step(
+            cfg, model, cache, port_models.step_input(cfg, model, tok))
+        out.append(port_models.gather_logits(cfg, model, logits, cache))
+    return out, torch.stack(fed)
+
+
+def _ms_err(got, want):
+    return max((g.float() - w.float()).abs().max().item()
+               / max(1.0, w.float().abs().max().item())
+               for g, w in zip(got, want))
+
+
+def _ms_fault(name):
+    """Patch the planted fault ``name`` in; returns the undo."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import layers as ML
+    if name == "empty_window":
+        real = kops.decode_attention_partial
+
+        def fault(q, k, v, length, w0=0, use_kernel=True, k_scale=None,
+                  v_scale=None):
+            # a window wholly past the row's length contributes its mean
+            o, lse = real(q, k, v, length, w0, use_kernel, k_scale, v_scale)
+            o0, l0 = real(q, k, v, torch.zeros_like(length), w0, use_kernel,
+                          k_scale, v_scale)
+            empty = (length <= w0)[:, None]
+            return (torch.where(empty[..., None], o0, o),
+                    torch.where(empty, l0, lse))
+        kops.decode_attention_partial = fault
+        return lambda: setattr(kops, "decode_attention_partial", real)
+    real = ML._whole_scores
+    ML._whole_scores = lambda sc: sc          # each rank's own slice's
+    return lambda: setattr(ML, "_whole_scores", real)
+
+
+def _serve_rank(argv):
+    """One rank of phase 29 (``--serve-rank rank world store dir
+    device``): a gloo group over the card's ranks; each case of
+    ``MS_CASES[world]`` on its mesh; results to ``dir/rank<r>.pt``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as ML
+    rank, world, store, tmp = (int(argv[0]), int(argv[1]), argv[2],
+                               pathlib.Path(argv[3]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(argv[4])
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    res = {}
+    try:
+        for name, case in MS_CASES[world].items():
+            _, _, _, shape, b, s, new, max_len = case
+            cfg = _ms_cfg(name, world)
+            batch = _ms_prompts(cfg, b, s, dev)
+            t0 = time.perf_counter()
+            one, fed = None, [None]
+            if rank == 0:             # the one-card port model, apart
+                with launches_apart({}), torch.no_grad():
+                    model = build_model(cfg, dev, seed=0)
+                    one, toks = _ms_generate(cfg, model, batch, max_len, new)
+                    del model
+                    _free()
+                fed = [toks.cpu()]
+            dist.broadcast_object_list(fed, src=0)
+            tokens = fed[0].to(dev)
+            mesh = make_host_mesh(*shape, device_type="cpu")
+            with ML.ambient_mesh(mesh), torch.no_grad():
+                model = build_model(cfg, dev, seed=0)
+                torch.cuda.synchronize()
+                dist.barrier()
+                _zero_counts()        # the main path: this case's run
+                t1 = time.perf_counter()
+                got, _ = _ms_generate(cfg, model, batch, max_len, new,
+                                      tokens)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t1
+                counts = _nonzero(launch_counts())
+                part = lm.model_part(cfg, model, b, max_len)
+                rec = {"launches": counts, "run_s": run_s,
+                       "part": {k: getattr(part, k) for k in
+                                ("rows", "window", "heads", "dims")}}
+                for fault, (case_name, steps) in MS_FAULTS.items():
+                    if case_name != name:
+                        continue
+                    undo = _ms_fault(fault)
+                    try:
+                        with launches_apart({}):
+                            bad, _ = _ms_generate(cfg, model, batch, max_len,
+                                                  steps, tokens)
+                    finally:
+                        undo()
+                    if rank == 0:
+                        rec["fault_" + fault] = _ms_err(bad, one)
+                del model
+            _free()
+            if rank == 0:
+                rec["err"] = _ms_err(got, one)
+                rec["greedy_agree"] = float(torch.stack(
+                    [g.argmax(-1) for g in got[:-1]]).eq(tokens).float()
+                    .mean())
+                rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            rec["wall_s"] = time.perf_counter() - t0
+            res[name] = rec
+            dist.barrier()
+    finally:
+        torch.save(res, tmp / f"rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def _ms_inputs(name, dev, dtype):
+    """A new kernel's inputs at the local shapes of phase 29's main path,
+    random (seeded), the caches in the model's (B, S, Hkv, D) layout seen
+    through transposed views: (args of the wrapper, its plain version
+    (called with the same args), bytes the call must move)."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dtype)
+    quant = name.endswith("int8") or "int8_" in name
+
+    def cache(b, s, h, d):
+        if not quant:
+            return rnd(b, s, h, d).transpose(1, 2), None
+        x = torch.randn(b, s, h, d, generator=g)
+        amax = x.abs().amax(-1, keepdim=True)
+        sc = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        q8 = torch.clamp(torch.round(x / sc), -127, 127).to(torch.int8)
+        return q8.to(dev).transpose(1, 2), sc.to(dev).transpose(1, 2)
+    if "partial" in name or name == "decode_merge":
+        # llama3.2-3b's decode on data rank 0 of (2, 1): B 1, its window of
+        # 2048 positions, 24 query over 8 KV heads of 128
+        b, hq, hkv, w, d = 1, 24, 8, 2048, 128
+        lengths = torch.tensor([2056], dtype=torch.int32, device=dev)
+        q = rnd(b, hq, d)
+        (k, ks), (v, vs) = cache(b, w, hkv, d), cache(b, w, hkv, d)
+        elem = 1 if quant else q.element_size()
+        nbytes = 2 * w * hkv * d * elem + (2 * w * hkv * 4 if quant else 0) \
+            + b * hq * d * (q.element_size() + 4) + b * hq * 4
+        if name == "decode_merge":
+            o = torch.randn(2, b, hq, d, generator=g).to(dev)
+            lse = torch.randn(2, b, hq, generator=g).to(dev)
+            return ((o, lse), kernel_ops.ref.decode_merge_ref,
+                    o.numel() * 4 + lse.numel() * 4 + b * hq * d * 4)
+        if quant:
+            return ((q, k, ks, v, vs, lengths, 0),
+                    kernel_ops.ref.decode_int8_partial_ref, nbytes)
+        return (q, k, v, lengths, 0), kernel_ops.ref.decode_partial_ref, \
+            nbytes
+    # gemma-2b's decode on model rank 0 of (1, 2): its 128 of the head's 256
+    # dims, 8 query heads over 1 KV head, 544 positions
+    b, hq, hkv, w, dp, hd = 8, 8, 1, 544, 128, 256
+    lengths = torch.arange(513, 521, dtype=torch.int32, device=dev)
+    q = rnd(b, hq, dp)
+    k, ks = cache(b, w, hkv, dp)
+    elem = 1 if quant else q.element_size()
+    rows = int(lengths.clamp(max=w).sum())
+    if name.startswith("decode_scores"):
+        args = (q, k, ks, lengths, 0, hd ** -0.5) if quant else \
+            (q, k, lengths, 0, hd ** -0.5)
+        plain = lambda *_: kernel_ops.ref.decode_scores_ref(
+            q, k, lengths, 0, hd ** -0.5, ks)
+        nbytes = rows * hkv * dp * elem + (rows * hkv * 4 if quant else 0) \
+            + b * hq * dp * q.element_size() + b * hq * w * 4
+        return args, plain, nbytes
+    sc = torch.randn(b, hq, w, generator=g).to(dev)
+    args = (sc, k, ks, lengths, 0) if quant else (sc, k, lengths, 0)
+    plain = lambda *_: kernel_ops.ref.decode_apply_ref(sc, k, lengths, 0, ks)
+    nbytes = rows * hkv * dp * elem + (rows * hkv * 4 if quant else 0) \
+        + b * hq * w * 4 + b * hq * (dp + 1) * 4
+    return args, plain, nbytes
+
+
+def _ms_close(got, want, tol):
+    """(max |err| of the finite values, the lse within MS_LSE_TOL) of one
+    call's outputs against its plain version's; raises past ``tol`` or
+    where the infinities differ."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        fin = torch.isfinite(w)
+        if not torch.equal(torch.isfinite(g), fin) or \
+                not torch.equal(g[~fin], w[~fin]):
+            raise AssertionError("the infinities differ")
+        if not fin.any():
+            continue
+        err = (g[fin] - w[fin]).abs().max().item()
+        worst = max(worst, err)
+        if i == 1:                   # the lse
+            if ((g - w)[fin].abs() > MS_LSE_TOL
+                    * w[fin].abs().clamp(min=1)).any():
+                raise AssertionError(f"lse err {err}")
+        elif not torch.allclose(g[fin], w[fin], rtol=tol, atol=tol):
+            raise AssertionError(f"err {err} over {tol}")
+    return worst
+
+
+def _ms_kernel_checks(dev):
+    """Each new kernel against its plain version on the card at phase 29's
+    local shapes (bf16 and f32, both windows of the partial mode), and its
+    times: events ms, device ms, the plain version's ms, the bytes bound."""
+    out = {}
+    for name, (mod, _) in MS_KERNELS.items():
+        fn = getattr(mod, name)
+        errs = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = 2e-3 if dtype == torch.float32 else 5e-2
+            args, plain, nbytes = _ms_inputs(name, dev, dtype)
+            with launches_apart({}):
+                errs[str(dtype)] = _ms_close(fn(*args), plain(*args), tol)
+                if "partial" in name:        # the second, emptier window
+                    args2 = args[:-1] + (args[-1] + 2048,)
+                    errs[str(dtype) + " w0=2048"] = _ms_close(
+                        fn(*args2), plain(*args2), tol)
+                if dtype == torch.bfloat16:
+                    ms = _events_ms(lambda: fn(*args), reps=20, trials=5,
+                                    warmup=3)
+                    plain_ms = _events_ms(lambda: plain(*args), reps=5,
+                                          trials=3, warmup=1)
+                    dev_us = _device_total_us(
+                        lambda: fn(*args), f"[29] {name}", reps=20)
+                    t = {"ms": ms, "plain_ms": plain_ms,
+                         "device_us": dev_us,
+                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                         "bytes": nbytes}
+        out[name] = dict(t, max_abs_err=max(errs.values()), errs=errs)
+        print(f"[29] {name}: against its plain version {errs}; "
+              f"{t['ms']:.4f} ms a call (events), device {_us(dev_us)}, "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms")
+    return out
+
+
+def phase_mesh_serve(dev):
+    """Phase 29: serving under a mesh.  Ranks on the card over gloo
+    (``_serve_rank``), first two ((1, 2) and (2, 1) meshes), then four ((2,
+    2)): each case's prefill and decode on a model built under the mesh,
+    its cache laid out by ``cache_specs``, against the one-card port model
+    at the same depth (rank 0); the planted faults; the launches each rank
+    makes of each kernel; then the new kernels against their plain versions
+    at the local shapes here, and their times."""
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    ranks = {}
+    t0 = time.perf_counter()
+    for world in MS_CASES:
+        with tempfile.TemporaryDirectory(dir=root) as tmp:
+            ranks[world] = _spawn_ranks(pathlib.Path(tmp), dev, world,
+                                        flag="--serve-rank", tag="[29]")
+    out = {"ranks_wall_s": time.perf_counter() - t0, "layers": MS_LAYERS,
+           "cases": {}}
+    launched = collections.Counter()
+    for world, cases in MS_CASES.items():
+        for name, case in cases.items():
+            arch, _, kv, shape, b, s, new, max_len = case
+            r0 = ranks[world][0][name]
+            bound = MS_F32_BOUND if "f32" in name else MS_BF16_BOUND
+            per_rank = [r[name]["launches"] for r in ranks[world]]
+            for counts in per_rank:
+                launched.update(counts)
+            print(f"[29] {name}: {arch} {MS_LAYERS} layers kv={kv} on "
+                  f"{shape}, B {b}, {s} + {new} tokens, max_len {max_len}: "
+                  f"part {r0['part']}; logits against the one-card model "
+                  f"max |d| / max(1, max|logit|) {r0['err']:.3g} (bound "
+                  f"{bound}); greedy agreement {r0['greedy_agree']:.3f}; "
+                  f"{r0['run_s']:.2f} s the run, peak {r0['peak_gib']:.1f} "
+                  f"GiB; launches per rank {per_rank}")
+            if not r0["err"] <= bound:
+                raise AssertionError(f"[29] {name}: logits err {r0['err']}")
+            out["cases"][name] = dict(
+                {k: r0[k] for k in ("err", "greedy_agree", "run_s",
+                                    "peak_gib", "part")},
+                bound=bound, launches_per_rank=per_rank)
+            for fault, (case_name, _) in MS_FAULTS.items():
+                if case_name == name:
+                    miss = r0["fault_" + fault]
+                    print(f"[29] planted fault {fault} on {name}: {miss:.3g} "
+                          f"(must exceed {bound})")
+                    if not miss > bound:
+                        raise AssertionError(f"[29] fault {fault} passed")
+                    out["cases"][name]["fault_" + fault] = miss
+    for name in MS_KERNELS:
+        if not launched[name]:
+            raise AssertionError(f"[29] {name} was not launched on the "
+                                 f"main path")
+    out["launched"] = {k: launched[k] for k in MS_KERNELS}
+    out["kernels"] = _ms_kernel_checks(dev)
+    return out
+
+
+def mesh_serve_rows(m29):
+    """The new kernels' rows of the ``kernels`` line."""
+    rows = []
+    for name, (_, replaces) in MS_KERNELS.items():
+        t = m29["kernels"][name]
+        dev_ms = _ms(t["device_us"])
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
+            "replaces": replaces, "launches": m29["launched"][name],
+            "launches_per_rank_by_case": {
+                c: [r.get(name, 0) for r in v["launches_per_rank"]]
+                for c, v in m29["cases"].items()},
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"] if dev_ms is None else dev_ms,
+            "ms_is": "events" if dev_ms is None else "device",
+            "events_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "bytes": t["bytes"],
+            "device_kernels": MS_DEVICE_KERNELS[name],
+            "mesh_serve": {k: v for k, v in m29.items() if k != "kernels"}})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and "
@@ -7673,6 +8094,7 @@ def main() -> int:
     sharded_cells(kernels, sh27)
     launch_cells(kernels, _timed(phase_launch, dev, full, sh27, host))
     del sh27
+    kernels += mesh_serve_rows(_timed(phase_mesh_serve, dev))
     conv_errs = _timed(phase_conv_kernel, dev)
     qs = _timed(phase_quickstart)
     faults = _timed(phase_fault_serve, dev)
@@ -7709,5 +8131,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--sharded-rank"]:
         _sharded_rank(sys.argv[2:])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--serve-rank"]:
+        _serve_rank(sys.argv[2:])
         sys.exit(0)
     sys.exit(main())

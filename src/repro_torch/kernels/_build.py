@@ -42,10 +42,14 @@ _ATTN = (_P,) * 5 + (_I,) * 8 + (_F, _S, _P)
 # q, k, v, o, dO, lse, delta, dq, dk, dv; B, Hq, Hkv, Sq, Sk, D, causal,
 # q_stride; scale
 _ATTN_BWD = (_P,) * 10 + (_I,) * 8 + (_F, _S, _P)
-# q, k, v, out, length, workspace; B, Hq, Hkv, S, D; scale
-_DECODE = (_P,) * 6 + (_I,) * 5 + (_F, _S, _P)
-# q, k8, k scale, v8, v scale, out, length, workspace; as _DECODE
-_DECODE_INT8 = (_P,) * 8 + (_I,) * 5 + (_F, _S, _P)
+# q, k, v, out, lse, length, workspace; B, Hq, Hkv, S, D, w0; scale
+_DECODE = (_P,) * 7 + (_I,) * 6 + (_F, _S, _P)
+# q, k8, k scale, v8, v scale, out, lse, length, workspace; as _DECODE
+_DECODE_INT8 = (_P,) * 9 + (_I,) * 6 + (_F, _S, _P)
+# q, k, k scale, scores, length; B, Hq, Hkv, W, D', w0; scale
+_SCORES = (_P,) * 5 + (_I,) * 6 + (_F, _S, _P)
+# scores, v, v scale, out, lse, length, workspace; B, Hq, Hkv, W, D', w0
+_APPLY = (_P,) * 7 + (_I,) * 6 + (_S, _P)
 # u, dt, a, B, C, D, y, hT; B, L, Din, N; S, G, tile, vec (the plan)
 _SCAN = (_P,) * 8 + (_I,) * 8 + (_S, _P)
 # u, dt, a, B, C, D, dy; du, ddt, dA, dB, dC, dD; bounds, acc, pbc, pa, pd
@@ -72,6 +76,15 @@ SIGNATURES = {
     "flash_decode_bf16": _DECODE,
     "flash_decode_int8_f32": _DECODE_INT8,
     "flash_decode_int8_bf16": _DECODE_INT8,
+    # workspace, out, lse; B, Hq, n partials, D
+    "decode_merge_parts": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "decode_scores_f32": _SCORES,
+    "decode_scores_bf16": _SCORES,
+    "decode_scores_int8_f32": _SCORES,
+    "decode_scores_int8_bf16": _SCORES,
+    "decode_apply_f32": _APPLY,
+    "decode_apply_bf16": _APPLY,
+    "decode_apply_int8": _APPLY,
     "selective_scan_f32": _SCAN,
     "selective_scan_bf16": _SCAN,
     "selective_scan_bwd_f32": _SCAN_BWD,

@@ -1,5 +1,6 @@
 // Flash decode over a float or an int8 KV cache, for Hopper (sm_90a): a
-// split-KV kernel and a merge kernel.
+// split-KV kernel and a merge kernel; and the decode over a slice of the
+// head dimension (decode_scores_kernel, decode_apply_kernel), below.
 //
 // Replaces two Pallas kernels of the JAX package:
 //   flash_decode       <- kernels/decode_attn.py      _decode_kernel
@@ -78,7 +79,17 @@
 // wrapper checks them and copies a tensor that breaks this; the model's
 // (B, S, Hkv, D) cache views meet it.
 //
-// Plain-C entry points (loaded with ctypes): each launches both kernels on
+// Partial mode (a rank's window of a cache split over positions): k/v hold
+// the window [w0, w0 + S) of the whole cache, the lengths are the whole
+// rows'.  The merge then writes o in f32 and each row's lse = m + log l; a
+// window wholly past the row's length takes no chunk and gives o = 0 and
+// lse = -inf, and a row with length <= 0 takes every position of every
+// window (equal scores), so the windows' merge is the mean of V over the
+// whole cache.  The windows' (o, lse) pairs are merged by the same merge
+// kernel, which reads them where the all-gather put them
+// (decode_merge_parts).
+//
+// Plain-C entry points (loaded with ctypes): each launches its kernels on
 // the given stream and returns cudaGetLastError(), or cudaErrorInvalidValue
 // for a head dim the kernels are not built for.
 
@@ -172,7 +183,7 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                     const TKV* __restrict__ v,
                     const float* __restrict__ vscale, float* __restrict__ ws,
                     const int* __restrict__ length, int S, int Hq, int G,
-                    int NC, float sm_scale, DecodeStrides st) {
+                    int NC, int w0, float sm_scale, DecodeStrides st) {
   using Lay = Layout<TKV, D>;
   constexpr int CPR = Lay::CPR, EPC = Lay::EPC, KP = Lay::KP,
                 ROW = Lay::ROW;
@@ -182,7 +193,8 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   const int g0 = (blockIdx.y - b * groups) * MAXG;
   const int len = length[b];
   const bool uniform = len <= 0;  // every position masked: equal scores
-  const int L = uniform ? S : min(len, S);
+  // the positions of this window (global w0 onwards) below the length
+  const int L = uniform ? S : max(0, min(len - w0, S));
   const int c0 = c * CHUNK;
   if (c0 >= L) return;            // the chunk lies past the row's length
   const int cnt = min(CHUNK, L - c0);
@@ -358,26 +370,42 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 }
 
-// One warp per (row, query head): the row's partials, in chunk order, by
-// the exact log-sum-exp rule; the output in q's dtype.
-template <typename TQ>
+// One warp per (row, query head): the row's partials, in order, by the
+// exact log-sum-exp rule; the output in q's dtype.  PARTS false: ws is the
+// split kernel's workspace (B, Hq, NC, D + 4) of (acc, m, l) chunks, those
+// that took part counted from the row's length.  PARTS: NC given partials
+// of disjoint windows, ws their o (NC, B, Hq, D) and m_in their lse (NC,
+// B, Hq), read as (acc, m, l) = (o, lse, 1), every one taking part.
+template <typename TQ, bool PARTS>
 __global__ void __launch_bounds__(NT)
-decode_merge_kernel(const float* __restrict__ ws, TQ* __restrict__ o,
-                    const int* __restrict__ length, int B, int Hq, int S,
-                    int D, int NC, long long ob, long long oh) {
+decode_merge_kernel(const float* __restrict__ ws,
+                    const float* __restrict__ m_in, TQ* __restrict__ o,
+                    float* __restrict__ lse, const int* __restrict__ length,
+                    int B, int Hq, int S, int D, int NC, int w0, long long ob,
+                    long long oh) {
   const int row = blockIdx.x * NW + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= B * Hq) return;
   const int b = row / Hq, h = row - b * Hq;
-  const int len = length[b];
-  const int L = len <= 0 ? S : min(len, S);
-  const int nc = (L + CHUNK - 1) / CHUNK;  // the chunks that took part
+  int nc = NC;  // given partials: every one takes part
+  if (!PARTS) {
+    const int len = length[b];
+    const int L = len <= 0 ? S : max(0, min(len - w0, S));
+    nc = (L + CHUNK - 1) / CHUNK;  // the chunks that took part
+  }
+  const long long BH = static_cast<long long>(B) * Hq;
   const int W = D + 4;
-  const float* part = ws + static_cast<long long>(row) * NC * W;
+  // partial i's acc at part + i * step; its m and l
+  const long long step = PARTS ? BH * D : W;
+  const float* part = ws + (PARTS ? row * static_cast<long long>(D)
+                                  : row * static_cast<long long>(NC) * W);
+  const float* mpart = PARTS ? m_in + row : part + D;
+  const long long mstep = PARTS ? BH : W;
   // lane i combines the (m, l) of partials i, i + 32, ...; then the warp
   float m_own = NEG, l_own = 0.f;
   for (int i = lane; i < nc; i += 32) {
-    const float mi = part[i * W + D], li = part[i * W + D + 1];
+    const float mi = mpart[i * mstep];
+    const float li = PARTS ? 1.f : part[i * W + D + 1];
     const float mn = fmaxf(m_own, mi);
     l_own = l_own * expf(m_own - mn) + li * expf(mi - mn);
     m_own = mn;
@@ -391,6 +419,9 @@ decode_merge_kernel(const float* __restrict__ ws, TQ* __restrict__ o,
   for (int off = 16; off > 0; off >>= 1)
     l += __shfl_xor_sync(0xffffffffu, l, off);
   const float lv = fmaxf(l, 1e-30f);
+  // partial mode: the row's log-sum-exp; -inf where no position took part
+  if (lse != nullptr && lane == 0)
+    lse[row] = l > 0.f ? mx + logf(l) : -__int_as_float(0x7f800000);
   TQ* orow = o + b * ob + h * oh;
   constexpr int BATCH = 16;  // partials' acc loads in flight at once
   for (int c0 = 0; c0 < D; c0 += 128) {  // every lane: the loop shuffles
@@ -399,8 +430,8 @@ decode_merge_kernel(const float* __restrict__ ws, TQ* __restrict__ o,
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int i0 = 0; i0 < nc; i0 += 32) {
       // partial i's weight exp(m_i - m), from lane i % 32 (0 past nc)
-      const float f = i0 + lane < nc ? expf(part[(i0 + lane) * W + D] - mx)
-                                     : 0.f;
+      const float f =
+          i0 + lane < nc ? expf(mpart[(i0 + lane) * mstep] - mx) : 0.f;
       const int n = min(32, nc - i0);
       for (int i1 = 0; i1 < n; i1 += BATCH) {
         float4 x[BATCH];
@@ -408,7 +439,7 @@ decode_merge_kernel(const float* __restrict__ ws, TQ* __restrict__ o,
         for (int j = 0; j < BATCH; ++j)
           x[j] = on && i1 + j < n
                      ? *reinterpret_cast<const float4*>(
-                           part + (i0 + i1 + j) * W + col)
+                           part + (i0 + i1 + j) * step + col)
                      : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
         for (int j = 0; j < BATCH; ++j)
@@ -426,9 +457,9 @@ decode_merge_kernel(const float* __restrict__ ws, TQ* __restrict__ o,
 
 template <typename TQ, typename TKV, bool QUANT, int D>
 int launch(const void* q, const void* k, const void* ks, const void* v,
-           const void* vs, void* o, const void* length, void* ws, int B,
-           int Hq, int Hkv, int S, float sm_scale, const long long* strides,
-           cudaStream_t stream) {
+           const void* vs, void* o, void* lse, const void* length, void* ws,
+           int B, int Hq, int Hkv, int S, int w0, float sm_scale,
+           const long long* strides, cudaStream_t stream) {
   const DecodeStrides st{strides[0], strides[1], strides[2], strides[3],
                          strides[4], strides[5], strides[6], strides[7],
                          strides[8], strides[9], strides[10], strides[11],
@@ -444,28 +475,258 @@ int launch(const void* q, const void* k, const void* ks, const void* v,
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const float*>(ks), static_cast<const TKV*>(v),
       static_cast<const float*>(vs), static_cast<float*>(ws),
-      static_cast<const int*>(length), S, Hq, G, NC, sm_scale, st);
+      static_cast<const int*>(length), S, Hq, G, NC, w0, sm_scale, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_merge_kernel<TQ><<<(B * Hq + NW - 1) / NW, NT, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<TQ*>(o),
-      static_cast<const int*>(length), B, Hq, S, D, NC, st.ob, st.oh);
+  const int grid = (B * Hq + NW - 1) / NW;
+  if (lse != nullptr)  // partial mode: o in f32 and the rows' lse
+    decode_merge_kernel<float, false><<<grid, NT, 0, stream>>>(
+        static_cast<const float*>(ws), nullptr, static_cast<float*>(o),
+        static_cast<float*>(lse), static_cast<const int*>(length), B, Hq, S,
+        D, NC, w0, st.ob, st.oh);
+  else
+    decode_merge_kernel<TQ, false><<<grid, NT, 0, stream>>>(
+        static_cast<const float*>(ws), nullptr, static_cast<TQ*>(o), nullptr,
+        static_cast<const int*>(length), B, Hq, S, D, NC, w0, st.ob, st.oh);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TQ, typename TKV, bool QUANT>
 int dispatch(const void* q, const void* k, const void* ks, const void* v,
-             const void* vs, void* o, const void* length, void* ws, int B,
-             int Hq, int Hkv, int S, int D, float sm_scale,
+             const void* vs, void* o, void* lse, const void* length, void* ws,
+             int B, int Hq, int Hkv, int S, int D, int w0, float sm_scale,
              const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<TQ, TKV, QUANT, 32>(q, k, ks, v, vs, o, length, ws, B, Hq, Hkv, S, sm_scale, strides, s);
-    case 64: return launch<TQ, TKV, QUANT, 64>(q, k, ks, v, vs, o, length, ws, B, Hq, Hkv, S, sm_scale, strides, s);
-    case 128: return launch<TQ, TKV, QUANT, 128>(q, k, ks, v, vs, o, length, ws, B, Hq, Hkv, S, sm_scale, strides, s);
-    case 256: return launch<TQ, TKV, QUANT, 256>(q, k, ks, v, vs, o, length, ws, B, Hq, Hkv, S, sm_scale, strides, s);
+    case 32: return launch<TQ, TKV, QUANT, 32>(q, k, ks, v, vs, o, lse, length, ws, B, Hq, Hkv, S, w0, sm_scale, strides, s);
+    case 64: return launch<TQ, TKV, QUANT, 64>(q, k, ks, v, vs, o, lse, length, ws, B, Hq, Hkv, S, w0, sm_scale, strides, s);
+    case 128: return launch<TQ, TKV, QUANT, 128>(q, k, ks, v, vs, o, lse, length, ws, B, Hq, Hkv, S, w0, sm_scale, strides, s);
+    case 256: return launch<TQ, TKV, QUANT, 256>(q, k, ks, v, vs, o, lse, length, ws, B, Hq, Hkv, S, w0, sm_scale, strides, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Decode over a slice of the head dimension (the cache's head dim split over
+// the "model" ranks): two kernels and the merge.
+//
+// decode_scores_kernel: block (KV head, row, chunk of SCH positions), the
+// G query heads of the KV head together.  The chunk's K rows (D' elements
+// each: the rank's slice) are copied to shared memory with 16-byte loads,
+// once; each thread then takes (position, head) pairs and writes the
+// partial dot product over the slice, times sm_scale (and, for an int8
+// cache, the whole head's K scale of the position, which every rank holds),
+// to scores (B, Hq, W) f32.  Positions at or past the row's length, and
+// every position of a row with length <= 0, get 0: the all-reduce over the
+// ranks then sums finite numbers only.
+//
+// decode_apply_kernel: block (KV head, row, chunk of CHUNK positions) over
+// the summed scores, as decode_split_kernel's blocks: one warp a head takes
+// the chunk's max, its sum of exponentials and P (times the V scale of an
+// int8 cache), the chunk's V rows (copied once with 16-byte loads) give
+// P.V over the slice, and (acc[D'], m, l) goes to the workspace; then
+// decode_merge_kernel combines a row's chunks into o (f32) and lse.  The
+// length rule is decode_split_kernel's, window offset included.
+//
+// What bounds them: the bytes of the K and V slices, each read once.
+// Not done yet: the (position, head) products read K from shared memory with
+// a stride of a row (bank conflicts), and the scores' round trip through
+// global memory is the all-reduce's.
+constexpr int SCH = 32;  // positions per scores block
+
+struct SliceStrides {
+  long long qb, qh;      // q (B, Hq, D'), or o (B, Hq, D') for the apply
+  long long kb, kh, ks;  // the K or V slice (B, Hkv, W, D')
+  long long sb, sh, ss;  // the scales (B, Hkv, W, 1)
+};
+
+template <typename TKV>
+__device__ __forceinline__ void copy_rows(uint8_t* dst, const TKV* src,
+                                          int rows, int cpr, long long rs) {
+  constexpr int EPC = 16 / static_cast<int>(sizeof(TKV));
+  for (int i = threadIdx.x; i < rows * cpr; i += NT) {
+    const int r = i / cpr, cc = i - r * cpr;
+    *reinterpret_cast<uint4*>(dst + (r * cpr + cc) * 16) =
+        *reinterpret_cast<const uint4*>(src + r * rs + cc * EPC);
+  }
+}
+
+template <typename TQ, typename TKV, bool QUANT>
+__global__ void __launch_bounds__(NT)
+decode_scores_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                     const float* __restrict__ kscale,
+                     float* __restrict__ scores,
+                     const int* __restrict__ length, int W, int Hq, int G,
+                     int Dp, int w0, float sm_scale, SliceStrides st) {
+  constexpr int EPC = 16 / static_cast<int>(sizeof(TKV));
+  const int hk = blockIdx.x, b = blockIdx.y, c0 = blockIdx.z * SCH;
+  const int len = length[b];
+  // valid positions of the window; none are computed in a uniform row
+  const int L = len <= 0 ? 0 : max(0, min(len - w0, W));
+  const int cnt = max(0, min(SCH, L - c0));
+  const int cpr = Dp / EPC, row = Dp * static_cast<int>(sizeof(TKV));
+  extern __shared__ float4 smem4[];
+  uint8_t* ksm = reinterpret_cast<uint8_t*>(smem4);
+  float* qs = reinterpret_cast<float*>(ksm + SCH * row);
+  copy_rows(ksm, k + b * st.kb + hk * st.kh + c0 * st.ks, cnt, cpr, st.ks);
+  const int nq = Dp / 4;
+  for (int i = threadIdx.x; i < G * nq; i += NT) {
+    const int g = i / nq, d = (i - g * nq) * 4;
+    *reinterpret_cast<float4*>(&qs[g * Dp + d]) =
+        repro_torch::load4(q + b * st.qb + (hk * G + g) * st.qh + d);
+  }
+  __syncthreads();
+  float* srow = scores + (static_cast<long long>(b) * Hq + hk * G) * W;
+  for (int i = threadIdx.x; i < SCH * G; i += NT) {
+    const int g = i / SCH, r = i - g * SCH, pos = c0 + r;
+    if (pos >= W) continue;
+    float x = 0.f;
+    if (r < cnt) {
+      const uint8_t* krow = ksm + r * row;
+      const float* qg = qs + g * Dp;
+      float dot = 0.f;
+      for (int cc = 0; cc < cpr; ++cc) {
+        float kf[EPC];
+        unpack16(*reinterpret_cast<const uint4*>(krow + cc * 16), kf);
+#pragma unroll
+        for (int e = 0; e < EPC; e += 4)
+          dot = repro_torch::dot4(
+              *reinterpret_cast<const float4*>(qg + cc * EPC + e),
+              make_float4(kf[e], kf[e + 1], kf[e + 2], kf[e + 3]), dot);
+      }
+      if constexpr (QUANT) dot *= kscale[b * st.sb + hk * st.sh + pos * st.ss];
+      x = dot * sm_scale;
+    }
+    srow[static_cast<long long>(g) * W + pos] = x;
+  }
+}
+
+template <typename TKV, bool QUANT>
+__global__ void __launch_bounds__(NT)
+decode_apply_kernel(const float* __restrict__ scores,
+                    const TKV* __restrict__ v,
+                    const float* __restrict__ vscale, float* __restrict__ ws,
+                    const int* __restrict__ length, int W, int Hq, int G,
+                    int Dp, int NC, int w0, SliceStrides st) {
+  constexpr int EPC = 16 / static_cast<int>(sizeof(TKV));
+  const int hk = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
+  const int c0 = c * CHUNK;
+  const int len = length[b];
+  const bool uniform = len <= 0;
+  const int L = uniform ? W : max(0, min(len - w0, W));
+  if (c0 >= L) return;
+  const int cnt = min(CHUNK, L - c0);
+  const int cpr = Dp / EPC, row = Dp * static_cast<int>(sizeof(TKV));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  extern __shared__ float4 smem4[];
+  uint8_t* vsm = reinterpret_cast<uint8_t*>(smem4);
+  float* psm = reinterpret_cast<float*>(vsm + CHUNK * row);  // [G][CHUNK]
+  copy_rows(vsm, v + b * st.kb + hk * st.kh + c0 * st.ks, cnt, cpr, st.ks);
+  const long long Wr = Dp + 4;
+  for (int g = warp; g < G; g += NW) {
+    const int h = hk * G + g;
+    const float* srow = scores + (static_cast<long long>(b) * Hq + h) * W + c0;
+    float s[CHUNK / 32];
+    float mx = NEG;
+#pragma unroll
+    for (int j = 0; j < CHUNK / 32; ++j) {
+      const int pos = lane + 32 * j;
+      s[j] = pos < cnt ? (uniform ? 0.f : srow[pos]) : NEG;
+      if (pos < cnt) mx = fmaxf(mx, s[j]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < CHUNK / 32; ++j) {
+      const int pos = lane + 32 * j;
+      float p = 0.f;
+      if (pos < cnt) {
+        p = expf(s[j] - mx);
+        sum += p;
+        if constexpr (QUANT)
+          p *= vscale[b * st.sb + hk * st.sh + (c0 + pos) * st.ss];
+      }
+      psm[g * CHUNK + pos] = p;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      float* wrow = ws + ((static_cast<long long>(b) * Hq + h) * NC + c) * Wr;
+      wrow[Dp] = mx;
+      wrow[Dp + 1] = sum;
+    }
+  }
+  __syncthreads();
+  const int ncol = Dp / 4;
+  for (int i = tid; i < G * ncol; i += NT) {
+    const int g = i / ncol, col = (i - g * ncol) * 4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int pos = 0; pos < cnt; ++pos)
+      repro_torch::axpy4(psm[g * CHUNK + pos],
+                         repro_torch::load4(
+                             reinterpret_cast<const TKV*>(vsm + pos * row) + col),
+                         acc);
+    float* wrow =
+        ws + ((static_cast<long long>(b) * Hq + hk * G + g) * NC + c) * Wr;
+    *reinterpret_cast<float4*>(wrow + col) = acc;
+  }
+}
+
+SliceStrides slice_strides(const long long* s) {
+  return SliceStrides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]};
+}
+
+template <typename TQ, typename TKV, bool QUANT>
+int launch_scores(const void* q, const void* k, const void* ks, void* sc,
+                  const void* length, int B, int Hq, int Hkv, int W, int Dp,
+                  int w0, float sm_scale, const long long* strides,
+                  void* stream) {
+  if (Dp % (16 / static_cast<int>(sizeof(TKV))) || Dp % 4 || Dp > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = Hq / Hkv;
+  const int smem = SCH * Dp * static_cast<int>(sizeof(TKV)) + G * Dp * 4;
+  auto fn = decode_scores_kernel<TQ, TKV, QUANT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fn<<<dim3(Hkv, B, (W + SCH - 1) / SCH), NT, smem,
+       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+      static_cast<const float*>(ks), static_cast<float*>(sc),
+      static_cast<const int*>(length), W, Hq, G, Dp, w0, sm_scale,
+      slice_strides(strides));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TKV, bool QUANT>
+int launch_apply(const void* sc, const void* v, const void* vs, void* o,
+                 void* lse, const void* length, void* ws, int B, int Hq,
+                 int Hkv, int W, int Dp, int w0, const long long* strides,
+                 void* stream) {
+  if (Dp % (16 / static_cast<int>(sizeof(TKV))) || Dp % 4 || Dp > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = Hq / Hkv, NC = (W + CHUNK - 1) / CHUNK;
+  const int smem = CHUNK * Dp * static_cast<int>(sizeof(TKV)) + G * CHUNK * 4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto fn = decode_apply_kernel<TKV, QUANT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const SliceStrides st = slice_strides(strides);
+  fn<<<dim3(Hkv, B, NC), NT, smem, s>>>(
+      static_cast<const float*>(sc), static_cast<const TKV*>(v),
+      static_cast<const float*>(vs), static_cast<float*>(ws),
+      static_cast<const int*>(length), W, Hq, G, Dp, NC, w0, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_merge_kernel<float, false><<<(B * Hq + NW - 1) / NW, NT, 0, s>>>(
+      static_cast<const float*>(ws), nullptr, static_cast<float*>(o),
+      static_cast<float*>(lse), static_cast<const int*>(length), B, Hq, W,
+      Dp, NC, w0, st.qb, st.qh);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -474,43 +735,126 @@ extern "C" {
 
 // ws: the f32 workspace (B, Hq, ceil(S / CHUNK), D + 4).  strides: 13
 // element strides: q (b, h), k (b, h, s), v (b, h, s), out (b, h), scales
-// (b, h, s); the scale strides are ignored here
+// (b, h, s); the scale strides are ignored by the float kernels.  w0: the
+// first position of the window k/v hold, of the whole cache (0 for a whole
+// cache).  lse: null, or the partial mode: out is f32 and lse (B, Hq) f32
+// gets each row's log-sum-exp (-inf where no position of the window is
+// below the row's length).
 int flash_decode_f32(const void* q, const void* k, const void* v, void* o,
-                     const void* length, void* ws, int B, int Hq, int Hkv,
-                     int S, int D, float sm_scale, const long long* strides,
-                     void* stream) {
-  return dispatch<float, float, false>(q, k, nullptr, v, nullptr, o, length,
-                                       ws, B, Hq, Hkv, S, D, sm_scale,
-                                       strides, stream);
+                     void* lse, const void* length, void* ws, int B, int Hq,
+                     int Hkv, int S, int D, int w0, float sm_scale,
+                     const long long* strides, void* stream) {
+  return dispatch<float, float, false>(q, k, nullptr, v, nullptr, o, lse,
+                                       length, ws, B, Hq, Hkv, S, D, w0,
+                                       sm_scale, strides, stream);
 }
 
 int flash_decode_bf16(const void* q, const void* k, const void* v, void* o,
-                      const void* length, void* ws, int B, int Hq, int Hkv,
-                      int S, int D, float sm_scale, const long long* strides,
-                      void* stream) {
+                      void* lse, const void* length, void* ws, int B, int Hq,
+                      int Hkv, int S, int D, int w0, float sm_scale,
+                      const long long* strides, void* stream) {
   return dispatch<__nv_bfloat16, __nv_bfloat16, false>(
-      q, k, nullptr, v, nullptr, o, length, ws, B, Hq, Hkv, S, D, sm_scale,
-      strides, stream);
+      q, k, nullptr, v, nullptr, o, lse, length, ws, B, Hq, Hkv, S, D, w0,
+      sm_scale, strides, stream);
 }
 
 int flash_decode_int8_f32(const void* q, const void* k8, const void* ks,
-                          const void* v8, const void* vs, void* o,
+                          const void* v8, const void* vs, void* o, void* lse,
                           const void* length, void* ws, int B, int Hq,
-                          int Hkv, int S, int D, float sm_scale,
+                          int Hkv, int S, int D, int w0, float sm_scale,
                           const long long* strides, void* stream) {
-  return dispatch<float, int8_t, true>(q, k8, ks, v8, vs, o, length, ws, B,
-                                       Hq, Hkv, S, D, sm_scale, strides,
-                                       stream);
+  return dispatch<float, int8_t, true>(q, k8, ks, v8, vs, o, lse, length, ws,
+                                       B, Hq, Hkv, S, D, w0, sm_scale,
+                                       strides, stream);
 }
 
 int flash_decode_int8_bf16(const void* q, const void* k8, const void* ks,
                            const void* v8, const void* vs, void* o,
-                           const void* length, void* ws, int B, int Hq,
-                           int Hkv, int S, int D, float sm_scale,
+                           void* lse, const void* length, void* ws, int B,
+                           int Hq, int Hkv, int S, int D, int w0,
+                           float sm_scale, const long long* strides,
+                           void* stream) {
+  return dispatch<__nv_bfloat16, int8_t, true>(q, k8, ks, v8, vs, o, lse,
+                                               length, ws, B, Hq, Hkv, S, D,
+                                               w0, sm_scale, strides, stream);
+}
+
+// n partials of disjoint windows merged: op (n, B, Hq, D) f32 their o and
+// lp (n, B, Hq) f32 their lse, both contiguous; o (B, Hq, D) f32
+// contiguous; lse (B, Hq) f32 or null.
+int decode_merge_parts(const void* op, const void* lp, void* o, void* lse,
+                       int B, int Hq, int n, int D, void* stream) {
+  if (D % 4) return static_cast<int>(cudaErrorInvalidValue);
+  decode_merge_kernel<float, true><<<(B * Hq + NW - 1) / NW, NT, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(op), static_cast<const float*>(lp),
+      static_cast<float*>(o), static_cast<float*>(lse), nullptr, B, Hq, 0, D,
+      n, 0, static_cast<long long>(Hq) * D, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scores (B, Hq, W) f32 contiguous; strides: q (b, h), k (b, h, s), scales
+// (b, h, s) (ignored by the float kernels).  D' (Dp): the slice's elements,
+// a multiple of 16 bytes and of 4, at most 256.
+int decode_scores_f32(const void* q, const void* k, const void* ks, void* sc,
+                      const void* length, int B, int Hq, int Hkv, int W,
+                      int Dp, int w0, float sm_scale,
+                      const long long* strides, void* stream) {
+  return launch_scores<float, float, false>(q, k, ks, sc, length, B, Hq, Hkv,
+                                            W, Dp, w0, sm_scale, strides,
+                                            stream);
+}
+
+int decode_scores_bf16(const void* q, const void* k, const void* ks,
+                       void* sc, const void* length, int B, int Hq, int Hkv,
+                       int W, int Dp, int w0, float sm_scale,
+                       const long long* strides, void* stream) {
+  return launch_scores<__nv_bfloat16, __nv_bfloat16, false>(
+      q, k, ks, sc, length, B, Hq, Hkv, W, Dp, w0, sm_scale, strides, stream);
+}
+
+int decode_scores_int8_f32(const void* q, const void* k, const void* ks,
+                           void* sc, const void* length, int B, int Hq,
+                           int Hkv, int W, int Dp, int w0, float sm_scale,
                            const long long* strides, void* stream) {
-  return dispatch<__nv_bfloat16, int8_t, true>(q, k8, ks, v8, vs, o, length,
-                                               ws, B, Hq, Hkv, S, D, sm_scale,
-                                               strides, stream);
+  return launch_scores<float, int8_t, true>(q, k, ks, sc, length, B, Hq, Hkv,
+                                            W, Dp, w0, sm_scale, strides,
+                                            stream);
+}
+
+int decode_scores_int8_bf16(const void* q, const void* k, const void* ks,
+                            void* sc, const void* length, int B, int Hq,
+                            int Hkv, int W, int Dp, int w0, float sm_scale,
+                            const long long* strides, void* stream) {
+  return launch_scores<__nv_bfloat16, int8_t, true>(
+      q, k, ks, sc, length, B, Hq, Hkv, W, Dp, w0, sm_scale, strides, stream);
+}
+
+// o (B, Hq, D') f32 and lse (B, Hq) f32; ws (B, Hq, ceil(W / CHUNK), D' + 4)
+// f32; strides: o (b, h), v (b, h, s), scales (b, h, s).
+int decode_apply_f32(const void* sc, const void* v, const void* vs, void* o,
+                     void* lse, const void* length, void* ws, int B, int Hq,
+                     int Hkv, int W, int Dp, int w0,
+                     const long long* strides, void* stream) {
+  return launch_apply<float, false>(sc, v, vs, o, lse, length, ws, B, Hq,
+                                    Hkv, W, Dp, w0, strides, stream);
+}
+
+int decode_apply_bf16(const void* sc, const void* v, const void* vs, void* o,
+                      void* lse, const void* length, void* ws, int B, int Hq,
+                      int Hkv, int W, int Dp, int w0,
+                      const long long* strides, void* stream) {
+  return launch_apply<__nv_bfloat16, false>(sc, v, vs, o, lse, length, ws, B,
+                                            Hq, Hkv, W, Dp, w0, strides,
+                                            stream);
+}
+
+int decode_apply_int8(const void* sc, const void* v, const void* vs, void* o,
+                      void* lse, const void* length, void* ws, int B, int Hq,
+                      int Hkv, int W, int Dp, int w0,
+                      const long long* strides, void* stream) {
+  return launch_apply<int8_t, true>(sc, v, vs, o, lse, length, ws, B, Hq, Hkv,
+                                    W, Dp, w0, strides, stream);
 }
 
 }  // extern "C"

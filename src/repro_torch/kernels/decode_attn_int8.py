@@ -17,6 +17,14 @@ or a (B,) integer tensor, as for ``decode_attn.flash_decode``, with the
 same split, merge and launch plan (``decode_attn.decode_plan``); a row with
 ``length <= 0`` gets the mean of the dequantized V over all S positions.
 
+Over a part of an int8 cache (serving under a mesh):
+:func:`flash_decode_int8_partial` is ``decode_attn.flash_decode_partial``
+over a window of codes and scales; :func:`decode_scores_int8` and
+:func:`decode_apply_int8` are ``decode_attn.decode_scores`` and
+``decode_apply`` over a slice of the codes, the whole head's scales (which
+every rank of the slice holds) applied to each position's partial dot
+product and to its P.
+
 ``LAUNCHES`` counts wrapper calls that launch the kernels, one per call
 (not direct calls of :func:`launch`); :func:`reset_launches` zeroes it.
 """
@@ -26,10 +34,13 @@ from __future__ import annotations
 import torch
 
 from . import _build, _tensors
+from . import decode_attn
 from .decode_attn import check_decode, decode_plan, workspace_for
-from .ref import decode_int8_ref
+from .ref import (decode_apply_ref, decode_int8_partial_ref, decode_int8_ref,
+                  decode_scores_ref)
 
-LAUNCHES = {"flash_decode_int8": 0}
+LAUNCHES = {"flash_decode_int8": 0, "flash_decode_int8_partial": 0,
+            "decode_scores_int8": 0, "decode_apply_int8": 0}
 
 
 def reset_launches() -> None:
@@ -44,6 +55,17 @@ def flash_decode_int8_plain(q: torch.Tensor, k8: torch.Tensor,
     return decode_int8_ref(q, k8, k_scale, v8, v_scale, length)
 
 
+def check_scales(name, q, scales, b, hkv, s):
+    for label, sc in scales:
+        if sc.dtype != torch.float32 or tuple(sc.shape) != (b, hkv, s, 1):
+            raise ValueError(f"{name}: {label} must be float32 of shape "
+                             f"{(b, hkv, s, 1)}, got {sc.dtype} "
+                             f"{tuple(sc.shape)}")
+        if sc.device != q.device:
+            raise ValueError(f"{name}: {label} is on {sc.device}, q on "
+                             f"{q.device}")
+
+
 def flash_decode_int8(q: torch.Tensor, k8: torch.Tensor,
                       k_scale: torch.Tensor, v8: torch.Tensor,
                       v_scale: torch.Tensor, length) -> torch.Tensor:
@@ -52,14 +74,8 @@ def flash_decode_int8(q: torch.Tensor, k8: torch.Tensor,
     dtype."""
     name = "flash_decode_int8"
     b, hq, hkv, s, d = check_decode(name, q, k8, v8, (torch.int8,))
-    for label, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
-        if sc.dtype != torch.float32 or tuple(sc.shape) != (b, hkv, s, 1):
-            raise ValueError(f"{name}: {label} must be float32 of shape "
-                             f"{(b, hkv, s, 1)}, got {sc.dtype} "
-                             f"{tuple(sc.shape)}")
-        if sc.device != q.device:
-            raise ValueError(f"{name}: {label} is on {sc.device}, q on "
-                             f"{q.device}")
+    check_scales(name, q, (("k_scale", k_scale), ("v_scale", v_scale)), b,
+                 hkv, s)
     lengths = _tensors.row_lengths(name, length, b, q.device)
     if q.device.type == "cpu":
         return flash_decode_int8_plain(q, k8, k_scale, v8, v_scale, lengths)
@@ -69,11 +85,72 @@ def flash_decode_int8(q: torch.Tensor, k8: torch.Tensor,
     return out
 
 
+def flash_decode_int8_partial(q: torch.Tensor, k8: torch.Tensor,
+                              k_scale: torch.Tensor, v8: torch.Tensor,
+                              v_scale: torch.Tensor, length, w0: int = 0):
+    """``decode_attn.flash_decode_partial`` over an int8 window (codes
+    (B, Hkv, W, D), scales (B, Hkv, W, 1)) -> (o f32, lse f32)."""
+    name = "flash_decode_int8_partial"
+    b, hq, hkv, s, d = check_decode(name, q, k8, v8, (torch.int8,))
+    check_scales(name, q, (("k_scale", k_scale), ("v_scale", v_scale)), b,
+                 hkv, s)
+    w0 = decode_attn.check_window(name, w0)
+    lengths = _tensors.row_lengths(name, length, b, q.device)
+    if q.device.type == "cpu":
+        return decode_int8_partial_ref(q, k8, k_scale, v8, v_scale, lengths,
+                                       w0)
+    _tensors.check_no_grad(name, q, k_scale, v_scale)
+    out = launch(q, k8, k_scale, v8, v_scale, lengths, w0=w0)
+    LAUNCHES[name] += 1
+    return out
+
+
+def decode_scores_int8(q: torch.Tensor, k8: torch.Tensor,
+                       k_scale: torch.Tensor, length, w0: int,
+                       sm_scale: float) -> torch.Tensor:
+    """``decode_attn.decode_scores`` over a slice of int8 codes (B, Hkv, W,
+    D') with the whole head's scales (B, Hkv, W, 1)."""
+    name = "decode_scores_int8"
+    b, hq, hkv, w, dp = decode_attn.check_slice(name, q, k8)
+    if q.dtype not in _tensors.FLOAT_DTYPES or k8.dtype != torch.int8:
+        raise TypeError(f"{name}: q must be f32 or bf16 and k int8, got "
+                        f"{q.dtype}, {k8.dtype}")
+    check_scales(name, q, (("k_scale", k_scale),), b, hkv, w)
+    w0 = decode_attn.check_window(name, w0)
+    lengths = _tensors.row_lengths(name, length, b, q.device)
+    if q.device.type == "cpu":
+        return decode_scores_ref(q, k8, lengths, w0, sm_scale, k_scale)
+    _tensors.check_no_grad(name, q, k_scale)
+    out = decode_attn.launch_scores(q, k8, k_scale, lengths, w0, sm_scale)
+    LAUNCHES[name] += 1
+    return out
+
+
+def decode_apply_int8(scores: torch.Tensor, v8: torch.Tensor,
+                      v_scale: torch.Tensor, length, w0: int = 0):
+    """``decode_attn.decode_apply`` over a slice of int8 codes with the
+    whole head's scales -> (o f32, lse f32)."""
+    name = "decode_apply_int8"
+    b, hq, w = decode_attn.check_apply(name, scores, v8)
+    if v8.dtype != torch.int8:
+        raise TypeError(f"{name}: v must be int8, got {v8.dtype}")
+    check_scales(name, scores, (("v_scale", v_scale),), b, v8.shape[1], w)
+    w0 = decode_attn.check_window(name, w0)
+    lengths = _tensors.row_lengths(name, length, b, v8.device)
+    if v8.device.type == "cpu":
+        return decode_apply_ref(scores, v8, lengths, w0, v_scale)
+    _tensors.check_no_grad(name, scores, v_scale)
+    out = decode_attn.launch_apply(scores, v8, v_scale, lengths, w0)
+    LAUNCHES[name] += 1
+    return out
+
+
 def launch(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
            v8: torch.Tensor, v_scale: torch.Tensor, lengths: torch.Tensor,
-           workspace: torch.Tensor | None = None) -> torch.Tensor:
+           workspace: torch.Tensor | None = None, w0: int | None = None):
     """The kernels on CUDA operands that :func:`flash_decode_int8` has
-    checked, as ``decode_attn.launch``; not counted in ``LAUNCHES``."""
+    checked, as ``decode_attn.launch`` (``w0``: its partial mode); not
+    counted in ``LAUNCHES``."""
     name = "flash_decode_int8"
     b, hq, d = q.shape
     hkv, s = k8.shape[1:3]
@@ -84,9 +161,10 @@ def launch(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
     if k_scale.stride() != v_scale.stride():
         # the kernel reads both scales through one set of strides
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
-    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    partial = w0 is not None
+    out, lse = decode_attn._outputs(q, partial)
     if b == 0 or hq == 0:
-        return out
+        return (out, lse) if partial else out
     ws = workspace_for(plan, q.device, workspace)
     lib = _build.load()
     fn = lib.flash_decode_int8_f32 if q.dtype == torch.float32 \
@@ -96,7 +174,8 @@ def launch(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(),
                  v8.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
-                 lengths.data_ptr(), ws.data_ptr(), b, hq, hkv, s, d,
-                 1.0 / (d ** 0.5), st, _tensors.stream(q.device))
+                 decode_attn._ptr(lse), lengths.data_ptr(), ws.data_ptr(), b,
+                 hq, hkv, s, d, w0 or 0, 1.0 / (d ** 0.5), st,
+                 _tensors.stream(q.device))
     _build.check(lib, name, err)
-    return out
+    return (out, lse) if partial else out

@@ -14,8 +14,10 @@ from __future__ import annotations
 
 from . import ref
 from .conv2d import crossbar_conv2d
-from .decode_attn import flash_decode
-from .decode_attn_int8 import flash_decode_int8
+from .decode_attn import (decode_apply, decode_merge, decode_scores,
+                          flash_decode, flash_decode_partial)
+from .decode_attn_int8 import (decode_apply_int8, decode_scores_int8,
+                               flash_decode_int8, flash_decode_int8_partial)
 from .flash_attn import flash_attention
 from .mamba_scan import selective_scan
 from .mxv import crossbar_mxv, crossbar_mxv_int8
@@ -89,3 +91,50 @@ def decode_attention_int8(q, k8, k_scale, v8, v_scale, length,
     if use_kernel:
         return flash_decode_int8(q, k8, k_scale, v8, v_scale, length)
     return ref.decode_int8_ref(q, k8, k_scale, v8, v_scale, length)
+
+
+def decode_attention_partial(q, k, v, length, w0: int = 0,
+                             use_kernel: bool = True, k_scale=None,
+                             v_scale=None):
+    """(o f32, lse f32) of the decode over a window of the cache (an int8
+    one with ``k_scale``/``v_scale``): the split-KV kernels' partial mode,
+    or its plain version."""
+    if k_scale is not None:
+        if use_kernel:
+            return flash_decode_int8_partial(q, k, k_scale, v, v_scale,
+                                             length, w0)
+        return ref.decode_int8_partial_ref(q, k, k_scale, v, v_scale, length,
+                                           w0)
+    if use_kernel:
+        return flash_decode_partial(q, k, v, length, w0)
+    return ref.decode_partial_ref(q, k, v, length, w0)
+
+
+def decode_attention_merge(o, lse, use_kernel: bool = True):
+    """The merge of partials over disjoint windows (stacked on dim 0)."""
+    if use_kernel:
+        return decode_merge(o, lse)
+    return ref.decode_merge_ref(o, lse)
+
+
+def decode_attention_scores(q, k, length, w0: int, sm_scale: float,
+                            use_kernel: bool = True, k_scale=None):
+    """The partial scores over a slice of the head dim (an int8 slice with
+    the whole head's ``k_scale``)."""
+    if use_kernel:
+        if k_scale is not None:
+            return decode_scores_int8(q, k, k_scale, length, w0, sm_scale)
+        return decode_scores(q, k, length, w0, sm_scale)
+    return ref.decode_scores_ref(q, k, length, w0, sm_scale, k_scale)
+
+
+def decode_attention_apply(scores, v, length, w0: int = 0,
+                           use_kernel: bool = True, v_scale=None):
+    """(o f32, lse f32): the softmax of the summed scores and P.V over a
+    slice of the head dim (an int8 slice with the whole head's
+    ``v_scale``)."""
+    if use_kernel:
+        if v_scale is not None:
+            return decode_apply_int8(scores, v, v_scale, length, w0)
+        return decode_apply(scores, v, length, w0)
+    return ref.decode_apply_ref(scores, v, length, w0, v_scale)

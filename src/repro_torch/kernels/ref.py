@@ -232,6 +232,104 @@ def decode_int8_ref(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
     return decode_ref(q, k, v, length)
 
 
+# ------------------------------------------- decode over a part of the cache
+def _window(length, w0: int, w: int, device):
+    """(valid (B|1, W), uniform (B|1, 1)) of a window of ``w`` cache
+    positions starting at global position ``w0``: position ``w0 + i`` is
+    valid below the row's ``length``; a row with ``length <= 0`` is
+    uniform (every position of every window valid, all scores equal), as
+    :func:`decode_ref` masks its whole row."""
+    lens = _row_lengths(length, device)
+    uniform = lens <= 0
+    pos = torch.arange(w, device=device)[None] + w0
+    return (pos < lens) | uniform, uniform
+
+
+def _gqa(q, k):
+    """q (B, Hq, D) . k (B, Hkv, W, D) -> (B, Hq, W) f32."""
+    b, hq, d = q.shape
+    hkv, w = k.shape[1], k.shape[2]
+    qg = q.to(torch.float32).reshape(b, hkv, hq // hkv, d)
+    return torch.einsum("bhgd,bhwd->bhgw", qg,
+                        k.to(torch.float32)).reshape(b, hq, w)
+
+
+def _softmax_apply(sc, v, length, w0: int):
+    """Scores (B, Hq, W) f32 over a window -> (o (B, Hq, D) f32, lse (B,
+    Hq) f32): the softmax over the window's valid positions (uniform rows:
+    equal scores at every position) and its log-sum-exp; a row with no
+    valid position in the window gives o = 0 and lse = -inf."""
+    b, hq, w = sc.shape
+    hkv, d = v.shape[1], v.shape[-1]
+    valid, uniform = _window(length, w0, w, sc.device)
+    sc = torch.where(uniform[:, None], 0.0, sc)
+    sc = torch.where(valid[:, None], sc, float("-inf"))
+    lse = torch.logsumexp(sc, dim=-1)
+    p = torch.exp(sc - torch.where(torch.isfinite(lse), lse, 0.0)[..., None])
+    pg = p.reshape(b, hkv, hq // hkv, w)
+    o = torch.einsum("bhgw,bhwd->bhgd", pg,
+                     v.to(torch.float32)).reshape(b, hq, d)
+    return o, lse
+
+
+def decode_partial_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       length, w0: int = 0):
+    """Oracle for the split-KV decode's partial mode: q (B, Hq, D) over a
+    window k/v (B, Hkv, W, D) of the cache, its first position ``w0`` of
+    the whole cache, ``length`` the whole row's -> (o (B, Hq, D) f32,
+    lse (B, Hq) f32).  A window wholly past the row's length gives o = 0
+    and lse = -inf; a row with ``length <= 0`` gives the mean of the
+    window's V and lse = log W, so the windows' merge
+    (:func:`decode_merge_ref`) is :func:`decode_ref`'s mean of V over the
+    whole cache."""
+    return _softmax_apply(_gqa(q, k) / (q.shape[-1] ** 0.5), v, length, w0)
+
+
+def decode_int8_partial_ref(q, k8, k_scale, v8, v_scale, length,
+                            w0: int = 0):
+    """:func:`decode_partial_ref` over an int8 window, dequantized first."""
+    return decode_partial_ref(q, k8.to(torch.float32) * k_scale,
+                              v8.to(torch.float32) * v_scale, length, w0)
+
+
+def decode_merge_ref(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """n partials over disjoint windows, o (n, B, H, D) f32 and lse (n, B,
+    H) f32 -> the attention over their union (B, H, D) f32: weights
+    exp(lse_i - max lse), normalised."""
+    m = lse.amax(0)
+    w = torch.exp(lse - torch.where(torch.isfinite(m), m, 0.0))
+    return (w[..., None] * o).sum(0) / w.sum(0).clamp_min(1e-30)[..., None]
+
+
+def decode_scores_ref(q: torch.Tensor, k: torch.Tensor, length, w0: int,
+                      sm_scale: float, k_scale=None) -> torch.Tensor:
+    """Oracle for the decode's partial scores over a slice of the head
+    dimension: q (B, Hq, D') and k (B, Hkv, W, D') the slice ->
+    (B, Hq, W) f32, the dot products over the slice times ``sm_scale``
+    (and the whole head's K scale of an int8 cache, ``k_scale`` (B, Hkv,
+    W, 1)), 0 at the positions past the row's length and in uniform rows.
+    Summed over the slices, they are the whole head's scores."""
+    kf = k.to(torch.float32)
+    if k_scale is not None:
+        kf = kf * k_scale
+    valid, uniform = _window(length, w0, k.shape[2], q.device)
+    return torch.where((valid & ~uniform)[:, None], _gqa(q, kf) * sm_scale,
+                       0.0)
+
+
+def decode_apply_ref(scores: torch.Tensor, v: torch.Tensor, length,
+                     w0: int = 0, v_scale=None):
+    """Oracle for the decode's softmax and P.V over a slice of the head
+    dimension: ``scores`` (B, Hq, W) f32 summed over every slice, v (B,
+    Hkv, W, D') the slice (times ``v_scale`` of an int8 cache) -> (o (B,
+    Hq, D') f32, lse (B, Hq) f32), with :func:`decode_partial_ref`'s rules
+    for the window and for ``length <= 0``."""
+    vf = v.to(torch.float32)
+    if v_scale is not None:
+        vf = vf * v_scale
+    return _softmax_apply(scores, vf, length, w0)
+
+
 # -------------------------------------------------------------- mamba-1 scan
 def selective_scan_ref(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                        b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,

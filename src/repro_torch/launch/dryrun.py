@@ -34,11 +34,15 @@ A record holds:
 - ``roofline``: ``launch.roofline.roofline_terms`` at the H100's
   data-sheet rates; ``ok`` or ``error``.
 
-Serving cells on a mesh of more than one rank are recorded as failed
-(ROADMAP item 10(i)) and traced on one rank (file suffix ``_one``).  The
-plain selective scan is one step a position, so a Mamba cell at full
-depth takes minutes on fake tensors: ``--scaled`` traces one and two
-layer periods and extrapolates.
+Serving cells trace on the mesh: the rank's shards, its part of the cache
+as ``cache_specs`` lays it out (``memory``'s argument bytes count it) and
+the collectives of serving under a mesh (the score sums over "model" of a
+head dim split there, the windows' merge over "data", the MoE's rows
+gathered at decode).  An enc-dec or ``attn_shard="seq"`` serving cell on a
+mesh is recorded as failed (ROADMAP item 10(k)) and traced on one rank
+(file suffix ``_one``).  The plain selective scan is one step a position,
+so a Mamba cell at full depth takes minutes on fake tensors: ``--scaled``
+traces one and two layer periods and extrapolates.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b \\
         --shape train_4k [--mesh single|multi|one|both] [--scaled] \\
@@ -204,7 +208,7 @@ def trace_cell(cell) -> dict:
 
 def step_trace(cfg, shape, mesh_shape, branches: str = "nccl",
                rank: int = 0) -> dict:
-    """:func:`trace_cell` of one train step of ``cfg`` at ``shape`` on a
+    """:func:`trace_cell` of one step of ``cfg`` at ``shape`` on a
     fake world of ``mesh_shape``'s ranks (``("data", "model")``, or with
     three sizes ``("pod", "data", "model")``), the collectives on
     ``branches``' branches ("nccl" or "gloo"): what a run of that step on
@@ -223,8 +227,10 @@ def trace_spec(spec: dict) -> dict:
     """One rank's train step of ``spec`` traced, JSON in and out (for
     :func:`start_traces`): ``arch``, ``reduced`` (its smoke config),
     ``overrides``, ``seq_len``, ``batch``, ``mesh`` (sizes, as
-    :func:`step_trace`'s; None or absent: one rank and no process group)
-    and ``branches``.  Returns the collective records' keys, the counts of
+    :func:`step_trace`'s; None or absent: one rank and no process group),
+    ``branches`` and ``kind`` ("train" if absent; "prefill" or "decode":
+    the serving call of that cell, a decode step against a ``seq_len``-deep
+    cache).  Returns the collective records' keys, the counts of
     :func:`trace_cell`, the model FLOPs, the roofline at the H100's
     data-sheet rates and the seconds the trace took."""
     import dataclasses
@@ -235,7 +241,8 @@ def trace_spec(spec: dict) -> dict:
     cfg = smoke_config(spec["arch"]) if spec.get("reduced") else \
         get_arch(spec["arch"])
     cfg = dataclasses.replace(cfg, **spec.get("overrides", {}))
-    shape = ShapeSpec("step", spec["seq_len"], spec["batch"], "train")
+    shape = ShapeSpec("step", spec["seq_len"], spec["batch"],
+                      spec.get("kind", "train"))
     mesh = spec.get("mesh")
     st = trace_cell(make_cell(cfg, shape, None)) if mesh is None else \
         step_trace(cfg, shape, tuple(mesh), spec.get("branches", "nccl"))
@@ -331,7 +338,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: Optional[bool],
            "ok": False}
     try:
         with production_mesh(pod) as mesh:
-            stats = trace_cell(make_cell(arch, shape_name, mesh, overrides))
+            cell = make_cell(arch, shape_name, mesh, overrides)
+            stats = trace_cell(cell)
         rec["memory"] = stats["memory"]
         print(f"[{arch}/{shape_name}] memory:", rec["memory"])
         rec["cost"] = {"flops": stats["flops"],
@@ -341,6 +349,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: Optional[bool],
         rec["collectives"] = stats["collectives"]
         rec["network_bytes"] = stats["network_bytes"]
         rec["roofline"] = _roofline(stats, cfg, shape, chips)
+        if shape.kind != "train":
+            rec["cache_bytes"] = cache_bytes(cell)
         rec["ok"] = True
     except Exception:
         rec["error"] = traceback.format_exc()[-2000:]
@@ -351,6 +361,25 @@ def run_cell(arch: str, shape_name: str, multi_pod: Optional[bool],
     print(f"[{status}] {arch} x {shape_name} x {_mesh_text(pod)} "
           f"({rec['trace_s']}s)", flush=True)
     return rec
+
+
+def cache_bytes(cell) -> int:
+    """The bytes of one rank's decode cache of a serving ``cell``
+    (``specs.make_cell``): the whole cache's leaves cut as the cell's
+    placements (``cache_specs``) lay them out."""
+    from ..models import lm
+    from ..sharding import rules
+    whole = lm.init_cache(cell.cfg, cell.shape.global_batch,
+                          cell.shape.seq_len, "meta")
+    tree = {k: whole[k] for k in ("layers", "length")}
+    if cell.placements is not None:
+        sizes = rules.mesh_sizes(cell.mesh)
+        tree = rules._tree_zip(lambda t, place: torch.empty(
+            rules.local_shape(t.shape, place, sizes), dtype=t.dtype,
+            device="meta"), tree, cell.placements["cache"])
+    return sum(t.numel() * t.element_size()
+               for e in tree["layers"] for t in e.values()) + \
+        tree["length"].numel() * tree["length"].element_size()
 
 
 def _depth_overrides(cfg, depth: int, extra=None) -> dict:
@@ -465,8 +494,10 @@ def main() -> None:
     n_fail = 0
     for arch, shape in _cells(args):
         todo = list(meshes)
-        if SHAPES[shape].kind != "train" and None not in todo:
-            todo.append(None)          # serving: traced on one rank too
+        cfg = get_arch(arch)
+        if SHAPES[shape].kind != "train" and None not in todo and (
+                cfg.is_encdec or cfg.attn_shard == "seq"):
+            todo.append(None)          # item 10(k): traced on one rank too
         for mp in todo:
             pod = _pod(mp)
             suffix = "_scaled" if args.scaled else (f"_{tag}" if tag else "")

@@ -30,8 +30,9 @@ LEVERS = {
         "attn_shard=seq + causal_bound: striped queries through the flash "
         "kernel's q_stride, K/V gathered once a layer",
     ("collective", "decode"):
-        "serving under cache_specs (ROADMAP 10(i)): KV heads over model, "
-        "the batch over data",
+        "serving under cache_specs: KV heads over model where they divide "
+        "(no score all-reduce), the batch over data; a head dim split over "
+        "model all-reduces each layer's scores",
     ("memory", "decode"):
         "kv_dtype=int8 halves cache reads; the int8 split-KV decode kernel "
         "(csrc/decode_attn.cu) reads the codes once",

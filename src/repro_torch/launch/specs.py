@@ -28,8 +28,10 @@ class CellSpec(NamedTuple):
     tensors made in ``mode`` (run it there, under
     ``layers.ambient_mesh(mesh)``); ``placements``: the rank's parameters'
     and moments' layouts (``sharding.rules.Placement`` by name) and the
-    batch's specs, None on one rank; ``kind``: "train", "prefill" or
-    "decode"."""
+    batch's specs, and for a serving cell the cache's placements
+    (``sharding.rules.cache_placements``, a tree) and the logits' spec (the
+    reference's ``logit_sh``), None on one rank; ``kind``: "train",
+    "prefill" or "decode"."""
     fn: Any
     args: Tuple
     placements: Optional[Dict[str, Any]]
@@ -40,9 +42,9 @@ class CellSpec(NamedTuple):
     shape: ShapeSpec
 
 
-SERVING_ON_A_MESH = ("serving a model over a mesh of more than one rank "
-                     "(cache_specs' layout) is not ported: ROADMAP Queue 1 "
-                     "item 10(i)")
+SERVING_ON_A_MESH = ("serving an enc-dec, or attn_shard='seq', over a mesh "
+                     "of more than one rank is not ported (their parameters "
+                     "stay whole there): ROADMAP Queue 1 item 10(k)")
 
 
 def batch_fake(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
@@ -80,9 +82,11 @@ def make_cell(arch: Union[str, ArchConfig], shape_name: Union[str, ShapeSpec],
     ``shape_name`` (a ``SHAPES`` key or a ``ShapeSpec``) on ``mesh`` (a
     ``DeviceMesh``, or None for one rank): ``train.loop.make_train_step``
     over the rank's shards and moments (ZeRO-1) and the global batch, or
-    ``models.prefill`` / ``models.decode_step``.  Serving cells on more
-    than one rank raise (item 10(i)), and so does the accumulated step
-    there (item 10(f))."""
+    ``models.prefill`` / ``models.decode_step`` on the rank's shards, the
+    global batch and, for decode, the rank's part of the cache
+    (``models.init_cache``, laid out by ``cache_specs``).  Serving an
+    enc-dec or ``attn_shard="seq"`` on more than one rank raises (item
+    10(k)), and so does the accumulated step there (item 10(f))."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from .. import models
@@ -95,7 +99,8 @@ def make_cell(arch: Union[str, ArchConfig], shape_name: Union[str, ShapeSpec],
     cfg = cell_config(arch, overrides)
     shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     ranks = 1 if mesh is None else int(mesh.size())
-    if shape.kind != "train" and ranks > 1:
+    if shape.kind != "train" and ranks > 1 and (
+            cfg.is_encdec or cfg.attn_shard == "seq"):
         raise NotImplementedError(f"{cfg.name} x {shape.name}: "
                                   f"{SERVING_ON_A_MESH}")
     if shape.kind == "train" and wants_accum(cfg) and ranks > 1:
@@ -121,6 +126,9 @@ def make_cell(arch: Union[str, ArchConfig], shape_name: Union[str, ShapeSpec],
                             (TrainState(model, opt, 0), batch), place,
                             "train", mode, mesh, cfg, shape)
         b, s = shape.global_batch, shape.seq_len
+        if place is not None:
+            place["cache"] = models.lm.serve_part(cfg, b, s, mesh).places
+            place["logits"] = logit_spec(cfg, b, mesh)
         if shape.kind == "prefill":
             batch = batch_fake(cfg, shape)
             batch.pop("labels")
@@ -137,6 +145,21 @@ def make_cell(arch: Union[str, ArchConfig], shape_name: Union[str, ShapeSpec],
         fn = lambda m, c, t: models.decode_step(cfg, m, c, t)
         return CellSpec(fn, (model, cache, tok), place, "decode", mode, mesh,
                         cfg, shape)
+
+
+def logit_spec(cfg: ArchConfig, batch: int, mesh) -> Tuple:
+    """The reference's ``logit_sh`` of a serving cell on ``mesh``, the axes
+    of size 1 dropped: the rows over the batch axes where they divide
+    ``batch``, the vocabulary over "model" where it divides V."""
+    from ..sharding import rules
+    sizes = rules.mesh_sizes(mesh)
+    axes = rules.batch_axes(mesh)
+    bsize = 1
+    for a in axes:
+        bsize *= sizes.get(a, 1)
+    spec = (axes if batch % bsize == 0 else None,
+            "model" if cfg.vocab_size % sizes.get("model", 1) == 0 else None)
+    return rules.drop_unit_axes(spec, sizes)
 
 
 def model_flops(cfg: ArchConfig, shape: ShapeSpec) -> float:

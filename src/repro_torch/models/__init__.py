@@ -22,8 +22,18 @@ parameter's ``placement``): the values of the one-card model from the same
 seed, each layer's tensors made whole, cut to the rank's part and freed
 before the next layer's are made.  An enc-dec keeps its parameters
 replicated there (its moments are still cut by ZeRO-1).  Such a model
-trains (``train.loop``); serving it is not ported (``prefill`` and
-``decode_step`` raise).
+trains (``train.loop``) and, a decoder (dense, MoE, Mamba, hybrid, VLM),
+serves: :func:`prefill` and :func:`decode_step`, called on every rank under
+the mesh with the whole batch, run on the rank's shards and its part of
+the cache, laid out by ``sharding.rules.cache_specs`` (:func:`init_cache`
+makes the rank's part; ``models.lm.serve_part``): the batch over the batch
+axes where they divide it, else the positions over "data"; the KV heads
+over "model" where it divides them, else the head dim; Mamba's channels
+over "model".  The logits are the rank's block, as the reference's
+``logit_sh`` lays them (rows over the batch axes where they divide B, the
+vocabulary over "model" where it divides V); :func:`gather_logits` makes
+them whole.  The enc-dec and ``attn_shard="seq"``, whose parameters stay
+whole under a mesh, do not serve there (ROADMAP item 10(k)).
 """
 
 from __future__ import annotations
@@ -73,11 +83,13 @@ def build_model(cfg: ArchConfig, device="cuda", seed: int = 0,
 
 
 def _refuse_split(model: Model) -> None:
-    if model.shards is not None and model.shards.split:
+    cfg = model.cfg
+    if model.shards is not None and (cfg.is_encdec
+                                     or cfg.attn_shard == "seq"):
+        what = "an enc-dec" if cfg.is_encdec else 'attn_shard="seq"'
         raise NotImplementedError(
-            f"{model.cfg.name}: serving a model split over a mesh is not "
-            f"ported (ROADMAP Queue 1 item 10(i), serving under "
-            f"cache_specs)")
+            f"{cfg.name}: serving {what} built under a mesh is not ported "
+            f"(ROADMAP Queue 1 item 10(k): its parameters stay whole there)")
 
 
 def prefill(cfg: ArchConfig, model: Model, batch: Dict, max_len: int,
@@ -119,10 +131,26 @@ def loss(cfg: ArchConfig, model: Model, batch: Dict,
 
 def step_input(cfg: ArchConfig, model: Model, tok: torch.Tensor):
     """A decode step's input, as the reference's engine feeds it: the
-    tokens (B,), or for the VLM family their embeddings (B, d)."""
+    tokens (B,), or for the VLM family their embeddings (B, d) (looked up
+    on every model rank's rows of a split table, ``lm.vocab_lookup``)."""
     if cfg.embed_inputs and not cfg.is_encdec:
-        return model.embed[tok]
+        return lm.vocab_lookup(model.embed, tok)
     return tok
+
+
+def gather_logits(cfg: ArchConfig, model: Model, logits: torch.Tensor,
+                  cache: Dict) -> torch.Tensor:
+    """The whole (B, V) logits from every rank's block of them (a
+    collective every rank of the mesh calls), for a greedy caller; the
+    logits themselves without a mesh.  ``cache``: the call's."""
+    part = cache.get("part")
+    if part is None:
+        return logits
+    from ..sharding.rules import Placement, unshard
+    table = lm.unembed_matrix(cfg, model)
+    vocab = "model" if layers._split_over(table, "model", 0) else None
+    return unshard(logits, Placement((part.row_entry, vocab)),
+                   model.shards.mesh)
 
 
 def encoder_frames(cfg: ArchConfig, batch: Dict) -> int:
@@ -134,11 +162,14 @@ def encoder_frames(cfg: ArchConfig, batch: Dict) -> int:
 def init_cache(cfg: ArchConfig, model: Model, batch: int, max_len: int,
                enc_len: int = 0) -> Dict:
     """A zero cache of ``batch`` rows of ``max_len`` positions (over
-    ``enc_len`` encoder frames for an enc-dec), on the model's device."""
+    ``enc_len`` encoder frames for an enc-dec), on the model's device; for
+    a model built under a mesh, the rank's part of it."""
+    _refuse_split(model)
     if cfg.is_encdec:
         return encdec.init_encdec_cache(cfg, batch, max_len, enc_len,
                                         model.device)
-    return lm.init_cache(cfg, batch, max_len, model.device)
+    return lm.init_cache(cfg, batch, max_len, model.device,
+                         lm.model_part(cfg, model, batch, max_len))
 
 
 def reset_cache(cfg: ArchConfig, cache: Dict) -> None:
@@ -150,5 +181,5 @@ def reset_cache(cfg: ArchConfig, cache: Dict) -> None:
 
 
 __all__ = ["EncDec", "LM", "Model", "build_model", "decode_step", "encdec",
-           "encoder_frames", "init_cache", "layers", "lm", "loss", "prefill",
-           "reset_cache", "step_input"]
+           "encoder_frames", "gather_logits", "init_cache", "layers", "lm",
+           "loss", "prefill", "reset_cache", "step_input"]

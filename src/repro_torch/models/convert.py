@@ -15,6 +15,11 @@ layers), ``"enc_final_norm"``, ``"decoder"`` (``norm1``, ``attn``,
 :class:`models.encdec.EncDec` with every leaf copied exactly (bf16 leaves
 through their bits).  ``params_to_reference`` is its inverse.
 
+A decode cache crosses with :func:`cache_from_reference` (the reference's
+cache tree to the port's cache; under a mesh, cut to the rank's part by
+``sharding.rules.cache_specs``) and :func:`cache_to_reference` (back,
+gathered whole from every rank's part).
+
 Any other tree of the parameters' shapes (gradients, AdamW's ``mu`` and
 ``nu``) crosses with :func:`tree_from_reference` (a reference tree to
 tensors keyed by the port's parameter names) and :func:`tree_to_reference`
@@ -238,3 +243,43 @@ def params_to_reference(model: Model) -> Dict[str, Any]:
     """The reference's pytree layout of ``model``'s weights, as numpy
     (gathered whole for a model built under a mesh: a collective)."""
     return tree_to_reference(model, dict(model.named_parameters()))
+
+
+# --------------------------------------------------------------------- caches
+def cache_from_reference(tree: Dict[str, Any], cfg: ArchConfig,
+                         device="cpu", mesh=None) -> Dict[str, Any]:
+    """The reference's decode cache (``{"layers": [...], "length"}``,
+    numpy leaves) as the port's cache on ``device``; with ``mesh`` (a
+    ``DeviceMesh`` of more than one rank), this rank's part of it, laid out
+    as ``models.lm.serve_part`` lays a cache out (``"part"`` set), as
+    :func:`params_from_reference` cuts parameters."""
+    from ..sharding import rules
+    from .lm import serve_part
+    whole = {"layers": [{k: _to_torch(v) for k, v in entry.items()}
+                        for entry in tree["layers"]],
+             "length": _to_torch(tree["length"])}
+    if mesh is None or mesh.size() == 1:
+        return rules._tree_map(lambda _, t: t.to(device), whole)
+    b = whole["length"].shape[0]
+    max_len = next((e["k"].shape[2] for e in whole["layers"] if "k" in e), 0)
+    part = serve_part(cfg, b, max_len, mesh)
+    cut = rules.cache_shard(whole, part.places, rules.mesh_coords(mesh),
+                            rules.mesh_sizes(mesh))
+    cache = rules._tree_map(lambda _, t: t.clone(
+        memory_format=torch.contiguous_format).to(device), cut)
+    cache["part"] = part
+    return cache
+
+
+def cache_to_reference(cache: Dict[str, Any], mesh=None,
+                       to_numpy: Callable = None) -> Dict[str, Any]:
+    """The reference's cache tree of the port's ``cache``, as numpy
+    (``to_numpy``, default: bf16 as ``ml_dtypes.bfloat16``); a rank's part
+    (``"part"`` set) is gathered whole first, a collective every rank of
+    ``mesh`` calls."""
+    from ..sharding import rules
+    to_numpy = to_numpy or _to_numpy
+    tree = {"layers": cache["layers"], "length": cache["length"]}
+    if cache.get("part") is not None:
+        tree = rules.cache_unshard(tree, cache["part"].places, mesh)
+    return rules._tree_map(lambda _, t: to_numpy(t), tree)

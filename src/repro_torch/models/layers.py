@@ -408,7 +408,10 @@ class _Heads:
     projections it multiplies by, its ``hq`` query heads, the kv heads it
     keeps of its K/V (``kv``: a [lo, hi) range, None for all), the columns
     of o that its ``wo`` rows take (``o_cols``, None for all) and the group
-    the output is summed over (None: the output is whole)."""
+    the output is summed over (None: the output is whole).  ``gather``:
+    per projection (q, k, v), the group its product is all-gathered over
+    along the columns (the rank holds a column block of the weight and
+    every head is wanted), or None."""
 
     wq: Any
     wk: Any
@@ -419,17 +422,24 @@ class _Heads:
     kv: Optional[Tuple[int, int]]
     o_cols: Optional[Tuple[int, int]]
     group: Any
+    gather: Tuple[Any, Any, Any] = (None, None, None)
 
 
-def _head_plan(cfg: ArchConfig, p: Params) -> _Heads:
+def _head_plan(cfg: ArchConfig, p: Params, every_head: bool = False,
+               gather_products: bool = False) -> _Heads:
     """Tensor parallelism of an attention layer: its query heads local
     (Hq/mm a rank) where the model ranks split the heads and each rank's
     query heads share their kv heads whole (Hkv divides over them, or one
-    kv head serves all of a rank's); else every head computed on every
-    rank from the whole projections (gathered over "model" where the spec
-    splits them mid-head, as the reference pins such heads replicated).
-    ``wo`` is row-parallel wherever the spec splits it, the output then
-    summed over "model".  Unsplit parameters: the one-card plan."""
+    kv head serves all of a rank's); else, or with ``every_head`` (a
+    serving cache that does not split its KV heads over "model",
+    :func:`cache_every_head`), every head computed on every rank from the
+    whole projections (gathered over "model" where the spec splits them
+    mid-head, as the reference pins such heads replicated).  ``wo`` is
+    row-parallel wherever the spec splits it, the output then summed over
+    "model".  Unsplit parameters: the one-card plan.  With
+    ``gather_products`` (a decode step: one token a row) every head is
+    made from the rank's column blocks of the projections, their products
+    all-gathered over "model", instead of the weights."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     bias = ("bq", "bk", "bv") if "bq" in p else None
     group = _model_group(p["wo"], 0)
@@ -441,8 +451,9 @@ def _head_plan(cfg: ArchConfig, p: Params) -> _Heads:
                       None, None, None)
     mm, r = _model_place()
     hq_l, g = hq // mm, hq // hkv
-    local = (_split_over(p["wq"], "model", 1) and hq % mm == 0
-             and (hkv % mm == 0 or g % hq_l == 0))
+    gather = (None, None, None)
+    local = (not every_head and _split_over(p["wq"], "model", 1)
+             and hq % mm == 0 and (hkv % mm == 0 or g % hq_l == 0))
     if local:
         wq, bq = use(p["wq"]), p["bq"] if bias else None
         if hkv % mm == 0 and _split_over(p["wk"], "model", 1):
@@ -457,13 +468,67 @@ def _head_plan(cfg: ArchConfig, p: Params) -> _Heads:
         o_cols = None
     else:
         hq_l, kv = hq, None
-        wq, wk, wv = (whole_over_model(p[n], 1) for n in ("wq", "wk", "wv"))
+        names = ("wq", "wk", "wv")
+        if gather_products:
+            wq, wk, wv = (use(p[n]) for n in names)
+            gather = tuple(_model_group(p[n], 1) for n in names)
+        else:
+            wq, wk, wv = (whole_over_model(p[n], 1) for n in names)
         bq, bk, bv = (whole_over_model(p[n], 0) for n in bias) if bias \
             else (None, None, None)
         n = hq * hd // mm
         o_cols = (r * n, (r + 1) * n) if group is not None else None
     return _Heads(wq, wk, wv, use(p["wo"]), (bq, bk, bv) if bias else None,
-                  hq_l, kv, o_cols, group)
+                  hq_l, kv, o_cols, group, gather)
+
+
+def cache_every_head(cfg: ArchConfig) -> bool:
+    """Whether a serving cache under the ambient mesh keeps every KV head
+    on every rank of a "model" dimension above 1
+    (``sharding.rules.cache_specs``: "model" does not divide the heads, and
+    the rank holds a slice of the head dim or the whole head)."""
+    mm = _mesh_axis("model")
+    return mm > 1 and cfg.n_kv_heads % mm != 0
+
+
+@dataclasses.dataclass(frozen=True)
+class CachePart:
+    """What a rank holds of a serving cache under the ambient mesh
+    (``models.lm.serve_part``: ``sharding.rules.cache_placements``, the
+    axes of size 1 dropped).
+
+    ``places``: the cache's tree of placements; ``shapes``: the tree of the
+    rank's leaf shapes.  ``rows``: (first row, rows) of the batch where the
+    batch axes split it (``row_entry``: the spec entry), else None.
+    ``window``: (first position, positions) of an attention cache split
+    over "data" (the batch did not split), else None.  ``heads``: (first,
+    end) of the KV heads where "model" splits them, else None: every rank
+    then computes every head (:func:`_head_plan`'s ``every_head``).
+    ``dims``: (first, end) of the head dim where "model" splits it, else
+    None."""
+
+    places: Any
+    shapes: Any
+    row_entry: Any
+    rows: Optional[Tuple[int, int]]
+    window: Optional[Tuple[int, int]]
+    heads: Optional[Tuple[int, int]]
+    dims: Optional[Tuple[int, int]]
+
+    def my_rows(self, t, dim: int = 0):
+        """This rank's rows of a whole batch ``t`` along ``dim``."""
+        if self.rows is None:
+            return t
+        return t.narrow(dim, self.rows[0], self.rows[1])
+
+    def all_rows(self, t, dim: int = 0):
+        """Every rank's rows of ``t`` along ``dim``, in batch order (a
+        collective over the batch axes)."""
+        if self.rows is None:
+            return t
+        from ..sharding.rules import Placement, unshard
+        spec = (None,) * dim + (self.row_entry,)
+        return unshard(t, Placement(spec), _mesh_or_raise())
 
 
 # ----------------------------------------------------------------- attention
@@ -495,9 +560,8 @@ def _project_qkv(cfg: ArchConfig, p: Params, xq, xkv, plan: _Heads):
     b, sq, _ = xq.shape
     skv = xkv.shape[1]
     hd = cfg.hd
-    q = xq @ plan.wq
-    k = xkv @ plan.wk
-    v = xkv @ plan.wv
+    q, k, v = (_gathered(t, g) for t, g in zip(
+        (xq @ plan.wq, xkv @ plan.wk, xkv @ plan.wv), plan.gather))
     if plan.bias is not None:
         q, k, v = q + plan.bias[0], k + plan.bias[1], v + plan.bias[2]
     q = q.reshape(b, sq, plan.hq, hd)
@@ -510,6 +574,15 @@ def _project_qkv(cfg: ArchConfig, p: Params, xq, xkv, plan: _Heads):
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
     return q, k, v
+
+
+def _gathered(t, group):
+    """A column-parallel product all-gathered over ``group`` along its
+    columns (:attr:`_Heads.gather`), or ``t``."""
+    if group is None:
+        return t
+    from ..distributed import comm
+    return comm.all_gather(t, group, -1)
 
 
 def _scores_kw(cfg: ArchConfig) -> dict:
@@ -531,13 +604,18 @@ def attention(cfg: ArchConfig, p: Params, x, pos, causal: bool = True,
     With ``cp`` (causal only) the rank computes its queries' rows
     (:func:`_seq_parallel_attention`).  On a rank's shards (a model built
     under a mesh) the rank computes its heads (:func:`_head_plan`) and the
-    output is summed over "model".
+    output is summed over "model"; with ``kv_out`` (a prefill's cache)
+    and a cache that keeps every KV head on every model rank
+    (:func:`cache_every_head`), every head (``_head_plan``'s
+    ``every_head``), so that the K/V returned are whole.
     """
     if cp is not None and causal:
         return _seq_parallel_attention(cfg, p, x, pos, kv_out, use_kernel,
                                        cp)
     b, s, _ = x.shape
-    plan = _head_plan(cfg, p)
+    # a prefill's K/V for a cache that keeps every KV head on every model
+    # rank: every head on every rank
+    plan = _head_plan(cfg, p, every_head=kv_out and cache_every_head(cfg))
     q, k, v = _project_qkv(cfg, p, x, x, plan)
     q = positional_rotate(cfg, q, pos)
     k = positional_rotate(cfg, k, pos)
@@ -658,51 +736,124 @@ def kv_dequantize(q, scale, dtype):
 
 def _write_at(cache, new, length):
     """``cache[b, length[b]] = new[b]`` in place, for each row b whose
-    ``length[b]`` is inside the cache; a row at or past the end keeps its
-    cache, as the reference's one-hot blend drops such a write."""
+    ``length[b]`` is inside the cache; a row at or past the end (or, for a
+    rank's window of the positions, before its start) keeps its cache, as
+    the reference's one-hot blend drops such a write."""
     b, s = cache.shape[:2]
     rows = torch.arange(b, device=cache.device)
     at = length.clamp(0, s - 1).to(torch.int64)
-    inside = (length < s).reshape(b, *([1] * (new.dim() - 1)))
+    inside = ((length >= 0) & (length < s)).reshape(
+        b, *([1] * (new.dim() - 1)))
     cache[rows, at] = torch.where(inside, new.to(cache.dtype),
                                   cache[rows, at])
 
 
 def attention_decode(cfg: ArchConfig, p: Params, x, cache_k, cache_v,
                      length, k_scale=None, v_scale=None,
-                     use_kernel: bool = True):
+                     use_kernel: bool = True,
+                     part: Optional[CachePart] = None):
     """One-token decode: x (B, 1, d); cache (B, S, Hkv, D); length (B,).
 
     Writes the new K/V at ``length`` **in place** (the int8 codes and
     scales when ``cfg.kv_dtype == "int8"``) and attends over positions
     ``< length + 1``.  Returns y (B, 1, d).
+
+    Under a mesh (``part``: the rank's part of the cache, rows B/dd where
+    the batch axes split the batch) one of three layouts, as
+    ``sharding.rules.cache_specs`` lays the cache out:
+
+    - the KV heads over "model": the rank's heads (``_head_plan``), the
+      decode kernels at its shapes, ``wo`` row-parallel;
+    - the head dim over "model" (D/mm a rank): every head on every rank;
+      the rank's partial scores over its slice (``decode_scores``) summed
+      over "model", the softmax and P.V over its slice of V
+      (``decode_apply``); o all-gathered over "model" along the head dim
+      before ``wo``'s rows take their columns;
+    - the positions over "data" (the batch did not split): the new token is
+      written by the data rank whose window holds ``length``; each rank
+      attends its window (the split-KV kernels' partial mode, or
+      ``decode_apply`` after the summed scores) and the (o, lse) pairs are
+      all-gathered over "data" and merged (``decode_merge``).
     """
     b = x.shape[0]
-    hq, hd = cfg.n_heads, cfg.hd
-    q, k, v = _project_qkv(cfg, p, x, x, _head_plan(cfg, p))  # (B,1,H,D)
+    hd = cfg.hd
+    every = part is not None and part.heads is None
+    plan = _head_plan(cfg, p, every_head=every, gather_products=every)
+    q, k, v = _project_qkv(cfg, p, x, x, plan)          # (B,1,H,D)
     pos = length[:, None]                               # (B,1)
     q = positional_rotate(cfg, q, pos)
     k = positional_rotate(cfg, k, pos)
     kl = length + 1
-    qh = q.reshape(b, hq, hd)
-    if cfg.kv_dtype == "int8":
+    w0 = part.window[0] if part is not None and part.window else 0
+    at = length - w0 if w0 else length
+    d0, d1 = part.dims if part is not None and part.dims else (0, hd)
+    quant = cfg.kv_dtype == "int8"
+    if quant:
+        # the codes of the whole head's scale, then the rank's slice
         k8, ks = kv_quantize(k)
         v8, vs = kv_quantize(v)
-        _write_at(cache_k, k8[:, 0], length)
-        _write_at(cache_v, v8[:, 0], length)
-        _write_at(k_scale, ks[:, 0], length)
-        _write_at(v_scale, vs[:, 0], length)
-        o = ops.decode_attention_int8(
-            qh, cache_k.transpose(1, 2), k_scale.transpose(1, 2),
-            cache_v.transpose(1, 2), v_scale.transpose(1, 2), kl,
-            use_kernel=use_kernel)
+        _write_at(cache_k, k8[:, 0, :, d0:d1], at)
+        _write_at(cache_v, v8[:, 0, :, d0:d1], at)
+        _write_at(k_scale, ks[:, 0], at)
+        _write_at(v_scale, vs[:, 0], at)
+        scales = dict(k_scale=k_scale.transpose(1, 2),
+                      v_scale=v_scale.transpose(1, 2))
     else:
-        _write_at(cache_k, k[:, 0], length)
-        _write_at(cache_v, v[:, 0], length)
-        o = ops.decode_attention(qh, cache_k.transpose(1, 2),
-                                 cache_v.transpose(1, 2), kl,
-                                 use_kernel=use_kernel)
-    return o.reshape(b, 1, hq * hd).to(x.dtype) @ p["wo"]
+        _write_at(cache_k, k[:, 0, :, d0:d1], at)
+        _write_at(cache_v, v[:, 0, :, d0:d1], at)
+        scales = {}
+    qh = q.reshape(b, plan.hq, hd)
+    kc, vc = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+    if part is None or (part.window is None and part.dims is None):
+        if quant:
+            o = ops.decode_attention_int8(qh, kc, scales["k_scale"], vc,
+                                          scales["v_scale"], kl,
+                                          use_kernel=use_kernel)
+        else:
+            o = ops.decode_attention(qh, kc, vc, kl, use_kernel=use_kernel)
+    elif part.dims is not None:
+        sc = ops.decode_attention_scores(
+            qh[..., d0:d1], kc, kl, w0, 1.0 / (hd ** 0.5),
+            use_kernel=use_kernel, k_scale=scales.get("k_scale"))
+        o, lse = ops.decode_attention_apply(_whole_scores(sc), vc, kl, w0,
+                                            use_kernel=use_kernel,
+                                            v_scale=scales.get("v_scale"))
+        if part.window is not None:
+            o = _merge_windows(o, lse, use_kernel)
+        o = _whole_heads(o)                             # (B, Hq, D)
+    else:
+        o, lse = ops.decode_attention_partial(qh, kc, vc, kl, w0,
+                                              use_kernel=use_kernel,
+                                              **scales)
+        o = _merge_windows(o, lse, use_kernel)
+    o = o.reshape(b, 1, plan.hq * hd).to(x.dtype)
+    if plan.o_cols is not None:
+        o = o[..., plan.o_cols[0]:plan.o_cols[1]]
+    return reduce_model(o @ plan.wo, plan.group)
+
+
+def _whole_scores(sc):
+    """The partial scores over each model rank's slice of the head dim,
+    summed over "model": the whole heads' scores (f32)."""
+    return reduce_model(sc, _mesh_or_raise().get_group("model"))
+
+
+def _whole_heads(o):
+    """o over each model rank's slice of the head dim (B, Hq, D/mm), all
+    gathered over "model" along it: (B, Hq, D), whose columns the rank's
+    rows of ``wo`` then take."""
+    from ..distributed import comm
+    return comm.all_gather(o, _mesh_or_raise().get_group("model"), -1)
+
+
+def _merge_windows(o, lse, use_kernel: bool):
+    """Every data rank's partial (o, lse) over its window of the positions,
+    all-gathered over "data" and merged (``ops.decode_attention_merge``)."""
+    from ..distributed import comm
+    group = _mesh_or_raise().get_group("data")
+    return ops.decode_attention_merge(comm.all_gather(o[None], group, 0),
+                                      comm.all_gather(lse[None], group, 0),
+                                      use_kernel=use_kernel)
 
 
 # ---------------------------------------------------------------------- MLPs
@@ -1021,9 +1172,11 @@ def mamba_decode(cfg: ArchConfig, p: Params, x, conv_state, ssm_state):
     """One-token decode.  x (B, 1, d); conv_state (B, K-1, Din);
     ssm_state (B, Din, N) f32.  Returns (y (B, 1, d), new conv state, new
     ssm state), as the reference; plain torch (no kernel here, as in the
-    reference)."""
+    reference).  On a rank's shards, as :func:`mamba`: the rank's Din/mm
+    channels (its states are theirs), ``x_proj`` and ``out_proj``
+    row-parallel, summed over "model"."""
     s = _ssm(cfg)
-    xz = x[:, 0] @ p["in_proj"]
+    xz = x[:, 0] @ use(p["in_proj"])
     xin, z = torch.chunk(xz, 2, dim=-1)                 # (B, Din)
     window = torch.cat([conv_state, xin[:, None]], dim=1)   # (B, K, Din)
     xc = torch.einsum("bkd,dk->bd", window, p["conv_w"]) + p["conv_b"]
@@ -1036,6 +1189,7 @@ def mamba_decode(cfg: ArchConfig, p: Params, x, conv_state, ssm_state):
     y = torch.sum(h * cm[:, None, :].to(torch.float32), dim=-1)
     y = y + p["D"][None] * xa.to(torch.float32)
     y = y.to(x.dtype) * F.silu(z)
-    out = (y @ p["out_proj"])[:, None]
+    out = reduce_model(y @ use(p["out_proj"]),
+                       _model_group(p["out_proj"], 0))[:, None]
     new_conv = window[:, 1:] if s.conv > 1 else conv_state
     return out, new_conv, h

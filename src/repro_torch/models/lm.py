@@ -279,7 +279,8 @@ class LM(F32Unembedding, nn.Module):
         return unembed_matrix(self.cfg, self)
 
     def init_cache(self, batch: int, max_len: int) -> Dict:
-        return init_cache(self.cfg, batch, max_len, self.device)
+        return init_cache(self.cfg, batch, max_len, self.device,
+                          model_part(self.cfg, self, batch, max_len))
 
     def prefill(self, tokens, max_len: int, use_kernel: bool = True,
                 cache: Optional[Dict] = None):
@@ -524,6 +525,13 @@ def unembed_matrix(cfg: ArchConfig, model: LM):
 
 
 def _logits(model: LM, h):
+    """h (B, d) -> logits (B, V) f32; on a rank's rows of an unembedding
+    split over "model" (vocab parallelism) the rank's columns (B, V/mm),
+    the reference's ``logit_sh`` (``models.gather_logits`` makes them
+    whole).  A table that FSDP splits over "data" is gathered first."""
+    table = unembed_matrix(model.cfg, model)
+    if any(L._split_over(table, a, 1) for a in ("data", "pod")):
+        return h.to(torch.float32) @ L.use(table).to(torch.float32).T
     return h.to(torch.float32) @ model.unembed_f32().T
 
 
@@ -592,15 +600,56 @@ def lm_loss(cfg: ArchConfig, model: LM, batch: Dict,
 
 
 # --------------------------------------------------------------------- decode
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> Dict:
+def serve_part(cfg: ArchConfig, batch: int, max_len: int,
+               mesh) -> L.CachePart:
+    """The rank's part of a serving cache of ``batch`` rows and ``max_len``
+    positions on ``mesh`` (``layers.CachePart``): the whole cache's
+    ``sharding.rules.cache_placements``, read at this rank's coordinates."""
+    from ..sharding import rules
+    whole = init_cache(cfg, batch, max_len, "meta")
+    places = rules.cache_placements(cfg, whole, mesh)
+    coords, sizes = rules.mesh_coords(mesh), rules.mesh_sizes(mesh)
+    shapes = rules._tree_zip(
+        lambda t, place: rules.local_shape(t.shape, place, sizes), whole,
+        places)
+
+    def part(entry, n):
+        if entry is None:
+            return None
+        i, count = rules._part(entry, coords, sizes)
+        return i * (n // count), n // count
+
+    row_entry = places["length"].spec[0]
+    window = heads = dims = None
+    for entry in places["layers"]:
+        if "k" in entry:
+            _, _, sspec, hspec, dspec = entry["k"].spec
+            window = part(sspec, max_len)
+            heads = part(hspec, cfg.n_kv_heads)
+            if heads is not None:
+                heads = (heads[0], heads[0] + heads[1])
+            dims = part(dspec, cfg.hd)
+            if dims is not None:
+                dims = (dims[0], dims[0] + dims[1])
+            break
+    return L.CachePart(places, shapes, row_entry, part(row_entry, batch),
+                       window, heads, dims)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device,
+               part: Optional[L.CachePart] = None) -> Dict:
     """Decode cache: per period position, leaves stacked over periods.  Every
     leaf is its own tensor (the reference may share one immutable array
-    between k and v; here they are written in place)."""
+    between k and v; here they are written in place).  With ``part`` (a
+    model built under a mesh, :func:`serve_part`) the rank's part of each
+    leaf, and the part itself under ``"part"``."""
     struct = period_structure(cfg)
     np_ = n_periods(cfg)
     cdt = L._dtype(cfg.compute_dtype)
     entries = []
-    for spec in struct:
+    for i, spec in enumerate(struct):
+        shape_of = (lambda name, shape: shape) if part is None else \
+            (lambda name, shape, i=i: part.shapes["layers"][i][name])
         # an attention-free model (falcon-mamba-7b) has no heads: only an
         # attention position has a KV shape
         shape = (np_, batch, max_len, cfg.n_kv_heads, cfg.hd) \
@@ -609,26 +658,36 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> Dict:
             s = L._ssm(cfg)
             din = s.expand * cfg.d_model
             entries.append({
-                "conv": torch.zeros((np_, batch, s.conv - 1, din), dtype=cdt,
-                                    device=device),
-                "ssm": torch.zeros((np_, batch, din, s.state),
+                "conv": torch.zeros(shape_of("conv", (np_, batch, s.conv - 1,
+                                                      din)),
+                                    dtype=cdt, device=device),
+                "ssm": torch.zeros(shape_of("ssm", (np_, batch, din,
+                                                    s.state)),
                                    dtype=torch.float32, device=device)})
         elif cfg.kv_dtype == "int8":
             sshape = shape[:-1] + (1,)
             entries.append({
-                "k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                "k_scale": torch.ones(sshape, dtype=torch.float32,
-                                      device=device),
-                "v_scale": torch.ones(sshape, dtype=torch.float32,
-                                      device=device)})
+                "k": torch.zeros(shape_of("k", shape), dtype=torch.int8,
+                                 device=device),
+                "v": torch.zeros(shape_of("v", shape), dtype=torch.int8,
+                                 device=device),
+                "k_scale": torch.ones(shape_of("k_scale", sshape),
+                                      dtype=torch.float32, device=device),
+                "v_scale": torch.ones(shape_of("v_scale", sshape),
+                                      dtype=torch.float32, device=device)})
         else:
             entries.append({
-                "k": torch.zeros(shape, dtype=cdt, device=device),
-                "v": torch.zeros(shape, dtype=cdt, device=device)})
-    return {"layers": entries,
-            "length": torch.zeros((batch,), dtype=torch.int32,
-                                  device=device)}
+                "k": torch.zeros(shape_of("k", shape), dtype=cdt,
+                                 device=device),
+                "v": torch.zeros(shape_of("v", shape), dtype=cdt,
+                                 device=device)})
+    rows = batch if part is None else part.shapes["length"][0]
+    cache = {"layers": entries,
+             "length": torch.zeros((rows,), dtype=torch.int32,
+                                   device=device)}
+    if part is not None:
+        cache["part"] = part
+    return cache
 
 
 def reset_cache(cache: Dict) -> None:
@@ -641,19 +700,35 @@ def reset_cache(cache: Dict) -> None:
 
 
 def _check_cache(cfg: ArchConfig, cache: Dict, batch: int,
-                 max_len: int) -> None:
+                 max_len: int, part: Optional[L.CachePart] = None) -> None:
     """Raise unless ``cache`` has :func:`init_cache`'s structure, shapes and
-    dtypes for ``batch`` rows of ``max_len`` positions."""
-    want = init_cache(cfg, batch, max_len, "meta")
+    dtypes for ``batch`` rows of ``max_len`` positions (with ``part``: the
+    rank's part of them)."""
+    want = init_cache(cfg, batch, max_len, "meta", part)
     got_layers = cache["layers"]
     ok = len(got_layers) == len(want["layers"]) and all(
         set(g) == set(w) and all(
             g[n].shape == w[n].shape and g[n].dtype == w[n].dtype
             for n in w) for g, w in zip(got_layers, want["layers"]))
     length = cache["length"]
-    if not ok or length.shape != (batch,) or length.dtype != torch.int32:
+    ok = ok and (part is None) == ("part" not in cache) and (
+        part is None or cache["part"] == part)
+    if not ok or length.shape != want["length"].shape or \
+            length.dtype != torch.int32:
         raise ValueError(f"{cfg.name}: the cache is not one of {batch} rows "
-                         f"of {max_len} positions")
+                         f"of {max_len} positions"
+                         + ("" if part is None else " as this rank holds "
+                            "them"))
+
+
+def model_part(cfg: ArchConfig, model: LM, batch: int,
+               max_len: int) -> Optional[L.CachePart]:
+    """The rank's part of a serving cache for a model built under a mesh
+    (``model.shards``; the mesh ambient), else None (the one-card
+    cache)."""
+    if getattr(model, "shards", None) is None:
+        return None
+    return serve_part(cfg, batch, max_len, model.shards.mesh)
 
 
 def decode_step(cfg: ArchConfig, model: LM, cache: Dict, tokens,
@@ -668,13 +743,22 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Dict, tokens,
     (``serve.graphs.DecodeGraph``).  Every row's length must stay
     below the cache's ``max_len`` for its token to be kept (the reference
     drops it too).  A MoE layer routes the B tokens as one dispatch group,
-    as the reference does, so its capacity couples the rows."""
+    as the reference does, so its capacity couples the rows.
+
+    Under a mesh (a cache of :func:`init_cache` with ``part``) ``tokens``
+    are the whole batch's; the rank decodes its rows on its part of the
+    cache (``layers.attention_decode``, ``layers.mamba_decode``), a MoE
+    layer gathers every rank's rows over the batch axes before routing,
+    and the logits are the rank's block (:func:`_logits`)."""
     struct = period_structure(cfg)
     length = cache["length"]
+    part = cache.get("part")
+    if part is not None:
+        tokens = part.my_rows(tokens)
     if cfg.embed_inputs and tokens.dim() == 2:
         x = tokens[:, None].to(L._dtype(cfg.compute_dtype))
     else:
-        x = model.embed[tokens][:, None]                # (B, 1, d)
+        x = vocab_lookup(model.embed, tokens)[:, None]  # (B, 1, d)
     quant = cfg.kv_dtype == "int8"
     # positions outer, periods inner: the reference's loop order
     for pos_i, spec in enumerate(struct):
@@ -692,21 +776,34 @@ def decode_step(cfg: ArchConfig, model: LM, cache: Dict, tokens,
                 y = L.attention_decode(cfg, p.attn, h, c["k"][per],
                                        c["v"][per], length,
                                        c["k_scale"][per], c["v_scale"][per],
-                                       use_kernel=use_kernel)
+                                       use_kernel=use_kernel, part=part)
             else:
                 y = L.attention_decode(cfg, p.attn, h, c["k"][per],
                                        c["v"][per], length,
-                                       use_kernel=use_kernel)
+                                       use_kernel=use_kernel, part=part)
             x = x + y
             h = L.apply_norm(cfg, p.norm2, x)
             if spec["ffn"] == "moe":
-                y2, _ = L.moe(cfg, p.moe, h.transpose(0, 1))  # (1, B, d)
-                x = x + y2.transpose(0, 1)
+                x = x + _moe_decode(cfg, p, h, part)
             else:
                 x = x + L.mlp(cfg, p.mlp, h)
     h = L.apply_norm(cfg, model.final_norm, x)[:, 0]      # (B, d)
     length.add_(1)
     return _logits(model, h), cache
+
+
+def _moe_decode(cfg: ArchConfig, p: Block, h, part):
+    """A MoE layer at decode, h (B, 1, d): the step's B tokens are one
+    dispatch group, as in the reference; under a mesh whose batch axes
+    split the rows, every rank's rows are gathered and routed together,
+    and this rank's kept."""
+    hh = h.transpose(0, 1)                                 # (1, B, d)
+    if part is not None:
+        hh = part.all_rows(hh, 1)
+    y, _ = L.moe(cfg, p.moe, hh)
+    if part is not None:
+        y = part.my_rows(y, 1)
+    return y.transpose(0, 1)
 
 
 def prefill(cfg: ArchConfig, model: LM, tokens, max_len: int,
@@ -718,17 +815,36 @@ def prefill(cfg: ArchConfig, model: LM, tokens, max_len: int,
     makes them), the prompt's state is written into it, in place, instead
     of into a new cache: its first S positions, the Mamba states and the
     length.  The rest is left as it was, so a caller that reuses a cache
-    resets it first (:func:`reset_cache`)."""
+    resets it first (:func:`reset_cache`).
+
+    For a model built under a mesh (``model.shards``, the mesh ambient)
+    ``tokens`` are the whole batch's: the rank prefills its rows where the
+    batch axes split them (else every row), and writes its part of the
+    cache (:func:`serve_part`): its KV heads, or its slice of the head dim
+    (every head computed, an int8 cache's codes from the whole head's
+    scale), or its window of the positions; its channels of the Mamba
+    states.  The logits are the rank's block (:func:`_logits`)."""
     b, s = tokens.shape[:2]
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens does not fit a cache of "
                          f"{max_len}")
     dev = model.device
+    part = model_part(cfg, model, b, max_len)
     if cache is None:
-        cache = init_cache(cfg, b, max_len, dev)
+        cache = init_cache(cfg, b, max_len, dev, part)
     else:
-        _check_cache(cfg, cache, b, max_len)
-    pos = torch.arange(s, device=dev)[None].expand(b, s)
+        _check_cache(cfg, cache, b, max_len, part)
+    # the rank's rows, its positions' window and its slice of the head dim
+    rows, (w0, n), (d0, d1) = b, (0, s), (0, None)
+    if part is not None:
+        tokens = part.my_rows(tokens)
+        rows = tokens.shape[0]
+        if part.window is not None:
+            w0 = part.window[0]
+            n = max(0, min(s, w0 + part.window[1]) - w0)
+        if part.dims is not None:
+            d0, d1 = part.dims
+    pos = torch.arange(s, device=dev)[None].expand(rows, s)
     x = embed_tokens(cfg, model, tokens)
     h, _, extras = backbone(cfg, model, x, pos, collect_cache=True,
                             use_kernel=use_kernel)
@@ -737,15 +853,18 @@ def prefill(cfg: ArchConfig, model: LM, tokens, max_len: int,
             if "conv" in c:
                 c["conv"][per] = ex[0]
                 c["ssm"][per] = ex[1]
-            elif cfg.kv_dtype == "int8":
-                k8, ks = L.kv_quantize(ex[0])
-                v8, vs = L.kv_quantize(ex[1])
-                c["k"][per, :, :s] = k8
-                c["v"][per, :, :s] = v8
-                c["k_scale"][per, :, :s] = ks
-                c["v_scale"][per, :, :s] = vs
+                continue
+            k, v = (t[:, w0:w0 + n] for t in ex)
+            if cfg.kv_dtype == "int8":
+                # the codes of the whole head's scale, then the rank's slice
+                k8, ks = L.kv_quantize(k)
+                v8, vs = L.kv_quantize(v)
+                c["k"][per, :, :n] = k8[..., d0:d1]
+                c["v"][per, :, :n] = v8[..., d0:d1]
+                c["k_scale"][per, :, :n] = ks
+                c["v_scale"][per, :, :n] = vs
             else:
-                c["k"][per, :, :s] = ex[0]
-                c["v"][per, :, :s] = ex[1]
+                c["k"][per, :, :n] = k[..., d0:d1]
+                c["v"][per, :, :n] = v[..., d0:d1]
     cache["length"].fill_(s)
     return _logits(model, h[:, -1]), cache

@@ -314,6 +314,64 @@ def cache_specs(cfg: ArchConfig, cache: Any, mesh) -> Any:
     return walk(cache, "")
 
 
+def _tree_map(fn, node, key=""):
+    """``fn(leaf key, leaf)`` over a cache tree of dicts and lists."""
+    if isinstance(node, Mapping):
+        return {k: _tree_map(fn, v, k) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_tree_map(fn, v, key) for v in node]
+    return fn(str(key), node)
+
+
+def _tree_zip(fn, a, b):
+    """``fn(x, y)`` over two trees of one structure (``a``'s)."""
+    if isinstance(a, Mapping):
+        return {k: _tree_zip(fn, v, b[k]) for k, v in a.items()}
+    if isinstance(a, (list, tuple)):
+        return [_tree_zip(fn, x, y) for x, y in zip(a, b)]
+    return fn(a, b)
+
+
+def cache_placements(cfg: ArchConfig, cache: Any, mesh) -> Any:
+    """A tree of :class:`Placement`, the structure of ``cache`` (a whole
+    cache, or a tree of its leaves' shapes' tensors on any device):
+    :func:`cache_specs` with the axes of size 1 dropped.  Every case of the
+    rule holds: the batch over the batch axes where they divide it, else
+    the positions over "data" where it divides them; the KV heads over
+    "model" where it divides them, else the head dim, else neither (the
+    cache whole over "model"); Mamba's channels over "model"."""
+    sizes = mesh_sizes(mesh)
+    return _tree_map(lambda key, t: Placement(drop_unit_axes(
+        _cache_rule(key, tuple(t.shape), mesh), sizes)), cache)
+
+
+def local_shape(shape: Sequence[int], place: Placement,
+                sizes: Mapping[str, int]) -> Tuple[int, ...]:
+    """The shape of a rank's part of a whole tensor of ``shape``."""
+    out = list(shape)
+    for d, entry in enumerate(place.spec):
+        for a in _axes(entry):
+            if out[d] % sizes[a]:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not "
+                                 f"split over {a}")
+            out[d] //= sizes[a]
+    return tuple(out)
+
+
+def cache_shard(cache: Any, places: Any, coords: Mapping[str, int],
+                sizes: Mapping[str, int]) -> Any:
+    """The rank's part of each leaf of a whole cache (:func:`shard`, views),
+    by the placements of :func:`cache_placements`."""
+    return _tree_zip(lambda t, place: shard(t, place, coords, sizes), cache,
+                     places)
+
+
+def cache_unshard(cache: Any, places: Any, mesh) -> Any:
+    """The whole cache from every rank's part (:func:`unshard`: a
+    collective every rank of the mesh calls)."""
+    return _tree_zip(lambda t, place: unshard(t, place, mesh), cache, places)
+
+
 # ------------------------------------------------------------ a rank's shards
 def _axes(entry) -> Tuple[str, ...]:
     if entry is None:

@@ -326,7 +326,11 @@ def test_unported_kernels_name_their_roadmap_item():
     ``adamw_update`` is plain ``jnp``, fused by XLA under its step's
     ``jax.jit``) and the int8 gradient compression's
     (``kernels/compress.py``: the reference's compressor is plain ``jnp``
-    too).  Since ``ops.conv2d``, the
+    too); and the decode over a part of the cache (serving under a mesh:
+    the split-KV decode's partial mode, its merge across ranks, the scores
+    and apply over a slice of the head dim), which computes the Pallas
+    decode kernels' function cut over ranks, where the reference's GSPMD
+    partitions its plain decode.  Since ``ops.conv2d``, the
     last to be ported, no longer raises, it is held here against the Pallas
     ``crossbar_conv2d`` (interpret mode) at its 1e-4 bound."""
     kdir = REPO / "src" / "repro" / "kernels"
@@ -344,8 +348,11 @@ def test_unported_kernels_name_their_roadmap_item():
     roadmap = (REPO / "ROADMAP.md").read_text()
     for name in sorted(pallas - ported):
         assert f"`{name}`" in roadmap, f"{name}: unported, not in ROADMAP"
+    parts = {"flash_decode_partial", "flash_decode_int8_partial",
+             "decode_merge", "decode_scores", "decode_scores_int8",
+             "decode_apply", "decode_apply_int8"}
     assert ported - pallas == {"flash_attention_bwd", "selective_scan_bwd",
-                               "adamw", "compress"}, ported - pallas
+                               "adamw", "compress"} | parts, ported - pallas
 
     c, h, w, fl = 2, 5, 5, 3
     x = RNG.normal(size=(c, h, w)).astype(np.float32)

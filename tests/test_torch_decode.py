@@ -202,7 +202,8 @@ def test_decode_path_never_reads_lengths_on_the_host():
 def test_decode_kernels_are_one_template_with_two_launches():
     """The four C entry points share one split template and one merge
     kernel (the old one-block-per-row ``decode_kernel`` is gone), and each
-    takes the workspace; the chunk is the source's constant, the plan's."""
+    takes the workspace, the lse of the partial mode and the window's first
+    position; the chunk is the source's constant, the plan's."""
     src = (KERNELS / "csrc" / "decode_attn.cu").read_text()
     assert "decode_split_kernel" in src and "decode_merge_kernel" in src
     assert "decode_kernel<" not in src and " decode_kernel(" not in src
@@ -210,9 +211,9 @@ def test_decode_kernels_are_one_template_with_two_launches():
     assert f"constexpr int MAXG = {decode_attn.MAXG};" in src
     assert f"constexpr int NW = {decode_attn.MERGE_ROWS};" in src
     for name in ("flash_decode_f32", "flash_decode_bf16"):
-        assert len(_build.SIGNATURES[name]) == 14
-    for name in ("flash_decode_int8_f32", "flash_decode_int8_bf16"):
         assert len(_build.SIGNATURES[name]) == 16
+    for name in ("flash_decode_int8_f32", "flash_decode_int8_bf16"):
+        assert len(_build.SIGNATURES[name]) == 18
 
 
 # ------------------------------------------------- split-and-merge emulation

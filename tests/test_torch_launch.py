@@ -14,8 +14,10 @@ scores on the plain attention path.
   record for record, the log of four real ``gloo`` ranks running it, on a
   (2, 2) mesh and a (2, 1, 2) ("pod", "data", "model") mesh.
 * ``make_cell`` builds every arch x shape at full size; train cells trace
-  on a (2, 2) fake mesh, serving cells on one rank and raise on (2, 2)
-  naming ROADMAP item 10(i); a rank's parameter bytes at 16 x 16 equal the
+  on a (2, 2) fake mesh, serving cells on one rank and on (2, 2) (the
+  rank's part of the cache as ``cache_specs`` cuts it, the collectives of
+  serving under a mesh), the enc-dec's raising there naming ROADMAP item
+  10(k); a rank's parameter bytes at 16 x 16 equal the
   reference's per-device bytes (``param_specs``, ``jax.eval_shape``), and
   the moments summed over the mesh equal the reference's.
 * Traced FLOPs: exactly a hand count of the products for a tiny config;
@@ -468,15 +470,42 @@ def test_train_cell_traces_on_a_2x2_fake_mesh(arch):
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 @pytest.mark.parametrize("arch", _archs())
 def test_serving_cells_trace_on_one_rank_and_raise_on_a_mesh(arch, kind):
+    """Every serving cell traces on one rank (no collective) and on a (2,
+    2) fake mesh: the rank's program issues the collectives of serving
+    under a mesh, its decode cache is the ``cache_specs`` cut of the whole
+    (shapes, and the bytes ``dryrun.cache_bytes`` records), its logits'
+    spec the reference's ``logit_sh``; the enc-dec raises there, naming
+    item 10(k)."""
     from repro_torch.configs.base import ShapeSpec, smoke_config
     from repro_torch.launch.dryrun import fake_world, trace_cell
     from repro_torch.launch.specs import make_cell
+    from repro_torch.models import lm
+    from repro_torch.sharding import rules
+    cfg = smoke_config(arch)
     shape = ShapeSpec("t", S, B, kind)
-    stats = trace_cell(make_cell(smoke_config(arch), shape, None))
+    stats = trace_cell(make_cell(cfg, shape, None))
     assert stats["flops"] > 0 and stats["records"] == []
     with fake_world(WORLD):
-        with pytest.raises(NotImplementedError, match=r"item 10\(i\)"):
-            make_cell(smoke_config(arch), shape, _mesh("2x2"))
+        mesh = _mesh("2x2")
+        if cfg.is_encdec:
+            with pytest.raises(NotImplementedError, match=r"item 10\(k\)"):
+                make_cell(cfg, shape, mesh)
+            return
+        cell = make_cell(cfg, shape, mesh)
+        stats = trace_cell(cell)
+    assert stats["flops"] > 0 and stats["records"]
+    assert cell.placements["logits"] == ("data", "model")
+    whole = lm.init_cache(cfg, B, S, "meta")
+    want = rules._tree_zip(lambda t, p: rules.local_shape(
+        t.shape, p, {"data": 2, "model": 2}), whole,
+        cell.placements["cache"])
+    if kind == "decode":
+        cache = cell.args[1]
+        got = rules._tree_map(lambda _, t: tuple(t.shape),
+                              {k: cache[k] for k in ("layers", "length")})
+        assert got == want
+    # the batch divides over "data": every leaf's rows are halved
+    assert want["length"] == (B // 2,)
 
 
 def test_accumulated_step_under_a_mesh_raises():
@@ -683,12 +712,41 @@ def test_train_step_times_log_equals_the_trace_under_torchrun(tmp_path):
             assert r["t_collective_ms"] > 0
 
 
-def test_run_cell_records_serving_on_a_mesh_as_failed(tmp_path):
+@pytest.mark.parametrize("multi_pod", [False, True],
+                         ids=["single", "multi"])
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k",
+                                        "long_500k"])
+def test_run_cell_records_serving_on_a_mesh_as_failed(tmp_path, shape_name,
+                                                      multi_pod):
+    """A serving cell on the 16 x 16 and 2 x 16 x 16 meshes records ``ok``
+    with the rank's cache bytes: the whole cache's over 16 x the batch
+    ranks where the batch axes ("pod" and "data") divide the batch
+    (prefill_32k, decode_32k: the rows over them, llama's head dim over
+    "model"), over 256 where they do not (long_500k's B = 1: the positions
+    over "data" instead, "pod" replicating), the lengths cut with the rows;
+    only the enc-dec there is recorded as failed, naming item 10(k)."""
+    from repro_torch.configs.base import SHAPES, get_arch
     from repro_torch.launch.dryrun import run_cell
-    rec = run_cell("llama3.2-3b", "decode_32k", False, str(tmp_path))
-    assert not rec["ok"] and "item 10(i)" in rec["error"]
-    assert json.loads((tmp_path / "llama3.2-3b_decode_32k_single.json")
-                      .read_text())["ok"] is False
+    from repro_torch.models import lm
+    rec = run_cell("llama3.2-3b", shape_name, multi_pod, str(tmp_path))
+    assert rec["ok"], rec.get("error")
+    mesh = "multi" if multi_pod else "single"
+    assert json.loads((tmp_path / f"llama3.2-3b_{shape_name}_{mesh}.json")
+                      .read_text())["ok"] is True
+    shape = SHAPES[shape_name]
+    whole = lm.init_cache(get_arch("llama3.2-3b"), shape.global_batch,
+                          shape.seq_len, "meta")
+    kv = sum(t.numel() * t.element_size() for e in whole["layers"]
+             for t in e.values())
+    length = whole["length"].numel() * 4
+    batch_ranks = 32 if multi_pod else 16
+    rows = batch_ranks if shape.global_batch % batch_ranks == 0 else 1
+    assert rec["cache_bytes"] == kv // (16 * (rows if rows > 1 else 16)) \
+        + length // rows
+    assert rec["collectives"]["all-reduce"]["count"] > 0
+    bad = run_cell("seamless-m4t-large-v2", shape_name, multi_pod,
+                   str(tmp_path))
+    assert not bad["ok"] and "item 10(k)" in bad["error"]
 
 
 @pytest.mark.parametrize("variant", ["baseline", "seq", "seq_bf16",
@@ -848,3 +906,46 @@ def test_launch_modules_import_neither_jax_nor_repro():
     res = subprocess.run([sys.executable, "-c", _BLOCKED], env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_serve_step_times_refuses_reduced_on_the_card(capsys):
+    """``--reduced`` is for the CPU: on the card (the default device) the
+    tool refuses before it starts a process group, naming the head dims
+    the card's kernels are built for."""
+    from repro_torch.launch import serve_step_times
+    with pytest.raises(SystemExit) as e:
+        serve_step_times.main(["--reduced", "--runs", "llama_1x4"])
+    assert e.value.code == 2
+    assert "--device cpu" in capsys.readouterr().err
+
+
+def test_serve_step_times_under_torchrun(tmp_path):
+    """``serve_step_times`` under ``torchrun`` on four CPU ranks at the
+    smoke configs: every rank of a run reports its prefill and decode
+    times, the one-card run's logits and greedy tokens are the mesh's
+    (the same function), and the dry run's bound stands beside them (no
+    prefill trace for the Mamba model)."""
+    from repro_torch.configs.base import smoke_config
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    out = tmp_path / "serve.json"
+    runs = "llama_1x4,llama_2x2,llama_b1_32k_2x2,falcon_1x4"
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.serve_step_times",
+         "--reduced", "--prompt", "16", "--new", "4",
+         "--device", "cpu", "--runs", runs, "--out", str(out)],
+        env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-3000:]
+    rec = json.loads(out.read_text())
+    assert rec["backend"] == "gloo" and rec["world"] == WORLD
+    for name in runs.split(","):
+        run = rec["runs"][name]
+        assert len(run["per_rank"]) == WORLD
+        assert run["layers"] == smoke_config(run["arch"]).n_layers
+        for r in run["per_rank"]:
+            assert r["prefill_ms"] > 0 and r["decode_ms_per_token"] > 0
+        one = run["one_card"]
+        assert one["greedy_agree"] == 1.0 and one["prefill_logits_err"] < TOL
+        bound = run["dryrun"]
+        assert bound["decode"]["bound_ms"] > 0
+        assert (bound["prefill"] is None) == name.startswith("falcon")
